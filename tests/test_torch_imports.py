@@ -1,0 +1,62 @@
+"""The port stands alone: no module of ``bdbnn_tpu_torch`` and not
+``chip_smoke.py`` imports ``jax``, ``flax`` or anything of
+``bdbnn_tpu`` (an AST scan of every import statement, top level or
+nested), and every module imports with those packages absent."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "bdbnn_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "bdbnn_tpu_torch")):
+        out += [os.path.join(root, f) for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_flax_or_reference_import(path):
+    bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_every_port_module_imports_without_jax():
+    """Import each module in a fresh interpreter where importing jax,
+    flax or bdbnn_tpu fails."""
+    mods = []
+    for path in _port_files()[1:]:
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
