@@ -8,7 +8,13 @@ from bdbnn_tpu_torch.data.datasets import (
     load_cifar100,
     synthetic_dataset,
 )
-from bdbnn_tpu_torch.data.pipeline import Pipeline, cifar_eval_transform, normalize
+from bdbnn_tpu_torch.data.pipeline import (
+    Pipeline,
+    cifar_eval_transform,
+    host_shard_indices,
+    normalize,
+    sample_augment_keys,
+)
 
 __all__ = [
     "CIFAR_MEAN",
@@ -18,8 +24,10 @@ __all__ = [
     "ArrayDataset",
     "Pipeline",
     "cifar_eval_transform",
+    "host_shard_indices",
     "load_cifar10",
     "load_cifar100",
     "normalize",
+    "sample_augment_keys",
     "synthetic_dataset",
 ]

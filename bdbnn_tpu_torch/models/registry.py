@@ -1,9 +1,10 @@
 """Model registry — constructor-by-name, counterpart of
 ``bdbnn_tpu/models/registry.py`` with the same arch names.
 
-Every factory accepts ``dtype`` (float32 only in this slice: bfloat16
-raises ``NotImplementedError``), ``twoblock``, ``packed`` (binary convs
-hold packed ``{sign, alpha}`` buffers instead of ``float_weight``) and
+Every factory accepts ``dtype`` (float32 only: bfloat16 raises
+``NotImplementedError``, ROADMAP A "Later" 4), ``twoblock``, ``packed``
+(binary convs hold packed ``{sign, alpha}`` buffers instead of
+``float_weight``) and
 ``generator`` (a seeded ``torch.Generator`` for the initial weights).
 ``resnet50_float`` / ``resnet101_float`` (the bottleneck float teachers)
 raise ``NotImplementedError`` until the bottleneck block is ported.
@@ -22,20 +23,22 @@ def _cifar_classes(dataset: str) -> int:
 
 
 def check_dtype(dtype) -> None:
-    """This slice serves float32 only."""
+    """The port runs float32 only so far."""
     if dtype in (None, "float32"):
         return
     if dtype == "bfloat16":
         raise NotImplementedError(
-            "bfloat16 models arrive with a later slice of the port; this "
-            "slice serves float32 artifacts"
+            "bfloat16 models are not ported yet (ROADMAP A 'Later' item 4: "
+            "remat and bf16); the port runs float32"
         )
     raise ValueError(f"unknown dtype {dtype!r}; use float32|bfloat16")
 
 
 def _check_remat(remat: bool) -> None:
     if remat:
-        raise NotImplementedError("remat is a training option; it arrives with the training slice")
+        raise NotImplementedError(
+            "remat is not ported yet (ROADMAP A 'Later' item 4: remat and bf16)"
+        )
 
 
 def _make_cifar(name, stage_sizes, width, variant, act, num_classes,

@@ -20,8 +20,12 @@ binary conv with a packed ``{sign, alpha}`` buffer in place of its
 ``float_weight``. :meth:`to_flax` / :meth:`from_flax` carry weights to
 and from the flax variable tree through :mod:`bdbnn_tpu_torch.bridge`.
 
-``FloatBottleneck`` (resnet50/101 float teachers) and ``remat`` come
-with the training slice.
+``model.train()`` trains every module: BatchNorm on batch statistics
+and the binary convs through K2 → K1 with the K5/K6 backward
+(:mod:`bdbnn_tpu_torch.nn.layers`); ``tk`` (the binarizer family's
+schedule scalars) reaches every conv. ``FloatBottleneck`` (resnet50/101
+float teachers) comes with the teacher–student step and ``remat`` with
+bf16 (ROADMAP A "Later" 1 and 4).
 """
 
 from __future__ import annotations

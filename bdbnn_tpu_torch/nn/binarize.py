@@ -3,7 +3,7 @@
 Counterpart of ``bdbnn_tpu/nn/binarize.py``. The sign estimators are
 ``torch.autograd.Function``s whose forward is the hard sign with
 ``sign(0) := +1`` and whose backward is the family's estimator, in plain
-torch (the backward kernels arrive with the training slice):
+torch:
 
 - ``ste_sign``    — clipped identity ``1{|x| <= 1}``;
 - ``approx_sign`` — Bi-Real ``max(0, 2 - 2|x|)``;
@@ -14,7 +14,10 @@ torch (the backward kernels arrive with the training slice):
   the same draw), clipped-identity backward.
 
 ``torch.sign(0)`` is 0, which would add a third value to the ±1
-algebra; :func:`_hard_sign` is used everywhere instead.
+algebra; :func:`_hard_sign` is used everywhere instead. In training the
+binary convs do not call these functions: K5 applies the same backward
+rules in its epilogue (``nn/kernels/binary_conv.py``); these stay the
+unfused reference forms.
 
 The family registry (``ste``, ``approx``, ``ede``, ``proximal``,
 ``lab``, ``stochastic``) and the process-global active family mirror the
@@ -32,20 +35,9 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from bdbnn_tpu_torch.train.ede import cpt_tk
+
 Tensor = torch.Tensor
-
-T_MIN = 1e-2
-T_MAX = 1e1
-
-
-def cpt_tk(epoch: int, tot_epochs: int) -> Tuple[float, float]:
-    """EDE annealing: ``t`` sweeps 1e-2 → 1e1 log-linearly over
-    ``tot_epochs`` and ``k = max(1/t, 1)`` (copy of
-    ``bdbnn_tpu.train.ede.cpt_tk``)."""
-    lo, hi = math.log10(T_MIN), math.log10(T_MAX)
-    t = 10.0 ** (lo + (hi - lo) / tot_epochs * epoch)
-    k = max(1.0 / t, 1.0)
-    return t, k
 
 
 def _hard_sign(x: Tensor) -> Tensor:

@@ -38,12 +38,34 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # returns the cudaError_t of its launch as an int.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv": {
         # x, shift (or NULL), wsign, alpha, y, N, H, W, C, O, kh, kw,
         # stride, pad, Ho, Wo, stream
         "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P),
+    },
+    "binary_conv_dgrad": {
+        # g, x, shift (or NULL), wsign, alpha, dx, N, H, W, C, O, kh, kw,
+        # stride, pad, Ho, Wo, estimator, p0, p1, stream
+        "bdbnn_binary_conv_dgrad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                    _P),
+    },
+    "binary_conv_wgrad": {
+        # g, x, shift (or NULL), w, alpha, partial, dw, N, H, W, C, O, kh,
+        # kw, stride, pad, Ho, Wo, splits, rows_per_split, stream
+        "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                                    _P),
+    },
+    "kurtosis": {
+        # meta, targets, T, total_blocks, chunk, mode, with_grad, partial,
+        # coef, kurt_out, loss_out, grad, stream
+        "bdbnn_kurtosis_grouped": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _P, _P, _P),
     },
     "weight_binarize": {
         # w (K, O) f32, sign (O, K) int8, alpha (O,), K, O, lab, stream

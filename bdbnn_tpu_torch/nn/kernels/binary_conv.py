@@ -1,33 +1,44 @@
-"""K1 — the fused sign + binary (±1) convolution, forward.
+"""K1, K5, K6 — the fused sign + binary (±1) convolution and its backward.
 
 Counterpart of ``bdbnn_tpu/nn/kernels/binary_conv.py``. There the
-forward of ``binary_conv2d_mxu`` is the XLA convolution on ±1 operands;
-here it is the hand-written CUDA kernel ``csrc/binary_conv.cu``, which
-also takes the activation sign (``sign(x - shift)``, sign(0) := +1) while
-it loads the input, so the ±1 activation never exists in device memory.
+forward of ``binary_conv2d_mxu`` is the XLA convolution on ±1 operands
+and its backward the exact float conv VJP; here all three are
+hand-written CUDA kernels:
 
-- :func:`binary_conv2d` — the fused entry the layers call: f32 NHWC
-  ``x``, an optional per-channel ``shift`` (react's ``act_shift``), the
-  int8 ``(O, kh, kw, C)`` weight sign K2 emits, and f32 ``alpha (O,)``.
-- :func:`binary_conv2d_mxu` — the unfused counterpart with the JAX
+- K1 :func:`binary_conv2d` (``csrc/binary_conv.cu``) — the fused forward
+  the layers call: f32 NHWC ``x``, an optional per-channel ``shift``
+  (react's ``act_shift``), the int8 ``(O, kh, kw, C)`` weight sign K2
+  emits, and f32 ``alpha (O,)``. It takes the activation sign
+  (``sign(x - shift)``, sign(0) := +1) while it loads the input, so the
+  ±1 activation never exists in device memory.
+- K5 :func:`binary_conv2d_dgrad` (``csrc/binary_conv_dgrad.cu``) — the
+  input gradient ``conv_transpose(g·alpha, sign W)`` times the active
+  sign estimator's slope at ``x - shift`` (:data:`ESTIMATORS`).
+- K6 :func:`binary_conv2d_wgrad` (``csrc/binary_conv_wgrad.cu``) — the
+  weight gradient ``conv(sign(x - shift)ᵀ, g·alpha)`` times the latent
+  weight's STE mask ``1{|W| <= 1}``, in HWIO.
+- :class:`BinaryConvFn` — the autograd function the layers train
+  through: K1 forward, K5 + K6 backward, ``-Σ dx`` for the shift, no
+  gradient for alpha (the reference's ``stop_gradient``).
+- :func:`binary_conv2d_mxu` — the unfused forward with the JAX
   signature (±1 ``xb`` NHWC, ±1 ``wb_sign`` HWIO), for like-with-like
-  parity tests; it runs through the same kernel (the sign of a ±1 input
-  is itself).
-- :func:`binary_conv2d_plain` — the plain PyTorch version of the same
-  function: the CPU path, and what ``chip_smoke.py`` holds the kernel
-  against on the card.
+  parity tests; it runs through K1 (the sign of a ±1 input is itself).
+- ``*_plain`` — the plain PyTorch version of each kernel: the CPU path,
+  and what ``chip_smoke.py`` holds each kernel against on the card.
+  Each is an explicit im2col / col2im and an f32 matrix product.
 
 Padding is symmetric ``k//2`` ("auto", torch-style) or explicit
 symmetric pairs, applied AFTER the sign as in the reference (a padding
-tap contributes 0, never ``sign(0 - shift)``).
+tap contributes 0 to y and to dW and receives nothing in dx, never
+``sign(0 - shift)``).
 
-The wrapper launches the kernel for a CUDA tensor (or raises) and uses
-the plain version only for a tensor on the CPU. Backward kernels arrive
-with the training slice.
+Each wrapper launches its kernel for a CUDA tensor (or raises) and uses
+the plain version only for a tensor on the CPU.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -35,6 +46,13 @@ import torch
 from bdbnn_tpu_torch.nn.binarize import _hard_sign
 
 Tensor = torch.Tensor
+
+# the sign estimator backwards K5 fuses, by name -> kernel code. An
+# estimator is a triple (name, p0, p1): ("ede", t, k), ("prox", delta,
+# 0.0), the others take no parameter; "none" is slope 1 (the bare
+# conv-transpose sum, which the tests' error bounds read).
+ESTIMATORS = {"none": -1, "approx": 0, "ste": 1, "ede": 2, "prox": 3}
+Estimator = Tuple[str, float, float]
 
 
 def _symmetric_pad(padding, kh: int, kw: int) -> int:
@@ -169,6 +187,262 @@ def binary_conv2d(
 binary_conv2d.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Backward: K5 (input gradient) and K6 (weight gradient)
+# ---------------------------------------------------------------------------
+
+
+def _check_estimator(estimator: Estimator) -> Estimator:
+    name, p0, p1 = estimator
+    if name not in ESTIMATORS:
+        raise ValueError(f"unknown sign estimator {name!r}; have {sorted(ESTIMATORS)}")
+    if name == "prox" and not float(p0) > 0:
+        raise ValueError(f"prox needs delta > 0, got {p0!r}")
+    return name, float(p0), float(p1)
+
+
+def estimator_slope(v: Tensor, estimator: Estimator) -> Optional[Tensor]:
+    """The sign estimator's backward slope at pre-sign values ``v``, with
+    the reference's order of f32 operations (``bdbnn_tpu/nn/binarize.py``
+    backward rules); None for "none"."""
+    name, p0, p1 = _check_estimator(estimator)
+    if name == "approx":
+        return torch.clamp(2.0 - 2.0 * v.abs(), min=0.0)
+    if name == "ste":
+        return (v.abs() <= 1.0).to(v.dtype)
+    if name == "ede":
+        t = torch.as_tensor(p0, dtype=v.dtype, device=v.device)
+        k = torch.as_tensor(p1, dtype=v.dtype, device=v.device)
+        sech = 1.0 / torch.cosh(t * v)
+        return k * t * sech * sech
+    if name == "prox":
+        d = torch.as_tensor(p0, dtype=v.dtype, device=v.device)
+        return (2.0 / d) * torch.clamp(1.0 - v.abs() / d, min=0.0)
+    return None
+
+
+def _check_grad(g: Tensor, n: int, ho: int, wo: int, o: int, x: Tensor) -> None:
+    if g.dtype != torch.float32 or tuple(g.shape) != (n, ho, wo, o):
+        raise ValueError(
+            f"g must be float32 {(n, ho, wo, o)}, got {g.dtype} {tuple(g.shape)}"
+        )
+    if g.device != x.device:
+        raise ValueError("all operands must be on one device")
+    if g.is_cuda and not g.is_contiguous():
+        raise ValueError("the kernel takes contiguous tensors")
+
+
+def binary_conv2d_dgrad_plain(
+    g: Tensor,
+    x: Tensor,
+    wsign: Tensor,
+    alpha: Tensor,
+    *,
+    shift: Optional[Tensor] = None,
+    strides: Tuple[int, int] = (1, 1),
+    padding="auto",
+    estimator: Estimator = ("none", 0.0, 0.0),
+) -> Tensor:
+    """Plain PyTorch K5: ``ga = g·alpha``; the (M, kh·kw·C) columns
+    ``ga @ sign W`` as one f32 matrix product; col2im adds them into the
+    zero-padded input tap by tap (a padding position is cropped away, so
+    it receives nothing); then the estimator's slope at ``x - shift``."""
+    n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
+    stride = _check_strides(strides)
+    pad = _symmetric_pad(padding, kh, kw)
+    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    _check_grad(g, n, ho, wo, o, x)
+    ga = g * alpha
+    cols = ga.reshape(-1, o) @ wsign.reshape(o, -1).to(torch.float32)
+    cols = cols.reshape(n, ho, wo, kh, kw, c)
+    xp = torch.zeros((n, h + 2 * pad, w + 2 * pad, c), dtype=torch.float32, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            xp[:, i : i + stride * (ho - 1) + 1 : stride, j : j + stride * (wo - 1) + 1 : stride, :] += (
+                cols[:, :, :, i, j, :]
+            )
+    dxb = xp[:, pad : pad + h, pad : pad + w, :]
+    slope = estimator_slope(x - shift if shift is not None else x, estimator)
+    return (dxb * slope) if slope is not None else dxb.contiguous()
+
+
+def binary_conv2d_dgrad(
+    g: Tensor,
+    x: Tensor,
+    wsign: Tensor,
+    alpha: Tensor,
+    *,
+    shift: Optional[Tensor] = None,
+    strides: Tuple[int, int] = (1, 1),
+    padding="auto",
+    estimator: Estimator = ("none", 0.0, 0.0),
+) -> Tensor:
+    """``slope(x - shift) · conv_transpose(g·alpha, sign W)`` — K5 on a
+    CUDA tensor, the plain version on a CPU tensor. f32 NHWC like ``x``."""
+    n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return binary_conv2d_dgrad_plain(
+            g, x, wsign, alpha, shift=shift, strides=strides, padding=padding,
+            estimator=estimator,
+        )
+    from bdbnn_tpu_torch.nn.kernels import _build
+
+    name, p0, p1 = _check_estimator(estimator)
+    stride = _check_strides(strides)
+    pad = _symmetric_pad(padding, kh, kw)
+    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    _check_grad(g, n, ho, wo, o, x)
+    dx = torch.empty_like(x)
+    lib = _build.library("binary_conv_dgrad")
+    err = lib.bdbnn_binary_conv_dgrad(
+        g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
+        wsign.data_ptr(), alpha.data_ptr(), dx.data_ptr(),
+        n, h, w, c, o, kh, kw, stride, pad, ho, wo, ESTIMATORS[name], p0, p1,
+        _build.stream_ptr(x.device),
+    )
+    _build.check(lib, err, "binary_conv2d_dgrad")
+    binary_conv2d_dgrad.launches += 1
+    return dx
+
+
+binary_conv2d_dgrad.launches = 0
+
+
+def _check_latent(w: Tensor, x: Tensor, alpha: Tensor) -> Tuple[int, int, int, int]:
+    if w.dim() != 4 or w.dtype != torch.float32:
+        raise ValueError(f"w must be float32 HWIO, got {w.dtype} {tuple(w.shape)}")
+    kh, kw, c, o = (int(d) for d in w.shape)
+    if x.dim() != 4 or x.dtype != torch.float32 or int(x.shape[3]) != c:
+        raise ValueError(f"x must be float32 NHWC with {c} channels, got {x.dtype} {tuple(x.shape)}")
+    if alpha.shape != (o,) or alpha.dtype != torch.float32:
+        raise ValueError(f"alpha must be float32 ({o},), got {alpha.dtype} {tuple(alpha.shape)}")
+    if w.device != x.device or alpha.device != x.device:
+        raise ValueError("all operands must be on one device")
+    if x.is_cuda and not all(t.is_contiguous() for t in (w, x, alpha)):
+        raise ValueError("the kernel takes contiguous tensors")
+    return kh, kw, c, o
+
+
+def binary_conv2d_wgrad_plain(
+    g: Tensor,
+    x: Tensor,
+    w: Tensor,
+    alpha: Tensor,
+    *,
+    shift: Optional[Tensor] = None,
+    strides: Tuple[int, int] = (1, 1),
+    padding="auto",
+) -> Tensor:
+    """Plain PyTorch K6: im2col of ``sign(x - shift)`` (zero padding after
+    the sign), ``patchesᵀ @ (g·alpha)`` as one f32 matrix product, then
+    the STE mask ``1{|W| <= 1}``; HWIO like ``w``."""
+    kh, kw, c, o = _check_latent(w, x, alpha)
+    stride = _check_strides(strides)
+    pad = _symmetric_pad(padding, kh, kw)
+    patches = im2col_nhwc(binarize_input(x, shift), kh, kw, stride, pad)
+    n, ho, wo = (int(d) for d in patches.shape[:3])
+    _check_grad(g, n, ho, wo, o, x)
+    dws = patches.reshape(-1, kh * kw * c).t() @ (g * alpha).reshape(-1, o)
+    return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).to(torch.float32)
+
+
+def wgrad_splits(m: int, kd: int, o: int) -> Tuple[int, int]:
+    """(splits, rows per split) of K6's reduction over M positions: about
+    four blocks per SM of the H100's 132 over the (kd, o) output tiles,
+    no split under 512 rows, rows a multiple of the 16-row stage. A
+    function of the shapes alone, so a run's sum order is fixed."""
+    tiles = math.ceil(kd / 64) * math.ceil(o / 64)
+    splits = max(1, min(math.ceil(4 * 132 / tiles), math.ceil(m / 512)))
+    rows = math.ceil(math.ceil(m / splits) / 16) * 16
+    return math.ceil(m / rows), rows
+
+
+def binary_conv2d_wgrad(
+    g: Tensor,
+    x: Tensor,
+    w: Tensor,
+    alpha: Tensor,
+    *,
+    shift: Optional[Tensor] = None,
+    strides: Tuple[int, int] = (1, 1),
+    padding="auto",
+) -> Tensor:
+    """``1{|W| <= 1} · conv(sign(x - shift)ᵀ, g·alpha)`` in HWIO — K6 on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    kh, kw, c, o = _check_latent(w, x, alpha)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return binary_conv2d_wgrad_plain(
+            g, x, w, alpha, shift=shift, strides=strides, padding=padding
+        )
+    from bdbnn_tpu_torch.nn.kernels import _build
+
+    if shift is not None and (shift.shape != (c,) or shift.dtype != torch.float32
+                              or shift.device != x.device or not shift.is_contiguous()):
+        raise ValueError(f"shift must be a contiguous float32 ({c},) on {x.device}")
+    stride = _check_strides(strides)
+    pad = _symmetric_pad(padding, kh, kw)
+    n, h, wd = (int(d) for d in x.shape[:3])
+    ho, wo = out_size(h, kh, stride, pad), out_size(wd, kw, stride, pad)
+    _check_grad(g, n, ho, wo, o, x)
+    splits, rows = wgrad_splits(n * ho * wo, kh * kw * c, o)
+    partial = torch.empty((splits, kh * kw * c, o), dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(w)
+    lib = _build.library("binary_conv_wgrad")
+    err = lib.bdbnn_binary_conv_wgrad(
+        g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
+        w.data_ptr(), alpha.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        n, h, wd, c, o, kh, kw, stride, pad, ho, wo, splits, rows,
+        _build.stream_ptr(x.device),
+    )
+    _build.check(lib, err, "binary_conv2d_wgrad")
+    binary_conv2d_wgrad.launches += 1
+    return dw
+
+
+binary_conv2d_wgrad.launches = 0
+
+
+class BinaryConvFn(torch.autograd.Function):
+    """The binary conv the layers train through: K1 forward; K5 (dx,
+    with the estimator's slope) and K6 (dW, with the STE mask) backward.
+    ``shift`` (react's ``act_shift``, or None) gets ``-Σ_{n,h,w} dx``;
+    ``wsign``/``alpha`` come from K2 on the detached latent weight and
+    get no gradient (the reference's ``stop_gradient`` on alpha).
+
+    Saved for the backward: the pre-sign f32 input (which the layer
+    before keeps anyway), the shift, the latent weight, the int8 sign and
+    alpha — never a ±1 activation."""
+
+    @staticmethod
+    def forward(ctx, x, shift, w, wsign, alpha, strides, padding, estimator):
+        y = binary_conv2d(x, wsign, alpha, shift=shift, strides=strides, padding=padding)
+        ctx.save_for_backward(x, shift, w, wsign, alpha)
+        ctx.conv = (tuple(strides), padding, _check_estimator(estimator))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, shift, w, wsign, alpha = ctx.saved_tensors
+        strides, padding, estimator = ctx.conv
+        g = g.contiguous()
+        dx = dshift = dw = None
+        need_shift = shift is not None and ctx.needs_input_grad[1]
+        if ctx.needs_input_grad[0] or need_shift:
+            dx = binary_conv2d_dgrad(
+                g, x, wsign, alpha, shift=shift, strides=strides, padding=padding,
+                estimator=estimator,
+            )
+            if need_shift:
+                dshift = -dx.sum(dim=(0, 1, 2))
+        if ctx.needs_input_grad[2]:
+            dw = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=strides, padding=padding)
+        return dx, dshift, dw, None, None, None, None, None
+
+
 def sign_int8_from_hwio(wb_sign: Tensor) -> Tensor:
     """±1 (any dtype) HWIO kernel → the int8 (O, kh, kw, C) layout K1
     reads, with sign(0) := +1."""
@@ -195,9 +469,17 @@ def binary_conv2d_mxu(
 
 
 __all__ = [
+    "ESTIMATORS",
+    "BinaryConvFn",
     "binary_conv2d",
+    "binary_conv2d_dgrad",
+    "binary_conv2d_dgrad_plain",
     "binary_conv2d_mxu",
     "binary_conv2d_plain",
+    "binary_conv2d_wgrad",
+    "binary_conv2d_wgrad_plain",
+    "estimator_slope",
     "im2col_nhwc",
     "sign_int8_from_hwio",
+    "wgrad_splits",
 ]

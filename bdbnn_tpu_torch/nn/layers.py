@@ -17,12 +17,19 @@ The forward runs every binary conv on the hand-written kernels:
 K3 (packed only: unpack to ``sign * alpha``) → K2 (weight sign + the
 active family's alpha) → K1 (fused ``sign(x - shift)`` + ±1 conv), or
 K4 in place of K1 under the ``popcount`` packed impl. On the CPU each
-wrapper runs its plain PyTorch version.
+wrapper runs its plain PyTorch version. Every family's activation
+forward is the hard sign, which is what K1 and K4 fuse.
 
-This slice serves: the binary convs and BatchNorm run in eval mode only
-and raise in training mode (training and the backward kernels come in a
-later slice). In eval every family's activation forward is the hard
-sign, which is what K1 and K4 fuse.
+In training mode a binary conv runs K2 → :class:`BinaryConvFn` (K1
+forward; K5 + K6 backward) on its latent weight. The activation
+estimator whose backward K5 fuses is routed as in the reference
+(``bdbnn_tpu/nn/layers.py:108-123, 195-234``): react always uses
+approx; the others take ``fam.binarize_act(x, sched=tk)``'s choice —
+ede when ``tk`` is a (t, k) pair (ste / ede families), prox(δ) under
+the proximal family, approx under approx, else ste. The stochastic
+family samples its signs in training, which K1 does not fuse: it raises
+(ROADMAP A, "Later" 3). BatchNorm trains with flax semantics (batch
+mean, the fast biased variance, running stats ``0.9·ra + 0.1·batch``).
 """
 
 from __future__ import annotations
@@ -35,18 +42,12 @@ from torch import nn
 
 from bdbnn_tpu_torch.nn.binarize import get_active_family
 from bdbnn_tpu_torch.nn.kernels import binary_conv2d, weight_binarize
+from bdbnn_tpu_torch.nn.kernels.binary_conv import BinaryConvFn
 
 Tensor = torch.Tensor
 
 BN_EPS = 1e-5
-
-
-def _training_slice_error(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} runs in eval mode only in this slice of the port "
-        "(serving); training mode and the backward kernels arrive with "
-        "the training slice — call .eval()"
-    )
+BN_MOMENTUM = 0.9  # flax's: ra = 0.9·ra + (1 − 0.9)·batch
 
 
 def he_normal_(t: Tensor, fan_in: int, generator: Optional[torch.Generator]) -> Tensor:
@@ -73,11 +74,17 @@ def conv2d(x: Tensor, w: Tensor, *, strides: Tuple[int, int] = (1, 1), padding="
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm`` in eval mode over the last (channel) axis:
+    """flax ``BatchNorm`` over the last (channel) axis:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, the reference's
     order of operations. Parameters ``weight``/``bias`` (flax
     ``scale``/``bias``), buffers ``running_mean``/``running_var`` (flax
-    ``batch_stats``)."""
+    ``batch_stats``).
+
+    Training mode takes flax's batch statistics (``_compute_stats`` with
+    ``use_fast_variance``): the batch mean and ``max(0, E[x²] − E[x]²)``,
+    the biased variance, and updates the running statistics as
+    ``0.9·ra + (1 − 0.9)·batch`` — torch's ``F.batch_norm`` stores the
+    unbiased variance and is not a drop-in."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -89,9 +96,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         if self.training:
-            raise _training_slice_error("BatchNorm")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean
+                )
+                self.running_var.copy_(
+                    BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var
+                )
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class LearnableBias(nn.Module):
@@ -159,25 +177,61 @@ class _BinaryConvBase(nn.Module):
     def weight_shape(self) -> Tuple[int, int, int, int]:
         return (*self.kernel_size, self.in_features, self.features)
 
-    def binary_conv(self, x: Tensor, shift: Optional[Tensor]) -> Tensor:
+    def train_estimator(self, tk=None):
+        """The activation sign estimator whose backward K5 fuses, as an
+        ``(name, p0, p1)`` triple, routed as the reference's
+        ``family_act`` (react: always approx)."""
+        if self.has_shift:
+            return ("approx", 0.0, 0.0)
+        fam = get_active_family()
+        if fam.stochastic:
+            raise NotImplementedError(
+                "the stochastic binarizer family samples its activation "
+                "signs in training, which the fused K1 forward does not do; "
+                "training under it is ROADMAP A 'Later' item 3 (the "
+                "stochastic family in training)"
+            )
+        if fam.name in ("ste", "ede") and tk is not None:
+            t, k = tk
+            return ("ede", float(t), float(k))
+        if fam.name == "proximal" and tk is not None:
+            (delta,) = tk
+            return ("prox", float(delta), 0.0)
+        if fam.name == "approx":
+            return ("approx", 0.0, 0.0)
+        return ("ste", 0.0, 0.0)
+
+    def binary_conv(self, x: Tensor, shift: Optional[Tensor], tk=None) -> Tensor:
         """±alpha binary conv of ``sign(x - shift)``: K3 (packed) → K2
-        → K1, or K4 under the ``popcount`` packed impl. The weight sign
-        and alpha come from the active binarizer family (alpha: mean|W|,
-        or ``lab``'s ΣW²/Σ|W|); the export fixed point mean|sign·alpha|
-        == alpha makes the packed path family-invariant."""
+        → K1, or K4 under the ``popcount`` packed impl; in training K2 →
+        :class:`BinaryConvFn` (K1, with K5 + K6 backward). The weight
+        sign and alpha come from the active binarizer family (alpha:
+        mean|W|, or ``lab``'s ΣW²/Σ|W|, detached); the export fixed point
+        mean|sign·alpha| == alpha makes the packed path family-invariant."""
         from bdbnn_tpu_torch.nn.packed import (
             get_packed_impl,
             packed_dense_weight,
             popcount_binary_conv,
         )
 
+        lab = get_active_family().name == "lab"
         if self.training:
-            raise _training_slice_error(type(self).__name__)
+            if self.packed:
+                raise ValueError(
+                    "a packed binary conv holds no latent weight to train; "
+                    "build the model without packed=True"
+                )
+            estimator = self.train_estimator(tk)
+            wsign, alpha = weight_binarize(self.float_weight.detach(), lab=lab)
+            return BinaryConvFn.apply(
+                x.contiguous(), shift, self.float_weight, wsign, alpha, self.strides,
+                self.padding, estimator,
+            )
         if self.packed:
             w = packed_dense_weight(self.sign, self.alpha, self.weight_shape)
         else:
             w = self.float_weight.detach()
-        wsign, alpha = weight_binarize(w, lab=get_active_family().name == "lab")
+        wsign, alpha = weight_binarize(w, lab=lab)
         x = x.contiguous()
         shift = shift.detach() if shift is not None else None
         if self.packed and get_packed_impl() == "popcount":
@@ -190,9 +244,8 @@ class _BinaryConvBase(nn.Module):
 
     def forward(self, x: Tensor, tk=None) -> Tensor:
         # ``tk`` (the family's schedule scalars) only changes the
-        # training backward; the eval forward is the hard sign
-        del tk
-        return self.binary_conv(x, self.act_shift if self.has_shift else None)
+        # training backward; the forward is the hard sign
+        return self.binary_conv(x, self.act_shift if self.has_shift else None, tk)
 
 
 class BinaryConvReact(_BinaryConvBase):
@@ -243,6 +296,7 @@ class FloatConv(nn.Module):
 
 __all__ = [
     "BN_EPS",
+    "BN_MOMENTUM",
     "BatchNorm",
     "BinaryConv",
     "BinaryConvCifar",

@@ -29,13 +29,45 @@ Phases (any failure exits non-zero and prints no result line):
              ``python -m bdbnn_tpu_torch.cli predict`` must exit 0;
              ``time_step`` is printed per bucket and mode, and a
              torch.profiler breakdown of one bucket-32 forward;
-5. output  — one ``{"kernels": [...]}`` line, then as the last line
-             ``{"ok": true, "device": {...}}``.
+5. train_kernels — holds K5 (binary conv dgrad with the sign
+             estimator's slope), K6 (binary conv wgrad with the STE mask)
+             and K7 (grouped kurtosis regularizer and gradient) against
+             their plain versions on the card: K5/K6 at the same four
+             flagship shapes (batch 32, approx slope; ste, ede and prox at
+             layer1) to the summation bound 8·2^-24·Σ|terms|·|slope| +
+             2^-24·|plain| (each side within 4·2^-24·Σ|terms| of the
+             exact sum, one rounding of the slope multiply), K6
+             bitwise between two runs; K7 over the 19 flagship tensors to
+             rtol 1e-5. Times each beside its plain version, the least time
+             the card could take, and torch.nn.grad.conv2d_input /
+             conv2d_weight on the same ±1 operands (TF32 off, a yardstick);
+6. train   — the training main path: ``fit`` on the full-width ImageNet
+             resnet18 (react) flagship, synthetic 224² images, -b 256,
+             --w-kurtosis --diffkurt, Adam, 5 steps and the eval pass. Every
+             step's loss must be finite and launch K1, K2, K5 and K6 19
+             times each and K7 twice (the loss, and the binarization
+             probes' grouped forward); each step is timed with CUDA events
+             (step 0 is the warm-up). Then one step at batch 8 on the card
+             and on the CPU (plain versions) from the same weights and
+             batch: the losses must agree to 1e-3 relative (f32 sums in
+             other orders — BN statistics, the stem conv — can move a
+             pre-sign value across its threshold, and a binary net carries
+             the flip on);
+7. train-cede — ``fit`` on CIFAR resnet20 under --ede for 2 steps, so K5's
+             EDE slope runs on the main path on the card;
+8. train-cli — ``python -m bdbnn_tpu_torch.cli`` trains the flagship for 2
+             steps as a subprocess and must exit 0;
+9. profile — a train step of the flagship at -b 256 timed alone with CUDA
+             events (images/s) and broken down by kernel with
+             torch.profiler;
+10. output — one ``{"kernels": [...]}`` line (K1-K7), then as the last
+             line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,8 +80,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # (non-tensor) TFLOP/s, HBM TB/s — keyed by the form factor nvidia-smi
 # names; the SXM part is the default.
 PEAKS = {
-    "SXM": {"int8_tops": 1979.0, "f32_tflops": 67.0, "hbm_tbs": 3.35},
-    "PCIe": {"int8_tops": 1513.0, "f32_tflops": 51.0, "hbm_tbs": 2.0},
+    "SXM": {"int8_tops": 1979.0, "f32_tflops": 67.0, "f64_tflops": 34.0, "hbm_tbs": 3.35},
+    "PCIe": {"int8_tops": 1513.0, "f32_tflops": 51.0, "f64_tflops": 26.0, "hbm_tbs": 2.0},
 }
 
 BATCH = 32
@@ -61,6 +93,14 @@ SHAPES = [
     ("layer4 3x3 s1 512->512 @7", 7, 512, 512, 3, 1),
 ]
 N_BINARY_CONVS = 19
+TRAIN_BATCH = 256
+TRAIN_STEPS = 5
+# the flagship recipe the train phases run (BASELINE config 3)
+TRAIN_ARGS = dict(dataset="imagenet", arch="resnet18", synthetic=True, epochs=1, lr=1e-3,
+                  w_kurtosis=True, diffkurt=True, seed=0, print_freq=1)
+# card vs CPU first-step loss at batch 8 (see the module docstring)
+TRAIN_LOSS_RTOL = 1e-3
+U = 2.0**-24
 # card vs CPU engine on exact-stem inputs: everything up to the global
 # average pool is then bitwise equal, and the pool's and the classifier's
 # float32 sums (other orders on the two devices) move the logits by a
@@ -240,19 +280,32 @@ def make_flagship_artifact(out_dir: str):
 
 def wrappers():
     from bdbnn_tpu_torch.nn import packed as P
-    from bdbnn_tpu_torch.nn.kernels import binary_conv2d, weight_binarize
+    from bdbnn_tpu_torch.nn.kernels import (
+        binary_conv2d,
+        binary_conv2d_dgrad,
+        binary_conv2d_wgrad,
+        kurtosis_grouped,
+        weight_binarize,
+    )
 
     return {
         "K1": binary_conv2d,
         "K2": weight_binarize,
         "K3": P.packed_dense_weight,
         "K4": P.popcount_binary_conv,
+        "K5": binary_conv2d_dgrad,
+        "K6": binary_conv2d_wgrad,
+        "K7": kurtosis_grouped,
     }
 
 
 def reset_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in wrappers().items()}
 
 
 def phase_main(art: str):
@@ -279,12 +332,13 @@ def phase_main(art: str):
     forwards = 5
     reset_counts()
     out = {m: {n: engines[m].predict_logits(images[n]) for n in sizes} for m in modes}
-    counts = {k: fn.launches for k, fn in wrappers().items()}
+    counts = read_counts()
     want = {
         "K1": 2 * forwards * N_BINARY_CONVS,
         "K2": 3 * forwards * N_BINARY_CONVS,
         "K3": 2 * forwards * N_BINARY_CONVS,
         "K4": forwards * N_BINARY_CONVS,
+        "K5": 0, "K6": 0, "K7": 0,
     }
     log(f"[main] launches {counts} (expected {want})")
     if counts != want:
@@ -390,6 +444,306 @@ def phase_cli(art: str) -> bool:
     return res["count"] == 64 and res["device"].startswith("cuda")
 
 
+def phase_train_kernels(pk):
+    """Hold K5, K6 and K7 against their plain versions at flagship
+    shapes; returns per-kernel records (without ``launches``) and ok."""
+    import torch
+    from torch.nn import grad as tgrad
+
+    from bdbnn_tpu_torch.models import create_model
+    from bdbnn_tpu_torch.nn.kernels import (
+        binary_conv2d_dgrad,
+        binary_conv2d_dgrad_plain,
+        binary_conv2d_wgrad,
+        binary_conv2d_wgrad_plain,
+        kurtosis_grouped,
+        kurtosis_grouped_plain,
+        weight_binarize,
+    )
+    from bdbnn_tpu_torch.nn.kernels.binary_conv import binarize_input, estimator_slope
+    from bdbnn_tpu_torch.losses.kurtosis import DIFFKURT_TARGETS_IMAGENET
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    recs = {k: {"shapes": []} for k in ("K5", "K6", "K7")}
+    ok = True
+    approx = ("approx", 0.0, 0.0)
+    for si, (name, hw, c, o, k, s) in enumerate(SHAPES):
+        pad = k // 2
+        ho = (hw + 2 * pad - k) // s + 1
+        st = (s, s)
+        x = torch.randn((BATCH, hw, hw, c), generator=g, device=dev)
+        shift = 0.1 * torch.randn((c,), generator=g, device=dev)
+        w = 0.5 * torch.randn((k, k, c, o), generator=g, device=dev)  # some |W| > 1
+        gy = torch.randn((BATCH, ho, ho, o), generator=g, device=dev)
+        wsign, alpha = weight_binarize(w)
+        ests = [approx] + ([("ste", 0.0, 0.0), ("ede", 0.7, 1.5), ("prox", 0.8, 0.0)] if si == 0 else [])
+        k5_err, k5_ok = 0.0, True
+        for est in ests:
+            dx = binary_conv2d_dgrad(gy, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+            pdx = binary_conv2d_dgrad_plain(gy, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+            terms = binary_conv2d_dgrad_plain(gy.abs(), x, torch.ones_like(wsign), alpha.abs(),
+                                              shift=shift, strides=st)
+            slope = estimator_slope(x - shift, est).abs()
+            torch.cuda.synchronize()
+            err = (dx - pdx).abs()
+            this_ok = bool((err <= 8 * U * terms * slope + U * pdx.abs() + 1e-30).all())
+            scale = U * terms * slope
+            ratio = float(((err - U * pdx.abs()).clamp(min=0) / scale.clamp(min=1e-30)).max())
+            log(f"[train_kernels] K5 {name} {est[0]}: within bound {this_ok} "
+                f"max_abs_err={float(err.max())} max (err - u|plain|)/(u·Σ|terms|·|slope|)={ratio:.3f}")
+            k5_err = max(k5_err, float(err.max()))
+            k5_ok = k5_ok and this_ok
+        dw = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
+        dw2 = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
+        pdw = binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st)
+        wterms = binary_conv2d_wgrad_plain(gy.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                           alpha.abs(), strides=st)
+        torch.cuda.synchronize()
+        err6 = (dw - pdw).abs()
+        k6_err = float(err6.max())
+        k6_ok = bool((err6 <= 8 * U * wterms + U * pdw.abs() + 1e-30).all()) and torch.equal(dw, dw2)
+        ratio6 = float(((err6 - U * pdw.abs()).clamp(min=0) / (U * wterms).clamp(min=1e-30)).max())
+        log(f"[train_kernels] K6 {name}: within bound and bitwise across two runs {k6_ok} "
+            f"max_abs_err={k6_err} max (err - u|plain|)/(u·Σ|terms|)={ratio6:.3f}")
+        # library yardsticks on the same ±1 operands (TF32 off)
+        ga = (gy * alpha).permute(0, 3, 1, 2).contiguous()
+        wf = wsign.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+        xb = binarize_input(x, shift).permute(0, 3, 1, 2).contiguous()
+        in_size = (BATCH, c, hw, hw)
+        lib5 = lambda: tgrad.conv2d_input(in_size, wf, ga, stride=s, padding=pad)
+        lib6 = lambda: tgrad.conv2d_weight(xb, wf.shape, ga, stride=s, padding=pad)
+        t = {
+            "K5": (cuda_ms(lambda: binary_conv2d_dgrad(gy, x, wsign, alpha, shift=shift, strides=st,
+                                                       estimator=approx), 20),
+                   cuda_ms(lambda: binary_conv2d_dgrad_plain(gy, x, wsign, alpha, shift=shift,
+                                                             strides=st, estimator=approx), 5),
+                   cuda_ms(lib5, 20)),
+            "K6": (cuda_ms(lambda: binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st), 20),
+                   cuda_ms(lambda: binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st), 5),
+                   cuda_ms(lib6, 20)),
+        }
+        macs = BATCH * ho * ho * o * k * k * c
+        b5 = gy.numel() * 4 + 2 * x.numel() * 4 + wsign.numel() + (o + c) * 4
+        b6 = gy.numel() * 4 + x.numel() * 4 + 2 * w.numel() * 4 + (o + c) * 4
+        bounds = {"K5": bound(b5, 2.0 * macs, pk["f32_tflops"], pk),
+                  "K6": bound(b6, 2.0 * macs, pk["f32_tflops"], pk)}
+        for kname, err, kok in (("K5", k5_err, k5_ok), ("K6", k6_err, k6_ok)):
+            ms, plain_ms, lib_ms = t[kname]
+            recs[kname]["shapes"].append({
+                "shape": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                "max_abs_err": err, "ok": bool(kok),
+            })
+            log(f"[train_kernels] {kname} {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bounds[kname][0]:.4f} ({bounds[kname][1]})")
+            ok = ok and bool(kok)
+        del x, gy, dx, pdx, terms, dw, dw2, pdw, wterms, ga, xb
+        torch.cuda.empty_cache()
+
+    # K7 over the flagship's 19 hooked latent weights (he-normal init)
+    model = create_model("resnet18", "imagenet", generator=torch.Generator().manual_seed(0)).to(dev)
+    ws = [p.detach() for n, p in model.named_parameters() if n.endswith("float_weight")]
+    targets = DIFFKURT_TARGETS_IMAGENET
+    n_el = sum(t.numel() for t in ws)
+    loss, kurt, grads = kurtosis_grouped(ws, targets, "avg")
+    loss2, kurt2, grads2 = kurtosis_grouped(ws, targets, "avg")
+    ploss, pkurt, pgrads = kurtosis_grouped_plain(ws, targets, "avg")
+    torch.cuda.synchronize()
+    gerr = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads, pgrads))
+    k7_ok = (
+        len(ws) == N_BINARY_CONVS
+        and bool(torch.allclose(loss, ploss, rtol=1e-5, atol=0))
+        and bool(torch.allclose(kurt, pkurt, rtol=1e-5, atol=0))
+        and gerr <= 1e-5
+        and torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    )
+    k7_err = max(float((loss - ploss).abs()), float((kurt - pkurt).abs().max()),
+                 max(float((a - b).abs().max()) for a, b in zip(grads, pgrads)))
+    ms = cuda_ms(lambda: kurtosis_grouped(ws, targets, "avg"), 50)
+    plain_ms = cuda_ms(lambda: kurtosis_grouped_plain(ws, targets, "avg"), 5)
+    b7 = bound(2 * 4 * n_el, 17.0 * n_el, pk["f64_tflops"], pk)
+    recs["K7"]["shapes"].append({
+        "shape": f"19 flagship tensors, {n_el} elements", "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": b7[0], "bound_by": b7[1], "max_abs_err": k7_err,
+        "ok": bool(k7_ok),
+    })
+    log(f"[train_kernels] K7 19 tensors ({n_el} elements): ok={k7_ok} loss={float(loss)} "
+        f"plain={float(ploss)} max grad err (of the tensor's largest)={gerr} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b7[0]:.4f} ({b7[1]})")
+    del model, ws, grads, grads2, pgrads
+    torch.cuda.empty_cache()
+    return recs, ok and bool(k7_ok)
+
+
+def train_config(**kw):
+    from bdbnn_tpu_torch.train.config import RunConfig
+
+    return RunConfig(**{**TRAIN_ARGS, **kw})
+
+
+def phase_train():
+    """The training main path: ``fit`` on the flagship at -b 256. Returns
+    (launch counts of the run, step records, ok)."""
+    import torch
+
+    from bdbnn_tpu_torch.train.loop import fit
+
+    cfg = train_config(batch_size=TRAIN_BATCH, synthetic_train_size=TRAIN_STEPS * TRAIN_BATCH,
+                       synthetic_val_size=TRAIN_BATCH, device="cuda")
+    events, per_step, losses = [], [], []
+    prev = {}
+
+    def on_step(epoch, step, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        now = read_counts()
+        per_step.append({k: now[k] - prev.get(k, 0) for k in now})
+        prev.update(now)
+        losses.append(m["loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fit(cfg, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    torch.cuda.synchronize()
+    loss_vals = [float(v) for v in losses]
+    step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+    want = {"K1": N_BINARY_CONVS, "K2": N_BINARY_CONVS, "K3": 0, "K4": 0,
+            "K5": N_BINARY_CONVS, "K6": N_BINARY_CONVS, "K7": 2}
+    ok = (len(loss_vals) == TRAIN_STEPS and all(math.isfinite(v) for v in loss_vals)
+          and all(c == want for c in per_step))
+    mean_ms = sum(step_ms) / max(len(step_ms), 1)
+    log(f"[train] fit resnet18 imagenet -b {TRAIN_BATCH}: {TRAIN_STEPS} steps + eval in {wall:.1f}s "
+        f"-> {res}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[train] losses {loss_vals}")
+    log(f"[train] launches per step {per_step} (expected {want} each: K7 once for the loss "
+        f"and once for the binarization probes); whole run {counts}")
+    log(f"[train] step ms after the warm-up step (CUDA events, fit's loop with its host "
+        f"input pipeline): {step_ms}; mean {mean_ms:.2f} ms = "
+        f"{TRAIN_BATCH / mean_ms * 1e3:.1f} images/s")
+    if not ok:
+        log("[train] FAIL: a loss is not finite or a step's launch counts differ")
+    return counts, {"step_ms": step_ms, "losses": loss_vals}, ok
+
+
+def phase_train_parity() -> bool:
+    """The first step's loss on the card against the CPU plain step, at
+    batch 8, from identical weights and batch."""
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
+    from bdbnn_tpu_torch.train.loop import build_datasets, build_training, epoch_schedule
+    from bdbnn_tpu_torch.train.step import make_train_step
+
+    cfg = train_config(batch_size=8, synthetic_train_size=8, synthetic_val_size=8,
+                       device="cpu").validate()
+    family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
+    pipe, _, _ = build_datasets(cfg)
+    x, y = next(iter(pipe.epoch(0)))
+    tk, gate = epoch_schedule(family, cfg, 0)
+    out = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        state, step_cfg = build_training(cfg, torch.device(dev), 1, 224)
+        step = make_train_step(state.model, state.optimizer, step_cfg)
+        batch = (torch.from_numpy(np.array(x)).to(dev), torch.from_numpy(np.array(y)).to(dev))
+        _, m = step(state, batch, tk, gate)
+        out[dev] = {k: float(m[k]) for k in ("loss", "loss_ce", "loss_kurt")}
+        del state, step
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in out["cpu"]}
+    ok = rel["loss"] <= TRAIN_LOSS_RTOL
+    log(f"[train] first step at batch 8, card {out['cuda']} vs CPU plain {out['cpu']}: "
+        f"relative {rel} (tol {TRAIN_LOSS_RTOL} on loss) ok={ok} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return ok
+
+
+def phase_train_cede() -> bool:
+    """Two steps of CIFAR resnet20 under --ede through ``fit``."""
+    from bdbnn_tpu_torch.train.config import RunConfig
+    from bdbnn_tpu_torch.train.loop import fit
+
+    losses = []
+    cfg = RunConfig(dataset="cifar10", arch="resnet20", synthetic=True, batch_size=128, epochs=1,
+                    ede=True, synthetic_train_size=256, synthetic_val_size=128, seed=0,
+                    print_freq=1, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fit(cfg, on_step=lambda e, i, m: losses.append(float(m["loss"])))
+    counts = read_counts()
+    ok = (len(losses) == 2 and all(math.isfinite(v) for v in losses)
+          and counts["K5"] > 0 and counts["K6"] > 0)
+    log(f"[train-cede] fit resnet20 cifar10 --ede -b 128: losses {losses} -> {res} "
+        f"launches {counts} in {time.perf_counter() - t0:.1f}s ok={ok}")
+    return ok
+
+
+def phase_train_cli() -> bool:
+    cmd = [sys.executable, "-m", "bdbnn_tpu_torch.cli", "--dataset", "imagenet", "-a", "resnet18",
+           "--synthetic", "-b", "256", "--epochs", "1", "--w-kurtosis", "--diffkurt",
+           "--synthetic-train-size", "512", "--synthetic-val-size", "256", "--seed", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    log(f"[train-cli] {' '.join(cmd[1:])} -> exit {r.returncode} in {time.perf_counter() - t0:.1f}s")
+    if r.returncode != 0:
+        log(r.stdout[-2000:] + r.stderr[-4000:])
+        return False
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"[train-cli] result {res}; last log lines: {r.stderr.strip().splitlines()[-3:]}")
+    return set(res) == {"best_acc1", "best_epoch"}
+
+
+def profile_train_step(iters: int = 3) -> dict:
+    """A flagship train step at -b 256 alone: CUDA-event time per step on
+    a batch already on the card, then device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
+    from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
+    from bdbnn_tpu_torch.train.step import make_train_step
+
+    cfg = train_config(batch_size=TRAIN_BATCH, device="cuda").validate()
+    family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
+    state, step_cfg = build_training(cfg, torch.device("cuda"), 10, 224)
+    step = make_train_step(state.model, state.optimizer, step_cfg)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
+             torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
+    tk, gate = epoch_schedule(family, cfg, 0)
+    ms = cuda_ms(lambda: step(state, batch, tk, gate), iters, warmup=2)
+    log(f"[profile] flagship train step -b {TRAIN_BATCH}, batch on the card: {ms:.2f} ms "
+        f"= {TRAIN_BATCH / ms * 1e3:.1f} images/s (CUDA events, {iters} steps after 2 warm-up)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, batch, tk, gate)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / 2
+    busy = sum(per_kernel.values())
+    if busy == 0:
+        log("[profile] train step: the profiler saw no device time (not measured)")
+    else:
+        log(f"[profile] train step -b {TRAIN_BATCH}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+            f"host wall per step (busy share {busy / wall_ms:.3f})")
+        for name, kms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"[profile]   {kms:8.4f} ms  {name[:100]}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms}
+
+
 def main() -> int:
     import torch
 
@@ -416,6 +770,8 @@ def main() -> int:
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
 
     recs, ok_k = phase_kernels(pk)
+    trecs, ok_tk = phase_train_kernels(pk)
+    recs.update(trecs)
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "resnet18_react")
         t0 = time.perf_counter()
@@ -423,21 +779,43 @@ def main() -> int:
         log(f"[main] wrote flagship artifact in {time.perf_counter() - t0:.1f}s")
         counts, ok_m = phase_main(art)
         ok_c = phase_cli(art)
+    train_counts, _, ok_t = phase_train()
+    ok_tp = phase_train_parity()
+    ok_te = phase_train_cede()
+    ok_tc = phase_train_cli()
+    profile_train_step()
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
                "K3": "bdbnn_tpu_torch/csrc/packed.cu",
-               "K4": "bdbnn_tpu_torch/csrc/packed.cu"}
+               "K4": "bdbnn_tpu_torch/csrc/packed.cu",
+               "K5": "bdbnn_tpu_torch/csrc/binary_conv_dgrad.cu",
+               "K6": "bdbnn_tpu_torch/csrc/binary_conv_wgrad.cu",
+               "K7": "bdbnn_tpu_torch/csrc/kurtosis.cu"}
     names = {"K1": "binary_conv2d (fused sign + binary conv fwd)",
              "K2": "weight_binarize (weight sign + alpha)",
              "K3": "packed_dense_weight (packbits decode)",
-             "K4": "popcount_binary_conv (XNOR-popcount conv fwd)"}
+             "K4": "popcount_binary_conv (XNOR-popcount conv fwd)",
+             "K5": "binary_conv2d_dgrad (binary conv input grad + sign estimator slope)",
+             "K6": "binary_conv2d_wgrad (binary conv weight grad + STE mask)",
+             "K7": "kurtosis_grouped (grouped kurtosis regularizer + grad)"}
     replaces = {"K1": "bdbnn_tpu/nn/kernels/binary_conv.py:92",
                 "K2": "bdbnn_tpu/nn/binarize.py:466",
                 "K3": "bdbnn_tpu/nn/packed.py:131",
-                "K4": "bdbnn_tpu/nn/packed.py:161"}
+                "K4": "bdbnn_tpu/nn/packed.py:161",
+                "K5": "bdbnn_tpu/nn/kernels/binary_conv.py:107",
+                "K6": "bdbnn_tpu/nn/kernels/binary_conv.py:107",
+                "K7": "bdbnn_tpu/losses/kurtosis.py:51"}
+    # each kernel's launches on the main path it belongs to: serving for
+    # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed)
+    by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0)} for k in sources}
+    used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources}
+    ok_used = all(v > 0 for v in used.values()) and all(
+        by_path[k]["train"] > 0 for k in ("K1", "K2"))
+    if not ok_used:
+        log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
-    for k in ("K1", "K2", "K3", "K4"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         sh = recs[k]["shapes"]
         lib = [s["library_ms"] for s in sh]
         main_bound = max(sh, key=lambda s: s["bound_ms"])
@@ -446,7 +824,8 @@ def main() -> int:
             "route": "cuda",
             "source": sources[k],
             "replaces": replaces[k],
-            "launches": counts.get(k, 0),
+            "launches": used[k],
+            "launches_by_path": by_path[k],
             "max_abs_err": max(s["max_abs_err"] for s in sh),
             # sums over the four flagship shapes (batch 32) in "shapes"
             "ms": sum(s["ms"] for s in sh),
@@ -457,8 +836,10 @@ def main() -> int:
             "shapes": sh,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
-    if not (ok_k and ok_m and ok_c):
-        log(f"chip_smoke: FAILED (kernels={ok_k} main={ok_m} cli={ok_c})")
+    oks = {"kernels": ok_k, "main": ok_m, "cli": ok_c, "train_kernels": ok_tk, "train": ok_t,
+           "train_parity": ok_tp, "train_cede": ok_te, "train_cli": ok_tc, "launched": ok_used}
+    if not all(oks.values()):
+        log(f"chip_smoke: FAILED {oks}")
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

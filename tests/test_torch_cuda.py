@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here is marked ``cuda`` and skips with a reason where
+card: K1-K4 bitwise; K5 and K6 to the summation bound
+``8·2⁻²⁴·Σ|terms|·|slope| + 2⁻²⁴·|plain|`` (the products are exact, the
+sums run in another order: each side within 4·2⁻²⁴·Σ|terms| of the exact
+sum, and one rounding of the slope multiply), K6 bitwise between two runs; K7 to rtol 1e-5 (both sum in
+f64 and round once; the f32 mean can round the other way). Every test here is marked ``cuda`` and skips with a reason where
 no CUDA device exists (this file imports torch and the port only, no
 JAX). On the GPU machine:
 
@@ -16,10 +20,17 @@ import torch
 from bdbnn_tpu_torch.nn import packed as P
 from bdbnn_tpu_torch.nn.kernels import (
     binary_conv2d,
+    binary_conv2d_dgrad,
+    binary_conv2d_dgrad_plain,
     binary_conv2d_plain,
+    binary_conv2d_wgrad,
+    binary_conv2d_wgrad_plain,
+    kurtosis_grouped,
+    kurtosis_grouped_plain,
     weight_binarize,
     weight_binarize_plain,
 )
+from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope
 from bdbnn_tpu_torch.serve.export import _pack_sign
 
 # (N, H, W, C, O, k, stride, react shift)
@@ -100,3 +111,78 @@ def test_wrapper_refuses_non_contiguous_cuda_input(cuda):
     wsign, alpha = weight_binarize_plain(torch.zeros(3, 3, 8, 4, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         binary_conv2d(x, wsign, alpha)
+
+
+ESTIMATORS = [("approx", 0.0, 0.0), ("ste", 0.0, 0.0), ("ede", 0.7, 1.5), ("prox", 0.8, 0.0)]
+U = 2.0**-24
+
+
+def _grad_operands(case, dev, seed):
+    x, shift, w = _operands(case, dev, seed)
+    n, h, wd, c, o, k, s, _ = case
+    ho, wo = (h + 2 * (k // 2) - k) // s + 1, (wd + 2 * (k // 2) - k) // s + 1
+    rng = np.random.default_rng(seed + 1)
+    g = torch.from_numpy(rng.normal(size=(n, ho, wo, o)).astype(np.float32)).to(dev)
+    return x, shift, w * 8.0, g  # some |W| > 1, so the STE mask bites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("est", ESTIMATORS, ids=[e[0] for e in ESTIMATORS])
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_k5_k6_vs_plain(cuda, case, est):
+    x, shift, w, g = _grad_operands(case, cuda, seed=12)
+    st = (case[6], case[6])
+    wsign, alpha = weight_binarize_plain(w)
+    before = (binary_conv2d_dgrad.launches, binary_conv2d_wgrad.launches)
+    dx = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    dw = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=st)
+    dw2 = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=st)
+    pdx = binary_conv2d_dgrad_plain(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    pdw = binary_conv2d_wgrad_plain(g, x, w, alpha, shift=shift, strides=st)
+    torch.cuda.synchronize()
+    assert (binary_conv2d_dgrad.launches, binary_conv2d_wgrad.launches) == (
+        before[0] + 1, before[1] + 2
+    )
+    terms = binary_conv2d_dgrad_plain(g.abs(), x, torch.ones_like(wsign), alpha.abs(),
+                                      shift=shift, strides=st)
+    v = x - shift if shift is not None else x
+    slope = estimator_slope(v, est)
+    over = (dx - pdx).abs() - 8 * U * terms * slope.abs() - U * pdx.abs() - 1e-30
+    if bool((over > 0).any()):
+        i = int(over.reshape(-1).argmax())
+        acc = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st,
+                                  estimator=("none", 0.0, 0.0)).reshape(-1)[i]
+        pacc = binary_conv2d_dgrad_plain(g, x, wsign, alpha, shift=shift,
+                                         strides=st).reshape(-1)[i]
+        pytest.fail(
+            f"dx beyond the bound at flat index {i}: v={float(v.reshape(-1)[i])!r} "
+            f"plain slope={float(slope.reshape(-1)[i])!r} dx={float(dx.reshape(-1)[i])!r} "
+            f"plain dx={float(pdx.reshape(-1)[i])!r} acc={float(acc)!r} plain acc={float(pacc)!r} "
+            f"terms={float(terms.reshape(-1)[i])!r}"
+        )
+    wterms = binary_conv2d_wgrad_plain(g.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                       alpha.abs(), strides=st)
+    assert bool(((dw - pdw).abs() <= 8 * U * wterms + U * pdw.abs() + 1e-30).all())
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["avg", "sum", "max"])
+def test_k7_grouped_vs_plain(cuda, mode):
+    rng = np.random.default_rng(13)
+    shapes = [(3, 3, 64, 64), (1, 1, 64, 128), (3, 3, 128, 256), (7,), (20000,)]
+    ws = [torch.from_numpy((rng.standard_t(5, size=s) * 0.05 + m).astype(np.float32)).to(cuda)
+          for s, m in zip(shapes, (0.0, -8.0, 0.3, 2.0, 0.0))]
+    targets = (1.8, 1.4, 1.2, 3.0, 1.0)
+    before = kurtosis_grouped.launches
+    loss, kurt, grads = kurtosis_grouped(ws, targets, mode)
+    loss2, kurt2, grads2 = kurtosis_grouped(ws, targets, mode)
+    ploss, pkurt, pgrads = kurtosis_grouped_plain(ws, targets, mode)
+    torch.cuda.synchronize()
+    assert kurtosis_grouped.launches == before + 2
+    torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(kurt, pkurt, rtol=1e-5, atol=0)
+    assert torch.equal(loss, loss2) and torch.equal(kurt, kurt2)
+    for g, g2, pg in zip(grads, grads2, pgrads):
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g, pg, rtol=0, atol=1e-5 * float(pg.abs().max()) + 1e-30)

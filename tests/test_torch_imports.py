@@ -60,3 +60,15 @@ def test_every_port_module_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+
+
+def test_training_slice_modules_are_scanned():
+    """The scans above cover the training slice's modules and kernels."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("train/loop.py", "train/step.py", "train/optim.py", "train/state.py",
+                "train/config.py", "train/ede.py", "losses/kurtosis.py", "losses/kd.py",
+                "obs/probes.py", "nn/kernels/kurtosis.py", "nn/kernels/binary_conv.py",
+                "data/pipeline.py", "cli.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+    for src in ("binary_conv_dgrad.cu", "binary_conv_wgrad.cu", "kurtosis.cu"):
+        assert os.path.isfile(os.path.join(REPO, "bdbnn_tpu_torch", "csrc", src))

@@ -148,6 +148,18 @@ def test_registry_names_and_unported_options():
 
 
 def test_training_mode_raises_until_training_slice():
-    model = treg.create_model("resnet8_tiny", "cifar10")
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        model(torch.zeros(1, 16, 16, 3))
+    """Training mode runs since the training slice; what it does not run
+    yet raises: the stochastic family (sampled signs), remat, and a packed
+    model (no latent weight)."""
+    from bdbnn_tpu_torch.nn.binarize import active_family
+
+    model = treg.create_model("resnet8_tiny", "cifar10").train()
+    assert model(torch.zeros(2, 16, 16, 3)).shape == (2, 10)
+    with active_family("stochastic"):
+        with pytest.raises(NotImplementedError, match="stochastic"):
+            model(torch.zeros(1, 16, 16, 3))
+    with pytest.raises(NotImplementedError, match="remat"):
+        treg.create_model("resnet8_tiny", "cifar10", remat=True)
+    packed = treg.create_model("resnet8_tiny", "cifar10", packed=True).train()
+    with pytest.raises(ValueError, match="packed"):
+        packed(torch.zeros(1, 16, 16, 3))
