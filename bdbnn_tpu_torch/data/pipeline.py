@@ -110,9 +110,10 @@ class Pipeline:
     Train pipelines shuffle per epoch and drop the remainder; the default
     train transform is the keyed CIFAR augmentation. A custom
     ``transform(images_u8, rng) -> float32`` gets a per-batch Generator
-    keyed by (seed, epoch, host, 1, batch) — the reference's keying, so
-    a transform sees the same draws in both packages. ``prefetch`` > 0
-    runs the transform on a background thread."""
+    keyed by (seed, epoch, 0, 1, batch) — the reference's keying on host
+    0, so a transform sees the same draws in both packages. ``prefetch``
+    > 0 runs the transform on a background thread. One host only: the
+    port has no multi-host training yet (ROADMAP A "Later", DDP)."""
 
     def __init__(
         self,
@@ -122,8 +123,6 @@ class Pipeline:
         train: bool = False,
         transform=None,
         seed: int = 0,
-        host_id: int = 0,
-        num_hosts: int = 1,
         prefetch: int = 0,
         device_normalize: bool = False,
     ):
@@ -142,35 +141,31 @@ class Pipeline:
                 transform = lambda images, rng: cifar_eval_transform(images)
         self.transform = transform
         self.seed = seed
-        self.host_id = host_id
-        self.num_hosts = num_hosts
         self.prefetch = prefetch
 
     def steps_per_epoch(self) -> int:
-        per_host = len(self.ds) // self.num_hosts
         if self.train:
-            return per_host // self.batch_size
-        return math.ceil(per_host / self.batch_size)
+            return len(self.ds) // self.batch_size
+        return math.ceil(len(self.ds) / self.batch_size)
 
-    def _epoch_batches(self, epoch: int, start_step: int = 0):
+    def _epoch_batches(self, epoch: int):
         idx = host_shard_indices(
             len(self.ds), epoch, seed=self.seed, shuffle=self.train,
-            host_id=self.host_id, num_hosts=self.num_hosts,
             drop_remainder_to=self.batch_size if self.train else None,
         )
-        for bi in range(start_step, (len(idx) + self.batch_size - 1) // self.batch_size):
+        for bi in range((len(idx) + self.batch_size - 1) // self.batch_size):
             sel = idx[bi * self.batch_size : (bi + 1) * self.batch_size]
             if self._keyed is not None:
                 keys = sample_augment_keys(self.seed, epoch, sel)
                 yield self._keyed(self.ds.images[sel], keys), self.ds.labels[sel]
                 continue
-            rng = np.random.default_rng((self.seed, epoch, self.host_id, 1, bi))
+            rng = np.random.default_rng((self.seed, epoch, 0, 1, bi))
             yield self.transform(self.ds.images[sel], rng), self.ds.labels[sel]
 
-    def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Batches of ``epoch``, starting at batch ``start_step``."""
+    def epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """The batches of ``epoch``."""
         if self.prefetch <= 0:
-            yield from self._epoch_batches(epoch, start_step)
+            yield from self._epoch_batches(epoch)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
@@ -178,7 +173,7 @@ class Pipeline:
 
         def worker():
             try:
-                for item in self._epoch_batches(epoch, start_step):
+                for item in self._epoch_batches(epoch):
                     q.put(item)
             except BaseException as e:  # re-raised in the consumer below
                 failure.append(e)

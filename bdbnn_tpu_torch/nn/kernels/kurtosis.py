@@ -100,19 +100,12 @@ def kurtosis_grouped_plain(
     return loss.to(torch.float32), kurt.to(torch.float32), grads
 
 
-# device tables, keyed by the weights' addresses and sizes and the
-# targets: the optimizer updates parameters in place, so a training run
-# uploads its table once (a copy from pageable host memory waits for the
-# stream, which would stall the step every call)
-_TABLES: dict = {}
-
-
 def _table(weights: Sequence[Tensor], targets: Sequence[float]):
+    """(meta, targets, blocks, total): the kernel's tensor table on the
+    device. Both tables go through pinned memory, so the copy does not
+    wait for the stream (the caching host allocator keeps the pinned
+    block until the copy is done)."""
     dev = weights[0].device
-    key = (dev, tuple((w.data_ptr(), w.numel()) for w in weights), tuple(map(float, targets)))
-    hit = _TABLES.get(key)
-    if hit is not None:
-        return hit
     ns = [w.numel() for w in weights]
     blocks = [-(-n // CHUNK) for n in ns]
     goff, bstart = [0], [0]
@@ -120,16 +113,13 @@ def _table(weights: Sequence[Tensor], targets: Sequence[float]):
         goff.append(goff[-1] + n)
         bstart.append(bstart[-1] + b)
     meta = [w.data_ptr() for w in weights] + ns + goff[:-1] + bstart
-    hit = (
-        torch.tensor(meta, dtype=torch.int64).to(dev),
-        torch.tensor([float(v) for v in targets], dtype=torch.float32).to(dev),
+    tgt = [float(v) for v in targets]
+    return (
+        torch.tensor(meta, dtype=torch.int64).pin_memory().to(dev, non_blocking=True),
+        torch.tensor(tgt, dtype=torch.float32).pin_memory().to(dev, non_blocking=True),
         bstart[-1],
         goff[-1],
     )
-    if len(_TABLES) > 64:
-        _TABLES.clear()
-    _TABLES[key] = hit
-    return hit
 
 
 def kurtosis_grouped(

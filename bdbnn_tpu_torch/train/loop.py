@@ -141,7 +141,9 @@ class DeviceMetrics:
         return dict(zip(keys, vals))
 
 
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``: through pinned memory, without waiting
+    for the card, when that is a CUDA device."""
     t = torch.from_numpy(np.ascontiguousarray(x))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
@@ -192,7 +194,7 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
     step_idx = -1
     for x, y in pipe.epoch(epoch):
         step_idx += 1
-        batch = (_to_device(x, device), _to_device(y, device))
+        batch = (to_device(x, device), to_device(y, device))
         state, m = train_step(state, batch, tk, kurt_gate)
         devmet.add(m)
         if on_step is not None:
@@ -219,8 +221,8 @@ def _validate(eval_step, state, pipe, device, epoch, nonfinite_policy="raise") -
         if n < bs:
             x = np.concatenate([x, np.zeros((bs - n, *x.shape[1:]), x.dtype)])
             y = np.concatenate([y, np.zeros((bs - n,), y.dtype)])
-        m = eval_step(state, (_to_device(x, device), _to_device(y, device),
-                              _to_device(valid, device)))
+        m = eval_step(state, (to_device(x, device), to_device(y, device),
+                              to_device(valid, device)))
         totals = m if totals is None else {k: totals[k] + v for k, v in m.items()}
     got = {k: float(v) for k, v in totals.items()} if totals else {}
     count = max(got.get("count", 0.0), 1.0)
@@ -361,4 +363,5 @@ __all__ = [
     "fit",
     "select_hooked_paths",
     "shape_tree",
+    "to_device",
 ]

@@ -92,7 +92,8 @@ def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepCo
         **aux,
         "loss_sum": aux["loss"] * labels.shape[0],
         **topk_correct(logits, labels),
-        "count": torch.tensor(labels.shape[0], dtype=torch.int32, device=logits.device),
+        # a fill, not a host copy: a copy to the card would wait for it
+        "count": torch.full((), labels.shape[0], dtype=torch.int32, device=logits.device),
     }
     if cfg.log_grad_norm:
         metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))

@@ -32,34 +32,38 @@ Phases (any failure exits non-zero and prints no result line):
 5. train_kernels — holds K5 (binary conv dgrad with the sign
              estimator's slope), K6 (binary conv wgrad with the STE mask)
              and K7 (grouped kurtosis regularizer and gradient) against
-             their plain versions on the card: K5/K6 at the same four
-             flagship shapes (batch 32, approx slope; ste, ede and prox at
-             layer1) to the summation bound 8·2^-24·Σ|terms|·|slope| +
-             2^-24·|plain| (each side within 4·2^-24·Σ|terms| of the
-             exact sum, one rounding of the slope multiply), K6
-             bitwise between two runs; K7 over the 19 flagship tensors to
-             rtol 1e-5. Times each beside its plain version, the least time
-             the card could take, and torch.nn.grad.conv2d_input /
-             conv2d_weight on the same ±1 operands (TF32 off, a yardstick);
+             their plain versions on the card at the shapes training gives
+             them: K5/K6 at batch 256 and each of the flagship's ten
+             distinct binary conv shapes (approx slope; ste, ede and prox
+             at layer1), held to the float64 sum within 4·2^-24·Σ|terms|·
+             |slope| + 2^-24·|exact| (the summation bound; the last term is
+             the slope multiply's rounding) and to the plain version within
+             8·2^-24·Σ|terms|·|slope| + 2^-24·|plain| (its im2col/col2im
+             sums carry their own error of a few 2^-24·Σ|terms|), K6
+             bitwise between two runs; K7 over the 19
+             flagship tensors to rtol 1e-5. Times each beside its plain
+             version, the least time the card could take, and
+             torch.nn.grad.conv2d_input / conv2d_weight on the same ±1
+             operands (TF32 off, a yardstick);
 6. train   — the training main path: ``fit`` on the full-width ImageNet
              resnet18 (react) flagship, synthetic 224² images, -b 256,
-             --w-kurtosis --diffkurt, Adam, 5 steps and the eval pass. Every
-             step's loss must be finite and launch K1, K2, K5 and K6 19
-             times each and K7 twice (the loss, and the binarization
-             probes' grouped forward); each step is timed with CUDA events
-             (step 0 is the warm-up). Then one step at batch 8 on the card
-             and on the CPU (plain versions) from the same weights and
-             batch: the losses must agree to 1e-3 relative (f32 sums in
-             other orders — BN statistics, the stem conv — can move a
-             pre-sign value across its threshold, and a binary net carries
-             the flip on);
+             --w-kurtosis --diffkurt, Adam, 5 steps and the eval pass, its
+             metrics drained every 10 steps. Every step's loss must be
+             finite and launch K1, K2, K5 and K6 19 times each and K7
+             twice (the loss, and the binarization probes' grouped
+             forward); each step is timed with CUDA events (step 0 is the
+             warm-up). Then one step at batch 8 on the card and on the CPU
+             (plain versions) from the same weights and batch: the loss
+             terms, every gradient, every updated parameter and the batch
+             statistics must agree (tolerances at phase_train_parity);
 7. train-cede — ``fit`` on CIFAR resnet20 under --ede for 2 steps, so K5's
              EDE slope runs on the main path on the card;
 8. train-cli — ``python -m bdbnn_tpu_torch.cli`` trains the flagship for 2
              steps as a subprocess and must exit 0;
 9. profile — a train step of the flagship at -b 256 timed alone with CUDA
              events (images/s) and broken down by kernel with
-             torch.profiler;
+             torch.profiler; the host input pipeline's transform and
+             pinned copy of one batch are timed alone after [train];
 10. output — one ``{"kernels": [...]}`` line (K1-K7), then as the last
              line ``{"ok": true, "device": {...}}``.
 """
@@ -93,13 +97,34 @@ SHAPES = [
     ("layer4 3x3 s1 512->512 @7", 7, 512, 512, 3, 1),
 ]
 N_BINARY_CONVS = 19
+# the flagship's distinct binary conv shapes and how many of its 19
+# binary convs have each: (name, H=W of the conv input, C, O, k, stride,
+# count); the 1x1 downsamples run on the avg-pooled input
+FLAGSHIP_CONVS = [
+    ("layer1 3x3 s1 64->64 @56", 56, 64, 64, 3, 1, 4),
+    ("layer2_0.conv1 3x3 s2 64->128 @56", 56, 64, 128, 3, 2, 1),
+    ("layer2_0.downsample 1x1 64->128 @28", 28, 64, 128, 1, 1, 1),
+    ("layer2 3x3 s1 128->128 @28", 28, 128, 128, 3, 1, 3),
+    ("layer3_0.conv1 3x3 s2 128->256 @28", 28, 128, 256, 3, 2, 1),
+    ("layer3_0.downsample 1x1 128->256 @14", 14, 128, 256, 1, 1, 1),
+    ("layer3 3x3 s1 256->256 @14", 14, 256, 256, 3, 1, 3),
+    ("layer4_0.conv1 3x3 s2 256->512 @14", 14, 256, 512, 3, 2, 1),
+    ("layer4_0.downsample 1x1 256->512 @7", 7, 256, 512, 1, 1, 1),
+    ("layer4 3x3 s1 512->512 @7", 7, 512, 512, 3, 1, 3),
+]
+assert sum(cv[-1] for cv in FLAGSHIP_CONVS) == N_BINARY_CONVS
 TRAIN_BATCH = 256
 TRAIN_STEPS = 5
-# the flagship recipe the train phases run (BASELINE config 3)
+# the flagship recipe the train phases run (BASELINE config 3); metrics
+# are drained every 10 steps, so fit's steps do not wait for the card
 TRAIN_ARGS = dict(dataset="imagenet", arch="resnet18", synthetic=True, epochs=1, lr=1e-3,
-                  w_kurtosis=True, diffkurt=True, seed=0, print_freq=1)
-# card vs CPU first-step loss at batch 8 (see the module docstring)
-TRAIN_LOSS_RTOL = 1e-3
+                  w_kurtosis=True, diffkurt=True, seed=0, print_freq=10)
+# card vs CPU plain train step at batch 8 (see phase_train_parity): the
+# loss terms to this relative tolerance; each gradient to GRAD_TOL of
+# its tensor's largest |entry| (the BN backward cancels heavily), as the
+# CPU parity tests hold the port to the reference
+TRAIN_LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-3
 U = 2.0**-24
 # card vs CPU engine on exact-stem inputs: everything up to the global
 # average pool is then bitwise equal, and the pool's and the classifier's
@@ -444,9 +469,45 @@ def phase_cli(art: str) -> bool:
     return res["count"] == 64 and res["device"].startswith("cuda")
 
 
+def dgrad_exact(gy, x, wsign, alpha, s, pad):
+    """K5's conv-transpose sum without the slope, exact to float64 (every
+    product g·alpha·(±1) is exact, float64 sums them with 29 bits to
+    spare at these lengths): what the summation bound is held to."""
+    import torch
+
+    n, h, w, c = x.shape
+    o, kh, kw, _ = wsign.shape
+    ho, wo = gy.shape[1], gy.shape[2]
+    ga = (gy * alpha).double()  # the f32 product first, as the kernel forms it
+    cols = (ga.reshape(-1, o) @ wsign.reshape(o, -1).double()).reshape(n, ho, wo, kh, kw, c)
+    xp = torch.zeros((n, h + 2 * pad, w + 2 * pad, c), dtype=torch.float64, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            xp[:, i : i + s * (ho - 1) + 1 : s, j : j + s * (wo - 1) + 1 : s, :] += cols[:, :, :, i, j, :]
+    return xp[:, pad : pad + h, pad : pad + w, :]
+
+
+def wgrad_exact(gy, x, w, alpha, shift, s, pad):
+    """K6 exact to float64 (the same argument as :func:`dgrad_exact`)."""
+    from bdbnn_tpu_torch.nn.kernels.binary_conv import binarize_input, im2col_nhwc
+
+    kh, kw, c, o = w.shape
+    patches = im2col_nhwc(binarize_input(x, shift), kh, kw, s, pad).reshape(-1, kh * kw * c)
+    dws = patches.double().t() @ (gy * alpha).double().reshape(-1, o)
+    return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).double()
+
+
+def _ratio(err, base, scale) -> float:
+    """The largest (err - u|base|) / scale: how many u·Σ|terms| an error
+    takes beyond the final rounding."""
+    return float(((err - U * base.abs()).clamp(min=0) / scale.clamp(min=1e-30)).max())
+
+
 def phase_train_kernels(pk):
-    """Hold K5, K6 and K7 against their plain versions at flagship
-    shapes; returns per-kernel records (without ``launches``) and ok."""
+    """Hold K5, K6 and K7 against their plain versions at the shapes the
+    training main path gives them: K5/K6 at batch 256 and every distinct
+    binary conv shape of the flagship, K7 over its 19 hooked tensors.
+    Returns per-kernel records (without ``launches``) and ok."""
     import torch
     from torch.nn import grad as tgrad
 
@@ -468,62 +529,74 @@ def phase_train_kernels(pk):
     recs = {k: {"shapes": []} for k in ("K5", "K6", "K7")}
     ok = True
     approx = ("approx", 0.0, 0.0)
-    for si, (name, hw, c, o, k, s) in enumerate(SHAPES):
+    b = TRAIN_BATCH
+    for si, (name, hw, c, o, k, s, count) in enumerate(FLAGSHIP_CONVS):
         pad = k // 2
         ho = (hw + 2 * pad - k) // s + 1
         st = (s, s)
-        x = torch.randn((BATCH, hw, hw, c), generator=g, device=dev)
+        x = torch.randn((b, hw, hw, c), generator=g, device=dev)
         shift = 0.1 * torch.randn((c,), generator=g, device=dev)
         w = 0.5 * torch.randn((k, k, c, o), generator=g, device=dev)  # some |W| > 1
-        gy = torch.randn((BATCH, ho, ho, o), generator=g, device=dev)
+        gy = torch.randn((b, ho, ho, o), generator=g, device=dev)
         wsign, alpha = weight_binarize(w)
         ests = [approx] + ([("ste", 0.0, 0.0), ("ede", 0.7, 1.5), ("prox", 0.8, 0.0)] if si == 0 else [])
+        exact = dgrad_exact(gy, x, wsign, alpha, s, pad)
+        terms = binary_conv2d_dgrad_plain(gy.abs(), x, torch.ones_like(wsign), alpha.abs(),
+                                          shift=shift, strides=st)
         k5_err, k5_ok = 0.0, True
         for est in ests:
             dx = binary_conv2d_dgrad(gy, x, wsign, alpha, shift=shift, strides=st, estimator=est)
             pdx = binary_conv2d_dgrad_plain(gy, x, wsign, alpha, shift=shift, strides=st, estimator=est)
-            terms = binary_conv2d_dgrad_plain(gy.abs(), x, torch.ones_like(wsign), alpha.abs(),
-                                              shift=shift, strides=st)
-            slope = estimator_slope(x - shift, est).abs()
-            torch.cuda.synchronize()
-            err = (dx - pdx).abs()
-            this_ok = bool((err <= 8 * U * terms * slope + U * pdx.abs() + 1e-30).all())
-            scale = U * terms * slope
-            ratio = float(((err - U * pdx.abs()).clamp(min=0) / scale.clamp(min=1e-30)).max())
-            log(f"[train_kernels] K5 {name} {est[0]}: within bound {this_ok} "
-                f"max_abs_err={float(err.max())} max (err - u|plain|)/(u·Σ|terms|·|slope|)={ratio:.3f}")
+            slope = estimator_slope(x - shift, est)
+            ex = exact * slope.double()
+            scale = U * terms * slope.abs()
+            err, err_ex = (dx - pdx).abs(), (dx.double() - ex).abs()
+            this_ok = (bool((err <= 8 * scale + U * pdx.abs() + 1e-30).all())
+                       and bool((err_ex <= 4 * scale + U * ex.abs() + 1e-30).all()))
+            log(f"[train_kernels] K5 {name} b{b} {est[0]}: within bound {this_ok} "
+                f"max_abs_err={float(err.max())} (err - u|ref|)/(u·Σ|terms|·|slope|) max: "
+                f"kernel vs plain {_ratio(err, pdx, scale):.3f} (bound 8), kernel vs exact "
+                f"{_ratio(err_ex, ex, scale.double()):.3f} (bound 4), plain vs exact "
+                f"{_ratio((pdx.double() - ex).abs(), ex, scale.double()):.3f}")
             k5_err = max(k5_err, float(err.max()))
             k5_ok = k5_ok and this_ok
+            del dx, pdx, slope, ex, scale, err, err_ex
+        del exact, terms
         dw = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
         dw2 = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
         pdw = binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st)
-        wterms = binary_conv2d_wgrad_plain(gy.abs(), torch.ones_like(x), torch.zeros_like(w),
-                                           alpha.abs(), strides=st)
-        torch.cuda.synchronize()
-        err6 = (dw - pdw).abs()
+        ex6 = wgrad_exact(gy, x, w, alpha, shift, s, pad)
+        wscale = U * binary_conv2d_wgrad_plain(gy.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                               alpha.abs(), strides=st)
+        err6, err6_ex = (dw - pdw).abs(), (dw.double() - ex6).abs()
         k6_err = float(err6.max())
-        k6_ok = bool((err6 <= 8 * U * wterms + U * pdw.abs() + 1e-30).all()) and torch.equal(dw, dw2)
-        ratio6 = float(((err6 - U * pdw.abs()).clamp(min=0) / (U * wterms).clamp(min=1e-30)).max())
-        log(f"[train_kernels] K6 {name}: within bound and bitwise across two runs {k6_ok} "
-            f"max_abs_err={k6_err} max (err - u|plain|)/(u·Σ|terms|)={ratio6:.3f}")
+        k6_ok = (bool((err6 <= 8 * wscale + U * pdw.abs() + 1e-30).all())
+                 and bool((err6_ex <= 4 * wscale + U * ex6.abs() + 1e-30).all())
+                 and torch.equal(dw, dw2))
+        log(f"[train_kernels] K6 {name} b{b}: within bound and bitwise across two runs {k6_ok} "
+            f"max_abs_err={k6_err} (err - u|ref|)/(u·Σ|terms|) max: kernel vs plain "
+            f"{_ratio(err6, pdw, wscale):.3f} (bound 8), kernel vs exact "
+            f"{_ratio(err6_ex, ex6, wscale.double()):.3f} (bound 4), plain vs exact "
+            f"{_ratio((pdw.double() - ex6).abs(), ex6, wscale.double()):.3f}")
+        del dw2, pdw, ex6, wscale, err6, err6_ex
         # library yardsticks on the same ±1 operands (TF32 off)
         ga = (gy * alpha).permute(0, 3, 1, 2).contiguous()
         wf = wsign.permute(0, 3, 1, 2).to(torch.float32).contiguous()
         xb = binarize_input(x, shift).permute(0, 3, 1, 2).contiguous()
-        in_size = (BATCH, c, hw, hw)
+        in_size = (b, c, hw, hw)
         lib5 = lambda: tgrad.conv2d_input(in_size, wf, ga, stride=s, padding=pad)
         lib6 = lambda: tgrad.conv2d_weight(xb, wf.shape, ga, stride=s, padding=pad)
         t = {
             "K5": (cuda_ms(lambda: binary_conv2d_dgrad(gy, x, wsign, alpha, shift=shift, strides=st,
-                                                       estimator=approx), 20),
+                                                       estimator=approx), 10),
                    cuda_ms(lambda: binary_conv2d_dgrad_plain(gy, x, wsign, alpha, shift=shift,
-                                                             strides=st, estimator=approx), 5),
-                   cuda_ms(lib5, 20)),
-            "K6": (cuda_ms(lambda: binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st), 20),
-                   cuda_ms(lambda: binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st), 5),
-                   cuda_ms(lib6, 20)),
+                                                             strides=st, estimator=approx), 3),
+                   cuda_ms(lib5, 10)),
+            "K6": (cuda_ms(lambda: binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st), 10),
+                   cuda_ms(lambda: binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st), 3),
+                   cuda_ms(lib6, 10)),
         }
-        macs = BATCH * ho * ho * o * k * k * c
+        macs = b * ho * ho * o * k * k * c
         b5 = gy.numel() * 4 + 2 * x.numel() * 4 + wsign.numel() + (o + c) * 4
         b6 = gy.numel() * 4 + x.numel() * 4 + 2 * w.numel() * 4 + (o + c) * 4
         bounds = {"K5": bound(b5, 2.0 * macs, pk["f32_tflops"], pk),
@@ -531,14 +604,15 @@ def phase_train_kernels(pk):
         for kname, err, kok in (("K5", k5_err, k5_ok), ("K6", k6_err, k6_ok)):
             ms, plain_ms, lib_ms = t[kname]
             recs[kname]["shapes"].append({
-                "shape": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+                "shape": f"{name} b{b}", "count": count, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
                 "max_abs_err": err, "ok": bool(kok),
             })
-            log(f"[train_kernels] {kname} {name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={bounds[kname][0]:.4f} ({bounds[kname][1]})")
+            log(f"[train_kernels] {kname} {name} b{b} (x{count} a step): kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bounds[kname][0]:.4f} ({bounds[kname][1]})")
             ok = ok and bool(kok)
-        del x, gy, dx, pdx, terms, dw, dw2, pdw, wterms, ga, xb
+        del x, gy, dw, ga, xb, wf
         torch.cuda.empty_cache()
 
     # K7 over the flagship's 19 hooked latent weights (he-normal init)
@@ -564,7 +638,7 @@ def phase_train_kernels(pk):
     plain_ms = cuda_ms(lambda: kurtosis_grouped_plain(ws, targets, "avg"), 5)
     b7 = bound(2 * 4 * n_el, 17.0 * n_el, pk["f64_tflops"], pk)
     recs["K7"]["shapes"].append({
-        "shape": f"19 flagship tensors, {n_el} elements", "ms": ms, "plain_ms": plain_ms,
+        "shape": f"19 flagship tensors, {n_el} elements", "count": 1, "ms": ms, "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": b7[0], "bound_by": b7[1], "max_abs_err": k7_err,
         "ok": bool(k7_ok),
     })
@@ -630,9 +704,45 @@ def phase_train():
     return counts, {"step_ms": step_ms, "losses": loss_vals}, ok
 
 
+def time_host_input(batches: int = 3) -> None:
+    """The host's share of fit's input at -b 256, alone: ms per batch of
+    the numpy transform (the prefetch thread's work) and of the pinned
+    copy to the card (the train loop's work)."""
+    import torch
+
+    from bdbnn_tpu_torch.train.loop import build_datasets, to_device
+
+    cfg = train_config(batch_size=TRAIN_BATCH, synthetic_train_size=batches * TRAIN_BATCH,
+                       synthetic_val_size=TRAIN_BATCH, device="cuda").validate()
+    pipe, _, _ = build_datasets(cfg)
+    pipe.prefetch = 0
+    it = pipe.epoch(0)
+    dev = torch.device("cuda")
+    transform_ms, copy_ms = [], []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        x, y = next(it)
+        t1 = time.perf_counter()
+        batch = (to_device(x, dev), to_device(y, dev))
+        torch.cuda.synchronize()
+        del batch
+        transform_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"[train] host input per -b {TRAIN_BATCH} batch, alone: transform ms {transform_ms} "
+        f"(one thread), pin + copy ms {copy_ms}")
+
+
 def phase_train_parity() -> bool:
-    """The first step's loss on the card against the CPU plain step, at
-    batch 8, from identical weights and batch."""
+    """One train step on the card against the CPU plain step at batch 8,
+    from identical weights and batch. Held: the loss terms (rtol
+    TRAIN_LOSS_RTOL); every parameter's gradient (GRAD_TOL of its
+    tensor's largest |entry|), which K5, K6, the dshift sum, K7's
+    gradient and the estimator routing all reach; every updated
+    parameter: Adam's first update is lr·g/(|g| + eps), so an entry
+    whose decayed gradient is under 1e-3 of its tensor's largest can turn
+    summation noise into an update of up to 2·lr and is held only to
+    that, the others to 2e-3·lr; the batch statistics to rtol 1e-5 with
+    1e-4 of the tensor's largest |entry|."""
     import numpy as np
     import torch
 
@@ -650,16 +760,62 @@ def phase_train_parity() -> bool:
     t0 = time.perf_counter()
     for dev in ("cuda", "cpu"):
         state, step_cfg = build_training(cfg, torch.device(dev), 1, 224)
-        step = make_train_step(state.model, state.optimizer, step_cfg)
+        model, opt = state.model, state.optimizer
+        old = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        wd = {id(p): grp["weight_decay"] for grp in opt.param_groups for p in grp["params"]}
+        step = make_train_step(model, opt, step_cfg)
         batch = (torch.from_numpy(np.array(x)).to(dev), torch.from_numpy(np.array(y)).to(dev))
         _, m = step(state, batch, tk, gate)
-        out[dev] = {k: float(m[k]) for k in ("loss", "loss_ce", "loss_kurt")}
-        del state, step
-    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k]) for k in out["cpu"]}
-    ok = rel["loss"] <= TRAIN_LOSS_RTOL
-    log(f"[train] first step at batch 8, card {out['cuda']} vs CPU plain {out['cpu']}: "
-        f"relative {rel} (tol {TRAIN_LOSS_RTOL} on loss) ok={ok} "
-        f"({time.perf_counter() - t0:.1f}s)")
+        out[dev] = {
+            "m": {k: float(m[k]) for k in ("loss", "loss_ce", "loss_kurt")},
+            "grad": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "wd": {n: wd[id(p)] for n, p in model.named_parameters()},
+            "old": old,
+            "new": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            "lr": opt.param_groups[0]["lr"],
+        }
+        del state, step, model, opt
+    card, cpu = out["cuda"], out["cpu"]
+    fails = []
+    rel = {k: abs(card["m"][k] - cpu["m"][k]) / abs(cpu["m"][k]) for k in cpu["m"]}
+    fails += [f"{k} relative {v}" for k, v in rel.items() if not v <= TRAIN_LOSS_RTOL]
+    fails += [f"{k} starts from other weights" for k in cpu["old"]
+              if not torch.equal(card["old"][k], cpu["old"][k])]
+    lr = cpu["lr"]
+    worst_g = worst_p = worst_bn = 0.0
+    kept = total = 0
+    for name, v in cpu["new"].items():
+        got, old = card["new"][name], cpu["old"][name]
+        if name.endswith(("running_mean", "running_var")):
+            atol = 1e-4 * float(v.abs().max())
+            err = float(((got - v).abs() - 1e-5 * v.abs()).max())
+            worst_bn = max(worst_bn, err / max(atol, 1e-30))
+            if not err <= atol:
+                fails.append(f"{name} differs by {err} beyond rtol 1e-5 (atol {atol})")
+            continue
+        g_ref = cpu["grad"][name]
+        gmax = max(float(g_ref.abs().max()), 1e-30)
+        gerr = float((card["grad"][name] - g_ref).abs().max()) / gmax
+        worst_g = max(worst_g, gerr)
+        if not gerr <= GRAD_TOL:
+            fails.append(f"{name} gradient differs by {gerr} of its largest |entry|")
+        g_eff = g_ref + cpu["wd"][name] * old
+        keep = g_eff.abs() >= 1e-3 * float(g_eff.abs().max())
+        kept += int(keep.sum())
+        total += keep.numel()
+        derr = (got - old) - (v - old)
+        perr = float(derr[keep].abs().max()) / lr if bool(keep.any()) else 0.0
+        worst_p = max(worst_p, perr)
+        if not (perr <= 2e-3 and float(derr.abs().max()) <= 2.0 * lr * (1 + 1e-6)):
+            fails.append(f"{name} update differs by {perr}·lr")
+    ok = not fails
+    log(f"[train] one step at batch 8, card {card['m']} vs CPU plain {cpu['m']}: relative {rel} "
+        f"(tol {TRAIN_LOSS_RTOL}); worst gradient error {worst_g} of the tensor's largest "
+        f"(tol {GRAD_TOL}, {len(cpu['grad'])} tensors); worst update error {worst_p}·lr on "
+        f"{kept}/{total} entries (tol 2e-3·lr); worst batch-stat error {worst_bn} of its "
+        f"tolerance; ok={ok} ({time.perf_counter() - t0:.1f}s)")
+    for f in fails[:20]:
+        log(f"[train] FAIL: {f}")
     return ok
 
 
@@ -780,6 +936,7 @@ def main() -> int:
         counts, ok_m = phase_main(art)
         ok_c = phase_cli(art)
     train_counts, _, ok_t = phase_train()
+    time_host_input()
     ok_tp = phase_train_parity()
     ok_te = phase_train_cede()
     ok_tc = phase_train_cli()
@@ -815,10 +972,15 @@ def main() -> int:
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
+    ms_of = {k: "the sum over four flagship shapes at batch 32" for k in ("K1", "K2", "K3", "K4")}
+    ms_of.update({"K5": "one train step at -b 256: the sum over the 19 binary convs",
+                  "K6": "one train step at -b 256: the sum over the 19 binary convs",
+                  "K7": "one call over the 19 hooked tensors"})
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         sh = recs[k]["shapes"]
         lib = [s["library_ms"] for s in sh]
         main_bound = max(sh, key=lambda s: s["bound_ms"])
+        total = lambda key: sum(s.get("count", 1) * s[key] for s in sh)
         kernels.append({
             "name": f"{k} {names[k]}",
             "route": "cuda",
@@ -827,12 +989,12 @@ def main() -> int:
             "launches": used[k],
             "launches_by_path": by_path[k],
             "max_abs_err": max(s["max_abs_err"] for s in sh),
-            # sums over the four flagship shapes (batch 32) in "shapes"
-            "ms": sum(s["ms"] for s in sh),
-            "plain_ms": sum(s["plain_ms"] for s in sh),
-            "bound_ms": sum(s["bound_ms"] for s in sh),
+            "ms_of": ms_of[k],
+            "ms": total("ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
             "bound_by": main_bound["bound_by"],
-            "library_ms": None if any(v is None for v in lib) else sum(lib),
+            "library_ms": None if any(v is None for v in lib) else total("library_ms"),
             "shapes": sh,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

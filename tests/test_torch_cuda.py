@@ -1,11 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1-K4 bitwise; K5 and K6 to the summation bound
 ``8·2⁻²⁴·Σ|terms|·|slope| + 2⁻²⁴·|plain|`` (the products are exact, the
-sums run in another order: each side within 4·2⁻²⁴·Σ|terms| of the exact
-sum, and one rounding of the slope multiply), K6 bitwise between two runs; K7 to rtol 1e-5 (both sum in
-f64 and round once; the f32 mean can round the other way). Every test here is marked ``cuda`` and skips with a reason where
-no CUDA device exists (this file imports torch and the port only, no
-JAX). On the GPU machine:
+sums run in another order and each side's sum carries a rounding error of
+a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K6 bitwise
+between two runs; K7 to rtol 1e-5 (both sum in f64 and round once; the
+f32 mean can round the other way). Every test here is marked ``cuda`` and
+skips with a reason where no CUDA device exists (this file imports torch
+and the port only, no JAX). On the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
