@@ -48,11 +48,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                   _I, _I, _I, _I, _I, _I, _P),
     },
     "binary_conv_dgrad": {
-        # g, x, shift (or NULL), wsign, alpha, dx, N, H, W, C, O, kh, kw,
-        # stride, pad, Ho, Wo, estimator, p0, p1, stream
-        "bdbnn_binary_conv_dgrad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                    _P),
+        # g, x, shift (or NULL), wsign, alpha, taps, gs scratch, wb
+        # scratch, dx, N, H, W, C, O, kh, kw, stride, Ho, Wo, OP, CP,
+        # estimator, p0, p1, stream
+        "bdbnn_binary_conv_dgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _F, _F, _P),
     },
     "binary_conv_wgrad": {
         # g, x, shift (or NULL), w, alpha, partial, dw, N, H, W, C, O, kh,

@@ -13,7 +13,11 @@ hand-written CUDA kernels:
   ±1 activation never exists in device memory.
 - K5 :func:`binary_conv2d_dgrad` (``csrc/binary_conv_dgrad.cu``) — the
   input gradient ``conv_transpose(g·alpha, sign W)`` times the active
-  sign estimator's slope at ``x - shift`` (:data:`ESTIMATORS`).
+  sign estimator's slope at ``x - shift`` (:data:`ESTIMATORS`), on the
+  bf16 tensor cores: ``g·alpha`` split exactly into three bf16 pieces
+  (:func:`split_bf16x3`) and the dx rows taken by stride-parity class
+  (:func:`dgrad_parity_classes`), so only the taps on the stride grid
+  are multiplied.
 - K6 :func:`binary_conv2d_wgrad` (``csrc/binary_conv_wgrad.cu``) — the
   weight gradient ``conv(sign(x - shift)ᵀ, g·alpha)`` times the latent
   weight's STE mask ``1{|W| <= 1}``, in HWIO.
@@ -39,7 +43,7 @@ the plain version only for a tensor on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -266,6 +270,50 @@ def binary_conv2d_dgrad_plain(
     return (dxb * slope) if slope is not None else dxb.contiguous()
 
 
+def split_bf16x3(ga: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of K5's split pass: f32 ``ga`` as three bf16 pieces
+    with ``hi + mid + lo == ga`` exactly (``hi = bf16(ga)``, ``mid =
+    bf16(ga - hi)``, ``lo = ga - hi - mid``; each subtraction is exact in
+    f32 and ``lo`` fits bf16's 8 significand bits). Exact for |ga| from
+    about 2^-100 up; far below that ``lo`` would need bf16 subnormals
+    finer than 2^-133."""
+    hi = ga.to(torch.bfloat16)
+    r = ga - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.to(torch.float32)).to(torch.bfloat16)
+
+
+def dgrad_parity_classes(k: int, s: int, p: int) -> List[List[Tuple[int, int]]]:
+    """K5's stride-parity classes along one axis. For each residue ``a =
+    h mod s`` of a dx coordinate, the taps ``(i, d)`` that reach g from
+    it: ``h + p - i = ho·s`` holds iff ``i ≡ a + p (mod s)``, and then
+    ``ho = h // s + d`` with ``d = (a + p - i) / s``. Every tap lands in
+    exactly one class; at 3×3, s2, p1 the classes hold 1 and 2 taps."""
+    return [[(i, (a + p - i) // s) for i in range(k) if (a + p - i) % s == 0] for a in range(s)]
+
+
+def dgrad_tap_table(kh: int, kw: int, s: int, p: int) -> List[int]:
+    """The int32 table K5 reads: ``s² + 1`` offsets into the tap list of
+    class ``z = a·s + b`` (rows with h ≡ a, w ≡ b mod s), then each tap
+    of the classes in order as ``(i·kw + j, di, dj)``."""
+    rows, cols = dgrad_parity_classes(kh, s, p), dgrad_parity_classes(kw, s, p)
+    offsets, taps = [0], []
+    for a in range(s):
+        for b in range(s):
+            taps += [(i * kw + j, di, dj) for i, di in rows[a] for j, dj in cols[b]]
+            offsets.append(len(taps))
+    return offsets + [v for t in taps for v in t]
+
+
+# K5's reduction is staged 32 o values deep: the split pass pads O to it
+DGRAD_O_STAGE = 32
+_tap_tables: Dict[Tuple, Tensor] = {}
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
 def binary_conv2d_dgrad(
     g: Tensor,
     x: Tensor,
@@ -278,7 +326,13 @@ def binary_conv2d_dgrad(
     estimator: Estimator = ("none", 0.0, 0.0),
 ) -> Tensor:
     """``slope(x - shift) · conv_transpose(g·alpha, sign W)`` — K5 on a
-    CUDA tensor, the plain version on a CPU tensor. f32 NHWC like ``x``."""
+    CUDA tensor, the plain version on a CPU tensor. f32 NHWC like ``x``.
+
+    K5 allocates its scratch here: ``g·alpha`` split into three bf16
+    pieces (N, Ho, Wo, 3, OP) and the ±1 sign as bf16 (kh·kw, OP, CP),
+    OP and CP being O and C padded to the kernel's stage and 16-byte
+    rows; the parity-class table lives on the card, one per conv
+    geometry and device."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     if not x.is_cuda:
         if x.device.type != "cpu":
@@ -294,12 +348,21 @@ def binary_conv2d_dgrad(
     pad = _symmetric_pad(padding, kh, kw)
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
     _check_grad(g, n, ho, wo, o, x)
+    key = (kh, kw, stride, pad, x.device)
+    taps = _tap_tables.get(key)
+    if taps is None:
+        taps = _tap_tables[key] = torch.tensor(
+            dgrad_tap_table(kh, kw, stride, pad), dtype=torch.int32, device=x.device
+        )
+    op, cp = _round_up(o, DGRAD_O_STAGE), _round_up(c, 8)
+    gs = torch.empty((n, ho, wo, 3, op), dtype=torch.bfloat16, device=x.device)
+    wb = torch.empty((kh * kw, op, cp), dtype=torch.bfloat16, device=x.device)
     dx = torch.empty_like(x)
     lib = _build.library("binary_conv_dgrad")
     err = lib.bdbnn_binary_conv_dgrad(
         g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        wsign.data_ptr(), alpha.data_ptr(), dx.data_ptr(),
-        n, h, w, c, o, kh, kw, stride, pad, ho, wo, ESTIMATORS[name], p0, p1,
+        wsign.data_ptr(), alpha.data_ptr(), taps.data_ptr(), gs.data_ptr(), wb.data_ptr(),
+        dx.data_ptr(), n, h, w, c, o, kh, kw, stride, ho, wo, op, cp, ESTIMATORS[name], p0, p1,
         _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_dgrad")
@@ -478,8 +541,11 @@ __all__ = [
     "binary_conv2d_plain",
     "binary_conv2d_wgrad",
     "binary_conv2d_wgrad_plain",
+    "dgrad_parity_classes",
+    "dgrad_tap_table",
     "estimator_slope",
     "im2col_nhwc",
     "sign_int8_from_hwio",
+    "split_bf16x3",
     "wgrad_splits",
 ]

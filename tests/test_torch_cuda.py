@@ -2,9 +2,10 @@
 card: K1-K4 bitwise; K5 and K6 to the summation bound
 ``8·2⁻²⁴·Σ|terms|·|slope| + 2⁻²⁴·|plain|`` (the products are exact, the
 sums run in another order and each side's sum carries a rounding error of
-a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K6 bitwise
-between two runs; K7 to rtol 1e-5 (both sum in f64 and round once; the
-f32 mean can round the other way). Every test here is marked ``cuda`` and
+a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K5 and K6
+bitwise between two runs, K5 also on same-sign terms at 512 channels
+(within 4·2⁻²⁴·Σ|terms| of the float64 sum); K7 to rtol 1e-5 (both sum
+in f64 and round once; the f32 mean can round the other way). Every test here is marked ``cuda`` and
 skips with a reason where no CUDA device exists (this file imports torch
 and the port only, no JAX). On the GPU machine:
 
@@ -165,6 +166,43 @@ def test_k5_k6_vs_plain(cuda, case, est):
                                        alpha.abs(), strides=st)
     assert bool(((dw - pdw).abs() <= 8 * U * wterms + U * pdw.abs() + 1e-30).all())
     assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_k5_bitwise_across_two_runs(cuda, case):
+    x, shift, w, g = _grad_operands(case, cuda, seed=14)
+    st = (case[6], case[6])
+    wsign, alpha = weight_binarize_plain(w)
+    est = ("approx", 0.0, 0.0)
+    dx = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    dx2 = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2)
+
+
+@pytest.mark.cuda
+def test_k5_same_sign_terms_within_bound(cuda):
+    """|g| and all +1 signs at C = O = 512, 3×3: every term is positive,
+    so no truncation or rounding bias of the sum can cancel."""
+    from chip_smoke import dgrad_exact
+
+    case = (4, 7, 7, 512, 512, 3, 1, False)
+    x, _, w, g = _grad_operands(case, cuda, seed=15)
+    g = g.abs()
+    _, alpha = weight_binarize_plain(w)
+    wsign = torch.ones((512, 3, 3, 512), dtype=torch.int8, device=cuda)
+    dx = binary_conv2d_dgrad(g, x, wsign, alpha)
+    pdx = binary_conv2d_dgrad_plain(g, x, wsign, alpha)
+    exact = dgrad_exact(g, x, wsign, alpha, 1, 1)
+    torch.cuda.synchronize()
+    terms = exact  # every term is positive
+    assert bool(((dx.double() - exact).abs() <= 4 * U * terms + U * exact + 1e-30).all())
+    # against the plain version where it is within its own float64 bound:
+    # its f32 chain of 512 positive terms can drift beyond (chip_smoke.py)
+    plain_in = (pdx.double() - exact).abs() <= 4 * U * terms + U * exact + 1e-30
+    within = (dx - pdx).abs() <= 8 * U * terms.float() + U * pdx.abs() + 1e-30
+    assert bool(within[plain_in].all())
 
 
 @pytest.mark.cuda
