@@ -39,7 +39,6 @@ NVCC_FLAGS: Tuple[str, ...] = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv": {
         # x, shift (or NULL), wsign, alpha, y, N, H, W, C, O, kh, kw,
@@ -56,11 +55,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                     _I, _I, _F, _F, _P),
     },
     "binary_conv_wgrad": {
-        # g, x, shift (or NULL), w, alpha, partial, dw, N, H, W, C, O, kh,
-        # kw, stride, pad, Ho, Wo, splits, rows_per_split, stream
-        "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
-                                    _P),
+        # g, x, shift (or NULL), w, alpha, gs scratch, sx scratch, partial
+        # scratch, dw, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, OP, CP,
+        # splits, rows_per_split, stream
+        "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _P),
     },
     "kurtosis": {
         # meta, targets, T, total_blocks, chunk, mode, with_grad, partial,

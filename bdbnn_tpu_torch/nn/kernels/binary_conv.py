@@ -20,7 +20,10 @@ hand-written CUDA kernels:
   are multiplied.
 - K6 :func:`binary_conv2d_wgrad` (``csrc/binary_conv_wgrad.cu``) — the
   weight gradient ``conv(sign(x - shift)ᵀ, g·alpha)`` times the latent
-  weight's STE mask ``1{|W| <= 1}``, in HWIO.
+  weight's STE mask ``1{|W| <= 1}``, in HWIO, on the bf16 tensor cores:
+  the same exact split of ``g·alpha``, the activation sign written once
+  as bf16 ±1 (:func:`wgrad_sign_bf16`), the long reduction over
+  positions split in a fixed count (:func:`wgrad_splits`).
 - :class:`BinaryConvFn` — the autograd function the layers train
   through: K1 forward, K5 + K6 backward, ``-Σ dx`` for the shift, no
   gradient for alpha (the reference's ``stop_gradient``).
@@ -306,6 +309,7 @@ def dgrad_tap_table(kh: int, kw: int, s: int, p: int) -> List[int]:
 
 
 # K5's reduction is staged 32 o values deep: the split pass pads O to it
+# (K6 reads the split in the same layout)
 DGRAD_O_STAGE = 32
 _tap_tables: Dict[Tuple, Tensor] = {}
 
@@ -411,14 +415,33 @@ def binary_conv2d_wgrad_plain(
     return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).to(torch.float32)
 
 
+def wgrad_sign_bf16(x: Tensor, shift: Optional[Tensor], cp: int) -> Tensor:
+    """Plain version of K6's sign pass: ``sign(x - shift)`` (sign(0) :=
+    +1) as bf16 ±1, NHWC with the channels padded with zeros to ``cp``."""
+    v = x - shift if shift is not None else x
+    s = torch.where(v >= 0, 1.0, -1.0).to(torch.bfloat16)
+    return torch.nn.functional.pad(s, (0, cp - int(x.shape[-1])))
+
+
+# K6's GEMM tile: 128 dW rows ((tap, c) pairs over the padded channels)
+# x 64 output channels, reduced over positions in 32-deep stages
+WGRAD_ROW_TILE = 128
+WGRAD_O_TILE = 64
+WGRAD_M_STAGE = 32
+# blocks K6's GEMM aims for: many waves of the H100's 132 SMs, so the
+# last wave's tail is short, while the partial sums stay a few tens of MB
+WGRAD_BLOCKS = 2048
+
+
 def wgrad_splits(m: int, kd: int, o: int) -> Tuple[int, int]:
     """(splits, rows per split) of K6's reduction over M positions: about
-    four blocks per SM of the H100's 132 over the (kd, o) output tiles,
-    no split under 512 rows, rows a multiple of the 16-row stage. A
-    function of the shapes alone, so a run's sum order is fixed."""
-    tiles = math.ceil(kd / 64) * math.ceil(o / 64)
-    splits = max(1, min(math.ceil(4 * 132 / tiles), math.ceil(m / 512)))
-    rows = math.ceil(math.ceil(m / splits) / 16) * 16
+    :data:`WGRAD_BLOCKS` blocks over the (kd, o) output tiles (``kd`` =
+    kh·kw·CP, the GEMM's rows), no split under 512 rows, rows a multiple
+    of the 32-deep stage. A function of the shapes alone, so a run's sum
+    order is fixed."""
+    tiles = math.ceil(kd / WGRAD_ROW_TILE) * math.ceil(o / WGRAD_O_TILE)
+    splits = max(1, min(math.ceil(WGRAD_BLOCKS / tiles), math.ceil(m / 512)))
+    rows = math.ceil(math.ceil(m / splits) / WGRAD_M_STAGE) * WGRAD_M_STAGE
     return math.ceil(m / rows), rows
 
 
@@ -433,7 +456,12 @@ def binary_conv2d_wgrad(
     padding="auto",
 ) -> Tensor:
     """``1{|W| <= 1} · conv(sign(x - shift)ᵀ, g·alpha)`` in HWIO — K6 on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor, the plain version on a CPU tensor.
+
+    K6 allocates its scratch here: ``g·alpha`` split into three bf16
+    pieces (N, Ho, Wo, 3, OP) as K5 lays it out, the activation sign as
+    bf16 (N, H, W, CP), and the f32 partial sums of the split reduction
+    (splits, kh·kw·C, O)."""
     kh, kw, c, o = _check_latent(w, x, alpha)
     if not x.is_cuda:
         if x.device.type != "cpu":
@@ -451,14 +479,19 @@ def binary_conv2d_wgrad(
     n, h, wd = (int(d) for d in x.shape[:3])
     ho, wo = out_size(h, kh, stride, pad), out_size(wd, kw, stride, pad)
     _check_grad(g, n, ho, wo, o, x)
-    splits, rows = wgrad_splits(n * ho * wo, kh * kw * c, o)
+    if n * ho * wo >= 2**30:  # the GEMM's position ranges stay in int32
+        raise ValueError(f"K6 takes under 2^30 output positions, got {n}x{ho}x{wo}")
+    op, cp = _round_up(o, DGRAD_O_STAGE), _round_up(c, 8)
+    splits, rows = wgrad_splits(n * ho * wo, kh * kw * cp, o)
+    gs = torch.empty((n, ho, wo, 3, op), dtype=torch.bfloat16, device=x.device)
+    sx = torch.empty((n, h, wd, cp), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, kh * kw * c, o), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
     lib = _build.library("binary_conv_wgrad")
     err = lib.bdbnn_binary_conv_wgrad(
         g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        w.data_ptr(), alpha.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        n, h, wd, c, o, kh, kw, stride, pad, ho, wo, splits, rows,
+        w.data_ptr(), alpha.data_ptr(), gs.data_ptr(), sx.data_ptr(), partial.data_ptr(),
+        dw.data_ptr(), n, h, wd, c, o, kh, kw, stride, pad, ho, wo, op, cp, splits, rows,
         _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_wgrad")
@@ -547,5 +580,6 @@ __all__ = [
     "im2col_nhwc",
     "sign_int8_from_hwio",
     "split_bf16x3",
+    "wgrad_sign_bf16",
     "wgrad_splits",
 ]

@@ -44,13 +44,15 @@ Phases (any failure exits non-zero and prints no result line):
              all +1 signs) at layer4 3x3 s1 512->512, where no bias of the
              sum can cancel, to the same two bounds (against the plain
              version where it is itself within its float64 bound, see
-             phase_k5_same_sign); K7 over the 19
+             phase_k5_same_sign); K6 likewise at layer1 3x3 s1 64->64
+             @56, where each sum runs over up to 802,816 positions
+             (phase_k6_same_sign); K7 over the 19
              flagship tensors to rtol 1e-5. Times each beside its plain
              version, the least time the card could take, and
              torch.nn.grad.conv2d_input / conv2d_weight on the same ±1
-             operands (TF32 off, a yardstick). K5's bound is at the bf16
-             tensor rate (6·MACs: three bf16 pieces of g·alpha), its f32
-             figure (2·MACs at 67 TFLOP/s) is logged beside it;
+             operands (TF32 off, a yardstick). K5's and K6's bounds are at
+             the bf16 tensor rate (6·MACs: three bf16 pieces of g·alpha),
+             their f32 figure (2·MACs at 67 TFLOP/s) is logged beside it;
 6. train   — the training main path: ``fit`` on the full-width ImageNet
              resnet18 (react) flagship, synthetic 224² images, -b 256,
              --w-kurtosis --diffkurt, Adam, 5 steps and the eval pass, its
@@ -614,26 +616,29 @@ def phase_train_kernels(pk):
         macs = b * ho * ho * o * k * k * c
         b5 = gy.numel() * 4 + 2 * x.numel() * 4 + wsign.numel() + (o + c) * 4
         b6 = gy.numel() * 4 + x.numel() * 4 + 2 * w.numel() * 4 + (o + c) * 4
+        # both on the bf16 tensor cores: 6·MACs (three bf16 pieces of
+        # g·alpha) or bytes; the f32 figure (2·MACs at 67 TFLOP/s) beside
         bounds = {"K5": bound(b5, 6.0 * macs, pk["bf16_tflops"], pk),
-                  "K6": bound(b6, 2.0 * macs, pk["f32_tflops"], pk)}
-        b5_f32 = bound(b5, 2.0 * macs, pk["f32_tflops"], pk)
+                  "K6": bound(b6, 6.0 * macs, pk["bf16_tflops"], pk)}
+        f32_bounds = {"K5": bound(b5, 2.0 * macs, pk["f32_tflops"], pk),
+                      "K6": bound(b6, 2.0 * macs, pk["f32_tflops"], pk)}
         for kname, err, kok in (("K5", k5_err, k5_ok), ("K6", k6_err, k6_ok)):
             ms, plain_ms, lib_ms = t[kname]
+            f32b = f32_bounds[kname]
             recs[kname]["shapes"].append({
                 "shape": f"{name} b{b}", "count": count, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
-                "max_abs_err": err, "ok": bool(kok),
+                "bound_f32_ms": f32b[0], "max_abs_err": err, "ok": bool(kok),
             })
-            if kname == "K5":
-                recs[kname]["shapes"][-1]["bound_f32_ms"] = b5_f32[0]
             log(f"[train_kernels] {kname} {name} b{b} (x{count} a step): kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bounds[kname][0]:.4f} ({bounds[kname][1]})"
-                + (f" f32 bound_ms={b5_f32[0]:.4f} ({b5_f32[1]})" if kname == "K5" else ""))
+                f"bound_ms={bounds[kname][0]:.4f} ({bounds[kname][1]}) "
+                f"f32 bound_ms={f32b[0]:.4f} ({f32b[1]})")
             ok = ok and bool(kok)
         del x, gy, dw, ga, xb, wf
         torch.cuda.empty_cache()
     ok = phase_k5_same_sign(g) and ok
+    ok = phase_k6_same_sign(g) and ok
 
     # K7 over the flagship's 19 hooked latent weights (he-normal init)
     model = create_model("resnet18", "imagenet", generator=torch.Generator().manual_seed(0)).to(dev)
@@ -695,22 +700,58 @@ def phase_k5_same_sign(gen) -> bool:
     dx = binary_conv2d_dgrad(gy, x, wsign, alpha)
     pdx = binary_conv2d_dgrad_plain(gy, x, wsign, alpha)
     exact = dgrad_exact(gy, x, wsign, alpha, 1, 1)
-    scale = U * exact  # every term is positive: Σ|terms| is the sum itself
-    err, err_ex = (dx - pdx).abs(), (dx.double() - exact).abs()
-    plain_in = (pdx.double() - exact).abs() <= 4 * scale + U * exact.abs() + 1e-30
-    ok = (bool((err <= 8 * scale.float() + U * pdx.abs() + 1e-30)[plain_in].all())
+    ok = _hold_same_sign(f"K5 same-sign probe layer4 3x3 s1 512->512 @7 b{b}", dx, pdx, exact)
+    del x, gy, dx, pdx, exact
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_k6_same_sign(gen) -> bool:
+    """K6 on same-sign terms at the flagship's longest reduction (layer1
+    3x3 s1 64->64 @56, -b 256): |g|, x >= 0 so every activation sign is
+    +1 (0 in the padding), alpha > 0 and W = 0 (no STE mask). Each dW
+    entry is a sum of up to 802,816 positive terms, so a bias of the
+    summation cannot cancel. Held as phase_k5_same_sign holds K5; one f32
+    chain of the plain version drifts far beyond its own bound here."""
+    import torch
+
+    from bdbnn_tpu_torch.nn.kernels import binary_conv2d_wgrad, binary_conv2d_wgrad_plain
+
+    dev = torch.device("cuda")
+    b, hw, c, o = TRAIN_BATCH, 56, 64, 64
+    x = torch.randn((b, hw, hw, c), generator=gen, device=dev).abs()
+    gy = torch.randn((b, hw, hw, o), generator=gen, device=dev).abs()
+    alpha = 0.05 + torch.rand((o,), generator=gen, device=dev)
+    w = torch.zeros((3, 3, c, o), device=dev)
+    dw = binary_conv2d_wgrad(gy, x, w, alpha)
+    pdw = binary_conv2d_wgrad_plain(gy, x, w, alpha)
+    exact = wgrad_exact(gy, x, w, alpha, None, 1, 1)
+    ok = _hold_same_sign(f"K6 same-sign probe layer1 3x3 s1 64->64 @56 b{b}", dw, pdw, exact)
+    del x, gy, dw, pdw, exact
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _hold_same_sign(label: str, got, plain, exact) -> bool:
+    """A same-sign probe's check: every term is positive, so Σ|terms| is
+    the float64 sum itself. ``got`` within 4·u·Σ|terms| + u|exact| of it,
+    and within 8·u·Σ|terms| + u|plain| of ``plain`` wherever ``plain`` is
+    within 4·u·Σ|terms| + u|exact| of it; logs the ratios and the count of
+    elements where the plain version is beyond its own bound."""
+    scale = U * exact
+    err, err_ex = (got - plain).abs(), (got.double() - exact).abs()
+    plain_in = (plain.double() - exact).abs() <= 4 * scale + U * exact.abs() + 1e-30
+    ok = (bool((err <= 8 * scale.float() + U * plain.abs() + 1e-30)[plain_in].all())
           and bool((err_ex <= 4 * scale + U * exact.abs() + 1e-30).all()))
-    log(f"[train_kernels] K5 same-sign probe layer4 3x3 s1 512->512 @7 b{b} (|g|, signs +1): "
+    log(f"[train_kernels] {label} (|g|, signs +1): "
         f"within bound {ok}; the plain version is beyond its own float64 bound at "
         f"{int((~plain_in).sum())} of {plain_in.numel()} elements; (err - u|ref|)/(u·Σ|terms|) "
-        f"max: kernel vs plain {_ratio(err[plain_in], pdx[plain_in], scale.float()[plain_in]):.3f} "
-        f"where the plain is within its bound (bound 8), {_ratio(err, pdx, scale.float()):.3f} "
+        f"max: kernel vs plain {_ratio(err[plain_in], plain[plain_in], scale.float()[plain_in]):.3f} "
+        f"where the plain is within its bound (bound 8), {_ratio(err, plain, scale.float()):.3f} "
         f"over all, kernel vs exact "
         f"{_ratio(err_ex, exact, scale):.3f} (bound 4), plain vs exact "
-        f"{_ratio((pdx.double() - exact).abs(), exact, scale):.3f}; mean (kernel - exact)/"
-        f"(u·Σ|terms|) {float(((dx.double() - exact) / scale).mean()):.3f}")
-    del x, gy, dx, pdx, exact, scale, err, err_ex
-    torch.cuda.empty_cache()
+        f"{_ratio((plain.double() - exact).abs(), exact, scale):.3f}; mean (kernel - exact)/"
+        f"(u·Σ|terms|) {float(((got.double() - exact) / scale).mean()):.3f}")
     return ok
 
 

@@ -3,7 +3,8 @@ card: K1-K4 bitwise; K5 and K6 to the summation bound
 ``8·2⁻²⁴·Σ|terms|·|slope| + 2⁻²⁴·|plain|`` (the products are exact, the
 sums run in another order and each side's sum carries a rounding error of
 a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K5 and K6
-bitwise between two runs, K5 also on same-sign terms at 512 channels
+bitwise between two runs, K6 also against the float64 sum (within
+4·2⁻²⁴·Σ|terms| + 2⁻²⁴·|exact|), K5 and K6 also on same-sign terms
 (within 4·2⁻²⁴·Σ|terms| of the float64 sum); K7 to rtol 1e-5 (both sum
 in f64 and round once; the f32 mean can round the other way). Every test here is marked ``cuda`` and
 skips with a reason where no CUDA device exists (this file imports torch
@@ -203,6 +204,44 @@ def test_k5_same_sign_terms_within_bound(cuda):
     plain_in = (pdx.double() - exact).abs() <= 4 * U * terms + U * exact + 1e-30
     within = (dx - pdx).abs() <= 8 * U * terms.float() + U * pdx.abs() + 1e-30
     assert bool(within[plain_in].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_k6_vs_exact(cuda, case):
+    """K6 against the float64 sum (every product sx·(g·alpha) is exact,
+    float64 holds these sums) within 4·u·Σ|terms| + u·|exact|."""
+    from chip_smoke import wgrad_exact
+
+    x, shift, w, g = _grad_operands(case, cuda, seed=16)
+    k, s = case[5], case[6]
+    _, alpha = weight_binarize_plain(w)
+    dw = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=(s, s))
+    exact = wgrad_exact(g, x, w, alpha, shift, s, k // 2)
+    wterms = binary_conv2d_wgrad_plain(g.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                       alpha.abs(), strides=(s, s)).double()
+    torch.cuda.synchronize()
+    assert bool(((dw.double() - exact).abs() <= 4 * U * wterms + U * exact.abs() + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_k6_same_sign_terms_within_bound(cuda):
+    """|g|, every activation sign +1 (x ≥ 0, no shift) and every |W| ≤ 1
+    at C = O = 64, 3×3 s1 on 56×56 at batch 4: each dW entry is a sum of
+    up to 12,544 positive terms, so no truncation or rounding bias of the
+    sum can cancel."""
+    from chip_smoke import wgrad_exact
+
+    case = (4, 56, 56, 64, 64, 3, 1, False)
+    x, _, w, g = _grad_operands(case, cuda, seed=17)
+    x, g = x.abs(), g.abs()
+    _, alpha = weight_binarize_plain(w)
+    w = torch.zeros_like(w)
+    dw = binary_conv2d_wgrad(g, x, w, alpha)
+    exact = wgrad_exact(g, x, w, alpha, None, 1, 1)
+    torch.cuda.synchronize()
+    terms = exact  # every term is positive
+    assert bool(((dw.double() - exact).abs() <= 4 * U * terms + U * exact + 1e-30).all())
 
 
 @pytest.mark.cuda

@@ -48,7 +48,7 @@ from bdbnn_tpu_torch.nn.kernels import (
     kurtosis_grouped_plain,
     weight_binarize,
 )
-from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope, wgrad_splits
+from bdbnn_tpu_torch.nn.kernels.binary_conv import WGRAD_M_STAGE, estimator_slope, wgrad_splits
 from bdbnn_tpu_torch.losses import kurtosis as tk
 
 U = 2.0**-24
@@ -213,9 +213,19 @@ def test_layer_routes_the_family_estimator():
 
 
 def test_wgrad_splits_cover_every_row():
-    for m, kd, o in [(100352, 576, 64), (1568, 4608, 512), (7, 9, 3), (25088, 64, 128)]:
+    # the ten flagship convs at -b 256 as K6 sees them (m, kh·kw·CP, O),
+    # then odd sizes
+    flagship = [(802816, 576, 64), (200704, 576, 128), (200704, 64, 128), (200704, 1152, 128),
+                (50176, 1152, 256), (50176, 128, 256), (50176, 2304, 256), (12544, 2304, 512),
+                (12544, 256, 512), (12544, 4608, 512)]
+    odd = [(100352, 576, 64), (1568, 4608, 512), (7, 9, 3), (25088, 64, 128), (1, 8, 1),
+           (33, 72, 70), (1000003, 576, 64)]
+    for m, kd, o in flagship + odd:
         splits, rows = wgrad_splits(m, kd, o)
-        assert rows % 16 == 0 and splits * rows >= m and (splits - 1) * rows < m
+        # split z reduces positions [z·rows, min(m, (z+1)·rows)): each one
+        # non-empty, a grid's z extent at most 65535, one split up to 512
+        assert rows % WGRAD_M_STAGE == 0 and splits * rows >= m and (splits - 1) * rows < m
+        assert 1 <= splits <= min(65535, max(1, -(-m // 512)))
 
 
 # -- K7 ---------------------------------------------------------------------
