@@ -6,13 +6,13 @@
 //   f32, so hi + mid + lo == ga and each piece times ±1 (or 0) is an
 //   exact bf16 product (nn/kernels/binary_conv.py:split_bf16x3 is its
 //   plain version);
-// - 16-byte cp.async copies (zero-fill when the source is invalid),
-//   ldmatrix loads, mma.sync m16n8k16 bf16 with f32 accumulators;
+// - mma.sync m16n8k16 bf16 with f32 accumulators (the cp.async and
+//   ldmatrix helpers it is fed by are in async_copy.cuh);
 // - the compensated (Kahan) add of a k step's sum into an f32 total, with
 //   _rn intrinsics so nvcc cannot contract or reorder it.
 #pragma once
 
-#include "common.cuh"
+#include "async_copy.cuh"
 
 #include <cuda_bf16.h>
 
@@ -59,42 +59,6 @@ __device__ __forceinline__ void split_ga8(const float* __restrict__ g,
 #pragma unroll
     for (int q = 0; q < 3; ++q)
         *reinterpret_cast<uint4*>(dst + q * OP) = make_uint4(p[q][0], p[q][1], p[q][2], p[q][3]);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-                 : "r"(addr)
-                 : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-                 : "r"(addr)
-                 : "memory");
 }
 
 // d += a · b on the tensor cores: m16n8k16, bf16 operands, f32 accumulators

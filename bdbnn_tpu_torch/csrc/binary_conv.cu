@@ -1,10 +1,11 @@
-// K1 — fused activation sign + binary (±1) convolution, forward.
+// K1 — fused activation sign + binary (±1) convolution, forward, on the
+// int8 tensor cores.
 //
 // Replaces bdbnn_tpu/nn/kernels/binary_conv.py:_make_binary_conv (the
 // forward of binary_conv2d_mxu, conv(xb, sign W) * alpha) with the
 // activation sign of bdbnn_tpu/nn/binarize.py (approx_sign / ste_sign
 // forward, react's x - act_shift, nn/layers.py:BinaryConvReact) fused
-// into its input load.
+// into its prep pass.
 //
 //   y[n, ho, wo, o] = alpha[o] * sum_{i, j, c} sx(n, ho*s - p + i, wo*s - p + j, c)
 //                                            * wsign[o, i, j, c]
@@ -12,124 +13,128 @@
 //
 // Layouts: x f32 NHWC, shift f32 (C,) or NULL, wsign int8 (O, kh, kw, C)
 // (= (O, K) row-major, K in HWIO flatten order), alpha f32 (O,), y f32
-// NHWC (N, Ho, Wo, O) = (M, O) row-major.
+// NHWC (N, Ho, Wo, O) = (M, O) row-major. Scratch the wrapper allocates:
+// sx int8 (N, H, W, CP), CP = C rounded up to 32; and wpad int8 (O, kh,
+// kw, CP) only when the weight sign cannot be read as it is (C not a
+// multiple of 32, or its pointer not 16-byte aligned), else NULL.
 //
-// Bound on the H100: the work is an implicit GEMM of M = N*Ho*Wo,
-// N = O, K = kh*kw*C. Counting x (f32, read once), the int8 weight sign
-// and y (f32, written once), the flagship's convs do ~145 (layer1,
-// 3x3 64->64) to ~840 (layer4, 3x3 512->512) int8 ops per byte against
-// the card's ~590 (1979 int8 TOP/s over 3.35 TB/s): the early, wide
-// layers are bound by bytes, the deep ones by int8 tensor-core
-// operations. This first version runs on the CUDA cores (__dp4a), whose
-// int8 rate is a small fraction of the tensor cores', so it sits well
-// above either bound. The design keeps the binarized input out of
-// device memory: the sign is taken
-// while a 64x32 tile of the implicit im2col matrix is loaded into
-// shared memory (as int8), so xb never exists in HBM; 64x32 int8 weight
-// tiles sit beside it, and each of 256 threads accumulates a 4x4 block
-// of outputs in int32 with __dp4a (4 MACs a instruction). Every ±1 dot
-// is an exact integer (|dot| <= K <= 4608 < 2^24), so
+// Bound on the H100: an implicit GEMM of M = N*Ho*Wo, N = O, K =
+// kh*kw*C. Counting x (f32, read once), the int8 weight sign and y (f32,
+// written once), the flagship's convs do ~145 (layer1, 3x3 64->64) to
+// ~840 (layer4, 3x3 512->512) int8 ops per byte against the card's ~590
+// (1979 int8 TOP/s over 3.35 TB/s): the early, wide layers are bound by
+// bytes, the deep ones by int8 tensor-core operations.
+//
+// The design, in two launches of one entry:
+// 1. a prep pass reads f32 x once and writes sign(x - shift) as int8 ±1
+//    rows of CP bytes a pixel (zero beyond C), a quarter of x's bytes:
+//    every tap the GEMM gathers is then an int8 row, most of them from
+//    L2, never an f32 re-read of x (205 MB at layer1, -b 256, beyond the
+//    50 MB L2), and no sign is taken twice;
+// 2. the implicit GEMM of sign_gemm.cuh: 128 positions x 64 channels a
+//    block, a 4-stage ring of 64-byte stages in 16-byte cp.async copies
+//    (a padding tap is zero-filled), ldmatrix, mma.sync m16n8k32 s8 with
+//    int32 accumulators.
+// Every ±1 dot is an exact integer (|dot| <= K <= 4608 < 2^24), so
 // float(acc) * alpha[o] is the same single f32 multiply as the
 // reference's (y * alpha) and the output is bitwise equal to it.
-// Loads are coalesced along C (32 consecutive channels a warp). No
-// cp.async/TMA pipelining and no tensor cores yet: a later PR makes it
-// fast.
-#include "common.cuh"
+#include "sign_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;         // output rows (positions) a block
-constexpr int BN = 64;         // output channels a block
-constexpr int BK = 32;         // reduction depth a shared-memory stage
-constexpr int LDS = BK + 4;    // row pitch in bytes: int-aligned, staggers banks
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_PASS = THREADS / BK;  // 8
+constexpr int PREP_THREADS = 256;
+using Tile = sg::Stage<64, 16>;  // 64-byte stages (two MMAs) in 16-byte copies
 
-__global__ void __launch_bounds__(THREADS)
-binary_conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ shift,
-                       const int8_t* __restrict__ wsign, const float* __restrict__ alpha,
-                       float* __restrict__ y, int N, int H, int W, int C, int O,
-                       int kh, int kw, int stride, int pad, int Ho, int Wo) {
-    __shared__ __align__(16) int8_t As[BM][LDS];
-    __shared__ __align__(16) int8_t Bs[BN][LDS];
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    const int lcol = tid % BK;
-    const int lrow = tid / BK;
-    const long long M = (long long)N * Ho * Wo;
-    const long long m0 = (long long)blockIdx.x * BM;
-    const int o0 = blockIdx.y * BN;
-    const int K = kh * kw * C;
-
-    OutRow rows[BM / ROWS_PER_PASS];
+// Work items: (pixel, 4 channels of CP) of sx, then the bytes of wpad.
+__global__ void __launch_bounds__(PREP_THREADS)
+fwd_sign_prep_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+                     const int8_t* __restrict__ wsign, int8_t* __restrict__ sx,
+                     int8_t* __restrict__ wpad, long long pixels, int C, int CP,
+                     long long wrows, bool vec) {
+    const long long xitems = pixels * (CP / 4);
+    const long long items = xitems + (wpad != nullptr ? wrows * CP : 0);
+    for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x; it < items;
+         it += (long long)gridDim.x * blockDim.x) {
+        if (it < xitems) {
+            const long long pix = it / (CP / 4);
+            const int c0 = (int)(it - pix * (CP / 4)) * 4;
+            float v[4];
+            bool in[4];
+            if (vec && c0 < C) {
+                const float4 xv = *reinterpret_cast<const float4*>(x + pix * C + c0);
+                const float4 sv = shift != nullptr
+                                      ? *reinterpret_cast<const float4*>(shift + c0)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+                v[0] = __fsub_rn(xv.x, sv.x);
+                v[1] = __fsub_rn(xv.y, sv.y);
+                v[2] = __fsub_rn(xv.z, sv.z);
+                v[3] = __fsub_rn(xv.w, sv.w);
 #pragma unroll
-    for (int r = 0; r < BM / ROWS_PER_PASS; ++r)
-        rows[r] = decode_row(m0 + lrow + r * ROWS_PER_PASS, M, H, W, C, Ho, Wo, stride, pad);
-
-    int acc[4][4];
+                for (int e = 0; e < 4; ++e) in[e] = true;
+            } else {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+                for (int e = 0; e < 4; ++e) {
+                    const int c = c0 + e;
+                    in[e] = c < C;
+                    const float xv = in[e] ? x[pix * C + c] : 0.f;
+                    v[e] = shift != nullptr && in[e] ? __fsub_rn(xv, shift[c]) : xv;
+                }
+            }
+            uint32_t word = 0;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = 0;
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        const int k = k0 + lcol;
-        const bool kvalid = k < K;
-        const Tap t = decode_tap(kvalid ? k : 0, kw, C);
-        const float s = (shift != nullptr && kvalid) ? shift[t.c] : 0.f;
-#pragma unroll
-        for (int r = 0; r < BM / ROWS_PER_PASS; ++r)
-            As[lrow + r * ROWS_PER_PASS][lcol] =
-                (int8_t)act_sign(x, rows[r], t, kvalid, s, H, W, C);
-#pragma unroll
-        for (int r = 0; r < BN / ROWS_PER_PASS; ++r) {
-            const int o = o0 + lrow + r * ROWS_PER_PASS;
-            Bs[lrow + r * ROWS_PER_PASS][lcol] =
-                (kvalid && o < O) ? wsign[(long long)o * K + k] : (int8_t)0;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 4) {
-            int a4[4], b4[4];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-                a4[a] = *reinterpret_cast<const int*>(&As[ty + 16 * a][kk]);
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-                b4[b] = *reinterpret_cast<const int*>(&Bs[tx + 16 * b][kk]);
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-                for (int b = 0; b < 4; ++b) acc[a][b] = __dp4a(a4[a], b4[b], acc[a][b]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-        const long long m = m0 + ty + 16 * a;
-        if (m >= M) continue;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-            const int o = o0 + tx + 16 * b;
-            if (o < O) y[m * O + o] = (float)acc[a][b] * alpha[o];
+            for (int e = 0; e < 4; ++e)
+                word |= (in[e] ? (v[e] >= 0.f ? 0x01u : 0xFFu) : 0u) << (8 * e);
+            *reinterpret_cast<uint32_t*>(sx + pix * CP + c0) = word;
+        } else {
+            const long long wi = it - xitems;
+            const long long row = wi / CP;
+            const int c = (int)(wi - row * CP);
+            wpad[wi] = c < C ? wsign[row * C + c] : (int8_t)0;
         }
     }
+}
+
+__global__ void __launch_bounds__(sg::THREADS, 3)
+binary_conv_fwd_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ wk,
+                       const float* __restrict__ alpha, float* __restrict__ y, ConvGeom g) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    int acc[4][4][4];
+    sign_gemm_mainloop<false, Tile>(reinterpret_cast<const uint8_t*>(sx),
+                                    reinterpret_cast<const uint8_t*>(wk), g, smem_raw, acc);
+    const long long m0 = (long long)blockIdx.x * sg::BM;
+    const int o0 = blockIdx.y * sg::BN;
+    sign_gemm_for_each(acc, [&](int r, int c, int d0, int d1) {
+        if (m0 + r < g.M) store_scaled(y, alpha, m0 + r, o0 + c, g.O, d0, d1);
+    });
 }
 
 }  // namespace
 
 BDBNN_EXPORT int bdbnn_binary_conv_fwd(const void* x, const void* shift, const void* wsign,
-                                       const void* alpha, void* y, int N, int H, int W,
-                                       int C, int O, int kh, int kw, int stride, int pad,
-                                       int Ho, int Wo, void* stream) {
-    const long long M = (long long)N * Ho * Wo;
-    const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((O + BN - 1) / BN));
-    binary_conv_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(shift),
-        static_cast<const int8_t*>(wsign), static_cast<const float*>(alpha),
-        static_cast<float*>(y), N, H, W, C, O, kh, kw, stride, pad, Ho, Wo);
+                                       const void* alpha, void* sx, void* wpad, void* y, int N,
+                                       int H, int W, int C, int O, int kh, int kw, int stride,
+                                       int pad, int Ho, int Wo, int CP, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const long long pixels = (long long)N * H * W;
+    const long long wrows = (long long)O * kh * kw;
+    const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(shift) % 16 == 0;
+    const long long items = pixels * (CP / 4) + (wpad != nullptr ? wrows * CP : 0);
+    const long long pblocks = (items + PREP_THREADS - 1) / PREP_THREADS;
+    fwd_sign_prep_kernel<<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS, 0,
+                           st>>>(static_cast<const float*>(x), static_cast<const float*>(shift),
+                                 static_cast<const int8_t*>(wsign), static_cast<int8_t*>(sx),
+                                 static_cast<int8_t*>(wpad), pixels, C, CP, wrows, vec);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(binary_conv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Tile::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const ConvGeom g{(long long)N * Ho * Wo, H, W, O, kw, kh * kw, stride, pad, Ho, Wo, CP};
+    const dim3 grid((unsigned)((g.M + sg::BM - 1) / sg::BM), (unsigned)((O + sg::BN - 1) / sg::BN));
+    binary_conv_fwd_kernel<<<grid, sg::THREADS, Tile::SMEM_BYTES, st>>>(
+        static_cast<const int8_t*>(sx),
+        static_cast<const int8_t*>(wpad != nullptr ? wpad : wsign), static_cast<const float*>(alpha),
+        static_cast<float*>(y), g);
     return (int)cudaGetLastError();
 }

@@ -41,10 +41,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv": {
-        # x, shift (or NULL), wsign, alpha, y, N, H, W, C, O, kh, kw,
-        # stride, pad, Ho, Wo, stream
-        "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _P),
+        # x, shift (or NULL), wsign, alpha, sx scratch, wpad scratch (or
+        # NULL), y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, CP, stream
+        "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "binary_conv_dgrad": {
         # g, x, shift (or NULL), wsign, alpha, taps, gs scratch, wb
@@ -75,10 +75,12 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "packed": {
         # packed uint8, alpha (O,), out (K*O,) f32, n = K*O, O, stream
         "bdbnn_unpack_sign": (_P, _P, _P, _I, _I, _P),
-        # x, shift (or NULL), wsign, alpha, y, N, H, W, C, O, kh, kw,
-        # stride, pad, Ho, Wo, stream
-        "bdbnn_popcount_conv_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _P),
+        # x, shift (or NULL), wsign, alpha, xbits, xcount, wbits, wcount
+        # scratch, y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, CPB,
+        # stream
+        "bdbnn_popcount_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _P),
     },
 }
 

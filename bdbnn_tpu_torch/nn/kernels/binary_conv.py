@@ -8,9 +8,10 @@ hand-written CUDA kernels:
 - K1 :func:`binary_conv2d` (``csrc/binary_conv.cu``) — the fused forward
   the layers call: f32 NHWC ``x``, an optional per-channel ``shift``
   (react's ``act_shift``), the int8 ``(O, kh, kw, C)`` weight sign K2
-  emits, and f32 ``alpha (O,)``. It takes the activation sign
-  (``sign(x - shift)``, sign(0) := +1) while it loads the input, so the
-  ±1 activation never exists in device memory.
+  emits, and f32 ``alpha (O,)``, on the int8 tensor cores: a prep pass
+  writes the activation sign (``sign(x - shift)``, sign(0) := +1) once
+  as int8 ±1 (:func:`act_sign_int8`, channels padded to a multiple of
+  :data:`FWD_C_STAGE`), then an implicit GEMM gathers its taps.
 - K5 :func:`binary_conv2d_dgrad` (``csrc/binary_conv_dgrad.cu``) — the
   input gradient ``conv_transpose(g·alpha, sign W)`` times the active
   sign estimator's slope at ``x - shift`` (:data:`ESTIMATORS`), on the
@@ -156,6 +157,18 @@ def binary_conv2d_plain(
     return (dot * alpha).reshape(n, ho, wo, o)
 
 
+# K1's reduction runs over int8 rows of one tap's channels, padded to a
+# multiple of the 32-deep int8 MMA
+FWD_C_STAGE = 32
+
+
+def act_sign_int8(x: Tensor, shift: Optional[Tensor], cp: int) -> Tensor:
+    """Plain version of K1's prep pass: ``sign(x - shift)`` (sign(0) :=
+    +1) as int8 ±1, NHWC with the channels padded with zeros to ``cp``."""
+    s = binarize_input(x, shift).to(torch.int8)
+    return torch.nn.functional.pad(s, (0, cp - int(x.shape[-1])))
+
+
 def binary_conv2d(
     x: Tensor,
     wsign: Tensor,
@@ -166,7 +179,12 @@ def binary_conv2d(
     padding="auto",
 ) -> Tensor:
     """``conv(sign(x - shift), wsign) * alpha`` — K1 on a CUDA tensor,
-    the plain version on a CPU tensor. f32 NHWC in, f32 NHWC out."""
+    the plain version on a CPU tensor. f32 NHWC in, f32 NHWC out.
+
+    K1's scratch is allocated here: the int8 sign (N, H, W, CP) and, only
+    where the weight sign cannot be read as it is (C not a multiple of
+    :data:`FWD_C_STAGE`, or a pointer off 16 bytes), its copy padded to
+    (O, kh, kw, CP)."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     if not x.is_cuda:
         if x.device.type != "cpu":
@@ -179,12 +197,18 @@ def binary_conv2d(
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    cp = _round_up(c, FWD_C_STAGE)
+    sx = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
+    wpad = None
+    if cp != c or wsign.data_ptr() % 16:
+        wpad = torch.empty((o, kh, kw, cp), dtype=torch.int8, device=x.device)
     y = torch.empty((n, ho, wo, o), dtype=torch.float32, device=x.device)
     lib = _build.library("binary_conv")
     err = lib.bdbnn_binary_conv_fwd(
         x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        wsign.data_ptr(), alpha.data_ptr(), y.data_ptr(),
-        n, h, w, c, o, kh, kw, stride, pad, ho, wo, _build.stream_ptr(x.device),
+        wsign.data_ptr(), alpha.data_ptr(), sx.data_ptr(),
+        wpad.data_ptr() if wpad is not None else None, y.data_ptr(),
+        n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d")
     binary_conv2d.launches += 1
@@ -566,7 +590,9 @@ def binary_conv2d_mxu(
 
 __all__ = [
     "ESTIMATORS",
+    "FWD_C_STAGE",
     "BinaryConvFn",
+    "act_sign_int8",
     "binary_conv2d",
     "binary_conv2d_dgrad",
     "binary_conv2d_dgrad_plain",

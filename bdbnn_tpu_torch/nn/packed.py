@@ -12,10 +12,11 @@ transiently inside each forward:
   layout K2 reads. Every op is exact, so the reconstruction is bitwise
   the host loader's ``sign * alpha``.
 - :func:`popcount_binary_conv` — K4 (``csrc/packed.cu``): the ±1 conv
-  as ``popc(mask) - 2·popc((x ^ w) & mask)`` over uint32 words, with the
-  activation sign fused in. Its integer dot equals K1's exactly, so the
-  result is bitwise K1's. f32 only (bf16 is refused, as in the
-  reference).
+  on the binary tensor cores as ``4·popc(x & w) − 2·popc(x) −
+  2·popc(m & w) + popc(m)`` over 1-bit words (:func:`pack_sign_words`,
+  :func:`pack_weight_words`), with the activation sign fused into its
+  prep pass. Its integer dot equals K1's exactly, so the result is
+  bitwise K1's. f32 only (bf16 is refused, as in the reference).
 
 The impl switch (``unpack`` | ``popcount``) is the reference's
 process-global pattern; the engine binds it around each forward.
@@ -33,6 +34,7 @@ import torch
 
 from bdbnn_tpu_torch.nn.kernels.binary_conv import (
     _check_strides,
+    _round_up,
     _symmetric_pad,
     binarize_input,
     check_conv_args,
@@ -203,6 +205,31 @@ def _reject_bf16(x: Tensor) -> None:
         )
 
 
+# K4's reduction runs over 1-bit rows of one tap's channels, padded to a
+# multiple of 64 lanes: every 8-byte copy of the kernel lies in one tap
+POPCOUNT_C_STAGE = 64
+
+
+def pack_sign_words(x: Tensor, shift: Optional[Tensor], cp: int) -> Tuple[Tensor, Tensor]:
+    """Plain version of K4's activation prep: the sign bits of ``x -
+    shift`` (1 for +1, sign(0) := +1; 0 for −1 and past C) packed along C
+    into 32-bit words held in int64, (N, H, W, cp/32), lane c at bit
+    c % 32 of word c // 32; and each pixel's count of +1s, (N, H, W)."""
+    bits = binarize_input(x, shift) > 0
+    words = _pack_words(torch.nn.functional.pad(bits, (0, cp - int(x.shape[-1]))))
+    return words, bits.sum(dim=-1)
+
+
+def pack_weight_words(wsign: Tensor, cp: int) -> Tuple[Tensor, Tensor]:
+    """Plain version of K4's weight prep: the int8 ``(O, kh, kw, C)``
+    sign's +1 bits packed per tap as :func:`pack_sign_words` packs a
+    pixel, (O, kh·kw, cp/32); and the table of +1 counts (kh·kw, O)."""
+    o, kh, kw, c = (int(d) for d in wsign.shape)
+    bits = (wsign > 0).reshape(o, kh * kw, c)
+    words = _pack_words(torch.nn.functional.pad(bits, (0, cp - c)))
+    return words, bits.sum(dim=-1).t()
+
+
 def popcount_binary_conv_plain(
     x: Tensor,
     wsign: Tensor,
@@ -213,30 +240,36 @@ def popcount_binary_conv_plain(
     padding="auto",
     rows_per_chunk: int = 4096,
 ) -> Tensor:
-    """Plain PyTorch K4: the reference's ``_pack_words`` algorithm in
-    torch integer ops — im2col of ±1/0 patches, sign and mask bits
-    packed into 32-bit words, SWAR popcount, ``· alpha``. Rows are
-    processed in chunks to bound the (rows, words, O) intermediate."""
+    """Plain PyTorch K4, the kernel's arithmetic in torch integer ops:
+    the prep passes' words and counts, an im2col of the words (a padding
+    tap gives zero words), SWAR popcounts of ``x & w`` and the identity
+    ``dot = 4·popc(x & w) − 2·popc(x) − 2·popc(m & w) + popc(m)`` over
+    the valid lanes (``popc(m) = C·valid taps``; ``popc(x)`` and
+    ``popc(m & w)`` sum the per-pixel and per-(tap, o) counts over the
+    valid taps), ``· alpha``. Rows are processed in chunks to bound the
+    (rows, words, O) intermediate."""
     _reject_bf16(x)
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
-    patches = im2col_nhwc(binarize_input(x, shift), kh, kw, stride, pad)
-    ho, wo = patches.shape[1], patches.shape[2]
-    k = kh * kw * c
-    lanes = (-k) % 32
-    patches = torch.nn.functional.pad(patches.reshape(-1, k), (0, lanes))
-    xwords = _pack_words(patches > 0)  # (M, nw)
-    mwords = _pack_words(patches != 0)
-    wbits = torch.nn.functional.pad(wsign.reshape(o, k) > 0, (0, lanes))
-    wwords = _pack_words(wbits).t()  # (nw, O)
-    valid = _popcount32(mwords).sum(dim=-1)  # (M,)
+    cp = _round_up(c, POPCOUNT_C_STAGE)
+    xwords, xcount = pack_sign_words(x, shift, cp)
+    wwords, wcount = pack_weight_words(wsign, cp)
+    words = im2col_nhwc(xwords, kh, kw, stride, pad)  # (N, Ho, Wo, taps·cp/32)
+    ho, wo = words.shape[1], words.shape[2]
+    words = words.reshape(n * ho * wo, -1)
+    taps = kh * kw
+    valid = im2col_nhwc(torch.ones_like(xcount)[..., None], kh, kw, stride, pad)
+    valid = valid.reshape(-1, taps)  # (M, taps): 1 where the tap is in the image
+    px = im2col_nhwc(xcount[..., None], kh, kw, stride, pad).reshape(-1, taps).sum(dim=-1)
+    row_term = c * valid.sum(dim=-1) - 2 * px  # popc(m) - 2 popc(x)
+    wwords = wwords.reshape(o, -1).t()  # (taps·cp/32, O)
     out = []
-    for r0 in range(0, xwords.shape[0], rows_per_chunk):
-        xw = xwords[r0 : r0 + rows_per_chunk, :, None]
-        mw = mwords[r0 : r0 + rows_per_chunk, :, None]
-        mism = _popcount32((xw ^ wwords[None]) & mw).sum(dim=1)  # (rows, O)
-        out.append(valid[r0 : r0 + rows_per_chunk, None] - 2 * mism)
+    for r0 in range(0, words.shape[0], rows_per_chunk):
+        xw = words[r0 : r0 + rows_per_chunk, :, None]
+        both = _popcount32(xw & wwords[None]).sum(dim=1)  # (rows, O)
+        mask_w = (valid[r0 : r0 + rows_per_chunk, :, None] * wcount[None]).sum(dim=1)
+        out.append(4 * both + row_term[r0 : r0 + rows_per_chunk, None] - 2 * mask_w)
     dot = torch.cat(out)
     return (dot.to(torch.float32) * alpha).reshape(n, ho, wo, o)
 
@@ -250,9 +283,14 @@ def popcount_binary_conv(
     strides: Tuple[int, int] = (1, 1),
     padding="auto",
 ) -> Tensor:
-    """``conv(sign(x - shift), wsign) * alpha`` as an XNOR-popcount dot
-    — K4 on a CUDA tensor, the plain version on a CPU tensor. Operands
-    and layouts as :func:`bdbnn_tpu_torch.nn.kernels.binary_conv2d`."""
+    """``conv(sign(x - shift), wsign) * alpha`` as a popcount dot on
+    1-bit words — K4 on a CUDA tensor, the plain version on a CPU tensor. Operands
+    and layouts as :func:`bdbnn_tpu_torch.nn.kernels.binary_conv2d`.
+
+    K4's scratch is allocated here, as one int32 tensor: the activation
+    words (N, H, W, CP/32), the weight words (O, kh·kw, CP/32), the
+    activation's +1 counts (N, H, W) and the weight's (kh·kw, O), CP being
+    C rounded up to :data:`POPCOUNT_C_STAGE`."""
     _reject_bf16(x)
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     if not x.is_cuda:
@@ -263,15 +301,26 @@ def popcount_binary_conv(
         )
     from bdbnn_tpu_torch.nn.kernels import _build
 
+    if kh > 16 or kw > 16:  # K4's per-block prefix table of the taps
+        raise ValueError(f"K4 takes kernels up to 16x16, got {kh}x{kw}")
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    cw = _round_up(c, POPCOUNT_C_STAGE) // 32  # even: 8-byte rows
+    pixels, taps = n * h * w, kh * kw
+    # int32 offsets of the four parts; the word parts come first and are
+    # 8-byte aligned
+    sizes = (pixels * cw, o * taps * cw, pixels, taps * o)
+    scratch = torch.empty((sum(sizes),), dtype=torch.int32, device=x.device)
+    base = scratch.data_ptr()
+    parts = [base + 4 * sum(sizes[:i]) for i in range(4)]
     y = torch.empty((n, ho, wo, o), dtype=torch.float32, device=x.device)
     lib = _build.library("packed")
     err = lib.bdbnn_popcount_conv_fwd(
         x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        wsign.data_ptr(), alpha.data_ptr(), y.data_ptr(),
-        n, h, w, c, o, kh, kw, stride, pad, ho, wo, _build.stream_ptr(x.device),
+        wsign.data_ptr(), alpha.data_ptr(), parts[0], parts[2], parts[1], parts[3],
+        y.data_ptr(), n, h, w, c, o, kh, kw, stride, pad, ho, wo, cw * 4,
+        _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "popcount_binary_conv")
     popcount_binary_conv.launches += 1
@@ -283,6 +332,7 @@ popcount_binary_conv.launches = 0
 
 __all__ = [
     "PACKED_IMPLS",
+    "POPCOUNT_C_STAGE",
     "dense_weight_bytes",
     "get_packed_impl",
     "packed_activation_bytes",
@@ -290,6 +340,8 @@ __all__ = [
     "packed_dense_weight_plain",
     "packed_impl",
     "packed_weight_bytes",
+    "pack_sign_words",
+    "pack_weight_words",
     "popcount_binary_conv",
     "popcount_binary_conv_plain",
     "popcount_word_bytes",

@@ -8,15 +8,18 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device  — requires CUDA; prints ``nvidia-smi`` name and power limit;
 2. build   — builds every kernel from ``bdbnn_tpu_torch/csrc`` with nvcc
-             (one process per source, all at once) and prints seconds;
+             (one process per source, all at once), prints seconds and the
+             tensor-core instructions in K1's and K4's SASS;
 3. kernels — holds K1 (fused sign + binary conv), K2 (weight sign +
              alpha), K3 (packbits decode) and K4 (XNOR-popcount conv)
-             against their plain PyTorch versions on the card at four of
-             the flagship's conv shapes (batch 32): bitwise for K1, K3,
-             K4 and K2's sign, relative 1e-6 for K2's alpha. Times each
+             against their plain PyTorch versions on the card at the
+             flagship's ten distinct binary conv shapes at batch 32, and
+             K1 also at -b 256: bitwise for K1, K3, K4 (and K4 against
+             K1) and K2's sign, relative 1e-6 for K2's alpha. Times each
              with CUDA events after a warm-up, beside its plain version,
-             ``F.conv2d`` on the same ±1 operands (K1/K4, TF32 off, a
-             yardstick only) and the least time the card could take;
+             ``F.conv2d`` on the same ±1 operands (K1/K4, f32 with TF32
+             off, a yardstick only; bf16 channels_last logged beside it)
+             and the least time the card could take;
 4. main    — builds the full-width ImageNet ``resnet18`` (react) from a
              seeded ``torch.Generator`` with non-trivial BN statistics,
              act_shifts and RPReLU vectors, writes an export artifact,
@@ -98,14 +101,8 @@ PEAKS = {
              "hbm_tbs": 2.0},
 }
 
+# the largest serving bucket, where K1-K4 are held and timed
 BATCH = 32
-# (name, H=W of the conv input, C, O, k, stride)
-SHAPES = [
-    ("layer1 3x3 s1 64->64 @56", 56, 64, 64, 3, 1),
-    ("layer2_0.conv1 3x3 s2 64->128 @56", 56, 64, 128, 3, 2),
-    ("layer2_0.downsample 1x1 64->128 @28", 28, 64, 128, 1, 1),
-    ("layer4 3x3 s1 512->512 @7", 7, 512, 512, 3, 1),
-]
 N_BINARY_CONVS = 19
 # the flagship's distinct binary conv shapes and how many of its 19
 # binary convs have each: (name, H=W of the conv input, C, O, k, stride,
@@ -168,6 +165,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 10) -> float:
+    """Mean device ms per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, so no host time between launches counts."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, 5, 1) / calls
+    del graph
+    return ms
+
+
 def bound(bytes_moved: float, ops: float, ops_peak: float, pk) -> tuple:
     """(least ms, what bounds it): bytes over HBM rate vs ops over peak."""
     t_bytes = bytes_moved / (pk["hbm_tbs"] * 1e12) * 1e3
@@ -175,108 +191,168 @@ def bound(bytes_moved: float, ops: float, ops_peak: float, pk) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _conv_operands(g, batch, hw, c, o, k):
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.randn((batch, hw, hw, c), generator=g, device=dev)
+    shift = 0.1 * torch.randn((c,), generator=g, device=dev)
+    w = 0.05 * torch.randn((k, k, c, o), generator=g, device=dev)
+    return x, shift, w
+
+
+def _conv_row(name, batch, count, ms, plain_ms, lib_ms, bnd, err, ok, **extra):
+    return {"shape": f"{name} b{batch}", "count": count, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err,
+            "ok": bool(ok), **extra}
+
+
+def _log_row(kname, r) -> None:
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    more = "".join(f" {k}={r[k]:.4f}" for k in ("graph_ms", "library_graph_ms", "bf16_cudnn_ms")
+                   if k in r)
+    log(f"[kernels] {kname} {r['shape']} (x{r['count']} a pass): ok={r['ok']} "
+        f"max_abs_err={r['max_abs_err']} kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={lib} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){more}")
+
+
 def phase_kernels(pk):
-    """Hold every kernel against its plain version at flagship shapes;
-    returns per-kernel records (without ``launches``)."""
-    import numpy as np
+    """Hold K1-K4 against their plain versions at the flagship's ten
+    distinct binary conv shapes: K1-K4 at batch 32 (the largest serving
+    bucket), K1 also at -b 256 (the training batch). Bitwise for K1, K3,
+    K4 (against the plain version, and K4 against K1) and K2's sign,
+    relative 1e-6 for K2's alpha. Times each with CUDA events beside its
+    plain version, the least time the card could take and, for K1/K4,
+    ``F.conv2d`` f32 on the same ±1 operands (TF32 off: the library
+    yardstick) and, logged beside it, ``F.conv2d`` in bf16 channels_last
+    (cuDNN on the tensor cores; another function, as bf16 rounds the
+    output). K1, K4 and ``F.conv2d`` f32 are also timed as device time
+    alone (:func:`graph_ms`), beside the eager time a caller sees.
+    Returns per-kernel records (without ``launches``): K1's ``shapes`` at
+    -b 256 and ``forward_shapes`` at batch 32."""
     import torch
     import torch.nn.functional as F
 
     from bdbnn_tpu_torch.nn import packed as P
-    from bdbnn_tpu_torch.nn.kernels import (
-        binary_conv2d,
-        binary_conv2d_plain,
-        weight_binarize,
-        weight_binarize_plain,
-    )
+    from bdbnn_tpu_torch.nn.kernels import binary_conv2d, binary_conv2d_plain, weight_binarize
     from bdbnn_tpu_torch.nn.kernels.binary_conv import binarize_input
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     recs = {k: {"shapes": []} for k in ("K1", "K2", "K3", "K4")}
+    recs["K1"]["forward_shapes"] = []
     ok = True
-    for name, hw, c, o, k, s in SHAPES:
+    for name, hw, c, o, k, s, count in FLAGSHIP_CONVS:
         pad = k // 2
         ho = (hw + 2 * pad - k) // s + 1
-        m = BATCH * ho * ho
         kk = k * k * c
-        x = torch.randn((BATCH, hw, hw, c), generator=g, device=dev)
-        shift = 0.1 * torch.randn((c,), generator=g, device=dev)
-        w = 0.05 * torch.randn((k, k, c, o), generator=g, device=dev)
         st = (s, s)
-
-        # K2
-        sign, alpha = weight_binarize(w)
-        psign, palpha = weight_binarize_plain(w)
-        torch.cuda.synchronize()
-        k2_sign_ok = torch.equal(sign, psign)
-        k2_err = float((alpha - palpha).abs().max())
-        k2_ok = k2_sign_ok and bool(torch.allclose(alpha, palpha, rtol=1e-6, atol=0))
-        # K3
-        packed = torch.from_numpy(np.packbits((w >= 0).cpu().numpy().reshape(-1))).to(dev)
-        dense = P.packed_dense_weight(packed, alpha, (k, k, c, o))
-        pdense = P.packed_dense_weight_plain(packed, alpha, (k, k, c, o))
-        torch.cuda.synchronize()
-        k3_ok = torch.equal(dense, pdense)
-        # K1 / K4
-        y1 = binary_conv2d(x, sign, alpha, shift=shift, strides=st)
-        py = binary_conv2d_plain(x, sign, alpha, shift=shift, strides=st)
-        y4 = P.popcount_binary_conv(x, sign, alpha, shift=shift, strides=st)
-        py4 = P.popcount_binary_conv_plain(x, sign, alpha, shift=shift, strides=st)
-        torch.cuda.synchronize()
-        k1_err = float((y1 - py).abs().max())
-        k4_err = max(float((y4 - py4).abs().max()), float((y4 - y1).abs().max()))
-        k1_ok = torch.equal(y1, py)
-        k4_ok = torch.equal(y4, py4) and torch.equal(y4, y1)
-        # library yardstick: F.conv2d on the same ±1 operands, TF32 off
-        xb = binarize_input(x, shift).permute(0, 3, 1, 2)
-        wf = sign.permute(0, 3, 1, 2).to(torch.float32).contiguous(memory_format=torch.channels_last)
-        lib_fn = lambda: F.conv2d(xb, wf, stride=st, padding=pad)
-        lib_y = lib_fn().permute(0, 2, 3, 1) * alpha
-        torch.cuda.synchronize()
-        lib_err = float((lib_y - y1).abs().max())
-
-        lib_ms = cuda_ms(lib_fn, 20)
-        t = {
-            "K1": (cuda_ms(lambda: binary_conv2d(x, sign, alpha, shift=shift, strides=st), 20),
-                   cuda_ms(lambda: binary_conv2d_plain(x, sign, alpha, shift=shift, strides=st), 5),
-                   lib_ms),
-            "K4": (cuda_ms(lambda: P.popcount_binary_conv(x, sign, alpha, shift=shift, strides=st), 20),
-                   cuda_ms(lambda: P.popcount_binary_conv_plain(x, sign, alpha, shift=shift, strides=st), 2, 1),
-                   lib_ms),
-            "K2": (cuda_ms(lambda: weight_binarize(w), 50),
-                   cuda_ms(lambda: weight_binarize_plain(w), 20), None),
-            "K3": (cuda_ms(lambda: P.packed_dense_weight(packed, alpha, (k, k, c, o)), 50),
-                   cuda_ms(lambda: P.packed_dense_weight_plain(packed, alpha, (k, k, c, o)), 20), None),
-        }
-        conv_bytes = BATCH * hw * hw * c * 4 + o * kk + o * 4 + c * 4 + m * o * 4
-        conv_bound = bound(conv_bytes, 2.0 * m * o * kk, pk["int8_tops"], pk)
-        nw = kk * o
-        bounds = {
-            "K1": conv_bound,
-            "K4": conv_bound,
-            "K2": bound(nw * 4 + nw + o * 4, 3.0 * nw, pk["f32_tflops"], pk),
-            "K3": bound((nw + 7) // 8 + o * 4 + nw * 4, 1.0 * nw, pk["f32_tflops"], pk),
-        }
-        errs = {"K1": k1_err, "K2": k2_err, "K3": float((dense - pdense).abs().max()),
-                "K4": k4_err}
-        oks = {"K1": k1_ok, "K2": k2_ok, "K3": k3_ok, "K4": k4_ok}
-        for kname in ("K1", "K2", "K3", "K4"):
-            ms, plain_ms, lib_ms = t[kname]
-            recs[kname]["shapes"].append({
-                "shape": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
-                "max_abs_err": errs[kname], "ok": bool(oks[kname]),
-            })
-            log(f"[kernels] {kname} {name}: ok={oks[kname]} max_abs_err={errs[kname]} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-                f"bound_ms={bounds[kname][0]:.4f} ({bounds[kname][1]})")
-            ok = ok and bool(oks[kname])
-        log(f"[kernels] F.conv2d yardstick vs K1 {name}: max_abs_err={lib_err}")
-        del x, y1, py, y4, py4, xb, lib_y
-        torch.cuda.empty_cache()
+        for batch in (TRAIN_BATCH, BATCH):
+            m = batch * ho * ho
+            x, shift, w = _conv_operands(g, batch, hw, c, o, k)
+            sign, alpha = weight_binarize(w)
+            conv = lambda: binary_conv2d(x, sign, alpha, shift=shift, strides=st)
+            plain = lambda: binary_conv2d_plain(x, sign, alpha, shift=shift, strides=st)
+            y1, py = conv(), plain()
+            # library yardsticks on the same ±1 operands: f32 (TF32 off),
+            # and bf16 channels_last, what cuDNN reaches on the tensor cores
+            xb = binarize_input(x, shift).permute(0, 3, 1, 2)
+            wf = sign.permute(0, 3, 1, 2).to(torch.float32).contiguous(
+                memory_format=torch.channels_last)
+            xh, wh = xb.to(torch.bfloat16), wf.to(torch.bfloat16)
+            lib_fn = lambda: F.conv2d(xb, wf, stride=st, padding=pad)
+            lib_y = lib_fn().permute(0, 2, 3, 1) * alpha
+            torch.cuda.synchronize()
+            k1_ok = torch.equal(y1, py)
+            log(f"[kernels] F.conv2d f32 yardstick vs K1 {name} b{batch}: "
+                f"max_abs_err={float((lib_y - y1).abs().max())}")
+            lib_ms = cuda_ms(lib_fn, 20)
+            conv_bytes = batch * hw * hw * c * 4 + o * kk + o * 4 + c * 4 + m * o * 4
+            conv_bound = bound(conv_bytes, 2.0 * m * o * kk, pk["int8_tops"], pk)
+            # the eager time a caller sees, and the device time alone (graph)
+            lib_graph = graph_ms(lib_fn)
+            r1 = _conv_row(name, batch, count, cuda_ms(conv, 20), cuda_ms(plain, 5), lib_ms,
+                           conv_bound, float((y1 - py).abs().max()), k1_ok,
+                           graph_ms=graph_ms(conv), library_graph_ms=lib_graph,
+                           bf16_cudnn_ms=cuda_ms(lambda: F.conv2d(xh, wh, stride=st,
+                                                                  padding=pad), 20))
+            recs["K1"]["shapes" if batch == TRAIN_BATCH else "forward_shapes"].append(r1)
+            _log_row("K1", r1)
+            ok = ok and k1_ok
+            if batch == BATCH:
+                # K4 serves only; K2's and K3's work does not depend on the batch
+                pop = lambda: P.popcount_binary_conv(x, sign, alpha, shift=shift, strides=st)
+                pop_plain = lambda: P.popcount_binary_conv_plain(x, sign, alpha, shift=shift,
+                                                                 strides=st)
+                y4, py4 = pop(), pop_plain()
+                torch.cuda.synchronize()
+                k4_ok = torch.equal(y4, py4) and torch.equal(y4, y1)
+                k4_err = max(float((y4 - py4).abs().max()), float((y4 - y1).abs().max()))
+                r4 = _conv_row(name, batch, count, cuda_ms(pop, 20), cuda_ms(pop_plain, 2, 1),
+                               lib_ms, conv_bound, k4_err, k4_ok, graph_ms=graph_ms(pop),
+                               library_graph_ms=lib_graph, bf16_cudnn_ms=r1["bf16_cudnn_ms"])
+                recs["K4"]["shapes"].append(r4)
+                _log_row("K4", r4)
+                ok = ok and k4_ok
+                ok = _check_weight_kernels(recs, pk, name, count, w, sign, alpha) and ok
+                del y4, py4
+            del x, y1, py, xb, wf, xh, wh, lib_y
+            torch.cuda.empty_cache()
     return recs, ok
+
+
+def _check_weight_kernels(recs, pk, name, count, w, sign, alpha) -> bool:
+    """K2 (weight sign + alpha) and K3 (packbits decode) at one conv's
+    weight against their plain versions; appends their records."""
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.nn import packed as P
+    from bdbnn_tpu_torch.nn.kernels import weight_binarize, weight_binarize_plain
+
+    shape = tuple(int(d) for d in w.shape)
+    psign, palpha = weight_binarize_plain(w)
+    packed = torch.from_numpy(np.packbits((w >= 0).cpu().numpy().reshape(-1))).to(w.device)
+    dense = P.packed_dense_weight(packed, alpha, shape)
+    pdense = P.packed_dense_weight_plain(packed, alpha, shape)
+    torch.cuda.synchronize()
+    k2_ok = torch.equal(sign, psign) and bool(torch.allclose(alpha, palpha, rtol=1e-6, atol=0))
+    k3_ok = torch.equal(dense, pdense)
+    nw, o = w.numel(), shape[-1]
+    rows = {
+        "K2": _conv_row(name, BATCH, count, cuda_ms(lambda: weight_binarize(w), 50),
+                        cuda_ms(lambda: weight_binarize_plain(w), 20), None,
+                        bound(nw * 4 + nw + o * 4, 3.0 * nw, pk["f32_tflops"], pk),
+                        float((alpha - palpha).abs().max()), k2_ok),
+        "K3": _conv_row(name, BATCH, count,
+                        cuda_ms(lambda: P.packed_dense_weight(packed, alpha, shape), 50),
+                        cuda_ms(lambda: P.packed_dense_weight_plain(packed, alpha, shape), 20),
+                        None, bound((nw + 7) // 8 + o * 4 + nw * 4, 1.0 * nw, pk["f32_tflops"], pk),
+                        float((dense - pdense).abs().max()), k3_ok),
+    }
+    for kname, r in rows.items():
+        recs[kname]["shapes"].append(r)
+        _log_row(kname, r)
+    return k2_ok and k3_ok
+
+
+def log_mma_instructions() -> None:
+    """Which tensor-core instructions the built K1 and K4 libraries hold
+    (``cuobjdump -sass`` beside ``nvcc``), for the log."""
+    import collections
+    import re
+
+    from bdbnn_tpu_torch.nn.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in ("binary_conv", "packed"):
+        if not os.path.exists(tool):
+            log(f"[build] {name}: no cuobjdump beside nvcc, instructions not read")
+            continue
+        sass = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True,
+                              text=True, timeout=120).stdout
+        ops = collections.Counter(re.findall(r"\b([BIH]MMA\.[A-Z0-9.]+)", sass))
+        log(f"[build] {name}: tensor-core instructions in its SASS {dict(ops)}")
 
 
 def make_flagship_artifact(out_dir: str):
@@ -1029,6 +1105,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
+    log_mma_instructions()
 
     recs, ok_k = phase_kernels(pk)
     trecs, ok_tk = phase_train_kernels(pk)
@@ -1077,31 +1154,37 @@ def main() -> int:
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
-    ms_of = {k: "the sum over four flagship shapes at batch 32" for k in ("K1", "K2", "K3", "K4")}
-    ms_of.update({"K5": "one train step at -b 256: the sum over the 19 binary convs",
-                  "K6": "one train step at -b 256: the sum over the 19 binary convs",
-                  "K7": "one call over the 19 hooked tensors"})
+    step = "one train step at -b 256: the sum over the 19 binary convs (ms × convs of each shape)"
+    fwd = "one batch-32 forward: the sum over the 19 binary convs (ms × convs of each shape)"
+    ms_of = {"K1": step + "; forward_b32 holds the batch-32 forward's sums",
+             "K2": fwd, "K3": fwd, "K4": fwd, "K5": step, "K6": step,
+             "K7": "one call over the 19 hooked tensors"}
+
+    def sums(sh):
+        lib = [s["library_ms"] for s in sh]
+        total = lambda key: sum(s.get("count", 1) * s[key] for s in sh)
+        return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": max(sh, key=lambda s: s["bound_ms"])["bound_by"],
+                "library_ms": None if any(v is None for v in lib) else total("library_ms")}
+
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         sh = recs[k]["shapes"]
-        lib = [s["library_ms"] for s in sh]
-        main_bound = max(sh, key=lambda s: s["bound_ms"])
-        total = lambda key: sum(s.get("count", 1) * s[key] for s in sh)
-        kernels.append({
+        rec = {
             "name": f"{k} {names[k]}",
             "route": "cuda",
             "source": sources[k],
             "replaces": replaces[k],
             "launches": used[k],
             "launches_by_path": by_path[k],
-            "max_abs_err": max(s["max_abs_err"] for s in sh),
+            "max_abs_err": max(s["max_abs_err"] for s in sh + recs[k].get("forward_shapes", [])),
             "ms_of": ms_of[k],
-            "ms": total("ms"),
-            "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"),
-            "bound_by": main_bound["bound_by"],
-            "library_ms": None if any(v is None for v in lib) else total("library_ms"),
+            **sums(sh),
             "shapes": sh,
-        })
+        }
+        if "forward_shapes" in recs[k]:
+            rec["forward_b32"] = {**sums(recs[k]["forward_shapes"]),
+                                  "shapes": recs[k]["forward_shapes"]}
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "main": ok_m, "cli": ok_c, "train_kernels": ok_tk, "train": ok_t,
            "train_parity": ok_tp, "train_cede": ok_te, "train_cli": ok_tc, "launched": ok_used}

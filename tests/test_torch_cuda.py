@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: K1-K4 bitwise; K5 and K6 to the summation bound
+card: K1-K4 bitwise (K1 and K4 also against each other at the
+flagship's ten conv shapes at batch 1, 32 and 256 and at sizes off every
+tile edge); K5 and K6 to the summation bound
 ``8·2⁻²⁴·Σ|terms|·|slope| + 2⁻²⁴·|plain|`` (the products are exact, the
 sums run in another order and each side's sum carries a rounding error of
 a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K5 and K6
@@ -35,6 +37,7 @@ from bdbnn_tpu_torch.nn.kernels import (
 )
 from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope
 from bdbnn_tpu_torch.serve.export import _pack_sign
+from chip_smoke import FLAGSHIP_CONVS
 
 # (N, H, W, C, O, k, stride, react shift)
 CONV_CASES = [
@@ -65,22 +68,89 @@ def _operands(case, dev, seed):
     return to(x), to(shift), to(wt)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", CONV_CASES)
-def test_k1_k4_bitwise_vs_plain(cuda, case):
-    x, shift, w = _operands(case, cuda, seed=8)
-    st = (case[6], case[6])
-    wsign, alpha = weight_binarize_plain(w)
+# K1 and K4 on the integer tensor cores: the flagship's ten distinct
+# binary conv shapes at batch 1, 32 and 256, then sizes that fall off
+# every tile edge (M, O and C not multiples of the 128 x 64 tile or of
+# the 32-channel / 64-lane stage), 1x1, 5x5, stride 2, no shift, and images
+# where most taps are padding
+FWD_CASES = [
+    (n, hw, hw, c, o, k, s, True)
+    for n in (1, 32, 256)
+    for _, hw, c, o, k, s, _ in FLAGSHIP_CONVS
+] + [
+    (3, 11, 13, 5, 3, 3, 1, True),
+    (2, 9, 9, 40, 3, 3, 2, False),
+    (2, 7, 7, 40, 67, 1, 1, True),
+    (3, 13, 11, 200, 131, 3, 2, False),
+    (5, 1, 1, 64, 70, 3, 1, True),
+    (4, 2, 2, 96, 130, 3, 1, False),
+    (4, 2, 2, 32, 8, 3, 2, True),
+    (1, 3, 3, 512, 512, 3, 1, True),
+    (2, 9, 9, 20, 10, 5, 2, True),
+]
+FWD_IDS = [f"n{c[0]}-{c[1]}x{c[2]}-c{c[3]}-o{c[4]}-k{c[5]}s{c[6]}-{'shift' if c[7] else 'none'}"
+           for c in FWD_CASES]
+
+
+def _fwd_all(x, wsign, alpha, shift, st):
     before = (binary_conv2d.launches, P.popcount_binary_conv.launches)
-    plain = binary_conv2d_plain(x, wsign, alpha, shift=shift, strides=st)
     k1 = binary_conv2d(x, wsign, alpha, shift=shift, strides=st)
     k4 = P.popcount_binary_conv(x, wsign, alpha, shift=shift, strides=st)
+    plain = binary_conv2d_plain(x, wsign, alpha, shift=shift, strides=st)
+    plain4 = P.popcount_binary_conv_plain(x, wsign, alpha, shift=shift, strides=st)
     torch.cuda.synchronize()
     assert (binary_conv2d.launches, P.popcount_binary_conv.launches) == (
         before[0] + 1, before[1] + 1
     )
+    return k1, k4, plain, plain4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES + FWD_CASES,
+                         ids=[f"case{i}" for i in range(len(CONV_CASES))] + FWD_IDS)
+def test_k1_k4_bitwise_vs_plain(cuda, case):
+    x, shift, w = _operands(case, cuda, seed=8)
+    wsign, alpha = weight_binarize_plain(w)
+    k1, k4, plain, plain4 = _fwd_all(x, wsign, alpha, shift, (case[6], case[6]))
+    assert torch.equal(plain4, plain)
     assert torch.equal(k1, plain)
     assert torch.equal(k4, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_k1_k4_padding_wider_than_the_kernel(cuda, k):
+    """Explicit padding past the kernel: some rows have no valid tap."""
+    x, shift, w = _operands((2, 5, 6, 24, 9, k, 1, True), cuda, seed=18)
+    wsign, alpha = weight_binarize(w)
+    pad = ((k + 2, k + 2), (k + 2, k + 2))
+    plain = binary_conv2d_plain(x, wsign, alpha, shift=shift, padding=pad)
+    k1 = binary_conv2d(x, wsign, alpha, shift=shift, padding=pad)
+    k4 = P.popcount_binary_conv(x, wsign, alpha, shift=shift, padding=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, plain)
+    assert torch.equal(k4, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("react", [True, False], ids=["shift", "none"])
+def test_k1_k4_sign_of_zero_is_plus_one(cuda, react):
+    """x - shift exactly 0 (and x = ±0 without a shift) at many lanes."""
+    case = (4, 9, 9, 72, 40, 3, 1, react)
+    x, shift, w = _operands(case, cuda, seed=17)
+    flat = x.reshape(-1, 72)
+    flat[::2] = shift if react else 0.0
+    if not react:
+        flat[1::4] = -0.0
+    wsign, alpha = weight_binarize(w)
+    k1, k4, plain, _ = _fwd_all(x, wsign, alpha, shift, (1, 1))
+    assert torch.equal(k1, plain)
+    assert torch.equal(k4, plain)
+    # the same as where those lanes are plainly positive
+    v = x - shift if react else x
+    clear = torch.where(v == 0, (shift if react else 0.0) + 1.0, x)
+    assert torch.equal(k1, binary_conv2d(clear, wsign, alpha, shift=shift))
+    assert torch.equal(k4, P.popcount_binary_conv(clear, wsign, alpha, shift=shift))
 
 
 @pytest.mark.cuda
