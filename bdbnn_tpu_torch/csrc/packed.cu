@@ -7,8 +7,16 @@
 // sign * alpha[o], in HWIO — the layout K2 (weight_binarize.cu) reads.
 //   out[e] = (bit e of packed ? +1 : -1) * alpha[e % O]
 // Bound on the H100: bytes (1/8 byte read, 4 bytes written per weight,
-// one multiply). One thread per weight; neighbouring threads write
-// neighbouring floats and share the packed byte and alpha through L1.
+// one multiply); a forward's 19 weights write 44.6 MB. Where O % 4 == 0
+// (every flagship conv) one thread takes a quad, 4 weights: half of a
+// packed byte and 4 consecutive channels of one row, so it reads their
+// alphas as one float4 (one % a quad) and writes one float4, and a warp's
+// store covers 512 contiguous bytes. (A byte a thread, two float4 stores
+// each, left every 32-byte sector half written by each store and took 1.6x
+// as long at 3x3 512->512 on the H100.) Otherwise (O % 4 != 0, which
+// includes every tail byte, or alpha or out off 16 bytes) a thread takes
+// a byte and each of its weights on its own, as out[e] above. The grid is
+// a grid-stride loop of at most two waves of blocks.
 //
 // K4 replaces bdbnn_tpu/nn/packed.py:popcount_binary_conv (+ _pack_words):
 // the ±1 conv as a popcount dot on 1-bit words, with the activation sign
@@ -55,13 +63,35 @@
 namespace {
 
 constexpr int UNPACK_THREADS = 256;
+// two waves of the H100's 132 SMs at 8 blocks of 256 threads an SM
+constexpr int UNPACK_MAX_BLOCKS = 2 * 132 * 8;
 
+__device__ __forceinline__ float signed_alpha(uint32_t byte, int i, float a) {
+    return ((byte >> (7 - i)) & 1u ? 1.f : -1.f) * a;
+}
+
+template <bool VEC>
 __global__ void __launch_bounds__(UNPACK_THREADS)
 unpack_sign_kernel(const uint8_t* __restrict__ packed, const float* __restrict__ alpha,
                    float* __restrict__ out, int n, int O) {
-    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
-        const int bit = (packed[e >> 3] >> (7 - (e & 7))) & 1;
-        out[e] = (bit ? 1.f : -1.f) * alpha[e % O];
+    const int stride = gridDim.x * UNPACK_THREADS;
+    if (VEC) {
+        // a quad q: weights 4q .. 4q + 3, half of byte q / 2 (the high
+        // half first), channels 4q % O .. + 3
+        for (int q = blockIdx.x * UNPACK_THREADS + threadIdx.x; q < n / 4; q += stride) {
+            const uint32_t byte = __ldg(packed + q / 2);
+            const uint32_t nib = q & 1 ? byte : byte >> 4;  // bits 3..0: weights 0..3
+            const float4 a = __ldg(reinterpret_cast<const float4*>(alpha + (4 * q) % O));
+            reinterpret_cast<float4*>(out)[q] =
+                make_float4(signed_alpha(nib, 4, a.x), signed_alpha(nib, 5, a.y),
+                            signed_alpha(nib, 6, a.z), signed_alpha(nib, 7, a.w));
+        }
+    } else {
+        for (int b = blockIdx.x * UNPACK_THREADS + threadIdx.x; b < (n + 7) / 8; b += stride) {
+            const uint32_t byte = __ldg(packed + b);
+            for (int i = 0; i < 8 && 8 * b + i < n; ++i)
+                out[8 * b + i] = signed_alpha(byte, i, __ldg(alpha + (8 * b + i) % O));
+        }
     }
 }
 
@@ -193,11 +223,17 @@ popcount_conv_fwd_kernel(const uint32_t* __restrict__ xbits, const int* __restri
 
 BDBNN_EXPORT int bdbnn_unpack_sign(const void* packed, const void* alpha, void* out, int n,
                                    int O, void* stream) {
-    const int blocks = (n + UNPACK_THREADS - 1) / UNPACK_THREADS;
-    unpack_sign_kernel<<<blocks > 65535 ? 65535 : blocks, UNPACK_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(packed), static_cast<const float*>(alpha),
-        static_cast<float*>(out), n, O);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool vec = O % 4 == 0 && reinterpret_cast<uintptr_t>(alpha) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int items = vec ? n / 4 : (n + 7) / 8;  // quads, or bytes
+    const int blocks = (items + UNPACK_THREADS - 1) / UNPACK_THREADS;
+    const dim3 grid((unsigned)(blocks < UNPACK_MAX_BLOCKS ? blocks : UNPACK_MAX_BLOCKS));
+    const uint8_t* p = static_cast<const uint8_t*>(packed);
+    const float* a = static_cast<const float*>(alpha);
+    float* o = static_cast<float*>(out);
+    auto kernel = vec ? unpack_sign_kernel<true> : unpack_sign_kernel<false>;
+    kernel<<<grid, UNPACK_THREADS, 0, st>>>(p, a, o, n, O);
     return (int)cudaGetLastError();
 }
 

@@ -13,87 +13,176 @@
 // K4 (packed.cu) read, with K contiguous; alpha f32 (O,).
 //
 // Bound on the H100: bytes — 4 bytes of W read and 1 byte of sign
-// written per weight with 2-3 flops each (the flagship's largest conv,
-// 3x3 512->512, is 9.4 MB of W). The design reads W once, coalesced
-// along O (32 output channels a block, one per lane), transposes each
-// 32x32 tile of signs through shared memory so the int8 writes are
-// coalesced along K too, and reduces |W| (and W²) per channel in
-// float64 — so alpha is the correctly rounded mean to well within the
-// reference's f32 rounding, whatever the summation order.
+// written per weight, with a few flops each. The flagship's weights run
+// from 32 KB (1x1 64->128) to 9.4 MB (3x3 512->512); a forward's 19 hold
+// 44.6 MB. The design spreads each weight over the whole card:
+// - grid (ceil(O / 64), splits): a block takes 64 output channels and one
+//   split of the K rows (weight_binarize_splits in
+//   nn/kernels/weight_binarize.py: rows a multiple of 16, about two waves
+//   of the 132 SMs where K allows, 288 blocks at 3x3 512->512);
+// - loads: a thread reads 4 consecutive rows of 4 consecutive channels
+//   as 16-byte loads along O (O is contiguous), four at once, so a block
+//   has its whole 64-row chunk (16 KB) in flight;
+// - signs: the thread's 4x4 signs become 4 words (4 rows of one channel
+//   each), go through shared memory, and leave as 16-byte stores along K;
+// - alpha: each thread sums |W| (and W² for lab) of its channels in
+//   float64, the block adds its 16 row groups in order into one partial a
+//   split, and a second launch adds the partials in split order and
+//   rounds once to f32 (one launch when there is one split). No atomics:
+//   the order of every sum is fixed by the shapes, so alpha is bitwise
+//   equal across runs; float64 keeps it the correctly rounded mean to well
+//   within the reference's f32 rounding, whatever the order.
+// Where O % 4, K % 16 or W's alignment rule out vectors, the same kernel
+// reads and writes element by element (VEC = false).
 #include "common.cuh"
 
 namespace {
 
-constexpr int TO = 32;  // output channels a block (one per lane)
-constexpr int TK = 32;  // reduction rows a tile
-constexpr int WARPS = 8;
+constexpr int TO = 64;                   // output channels a block
+constexpr int THREADS = 256;
+constexpr int QUADS = TO / 4;            // threads across a row's channels
+constexpr int GROUPS = THREADS / QUADS;  // row groups of 4 rows
+constexpr int TK = GROUPS * 4;           // rows a chunk: 64
+constexpr int WSTRIDE = TK / 4 + 1;      // words of a channel in the sign tile (+1: banks)
+constexpr int FINISH_THREADS = 256;
 
-__global__ void __launch_bounds__(TO * WARPS)
-weight_binarize_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
-                       float* __restrict__ alpha, int K, int O, int lab) {
-    __shared__ int8_t tile[TK][TO + 1];
-    __shared__ double red_abs[WARPS][TO];
-    __shared__ double red_sq[WARPS][TO];
+__device__ __forceinline__ float alpha_of(double s_abs, double s_sq, int K, int lab) {
+    const float mean_abs = (float)(s_abs / (double)K);
+    if (!lab) return mean_abs;
+    const float mean_sq = (float)(s_sq / (double)K);
+    return mean_sq / (mean_abs + 1e-12f);
+}
 
-    const int lane = threadIdx.x % 32;
-    const int warp = threadIdx.x / 32;
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+weight_sign_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
+                   double* __restrict__ part, float* __restrict__ alpha, int K, int O,
+                   int rows, int splits, int lab) {
+    __shared__ uint32_t tile[TO * WSTRIDE];
+    __shared__ double red[2][GROUPS][TO];
+
+    const int tid = threadIdx.x;
+    const int q = tid % QUADS;    // channels o0 + 4q .. 4q + 3
+    const int grp = tid / QUADS;  // rows c0 + 4 grp .. 4 grp + 3 of a chunk
     const int o0 = blockIdx.x * TO;
-    const int o = o0 + lane;
-    double s_abs = 0.0, s_sq = 0.0;
+    const int o = o0 + 4 * q;
+    const int kb = blockIdx.y * rows;
+    const int ke = min(K, kb + rows);
+    double s_abs[4] = {0.0, 0.0, 0.0, 0.0};
+    double s_sq[4] = {0.0, 0.0, 0.0, 0.0};
 
-    for (int k0 = 0; k0 < K; k0 += TK) {
-        // read: lane -> output channel, warp -> reduction row
+    for (int c0 = kb; c0 < ke; c0 += TK) {
+        // v[i][j]: row c0 + 4 grp + i, channel o + j; 0 outside W, which
+        // adds nothing to either sum and whose sign is never stored
+        float v[4][4];
 #pragma unroll
-        for (int r = 0; r < TK / WARPS; ++r) {
-            const int kl = warp + r * WARPS;
-            const int k = k0 + kl;
-            int8_t sv = 0;
-            if (k < K && o < O) {
-                const float v = w[(long long)k * O + o];
-                sv = v >= 0.f ? 1 : -1;
-                const double d = (double)v;
-                s_abs += fabs(d);
-                s_sq += d * d;
+        for (int i = 0; i < 4; ++i) {
+            const int k = c0 + 4 * grp + i;
+            const float* src = w + (long long)k * O + o;
+            if (VEC) {
+                float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (k < ke && o < O) f = __ldg(reinterpret_cast<const float4*>(src));
+                v[i][0] = f.x;
+                v[i][1] = f.y;
+                v[i][2] = f.z;
+                v[i][3] = f.w;
+            } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) v[i][j] = (k < ke && o + j < O) ? __ldg(src + j) : 0.f;
             }
-            tile[kl][lane] = sv;
         }
-        __syncthreads();
-        // write: lane -> reduction row, warp -> output channel
+        uint32_t word[4] = {0u, 0u, 0u, 0u};  // channel o + j, row i in byte i
 #pragma unroll
-        for (int r = 0; r < TO / WARPS; ++r) {
-            const int ol = warp + r * WARPS;
-            const int k = k0 + lane;
-            if (o0 + ol < O && k < K) sign[(long long)(o0 + ol) * K + k] = tile[lane][ol];
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const double d = (double)v[i][j];
+                s_abs[j] += fabs(d);
+                if (lab) s_sq[j] = fma(d, d, s_sq[j]);
+                word[j] |= (v[i][j] >= 0.f ? 0x01u : 0xFFu) << (8 * i);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tile[(4 * q + j) * WSTRIDE + grp] = word[j];
+        __syncthreads();
+        const int n = min(TK, ke - c0);  // rows of this chunk
+        if (VEC) {
+            // n, K and c0 are multiples of 16: channel ol's row of the
+            // chunk is n / 16 aligned 16-byte vectors
+            const int ol = tid / 4, seg = tid % 4;
+            if (seg * 16 < n && o0 + ol < O) {
+                const uint32_t* t = tile + ol * WSTRIDE + seg * 4;
+                *reinterpret_cast<uint4*>(sign + (long long)(o0 + ol) * K + c0 + seg * 16) =
+                    make_uint4(t[0], t[1], t[2], t[3]);
+            }
+        } else {
+            for (int e = tid; e < TO * TK; e += THREADS) {
+                const int ol = e / TK, kl = e % TK;
+                if (kl < n && o0 + ol < O)
+                    sign[(long long)(o0 + ol) * K + c0 + kl] =
+                        (int8_t)(tile[ol * WSTRIDE + kl / 4] >> (8 * (kl % 4)));
+            }
         }
         __syncthreads();
     }
 
-    red_abs[warp][lane] = s_abs;
-    red_sq[warp][lane] = s_sq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        red[0][grp][4 * q + j] = s_abs[j];
+        red[1][grp][4 * q + j] = s_sq[j];
+    }
     __syncthreads();
-    if (warp == 0 && o < O) {
-        double a = 0.0, q = 0.0;
-        for (int r = 0; r < WARPS; ++r) {
-            a += red_abs[r][lane];
-            q += red_sq[r][lane];
+    if (tid < TO && o0 + tid < O) {
+        double a = 0.0, s = 0.0;
+#pragma unroll
+        for (int g = 0; g < GROUPS; ++g) {
+            a += red[0][g][tid];
+            s += red[1][g][tid];
         }
-        const float mean_abs = (float)(a / (double)K);
-        if (lab) {
-            const float mean_sq = (float)(q / (double)K);
-            alpha[o] = mean_sq / (mean_abs + 1e-12f);
+        if (splits == 1) {
+            alpha[o0 + tid] = alpha_of(a, s, K, lab);
         } else {
-            alpha[o] = mean_abs;
+            part[(long long)blockIdx.y * O + o0 + tid] = a;
+            part[((long long)splits + blockIdx.y) * O + o0 + tid] = s;
         }
     }
 }
 
+// alpha[o] from the (2, splits, O) float64 partials, added in split order.
+__global__ void __launch_bounds__(FINISH_THREADS)
+weight_alpha_finish_kernel(const double* __restrict__ part, float* __restrict__ alpha, int K,
+                           int O, int splits, int lab) {
+    const int o = blockIdx.x * FINISH_THREADS + threadIdx.x;
+    if (o >= O) return;
+    double a = 0.0, s = 0.0;
+#pragma unroll 8
+    for (int i = 0; i < splits; ++i) {
+        a += part[(long long)i * O + o];
+        if (lab) s += part[((long long)splits + i) * O + o];
+    }
+    alpha[o] = alpha_of(a, s, K, lab);
+}
+
 }  // namespace
 
-BDBNN_EXPORT int bdbnn_weight_binarize(const void* w, void* sign, void* alpha, int K, int O,
-                                       int lab, void* stream) {
-    const dim3 grid((unsigned)((O + TO - 1) / TO));
-    weight_binarize_kernel<<<grid, TO * WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(w), static_cast<int8_t*>(sign), static_cast<float*>(alpha),
-        K, O, lab);
+// part: float64 (2, splits, O) scratch, or NULL when splits == 1; rows a
+// multiple of 16 (weight_binarize_splits).
+BDBNN_EXPORT int bdbnn_weight_binarize(const void* w, void* sign, void* alpha, void* part, int K,
+                                       int O, int rows, int splits, int lab, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool vec = O % 4 == 0 && K % 16 == 0 && rows % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(sign) % 16 == 0;
+    const dim3 grid((unsigned)((O + TO - 1) / TO), (unsigned)splits);
+    const float* wf = static_cast<const float*>(w);
+    int8_t* s8 = static_cast<int8_t*>(sign);
+    double* pd = static_cast<double*>(part);
+    float* af = static_cast<float*>(alpha);
+    auto kernel = vec ? weight_sign_kernel<true> : weight_sign_kernel<false>;
+    kernel<<<grid, THREADS, 0, st>>>(wf, s8, pd, af, K, O, rows, splits, lab);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    weight_alpha_finish_kernel<<<(unsigned)((O + FINISH_THREADS - 1) / FINISH_THREADS),
+                                 FINISH_THREADS, 0, st>>>(pd, af, K, O, splits, lab);
     return (int)cudaGetLastError();
 }

@@ -28,6 +28,7 @@ from bdbnn_tpu_torch.nn.kernels.kurtosis import kurtosis_grouped, kurtosis_group
 from bdbnn_tpu_torch.nn.kernels.weight_binarize import (
     weight_binarize,
     weight_binarize_plain,
+    weight_binarize_splits,
 )
 
 __all__ = [
@@ -43,4 +44,5 @@ __all__ = [
     "kurtosis_grouped_plain",
     "weight_binarize",
     "weight_binarize_plain",
+    "weight_binarize_splits",
 ]

@@ -69,8 +69,9 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                    _P, _P, _P),
     },
     "weight_binarize": {
-        # w (K, O) f32, sign (O, K) int8, alpha (O,), K, O, lab, stream
-        "bdbnn_weight_binarize": (_P, _P, _P, _I, _I, _I, _P),
+        # w (K, O) f32, sign (O, K) int8, alpha (O,), part (2, splits, O)
+        # f64 scratch (or NULL), K, O, rows, splits, lab, stream
+        "bdbnn_weight_binarize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "packed": {
         # packed uint8, alpha (O,), out (K*O,) f32, n = K*O, O, stream

@@ -14,15 +14,38 @@ float64 and round once to float32, so alpha does not depend on the
 summation order: the card and the CPU give the same alpha (barring a
 double-rounding tie), and both stay within a relative 1e-6 of the
 reference's float32 mean (stated tolerance). The sign is bitwise equal.
+
+The kernel splits the K = kh·kw·C rows of a weight over blocks as
+:func:`weight_binarize_splits` says, sums each split's float64 partial
+per channel, and adds the partials in split order: the order is a
+function of the shapes alone, so alpha is also bitwise equal across runs.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
 Tensor = torch.Tensor
+
+# csrc/weight_binarize.cu: output channels a block, the step of a split's
+# rows (its sign leaves as 16-byte stores along K), and the blocks a
+# weight is spread over where K allows (two waves of the H100's 132 SMs)
+K2_O_TILE = 64
+K2_ROW_STEP = 16
+K2_BLOCKS = 264
+
+
+def weight_binarize_splits(k: int, o: int) -> Tuple[int, int]:
+    """(splits, rows per split) of K2's K rows: rows a multiple of
+    :data:`K2_ROW_STEP`, as few as give about :data:`K2_BLOCKS` blocks
+    over the ``ceil(o / K2_O_TILE)`` channel tiles. Split ``s`` takes rows
+    ``[s·rows, min(k, (s + 1)·rows))``."""
+    want = math.ceil(K2_BLOCKS / math.ceil(o / K2_O_TILE))
+    rows = max(K2_ROW_STEP, k // want // K2_ROW_STEP * K2_ROW_STEP)
+    return math.ceil(k / rows), rows
 
 
 def _check(w: Tensor) -> Tuple[int, int, int, int]:
@@ -61,11 +84,15 @@ def weight_binarize(w: Tensor, *, lab: bool = False) -> Tuple[Tensor, Tensor]:
     from bdbnn_tpu_torch.nn.kernels import _build
 
     k = kh * kw * c
+    splits, rows = weight_binarize_splits(k, o)
     sign = torch.empty((o, kh, kw, c), dtype=torch.int8, device=w.device)
     alpha = torch.empty((o,), dtype=torch.float32, device=w.device)
+    # each split's float64 partials of Σ|W| and ΣW² per channel
+    part = torch.empty((2, splits, o), dtype=torch.float64, device=w.device) if splits > 1 else None
     lib = _build.library("weight_binarize")
     err = lib.bdbnn_weight_binarize(
-        w.data_ptr(), sign.data_ptr(), alpha.data_ptr(), k, o, int(bool(lab)),
+        w.data_ptr(), sign.data_ptr(), alpha.data_ptr(),
+        part.data_ptr() if part is not None else None, k, o, rows, splits, int(bool(lab)),
         _build.stream_ptr(w.device),
     )
     _build.check(lib, err, "weight_binarize")
@@ -75,4 +102,4 @@ def weight_binarize(w: Tensor, *, lab: bool = False) -> Tuple[Tensor, Tensor]:
 
 weight_binarize.launches = 0
 
-__all__ = ["weight_binarize", "weight_binarize_plain"]
+__all__ = ["weight_binarize", "weight_binarize_plain", "weight_binarize_splits"]

@@ -10,16 +10,19 @@ Phases (any failure exits non-zero and prints no result line):
 2. build   — builds every kernel from ``bdbnn_tpu_torch/csrc`` with nvcc
              (one process per source, all at once), prints seconds and the
              tensor-core instructions in K1's and K4's SASS;
-3. kernels — holds K1 (fused sign + binary conv), K2 (weight sign +
-             alpha), K3 (packbits decode) and K4 (XNOR-popcount conv)
-             against their plain PyTorch versions on the card at the
+3. kernels — holds K1 (fused sign + binary conv) and K4 (XNOR-popcount
+             conv) against their plain PyTorch versions on the card at the
              flagship's ten distinct binary conv shapes at batch 32, and
-             K1 also at -b 256: bitwise for K1, K3, K4 (and K4 against
-             K1) and K2's sign, relative 1e-6 for K2's alpha. Times each
-             with CUDA events after a warm-up, beside its plain version,
-             ``F.conv2d`` on the same ±1 operands (K1/K4, f32 with TF32
-             off, a yardstick only; bf16 channels_last logged beside it)
-             and the least time the card could take;
+             K1 also at -b 256, bitwise (and K4 against K1); then K2
+             (weight sign + alpha) and K3 (packbits decode) at the same
+             ten weights: bitwise for K3 and K2's sign, relative 1e-6 for
+             K2's alpha, both bitwise across two runs. Times each with
+             CUDA events after a warm-up, eager and as CUDA-graph replay
+             (device time alone), beside its plain version, ``F.conv2d``
+             on the same ±1 operands (K1/K4, f32 with TF32 off, a
+             yardstick only; bf16 channels_last logged beside it) and the
+             least time the card could take; K2 and K3 also over one
+             forward's 19 weights in one graph;
 4. main    — builds the full-width ImageNet ``resnet18`` (react) from a
              seeded ``torch.Generator`` with non-trivial BN statistics,
              act_shifts and RPReLU vectors, writes an export artifact,
@@ -31,7 +34,7 @@ Phases (any failure exits non-zero and prints no result line):
              run must be what 19 binary convs a forward require. Then
              ``python -m bdbnn_tpu_torch.cli predict`` must exit 0;
              ``time_step`` is printed per bucket and mode, and a
-             torch.profiler breakdown of one bucket-32 forward;
+             torch.profiler breakdown of one bucket-32 forward in each mode;
 5. train_kernels — holds K5 (binary conv dgrad with the sign
              estimator's slope), K6 (binary conv wgrad with the STE mask)
              and K7 (grouped kurtosis regularizer and gradient) against
@@ -53,9 +56,11 @@ Phases (any failure exits non-zero and prints no result line):
              flagship tensors to rtol 1e-5. Times each beside its plain
              version, the least time the card could take, and
              torch.nn.grad.conv2d_input / conv2d_weight on the same ±1
-             operands (TF32 off, a yardstick). K5's and K6's bounds are at
-             the bf16 tensor rate (6·MACs: three bf16 pieces of g·alpha),
-             their f32 figure (2·MACs at 67 TFLOP/s) is logged beside it;
+             operands (TF32 off, a yardstick); K7 also as its device
+             passes alone (one CUDA graph, its host table left out).
+             K5's and K6's bounds are at the bf16 tensor rate (6·MACs:
+             three bf16 pieces of g·alpha), their f32 figure (2·MACs at
+             67 TFLOP/s) is logged beside it;
 6. train   — the training main path: ``fit`` on the full-width ImageNet
              resnet18 (react) flagship, synthetic 224² images, -b 256,
              --w-kurtosis --diffkurt, Adam, 5 steps and the eval pass, its
@@ -77,6 +82,10 @@ Phases (any failure exits non-zero and prints no result line):
              pinned copy of one batch are timed alone after [train];
 10. output — one ``{"kernels": [...]}`` line (K1-K7), then as the last
              line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
+K7 alone and prints their records as one JSON line: run from two trees in
+turns, it compares their weight kernels on one card.
 """
 
 from __future__ import annotations
@@ -239,7 +248,7 @@ def phase_kernels(pk):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    recs = {k: {"shapes": []} for k in ("K1", "K2", "K3", "K4")}
+    recs = {k: {"shapes": []} for k in ("K1", "K4")}
     recs["K1"]["forward_shapes"] = []
     ok = True
     for name, hw, c, o, k, s, count in FLAGSHIP_CONVS:
@@ -294,16 +303,46 @@ def phase_kernels(pk):
                 recs["K4"]["shapes"].append(r4)
                 _log_row("K4", r4)
                 ok = ok and k4_ok
-                ok = _check_weight_kernels(recs, pk, name, count, w, sign, alpha) and ok
                 del y4, py4
             del x, y1, py, xb, wf, xh, wh, lib_y
             torch.cuda.empty_cache()
+    _log_forward_sum(recs, "K4")
     return recs, ok
 
 
-def _check_weight_kernels(recs, pk, name, count, w, sign, alpha) -> bool:
-    """K2 (weight sign + alpha) and K3 (packbits decode) at one conv's
-    weight against their plain versions; appends their records."""
+def _log_forward_sum(recs, kname) -> None:
+    sh = recs[kname]["shapes"]
+    log(f"[kernels] {kname} summed over one batch-32 forward's 19 convs: "
+        f"eager {sum(r['count'] * r['ms'] for r in sh):.4f} ms, "
+        f"graph {sum(r['count'] * r['graph_ms'] for r in sh):.4f} ms, "
+        f"bound {sum(r['count'] * r['bound_ms'] for r in sh):.4f} ms")
+
+
+def phase_weight_kernels(pk):
+    """Hold K2 (weight sign + alpha) and K3 (packbits decode) against their
+    plain versions at the flagship's ten distinct binary conv weights:
+    K2's sign and K3's output bitwise, K2's alpha to a relative 1e-6 and
+    bitwise across two runs. Times each eager, as CUDA-graph replay
+    (device time alone) and over one forward's 19 weights in one graph
+    (:func:`forward_weight_graphs`). Returns per-kernel records (without
+    ``launches``) and ok."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    recs = {k: {"shapes": []} for k in ("K2", "K3")}
+    ok = True
+    for name, _, c, o, k, _, count in FLAGSHIP_CONVS:
+        w = 0.05 * torch.randn((k, k, c, o), generator=g, device="cuda")
+        ok = _check_weight_kernels(recs, pk, name, count, w) and ok
+    for kname in recs:
+        _log_forward_sum(recs, kname)
+    forward_weight_graphs(recs)
+    return recs, ok
+
+
+def _check_weight_kernels(recs, pk, name, count, w) -> bool:
+    """K2 and K3 at one conv's weight against their plain versions;
+    appends their records."""
     import numpy as np
     import torch
 
@@ -311,29 +350,64 @@ def _check_weight_kernels(recs, pk, name, count, w, sign, alpha) -> bool:
     from bdbnn_tpu_torch.nn.kernels import weight_binarize, weight_binarize_plain
 
     shape = tuple(int(d) for d in w.shape)
+    sign, alpha = weight_binarize(w)
+    sign2, alpha2 = weight_binarize(w)
     psign, palpha = weight_binarize_plain(w)
     packed = torch.from_numpy(np.packbits((w >= 0).cpu().numpy().reshape(-1))).to(w.device)
     dense = P.packed_dense_weight(packed, alpha, shape)
     pdense = P.packed_dense_weight_plain(packed, alpha, shape)
     torch.cuda.synchronize()
-    k2_ok = torch.equal(sign, psign) and bool(torch.allclose(alpha, palpha, rtol=1e-6, atol=0))
+    k2_ok = (torch.equal(sign, psign) and bool(torch.allclose(alpha, palpha, rtol=1e-6, atol=0))
+             and torch.equal(sign, sign2) and torch.equal(alpha, alpha2))
     k3_ok = torch.equal(dense, pdense)
     nw, o = w.numel(), shape[-1]
+    k2 = lambda: weight_binarize(w)
+    k3 = lambda: P.packed_dense_weight(packed, alpha, shape)
     rows = {
-        "K2": _conv_row(name, BATCH, count, cuda_ms(lambda: weight_binarize(w), 50),
+        "K2": _conv_row(name, BATCH, count, cuda_ms(k2, 50),
                         cuda_ms(lambda: weight_binarize_plain(w), 20), None,
                         bound(nw * 4 + nw + o * 4, 3.0 * nw, pk["f32_tflops"], pk),
-                        float((alpha - palpha).abs().max()), k2_ok),
-        "K3": _conv_row(name, BATCH, count,
-                        cuda_ms(lambda: P.packed_dense_weight(packed, alpha, shape), 50),
+                        float((alpha - palpha).abs().max()), k2_ok, graph_ms=graph_ms(k2)),
+        "K3": _conv_row(name, BATCH, count, cuda_ms(k3, 50),
                         cuda_ms(lambda: P.packed_dense_weight_plain(packed, alpha, shape), 20),
                         None, bound((nw + 7) // 8 + o * 4 + nw * 4, 1.0 * nw, pk["f32_tflops"], pk),
-                        float((dense - pdense).abs().max()), k3_ok),
+                        float((dense - pdense).abs().max()), k3_ok, graph_ms=graph_ms(k3)),
     }
     for kname, r in rows.items():
         recs[kname]["shapes"].append(r)
         _log_row(kname, r)
     return k2_ok and k3_ok
+
+
+def forward_weight_graphs(recs) -> None:
+    """K2 and K3 as one batch-32 forward runs them: the 19 binary convs'
+    own weights (one per conv, 44.6 MB of f32 in all, so most of each is
+    read from device memory, not from L2), each kernel's 19 calls in
+    forward order captured in one CUDA graph and replayed. Records the
+    device ms of one forward's calls as ``forward_graph_ms``."""
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.nn import packed as P
+    from bdbnn_tpu_torch.nn.kernels import weight_binarize
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ws = [0.05 * torch.randn((k, k, c, o), generator=g, device="cuda")
+          for _, _, c, o, k, _, count in FLAGSHIP_CONVS for _ in range(count)]
+    alphas = [w.abs().mean(dim=(0, 1, 2)) for w in ws]
+    packs = [torch.from_numpy(np.packbits((w >= 0).cpu().numpy().reshape(-1))).cuda() for w in ws]
+    shapes = [tuple(w.shape) for w in ws]
+    fns = {
+        "K2": lambda: [weight_binarize(w) for w in ws],
+        "K3": lambda: [P.packed_dense_weight(p, a, sh) for p, a, sh in zip(packs, alphas, shapes)],
+    }
+    for kname, fn in fns.items():
+        ms = graph_ms(fn, calls=3)
+        recs[kname]["forward_graph_ms"] = ms
+        log(f"[kernels] {kname} one batch-32 forward's {len(ws)} calls on the convs' own weights, "
+            f"in one CUDA graph: {ms:.4f} ms")
+    del ws, alphas, packs
+    torch.cuda.empty_cache()
 
 
 def log_mma_instructions() -> None:
@@ -505,7 +579,7 @@ def phase_main(art: str):
     for m, e in engines.items():
         steps = {b: e.time_step(bucket=b, iters=10) for b in e.buckets}
         log(f"[main] time_step ms {m}: {steps}")
-    for m in ("dense", "popcount"):
+    for m in modes:
         profile_forward(engines[m], m, 32)
     return counts, ok
 
@@ -597,22 +671,18 @@ def phase_train_kernels(pk):
     import torch
     from torch.nn import grad as tgrad
 
-    from bdbnn_tpu_torch.models import create_model
     from bdbnn_tpu_torch.nn.kernels import (
         binary_conv2d_dgrad,
         binary_conv2d_dgrad_plain,
         binary_conv2d_wgrad,
         binary_conv2d_wgrad_plain,
-        kurtosis_grouped,
-        kurtosis_grouped_plain,
         weight_binarize,
     )
     from bdbnn_tpu_torch.nn.kernels.binary_conv import binarize_input, estimator_slope
-    from bdbnn_tpu_torch.losses.kurtosis import DIFFKURT_TARGETS_IMAGENET
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    recs = {k: {"shapes": []} for k in ("K5", "K6", "K7")}
+    recs = {k: {"shapes": []} for k in ("K5", "K6")}
     ok = True
     approx = ("approx", 0.0, 0.0)
     b = TRAIN_BATCH
@@ -716,7 +786,23 @@ def phase_train_kernels(pk):
     ok = phase_k5_same_sign(g) and ok
     ok = phase_k6_same_sign(g) and ok
 
-    # K7 over the flagship's 19 hooked latent weights (he-normal init)
+    k7, k7_ok = phase_k7(pk)
+    recs["K7"] = k7
+    return recs, ok and k7_ok
+
+
+def phase_k7(pk):
+    """K7 over the flagship's 19 hooked latent weights (he-normal init)
+    against its plain version (rtol 1e-5, bitwise across two runs); timed
+    eager and as its device passes alone (:func:`k7_device_ms`). Returns
+    its record (without ``launches``) and ok."""
+    import torch
+
+    from bdbnn_tpu_torch.losses.kurtosis import DIFFKURT_TARGETS_IMAGENET
+    from bdbnn_tpu_torch.models import create_model
+    from bdbnn_tpu_torch.nn.kernels import kurtosis_grouped, kurtosis_grouped_plain
+
+    dev = torch.device("cuda")
     model = create_model("resnet18", "imagenet", generator=torch.Generator().manual_seed(0)).to(dev)
     ws = [p.detach() for n, p in model.named_parameters() if n.endswith("float_weight")]
     targets = DIFFKURT_TARGETS_IMAGENET
@@ -736,19 +822,52 @@ def phase_train_kernels(pk):
     k7_err = max(float((loss - ploss).abs()), float((kurt - pkurt).abs().max()),
                  max(float((a - b).abs().max()) for a, b in zip(grads, pgrads)))
     ms = cuda_ms(lambda: kurtosis_grouped(ws, targets, "avg"), 50)
+    dev_ms = k7_device_ms(ws, targets)
     plain_ms = cuda_ms(lambda: kurtosis_grouped_plain(ws, targets, "avg"), 5)
     b7 = bound(2 * 4 * n_el, 17.0 * n_el, pk["f64_tflops"], pk)
-    recs["K7"]["shapes"].append({
+    rec = {"shapes": [{
         "shape": f"19 flagship tensors, {n_el} elements", "count": 1, "ms": ms, "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": b7[0], "bound_by": b7[1], "max_abs_err": k7_err,
-        "ok": bool(k7_ok),
-    })
+        "ok": bool(k7_ok), "graph_ms": dev_ms,
+    }]}
     log(f"[train_kernels] K7 19 tensors ({n_el} elements): ok={k7_ok} loss={float(loss)} "
         f"plain={float(ploss)} max grad err (of the tensor's largest)={gerr} kernel_ms={ms:.4f} "
+        f"(device alone, graph: {dev_ms:.4f}; the rest is the host's table and launches) "
         f"plain_ms={plain_ms:.4f} bound_ms={b7[0]:.4f} ({b7[1]})")
     del model, ws, grads, grads2, pgrads
     torch.cuda.empty_cache()
-    return recs, ok and bool(k7_ok)
+    return rec, bool(k7_ok)
+
+
+def k7_device_ms(ws, targets) -> float:
+    """K7's device time alone: its four grid passes over ``ws`` (mode avg,
+    with the gradient) captured in one CUDA graph, from a tensor table
+    built once outside it. The wrapper builds that table on the host and
+    copies it through pinned memory at every call, which the graph leaves
+    out; the C entry is called as the wrapper calls it, with no count."""
+    import torch
+
+    from bdbnn_tpu_torch.nn.kernels import _build
+    from bdbnn_tpu_torch.nn.kernels import kurtosis as KM
+
+    dev = ws[0].device
+    lib = _build.library("kurtosis")
+    meta, tgt, blocks, total = KM._table(ws, targets)
+    t = len(ws)
+    partial = torch.empty((blocks, 5), dtype=torch.float64, device=dev)
+    coef = torch.empty((t, 4), dtype=torch.float64, device=dev)
+    kurt = torch.empty((t,), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    flat = torch.empty((total,), dtype=torch.float32, device=dev)
+
+    def launch():
+        err = lib.bdbnn_kurtosis_grouped(
+            meta.data_ptr(), tgt.data_ptr(), t, blocks, KM.CHUNK, KM.MODES["avg"], 1,
+            partial.data_ptr(), coef.data_ptr(), kurt.data_ptr(), loss.data_ptr(),
+            flat.data_ptr(), _build.stream_ptr(dev))
+        _build.check(lib, err, "kurtosis_grouped")
+
+    return graph_ms(launch)
 
 
 def phase_k5_same_sign(gen) -> bool:
@@ -1081,8 +1200,17 @@ def profile_train_step(iters: int = 3) -> dict:
     return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--weight-kernels", action="store_true",
+                    help="only build the kernels and hold and time K2, K3 and K7 (phases 1-3 "
+                         "for them), then print their records as one JSON line; for comparing "
+                         "two trees' weight kernels in one run")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false — this needs a CUDA card")
@@ -1107,7 +1235,15 @@ def main() -> int:
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     log_mma_instructions()
 
+    if args.weight_kernels:
+        wrecs, ok_w = phase_weight_kernels(pk)
+        wrecs["K7"], ok_k7 = phase_k7(pk)
+        print(json.dumps({"weight_kernels": wrecs, "device": kind, "nvidia_smi": smi_line}),
+              flush=True)
+        return 0 if ok_w and ok_k7 else 1
     recs, ok_k = phase_kernels(pk)
+    wrecs, ok_w = phase_weight_kernels(pk)
+    recs.update(wrecs)
     trecs, ok_tk = phase_train_kernels(pk)
     recs.update(trecs)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1155,17 +1291,22 @@ def main() -> int:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
     step = "one train step at -b 256: the sum over the 19 binary convs (ms × convs of each shape)"
-    fwd = "one batch-32 forward: the sum over the 19 binary convs (ms × convs of each shape)"
+    fwd = ("one batch-32 forward: the sum over the 19 binary convs (ms × convs of each shape); "
+           "graph_ms the same sum of CUDA-graph-replayed device times")
+    wgraph = "; forward_graph_ms the 19 calls on the convs' own weights in one CUDA graph"
     ms_of = {"K1": step + "; forward_b32 holds the batch-32 forward's sums",
-             "K2": fwd, "K3": fwd, "K4": fwd, "K5": step, "K6": step,
-             "K7": "one call over the 19 hooked tensors"}
+             "K2": fwd + wgraph, "K3": fwd + wgraph, "K4": fwd, "K5": step, "K6": step,
+             "K7": "one call over the 19 hooked tensors; graph_ms its four device passes alone"}
 
     def sums(sh):
         lib = [s["library_ms"] for s in sh]
         total = lambda key: sum(s.get("count", 1) * s[key] for s in sh)
-        return {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-                "bound_by": max(sh, key=lambda s: s["bound_ms"])["bound_by"],
-                "library_ms": None if any(v is None for v in lib) else total("library_ms")}
+        out = {"ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+               "bound_by": max(sh, key=lambda s: s["bound_ms"])["bound_by"],
+               "library_ms": None if any(v is None for v in lib) else total("library_ms")}
+        if all("graph_ms" in s for s in sh):
+            out["graph_ms"] = total("graph_ms")
+        return out
 
     for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
         sh = recs[k]["shapes"]
@@ -1181,13 +1322,16 @@ def main() -> int:
             **sums(sh),
             "shapes": sh,
         }
+        if "forward_graph_ms" in recs[k]:
+            rec["forward_graph_ms"] = recs[k]["forward_graph_ms"]
         if "forward_shapes" in recs[k]:
             rec["forward_b32"] = {**sums(recs[k]["forward_shapes"]),
                                   "shapes": recs[k]["forward_shapes"]}
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
-    oks = {"kernels": ok_k, "main": ok_m, "cli": ok_c, "train_kernels": ok_tk, "train": ok_t,
-           "train_parity": ok_tp, "train_cede": ok_te, "train_cli": ok_tc, "launched": ok_used}
+    oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
+           "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
+           "train_cli": ok_tc, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: K1-K4 bitwise (K1 and K4 also against each other at the
 flagship's ten conv shapes at batch 1, 32 and 256 and at sizes off every
-tile edge); K5 and K6 to the summation bound
+tile edge; K2 and K3 at the flagship's ten weights and weights off every
+tile, vector width and alignment, K2's alpha to rtol 1e-6 of the plain
+version, bitwise across two runs and across CUDA-graph replays); K5 and K6 to the summation bound
 ``8·2⁻²⁴·Σ|terms|·|slope| + 2⁻²⁴·|plain|`` (the products are exact, the
 sums run in another order and each side's sum carries a rounding error of
 a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K5 and K6
@@ -153,29 +155,85 @@ def test_k1_k4_sign_of_zero_is_plus_one(cuda, react):
     assert torch.equal(k4, P.popcount_binary_conv(clear, wsign, alpha, shift=shift))
 
 
+# K2 and K3 at the flagship's ten distinct weights, then weights off the
+# kernels' grids: O = 130, 132 and 48 (off K2's 64-channel tile; 130 also
+# off the 4-channel vectors, 132 off K3's 8-weight bytes), K = 45, 27 and
+# 180 (off the 16-row step), K = 48 and 320 (on the step, off the 64-row
+# chunk), one row
+WEIGHT_SHAPES = [(k, k, c, o) for _, _, c, o, k, _, _ in FLAGSHIP_CONVS] + [
+    (3, 3, 5, 4), (3, 3, 64, 48), (1, 1, 7, 130), (1, 1, 7, 132), (3, 3, 3, 130),
+    (3, 3, 20, 64), (1, 1, 48, 64), (1, 1, 320, 72), (1, 1, 1, 3),
+]
+
+
+def _weight(shape, dev, seed, offset=0):
+    """An f32 HWIO weight on ``dev`` with exact ±0.0 entries, starting
+    ``offset`` floats into its storage (off 16 bytes where offset % 4)."""
+    w = np.random.default_rng(seed).normal(0, 0.05, shape).astype(np.float32)
+    w.reshape(-1)[::13] = 0.0
+    w.reshape(-1)[5::13] = -0.0
+    buf = torch.zeros(offset + w.size, device=dev)
+    buf[offset:] = torch.from_numpy(w.reshape(-1)).to(dev)
+    return buf[offset:].view(shape)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lab", [False, True])
-@pytest.mark.parametrize("shape", [(3, 3, 5, 4), (3, 3, 64, 48), (1, 1, 7, 130)])
-def test_k2_vs_plain(cuda, lab, shape):
-    w = torch.from_numpy(
-        np.random.default_rng(9).normal(0, 0.05, shape).astype(np.float32)
-    ).to(cuda)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "w+4B"])
+@pytest.mark.parametrize("shape", WEIGHT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_vs_plain(cuda, lab, shape, offset):
+    w = _weight(shape, cuda, 9, offset)
     sign, alpha = weight_binarize(w, lab=lab)
+    sign2, alpha2 = weight_binarize(w, lab=lab)
     psign, palpha = weight_binarize_plain(w, lab=lab)
     torch.cuda.synchronize()
     assert torch.equal(sign, psign)
     torch.testing.assert_close(alpha, palpha, rtol=1e-6, atol=0)
+    # the split sums run in an order fixed by the shapes: bitwise across runs
+    assert torch.equal(sign, sign2)
+    assert torch.equal(alpha.view(torch.int32), alpha2.view(torch.int32))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 3, 7, 5), (1, 1, 64, 128)])
-def test_k3_vs_plain(cuda, shape):
-    w = np.random.default_rng(10).normal(size=shape).astype(np.float32)
-    packed = torch.from_numpy(_pack_sign(w)).to(cuda)
-    alpha = torch.rand(shape[-1], device=cuda) + 0.1
-    got = P.packed_dense_weight(packed, alpha, shape)
+@pytest.mark.parametrize("lab", [False, True])
+@pytest.mark.parametrize("shape", [(3, 3, 512, 512), (1, 1, 7, 130)], ids=["layer4", "o130"])
+def test_k2_cuda_graph_replays_equal(cuda, lab, shape):
+    """K2 captured in a CUDA graph and replayed twice, on the weight it was
+    captured with and on a new one copied in: each replay equals the
+    eager call, so the kernel keeps no state from one launch to the next."""
+    w = _weight(shape, cuda, 11)
+    weight_binarize(w, lab=lab)  # build and warm up outside the capture
     torch.cuda.synchronize()
-    assert torch.equal(got, P.packed_dense_weight_plain(packed, alpha, shape))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sign, alpha = weight_binarize(w, lab=lab)
+    for seed in (11, 12, 12):
+        w.copy_(_weight(shape, cuda, seed))
+        graph.replay()
+        esign, ealpha = weight_binarize(w, lab=lab)
+        torch.cuda.synchronize()
+        assert torch.equal(sign, esign)
+        assert torch.equal(alpha.view(torch.int32), ealpha.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "payload+1B"])
+@pytest.mark.parametrize("shape", [(3, 3, 7, 5), (1, 1, 64, 128)] + WEIGHT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k3_vs_plain(cuda, shape, offset):
+    w = np.random.default_rng(10).normal(size=shape).astype(np.float32)
+    packed = _pack_sign(w)
+    buf = torch.zeros(offset + packed.size, dtype=torch.uint8, device=cuda)
+    buf[offset:] = torch.from_numpy(packed).to(cuda)
+    payload = buf[offset:]
+    alpha = torch.rand(shape[-1], device=cuda) + 0.1
+    got = P.packed_dense_weight(payload, alpha, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got, P.packed_dense_weight_plain(payload, alpha, shape))
+    # alpha off 16 bytes takes the per-weight path: the same values
+    abuf = torch.zeros(shape[-1] + 1, device=cuda)
+    abuf[1:] = alpha
+    assert torch.equal(P.packed_dense_weight(payload, abuf[1:], shape), got)
 
 
 @pytest.mark.cuda
