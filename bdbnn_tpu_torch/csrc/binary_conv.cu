@@ -9,9 +9,13 @@
 //
 //   y[n, ho, wo, o] = alpha[o] * sum_{i, j, c} sx(n, ho*s - p + i, wo*s - p + j, c)
 //                                            * wsign[o, i, j, c]
-//   sx = sign(x - shift[c]) with sign(0) = +1, and 0 in the zero padding.
+//   sx = sign(x - shift[c]) with sign(0) = +1, and 0 in the zero padding;
+//   under the stochastic family, given the uniform draw u (f32, x's
+//   layout, never with a shift), sx = u < clip((x + 1)/2, 0, 1) ? +1 : -1
+//   (bdbnn_tpu/nn/binarize.py stoch_sign, then binary_conv2d_mxu).
 //
-// Layouts: x f32 NHWC, shift f32 (C,) or NULL, wsign int8 (O, kh, kw, C)
+// Layouts: x f32 NHWC, shift f32 (C,) or NULL, u f32 NHWC or NULL
+// (the hard sign), wsign int8 (O, kh, kw, C)
 // (= (O, K) row-major, K in HWIO flatten order), alpha f32 (O,), y f32
 // NHWC (N, Ho, Wo, O) = (M, O) row-major. Scratch the wrapper allocates:
 // sx int8 (N, H, W, CP), CP = C rounded up to 32; and wpad int8 (O, kh,
@@ -26,7 +30,8 @@
 // bytes, the deep ones by int8 tensor-core operations.
 //
 // The design, in two launches of one entry:
-// 1. a prep pass reads f32 x once and writes sign(x - shift) as int8 ±1
+// 1. a prep pass reads f32 x (and u, the same way) once and writes
+//    sign(x - shift), or the sampled sign, as int8 ±1
 //    rows of CP bytes a pixel (zero beyond C), a quarter of x's bytes:
 //    every tap the GEMM gathers is then an int8 row, most of them from
 //    L2, never an f32 re-read of x (205 MB at layer1, -b 256, beyond the
@@ -48,8 +53,8 @@ using Tile = sg::Stage<64, 16>;  // 64-byte stages (two MMAs) in 16-byte copies
 // Work items: (pixel, 4 channels of CP) of sx, then the bytes of wpad.
 __global__ void __launch_bounds__(PREP_THREADS)
 fwd_sign_prep_kernel(const float* __restrict__ x, const float* __restrict__ shift,
-                     const int8_t* __restrict__ wsign, int8_t* __restrict__ sx,
-                     int8_t* __restrict__ wpad, long long pixels, int C, int CP,
+                     const float* __restrict__ u, const int8_t* __restrict__ wsign,
+                     int8_t* __restrict__ sx, int8_t* __restrict__ wpad, long long pixels, int C, int CP,
                      long long wrows, bool vec) {
     const long long xitems = pixels * (CP / 4);
     const long long items = xitems + (wpad != nullptr ? wrows * CP : 0);
@@ -58,7 +63,7 @@ fwd_sign_prep_kernel(const float* __restrict__ x, const float* __restrict__ shif
         if (it < xitems) {
             const long long pix = it / (CP / 4);
             const int c0 = (int)(it - pix * (CP / 4)) * 4;
-            float v[4];
+            float v[4], r[4] = {0.f, 0.f, 0.f, 0.f};
             bool in[4];
             if (vec && c0 < C) {
                 const float4 xv = *reinterpret_cast<const float4*>(x + pix * C + c0);
@@ -69,6 +74,13 @@ fwd_sign_prep_kernel(const float* __restrict__ x, const float* __restrict__ shif
                 v[1] = __fsub_rn(xv.y, sv.y);
                 v[2] = __fsub_rn(xv.z, sv.z);
                 v[3] = __fsub_rn(xv.w, sv.w);
+                if (u != nullptr) {
+                    const float4 uv = *reinterpret_cast<const float4*>(u + pix * C + c0);
+                    r[0] = uv.x;
+                    r[1] = uv.y;
+                    r[2] = uv.z;
+                    r[3] = uv.w;
+                }
 #pragma unroll
                 for (int e = 0; e < 4; ++e) in[e] = true;
             } else {
@@ -78,12 +90,15 @@ fwd_sign_prep_kernel(const float* __restrict__ x, const float* __restrict__ shif
                     in[e] = c < C;
                     const float xv = in[e] ? x[pix * C + c] : 0.f;
                     v[e] = shift != nullptr && in[e] ? __fsub_rn(xv, shift[c]) : xv;
+                    if (u != nullptr && in[e]) r[e] = u[pix * C + c];
                 }
             }
             uint32_t word = 0;
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-                word |= (in[e] ? (v[e] >= 0.f ? 0x01u : 0xFFu) : 0u) << (8 * e);
+            for (int e = 0; e < 4; ++e) {
+                const bool plus = u != nullptr ? stoch_sign_plus(v[e], r[e]) : v[e] >= 0.f;
+                word |= (in[e] ? (plus ? 0x01u : 0xFFu) : 0u) << (8 * e);
+            }
             *reinterpret_cast<uint32_t*>(sx + pix * CP + c0) = word;
         } else {
             const long long wi = it - xitems;
@@ -110,20 +125,21 @@ binary_conv_fwd_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__
 
 }  // namespace
 
-BDBNN_EXPORT int bdbnn_binary_conv_fwd(const void* x, const void* shift, const void* wsign,
-                                       const void* alpha, void* sx, void* wpad, void* y, int N,
+BDBNN_EXPORT int bdbnn_binary_conv_fwd(const void* x, const void* shift, const void* u,
+                                       const void* wsign, const void* alpha, void* sx, void* wpad, void* y, int N,
                                        int H, int W, int C, int O, int kh, int kw, int stride,
                                        int pad, int Ho, int Wo, int CP, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const long long pixels = (long long)N * H * W;
     const long long wrows = (long long)O * kh * kw;
     const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(shift) % 16 == 0;
+                     reinterpret_cast<uintptr_t>(shift) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(u) % 16 == 0;
     const long long items = pixels * (CP / 4) + (wpad != nullptr ? wrows * CP : 0);
     const long long pblocks = (items + PREP_THREADS - 1) / PREP_THREADS;
     fwd_sign_prep_kernel<<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS, 0,
                            st>>>(static_cast<const float*>(x), static_cast<const float*>(shift),
-                                 static_cast<const int8_t*>(wsign), static_cast<int8_t*>(sx),
+                                 static_cast<const float*>(u), static_cast<const int8_t*>(wsign), static_cast<int8_t*>(sx),
                                  static_cast<int8_t*>(wpad), pixels, C, CP, wrows, vec);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

@@ -10,11 +10,14 @@
 //   dW[i, j, c, o] = 1{|W[i, j, c, o]| <= 1}
 //                    * sum_{n, ho, wo} sx(n, ho*s - p + i, wo*s - p + j, c) * ga[n, ho, wo, o]
 //   sx = sign(x - shift[c]) with sign(0) = +1 and 0 in the zero padding
-//   (the reference pads the binarized input: a padding tap adds 0),
+//   (the reference pads the binarized input: a padding tap adds 0); under
+//   the stochastic family, given the forward's uniform draw u, the sampled
+//   sign u < clip((x + 1)/2, 0, 1) ? +1 : -1 K1 took (stoch_sign): dW is
+//   taken against the signs the forward used, never re-derived from x,
 //   ga = g * alpha[o] formed in f32 first (the reference's order).
 //
 // Layouts: g f32 NHWC (N, Ho, Wo, O); x f32 NHWC (N, H, W, C); shift f32
-// (C,) or NULL; alpha f32 (O,); W and dW f32 HWIO = (kh*kw*C, O)
+// (C,) or NULL; u f32 NHWC like x or NULL (the hard sign); alpha f32 (O,); W and dW f32 HWIO = (kh*kw*C, O)
 // row-major, the latent parameter's own layout. Scratch the wrapper
 // allocates: gs bf16 (N, Ho, Wo, 3, OP), K5's layout of the split, OP =
 // O rounded up to 32; sx bf16 (N, H, W, CP), CP = C rounded up to 8;
@@ -86,7 +89,7 @@ constexpr uint32_t BF16_MINUS_ONE = 0xBF80u;
 __global__ void __launch_bounds__(PREP_THREADS)
 wgrad_prep_kernel(const float* __restrict__ g, const float* __restrict__ alpha,
                   const float* __restrict__ x, const float* __restrict__ shift,
-                  __nv_bfloat16* __restrict__ gs, __nv_bfloat16* __restrict__ sx,
+                  const float* __restrict__ u, __nv_bfloat16* __restrict__ gs, __nv_bfloat16* __restrict__ sx,
                   long long grows, int O, int OP, long long xrows, int C, int CP) {
     const long long gitems = grows * (OP / 8);
     const long long items = gitems + xrows * (CP / 8);
@@ -104,13 +107,15 @@ wgrad_prep_kernel(const float* __restrict__ g, const float* __restrict__ alpha,
             for (int e = 0; e < 8; e += 2) {
                 uint32_t b[2];
 #pragma unroll
-                for (int u = 0; u < 2; ++u) {
-                    const int c = c0 + e + u;
-                    b[u] = 0u;
+                for (int q = 0; q < 2; ++q) {
+                    const int c = c0 + e + q;
+                    b[q] = 0u;
                     if (c < C) {
                         const float xv = x[row * C + c];
                         const float v = shift != nullptr ? __fsub_rn(xv, shift[c]) : xv;
-                        b[u] = v >= 0.f ? BF16_PLUS_ONE : BF16_MINUS_ONE;
+                        const bool plus =
+                            u != nullptr ? stoch_sign_plus(v, u[row * C + c]) : v >= 0.f;
+                        b[q] = plus ? BF16_PLUS_ONE : BF16_MINUS_ONE;
                     }
                 }
                 p[e / 2] = b[0] | (b[1] << 16);
@@ -306,8 +311,9 @@ binary_conv_wgrad_reduce_kernel(const float* __restrict__ partial, const float* 
 }  // namespace
 
 BDBNN_EXPORT int bdbnn_binary_conv_wgrad(const void* g, const void* x, const void* shift,
-                                         const void* w, const void* alpha, void* gs, void* sx,
-                                         void* partial, void* dw, int N, int H, int W, int C,
+                                         const void* u, const void* w, const void* alpha,
+                                         void* gs, void* sx, void* partial, void* dw, int N,
+                                         int H, int W, int C,
                                          int O, int kh, int kw, int stride, int pad, int Ho,
                                          int Wo, int OP, int CP, int splits, int rows_per_split,
                                          void* stream) {
@@ -319,8 +325,8 @@ BDBNN_EXPORT int bdbnn_binary_conv_wgrad(const void* g, const void* x, const voi
     wgrad_prep_kernel<<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS, 0,
                         st>>>(static_cast<const float*>(g), static_cast<const float*>(alpha),
                               static_cast<const float*>(x), static_cast<const float*>(shift),
-                              static_cast<__nv_bfloat16*>(gs), static_cast<__nv_bfloat16*>(sx),
-                              grows, O, OP, xrows, C, CP);
+                              static_cast<const float*>(u), static_cast<__nv_bfloat16*>(gs),
+                              static_cast<__nv_bfloat16*>(sx), grows, O, OP, xrows, C, CP);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(binary_conv_wgrad_kernel,

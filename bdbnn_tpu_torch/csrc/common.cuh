@@ -12,3 +12,11 @@
 BDBNN_EXPORT const char* bdbnn_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// The stochastic binarizer's sampled sign (bdbnn_tpu/nn/binarize.py
+// stoch_sign): +1 iff u < clip((x + 1) * 0.5, 0, 1), in the reference's
+// f32 order (the add rounds, then an exact halving; no contraction).
+__device__ __forceinline__ bool stoch_sign_plus(float x, float u) {
+    const float p = fminf(fmaxf(__fmul_rn(__fadd_rn(x, 1.f), 0.5f), 0.f), 1.f);
+    return u < p;
+}

@@ -23,7 +23,8 @@ and from the flax variable tree through :mod:`bdbnn_tpu_torch.bridge`.
 ``model.train()`` trains every module: BatchNorm on batch statistics
 and the binary convs through K2 → K1 with the K5/K6 backward
 (:mod:`bdbnn_tpu_torch.nn.layers`); ``tk`` (the binarizer family's
-schedule scalars) reaches every conv. ``FloatBottleneck`` (resnet50/101
+schedule scalars) and ``draws`` (the stochastic family's draw source)
+reach every conv. ``FloatBottleneck`` (resnet50/101
 float teachers) comes with the teacher–student step and ``remat`` with
 bf16 (ROADMAP A "Later" 1 and 4).
 """
@@ -159,17 +160,17 @@ class BiBasicBlock(nn.Module):
         self.bn2 = BatchNorm(features)
         self.act2 = _activation(act, features)
 
-    def forward(self, x: Tensor, tk=None) -> Tensor:
+    def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         if self.variant == "float":
             return self._float_forward(x)
         if self.needs_ds:
             s = self.strides
             pooled = avg_pool(x, s)
-            shortcut = self.downsample_bn(self.downsample_conv(pooled, tk))
+            shortcut = self.downsample_bn(self.downsample_conv(pooled, tk, draws))
         else:
             shortcut = x
-        y = self.act1(self.bn1(self.conv1(x, tk)) + shortcut)
-        z = self.act2(self.bn2(self.conv2(y, tk)) + y)
+        y = self.act1(self.bn1(self.conv1(x, tk, draws)) + shortcut)
+        z = self.act2(self.bn2(self.conv2(y, tk, draws)) + y)
         return z
 
     def _float_forward(self, x: Tensor) -> Tensor:
@@ -239,14 +240,14 @@ class BiResNet(_FlaxBridged):
         with torch.no_grad():
             self.fc.bias.zero_()
 
-    def forward(self, x: Tensor, tk=None) -> Tensor:
+    def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         x = torch.relu(self.bn1(self.conv1(x)))
         if self.stem == "imagenet":
             # torch MaxPool2d(3, stride=2, padding=1): -inf padding, as
             # the reference's reduce_window
             x = _nchw(nn.functional.max_pool2d, x, 3, 2, 1)
         for name in self.block_names:
-            x = getattr(self, name)(x, tk)
+            x = getattr(self, name)(x, tk, draws)
         x = x.mean(dim=(1, 2))  # global average pool
         return self.fc(x)
 
@@ -284,9 +285,9 @@ class VGGSmallBinary(_FlaxBridged):
         with torch.no_grad():
             self.fc.bias.zero_()
 
-    def forward(self, x: Tensor, tk=None) -> Tensor:
+    def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         for i in range(self.n_convs):
-            x = getattr(self, f"conv{i + 1}")(x, tk)
+            x = getattr(self, f"conv{i + 1}")(x, tk, draws)
             x = getattr(self, f"bn{i + 1}")(x)
             if i % 2 == 1:
                 x = _nchw(nn.functional.max_pool2d, x, 2, 2)

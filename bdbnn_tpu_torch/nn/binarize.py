@@ -13,6 +13,22 @@ torch:
   explicit uniform draw ``u`` (an operand, so both packages can be fed
   the same draw), clipped-identity backward.
 
+The stochastic family's draws in training: the reference draws ``u``
+with ``jax.random`` from ``fold_in(PRNGKey(rng_seed), step)``, folded
+per module path by flax. The port draws one ``u = torch.rand(x.shape)``
+per binary conv, in forward order, from a ``torch.Generator`` on the
+activation's device seeded with :func:`step_seed` ``(rng_seed, step)``
+(:class:`StepDraws`). The draw is pure in ``(rng_seed, step)`` as the
+reference's is, so a step replayed from the same state samples the same
+masks bitwise; its values differ from JAX's, which the port does not
+try to reproduce. The train step passes the step's draw source to the
+model as ``model(x, tk, draws)`` (the reference's ``rngs``), and the
+model hands it to every binary conv; any callable ``source(x) -> u``
+can stand in for :class:`StepDraws` (the parity tests feed both
+packages the same draws that way). Without a source (eval, serving,
+``predict``) the family takes the deterministic hard sign, as the
+reference does.
+
 ``torch.sign(0)`` is 0, which would add a third value to the ±1
 algebra; :func:`_hard_sign` is used everywhere instead. In training the
 binary convs do not call these functions: K5 applies the same backward
@@ -30,7 +46,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +54,34 @@ import torch
 from bdbnn_tpu_torch.train.ede import cpt_tk
 
 Tensor = torch.Tensor
+
+
+def step_seed(rng_seed: int, step: int) -> int:
+    """The 64-bit seed of one train step's draws: the first two 32-bit
+    words of numpy's ``SeedSequence([rng_seed, step])``, low word first."""
+    lo, hi = np.random.SeedSequence([int(rng_seed), int(step)]).generate_state(2, np.uint32)
+    return int(lo) | (int(hi) << 32)
+
+
+class StepDraws:
+    """The uniform draws of one train step under the stochastic family:
+    each call returns ``torch.rand(x.shape)`` in [0, 1) on ``x``'s device
+    from one generator per device seeded with :func:`step_seed`, so the
+    n-th binary conv of the forward gets the n-th draw."""
+
+    def __init__(self, rng_seed: int, step: int):
+        self.seed = step_seed(rng_seed, step)
+        self._gens: Dict[torch.device, torch.Generator] = {}
+
+    def __call__(self, x: Tensor) -> Tensor:
+        gen = self._gens.get(x.device)
+        if gen is None:
+            gen = self._gens[x.device] = torch.Generator(device=x.device).manual_seed(self.seed)
+        return torch.rand(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+
+
+# a draw source: the activation in, its uniform draw (shaped like it) out
+DrawSource = Callable[[Tensor], Tensor]
 
 
 def _hard_sign(x: Tensor) -> Tensor:

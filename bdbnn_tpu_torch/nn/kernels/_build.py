@@ -41,10 +41,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv": {
-        # x, shift (or NULL), wsign, alpha, sx scratch, wpad scratch (or
-        # NULL), y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, CP, stream
-        "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # x, shift (or NULL), u (or NULL), wsign, alpha, sx scratch, wpad
+        # scratch (or NULL), y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo,
+        # CP, stream
+        "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "binary_conv_dgrad": {
         # g, x, shift (or NULL), wsign, alpha, taps, gs scratch, wb
@@ -55,18 +56,17 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
                                     _I, _I, _F, _F, _P),
     },
     "binary_conv_wgrad": {
-        # g, x, shift (or NULL), w, alpha, gs scratch, sx scratch, partial
-        # scratch, dw, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, OP, CP,
-        # splits, rows_per_split, stream
-        "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        # g, x, shift (or NULL), u (or NULL), w, alpha, gs scratch, sx
+        # scratch, partial scratch, dw, N, H, W, C, O, kh, kw, stride, pad,
+        # Ho, Wo, OP, CP, splits, rows_per_split, stream
+        "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _P),
+                                    _I, _I, _I, _I, _I, _P),
     },
     "kurtosis": {
-        # meta, targets, T, total_blocks, chunk, mode, with_grad, partial,
-        # coef, kurt_out, loss_out, grad, stream
-        "bdbnn_kurtosis_grouped": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                                   _P, _P, _P),
+        # table (host bytes, copied into the launches), mode, with_grad,
+        # partial scratch, out, stream
+        "bdbnn_kurtosis_grouped": (_P, _I, _I, _P, _P, _P),
     },
     "weight_binarize": {
         # w (K, O) f32, sign (O, K) int8, alpha (O,), part (2, splits, O)

@@ -12,6 +12,11 @@ hand-written CUDA kernels:
   writes the activation sign (``sign(x - shift)``, sign(0) := +1) once
   as int8 ±1 (:func:`act_sign_int8`, channels padded to a multiple of
   :data:`FWD_C_STAGE`), then an implicit GEMM gathers its taps.
+  Under the stochastic family the prep pass takes the uniform draw
+  ``u`` (f32, shaped like ``x``) and writes the sampled sign
+  ``u < clip((x + 1)/2, 0, 1) ? +1 : -1`` (the reference's
+  ``stoch_sign``) in place of the hard sign; ``u`` never comes with a
+  ``shift``, as the reference never combines them.
 - K5 :func:`binary_conv2d_dgrad` (``csrc/binary_conv_dgrad.cu``) — the
   input gradient ``conv_transpose(g·alpha, sign W)`` times the active
   sign estimator's slope at ``x - shift`` (:data:`ESTIMATORS`), on the
@@ -23,11 +28,13 @@ hand-written CUDA kernels:
   weight gradient ``conv(sign(x - shift)ᵀ, g·alpha)`` times the latent
   weight's STE mask ``1{|W| <= 1}``, in HWIO, on the bf16 tensor cores:
   the same exact split of ``g·alpha``, the activation sign written once
-  as bf16 ±1 (:func:`wgrad_sign_bf16`), the long reduction over
-  positions split in a fixed count (:func:`wgrad_splits`).
+  as bf16 ±1 (:func:`wgrad_sign_bf16`; the sampled sign when given
+  ``u``, so dW is taken against the signs the forward used), the long
+  reduction over positions split in a fixed count (:func:`wgrad_splits`).
 - :class:`BinaryConvFn` — the autograd function the layers train
   through: K1 forward, K5 + K6 backward, ``-Σ dx`` for the shift, no
-  gradient for alpha (the reference's ``stop_gradient``).
+  gradient for alpha (the reference's ``stop_gradient``), and the draw
+  ``u`` of a stochastic layer passed to K1 and K6.
 - :func:`binary_conv2d_mxu` — the unfused forward with the JAX
   signature (±1 ``xb`` NHWC, ±1 ``wb_sign`` HWIO), for like-with-like
   parity tests; it runs through K1 (the sign of a ±1 input is itself).
@@ -51,7 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from bdbnn_tpu_torch.nn.binarize import _hard_sign
+from bdbnn_tpu_torch.nn.binarize import _hard_sign, stoch_sign
 
 Tensor = torch.Tensor
 
@@ -115,6 +122,21 @@ def check_conv_args(x: Tensor, wsign: Tensor, alpha: Tensor, shift: Optional[Ten
     return n, h, w, c, o, kh, kw
 
 
+def check_draw(u: Optional[Tensor], x: Tensor, shift: Optional[Tensor]) -> None:
+    """Validate the stochastic family's uniform draw ``u`` for ``x``."""
+    if u is None:
+        return
+    if shift is not None:
+        raise ValueError("a draw u never comes with a shift: the reference never combines them")
+    if u.dtype != torch.float32 or u.shape != x.shape or u.device != x.device:
+        raise ValueError(
+            f"u must be float32 {tuple(x.shape)} on {x.device}, got {u.dtype} "
+            f"{tuple(u.shape)} on {u.device}"
+        )
+    if x.is_cuda and not u.is_contiguous():
+        raise ValueError("the kernel takes contiguous tensors")
+
+
 def im2col_nhwc(xb: Tensor, kh: int, kw: int, stride: int, pad: int) -> Tensor:
     """Zero-pad a (binarized) NHWC tensor and gather its patches as
     (N, Ho, Wo, kh*kw*C), in the HWIO flatten order (i, j, c)."""
@@ -129,7 +151,13 @@ def im2col_nhwc(xb: Tensor, kh: int, kw: int, stride: int, pad: int) -> Tensor:
     return torch.cat(cols, dim=-1)
 
 
-def binarize_input(x: Tensor, shift: Optional[Tensor]) -> Tensor:
+def binarize_input(x: Tensor, shift: Optional[Tensor], u: Optional[Tensor] = None) -> Tensor:
+    """The activation sign the kernels take: ``sign(x - shift)`` (sign(0)
+    := +1), or with a draw ``u`` the sampled ``u < hard_sigmoid(x) ? +1 :
+    -1`` (the reference's ``stoch_sign`` forward)."""
+    if u is not None:
+        check_draw(u, x, shift)
+        return stoch_sign(x, u)
     return _hard_sign(x - shift if shift is not None else x)
 
 
@@ -141,17 +169,19 @@ def binary_conv2d_plain(
     shift: Optional[Tensor] = None,
     strides: Tuple[int, int] = (1, 1),
     padding="auto",
+    u: Optional[Tensor] = None,
 ) -> Tensor:
-    """Plain PyTorch K1: ``sign(x - shift)`` → zero pad → ±1 conv in
-    f32 → ``· alpha``. The conv is an explicit im2col and an f32 matrix
-    product rather than ``F.conv2d``: every ±1 product and every partial
+    """Plain PyTorch K1: ``sign(x - shift)`` (or the sampled sign of the
+    draw ``u``) → zero pad → ±1 conv in f32 → ``· alpha``. The conv is
+    an explicit im2col and an f32 matrix product rather than
+    ``F.conv2d``: every ±1 product and every partial
     sum is an exact integer below 2^24, so any summation order gives
     the same result, while a convolution library may pick a transform
     algorithm (Winograd, FFT) that is not exact on these operands."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
-    patches = im2col_nhwc(binarize_input(x, shift), kh, kw, stride, pad)
+    patches = im2col_nhwc(binarize_input(x, shift, u), kh, kw, stride, pad)
     ho, wo = patches.shape[1], patches.shape[2]
     dot = patches.reshape(-1, kh * kw * c) @ wsign.reshape(o, -1).to(torch.float32).t()
     return (dot * alpha).reshape(n, ho, wo, o)
@@ -162,10 +192,13 @@ def binary_conv2d_plain(
 FWD_C_STAGE = 32
 
 
-def act_sign_int8(x: Tensor, shift: Optional[Tensor], cp: int) -> Tensor:
+def act_sign_int8(
+    x: Tensor, shift: Optional[Tensor], cp: int, u: Optional[Tensor] = None
+) -> Tensor:
     """Plain version of K1's prep pass: ``sign(x - shift)`` (sign(0) :=
-    +1) as int8 ±1, NHWC with the channels padded with zeros to ``cp``."""
-    s = binarize_input(x, shift).to(torch.int8)
+    +1), or the sampled sign of the draw ``u``, as int8 ±1, NHWC with the
+    channels padded with zeros to ``cp``."""
+    s = binarize_input(x, shift, u).to(torch.int8)
     return torch.nn.functional.pad(s, (0, cp - int(x.shape[-1])))
 
 
@@ -177,20 +210,23 @@ def binary_conv2d(
     shift: Optional[Tensor] = None,
     strides: Tuple[int, int] = (1, 1),
     padding="auto",
+    u: Optional[Tensor] = None,
 ) -> Tensor:
     """``conv(sign(x - shift), wsign) * alpha`` — K1 on a CUDA tensor,
-    the plain version on a CPU tensor. f32 NHWC in, f32 NHWC out.
+    the plain version on a CPU tensor. f32 NHWC in, f32 NHWC out. With
+    the draw ``u`` the sign is the sampled one (no ``shift`` then).
 
     K1's scratch is allocated here: the int8 sign (N, H, W, CP) and, only
     where the weight sign cannot be read as it is (C not a multiple of
     :data:`FWD_C_STAGE`, or a pointer off 16 bytes), its copy padded to
     (O, kh, kw, CP)."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
+    check_draw(u, x, shift)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         return binary_conv2d_plain(
-            x, wsign, alpha, shift=shift, strides=strides, padding=padding
+            x, wsign, alpha, shift=shift, strides=strides, padding=padding, u=u
         )
     from bdbnn_tpu_torch.nn.kernels import _build
 
@@ -206,7 +242,7 @@ def binary_conv2d(
     lib = _build.library("binary_conv")
     err = lib.bdbnn_binary_conv_fwd(
         x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        wsign.data_ptr(), alpha.data_ptr(), sx.data_ptr(),
+        u.data_ptr() if u is not None else None, wsign.data_ptr(), alpha.data_ptr(), sx.data_ptr(),
         wpad.data_ptr() if wpad is not None else None, y.data_ptr(),
         n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, _build.stream_ptr(x.device),
     )
@@ -425,25 +461,29 @@ def binary_conv2d_wgrad_plain(
     shift: Optional[Tensor] = None,
     strides: Tuple[int, int] = (1, 1),
     padding="auto",
+    u: Optional[Tensor] = None,
 ) -> Tensor:
-    """Plain PyTorch K6: im2col of ``sign(x - shift)`` (zero padding after
-    the sign), ``patchesᵀ @ (g·alpha)`` as one f32 matrix product, then
-    the STE mask ``1{|W| <= 1}``; HWIO like ``w``."""
+    """Plain PyTorch K6: im2col of ``sign(x - shift)`` (or the sampled
+    sign of the draw ``u``; zero padding after the sign), ``patchesᵀ @
+    (g·alpha)`` as one f32 matrix product, then the STE mask ``1{|W| <=
+    1}``; HWIO like ``w``."""
     kh, kw, c, o = _check_latent(w, x, alpha)
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
-    patches = im2col_nhwc(binarize_input(x, shift), kh, kw, stride, pad)
+    patches = im2col_nhwc(binarize_input(x, shift, u), kh, kw, stride, pad)
     n, ho, wo = (int(d) for d in patches.shape[:3])
     _check_grad(g, n, ho, wo, o, x)
     dws = patches.reshape(-1, kh * kw * c).t() @ (g * alpha).reshape(-1, o)
     return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).to(torch.float32)
 
 
-def wgrad_sign_bf16(x: Tensor, shift: Optional[Tensor], cp: int) -> Tensor:
+def wgrad_sign_bf16(
+    x: Tensor, shift: Optional[Tensor], cp: int, u: Optional[Tensor] = None
+) -> Tensor:
     """Plain version of K6's sign pass: ``sign(x - shift)`` (sign(0) :=
-    +1) as bf16 ±1, NHWC with the channels padded with zeros to ``cp``."""
-    v = x - shift if shift is not None else x
-    s = torch.where(v >= 0, 1.0, -1.0).to(torch.bfloat16)
+    +1), or the sampled sign of the draw ``u``, as bf16 ±1, NHWC with the
+    channels padded with zeros to ``cp``."""
+    s = binarize_input(x, shift, u).to(torch.bfloat16)
     return torch.nn.functional.pad(s, (0, cp - int(x.shape[-1])))
 
 
@@ -478,20 +518,23 @@ def binary_conv2d_wgrad(
     shift: Optional[Tensor] = None,
     strides: Tuple[int, int] = (1, 1),
     padding="auto",
+    u: Optional[Tensor] = None,
 ) -> Tensor:
     """``1{|W| <= 1} · conv(sign(x - shift)ᵀ, g·alpha)`` in HWIO — K6 on
-    a CUDA tensor, the plain version on a CPU tensor.
+    a CUDA tensor, the plain version on a CPU tensor. With the draw ``u``
+    the sign is the sampled one (no ``shift`` then).
 
     K6 allocates its scratch here: ``g·alpha`` split into three bf16
     pieces (N, Ho, Wo, 3, OP) as K5 lays it out, the activation sign as
     bf16 (N, H, W, CP), and the f32 partial sums of the split reduction
     (splits, kh·kw·C, O)."""
     kh, kw, c, o = _check_latent(w, x, alpha)
+    check_draw(u, x, shift)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         return binary_conv2d_wgrad_plain(
-            g, x, w, alpha, shift=shift, strides=strides, padding=padding
+            g, x, w, alpha, shift=shift, strides=strides, padding=padding, u=u
         )
     from bdbnn_tpu_torch.nn.kernels import _build
 
@@ -514,7 +557,7 @@ def binary_conv2d_wgrad(
     lib = _build.library("binary_conv_wgrad")
     err = lib.bdbnn_binary_conv_wgrad(
         g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        w.data_ptr(), alpha.data_ptr(), gs.data_ptr(), sx.data_ptr(), partial.data_ptr(),
+        u.data_ptr() if u is not None else None, w.data_ptr(), alpha.data_ptr(), gs.data_ptr(), sx.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), n, h, wd, c, o, kh, kw, stride, pad, ho, wo, op, cp, splits, rows,
         _build.stream_ptr(x.device),
     )
@@ -533,20 +576,23 @@ class BinaryConvFn(torch.autograd.Function):
     ``wsign``/``alpha`` come from K2 on the detached latent weight and
     get no gradient (the reference's ``stop_gradient`` on alpha).
 
+    A stochastic layer passes its draw ``u`` (or None): K1 and K6 both
+    take the sampled sign from it, K5 the estimator's slope at ``x``.
+
     Saved for the backward: the pre-sign f32 input (which the layer
-    before keeps anyway), the shift, the latent weight, the int8 sign and
-    alpha — never a ±1 activation."""
+    before keeps anyway), the shift, the latent weight, the int8 sign,
+    alpha and the draw — never a ±1 activation."""
 
     @staticmethod
-    def forward(ctx, x, shift, w, wsign, alpha, strides, padding, estimator):
-        y = binary_conv2d(x, wsign, alpha, shift=shift, strides=strides, padding=padding)
-        ctx.save_for_backward(x, shift, w, wsign, alpha)
+    def forward(ctx, x, shift, w, wsign, alpha, strides, padding, estimator, u=None):
+        y = binary_conv2d(x, wsign, alpha, shift=shift, strides=strides, padding=padding, u=u)
+        ctx.save_for_backward(x, shift, w, wsign, alpha, u)
         ctx.conv = (tuple(strides), padding, _check_estimator(estimator))
         return y
 
     @staticmethod
     def backward(ctx, g):
-        x, shift, w, wsign, alpha = ctx.saved_tensors
+        x, shift, w, wsign, alpha, u = ctx.saved_tensors
         strides, padding, estimator = ctx.conv
         g = g.contiguous()
         dx = dshift = dw = None
@@ -559,8 +605,10 @@ class BinaryConvFn(torch.autograd.Function):
             if need_shift:
                 dshift = -dx.sum(dim=(0, 1, 2))
         if ctx.needs_input_grad[2]:
-            dw = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=strides, padding=padding)
-        return dx, dshift, dw, None, None, None, None, None
+            dw = binary_conv2d_wgrad(
+                g, x, w, alpha, shift=shift, strides=strides, padding=padding, u=u
+            )
+        return dx, dshift, dw, None, None, None, None, None, None
 
 
 def sign_int8_from_hwio(wb_sign: Tensor) -> Tensor:
@@ -600,6 +648,7 @@ __all__ = [
     "binary_conv2d_plain",
     "binary_conv2d_wgrad",
     "binary_conv2d_wgrad_plain",
+    "check_draw",
     "dgrad_parity_classes",
     "dgrad_tap_table",
     "estimator_slope",

@@ -10,27 +10,32 @@ takes every hooked latent weight at once:
 and, with ``with_grad``, ``d loss / d w`` for every tensor in closed form
 (``csrc/kurtosis.cu`` states it). On a CUDA tensor it is the hand-written
 kernel ``csrc/kurtosis.cu`` — one grid over all tensors per pass (mean,
-centered moments, a one-block finalize, gradient); on a CPU tensor
+centered moments, then the gradient with the finalize folded in, or a
+one-block finalize without the gradient), its tensor table a kernel
+parameter packed once per set of tensors; on a CPU tensor
 :func:`kurtosis_grouped_plain`. Both sum in float64 and round once to
 float32 (the mean to f32 first, so ``d = w - mean`` is the same f32 value
 in both), so they agree to an ulp or two; the reference's f32 autodiff
 agrees with both to the rounding of its f32 sums.
 
 The wrapper counts one launch a call (``kurtosis_grouped.launches``),
-which is four grid launches on the card with the gradient, three without.
+which is three grid launches on the card.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import ctypes
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
 MODES = {"avg": 0, "sum": 1, "max": 2}
 CHUNK = 8192  # elements a block of csrc/kurtosis.cu
-MAX_TENSORS = 256
+MAX_TENSORS = 128  # csrc/kurtosis.cu MAX_T: the table fits 4 KB of kernel parameters
 
 
 def _check(weights: Sequence[Tensor], targets: Sequence[float], mode: str) -> None:
@@ -100,26 +105,91 @@ def kurtosis_grouped_plain(
     return loss.to(torch.float32), kurt.to(torch.float32), grads
 
 
-def _table(weights: Sequence[Tensor], targets: Sequence[float]):
-    """(meta, targets, blocks, total): the kernel's tensor table on the
-    device. Both tables go through pinned memory, so the copy does not
-    wait for the stream (the caching host allocator keeps the pinned
-    block until the copy is done)."""
-    dev = weights[0].device
-    ns = [w.numel() for w in weights]
-    blocks = [-(-n // CHUNK) for n in ns]
-    goff, bstart = [0], [0]
-    for n, b in zip(ns, blocks):
-        goff.append(goff[-1] + n)
-        bstart.append(bstart[-1] + b)
-    meta = [w.data_ptr() for w in weights] + ns + goff[:-1] + bstart
-    tgt = [float(v) for v in targets]
-    return (
-        torch.tensor(meta, dtype=torch.int64).pin_memory().to(dev, non_blocking=True),
-        torch.tensor(tgt, dtype=torch.float32).pin_memory().to(dev, non_blocking=True),
-        bstart[-1],
-        goff[-1],
-    )
+class _Table(ctypes.Structure):
+    """csrc/kurtosis.cu's ``Table``, the by-value tensor table: the same
+    fields in the same order, so ctypes lays it out as the C compiler
+    does (``MAX_TENSORS`` is the C side's ``MAX_T``)."""
+
+    _fields_ = [
+        ("ptr", ctypes.c_void_p * MAX_TENSORS),
+        ("goff", ctypes.c_longlong * MAX_TENSORS),
+        ("n", ctypes.c_int * MAX_TENSORS),
+        ("bstart", ctypes.c_int * (MAX_TENSORS + 1)),
+        ("target", ctypes.c_float * MAX_TENSORS),
+        ("T", ctypes.c_int),
+        ("chunk", ctypes.c_int),
+        ("vec", ctypes.c_ubyte * MAX_TENSORS),
+    ]
+
+
+class _Plan:
+    """One set of tensors as K7 takes it: the packed table, the block
+    count, and the output buffer's layout (kurt | loss | each gradient
+    at a 16-byte aligned offset)."""
+
+    def __init__(self, ptrs, shapes, targets):
+        t = len(ptrs)
+        ns = [math.prod(sh) for sh in shapes]
+        if max(ns) >= 2**31:
+            raise ValueError("K7 takes tensors of fewer than 2^31 elements")
+        blocks = [-(-n // CHUNK) for n in ns]
+        bstart = np.cumsum([0] + blocks)
+        goff, off = [], -(-(t + 1) // 4) * 4
+        for n in ns:
+            goff.append(off)
+            off += -(-n // 4) * 4
+        tb = _Table()
+        tb.ptr[:t] = ptrs
+        tb.goff[:t] = goff
+        tb.n[:t] = ns
+        tb.bstart[: t + 1] = [int(b) for b in bstart]
+        tb.target[:t] = targets
+        tb.T = t
+        tb.chunk = CHUNK
+        tb.vec[:t] = [p % 16 == 0 for p in ptrs]
+        self.table = tb
+        self.table_ptr = ctypes.addressof(tb)
+        self.blocks = int(bstart[-1])
+        self.out_len = off
+        self.t = t
+        self.grads = [(tuple(sh), _contiguous_strides(sh), g) for sh, g in zip(shapes, goff)]
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, acc = [], 1
+    for d in reversed(shape):
+        strides.append(acc)
+        acc *= d
+    return tuple(reversed(strides))
+
+
+# plans by (addresses, shapes, dtypes and devices, targets, mode): the
+# latent weights are updated in place, so a training run's key holds from
+# step to step; a plan is a pure function of its key, so a reused address
+# is safe, and a key is checked by _check once, when its plan is made
+_plans: Dict[tuple, _Plan] = {}
+_MAX_PLANS = 64
+
+
+def _plan(weights: Sequence[Tensor], targets: Sequence[float], mode: str) -> _Plan:
+    ptrs, shapes, kinds = [], [], []
+    for w in weights:
+        if not w.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+        ptrs.append(w.data_ptr())
+        shapes.append(w.shape)
+        kinds.append((w.dtype, w.device))
+    targets = tuple(map(float, targets))
+    key = (tuple(ptrs), tuple(shapes), tuple(kinds), targets, mode)
+    plan = _plans.get(key)
+    if plan is None:
+        _check(weights, targets, mode)
+        if len(weights) > MAX_TENSORS:
+            raise ValueError(f"at most {MAX_TENSORS} tensors a call, got {len(weights)}")
+        if len(_plans) >= _MAX_PLANS:
+            _plans.clear()
+        plan = _plans[key] = _Plan(ptrs, shapes, targets)
+    return plan
 
 
 def kurtosis_grouped(
@@ -131,42 +201,34 @@ def kurtosis_grouped(
 ) -> Tuple[Tensor, Tensor, Optional[List[Tensor]]]:
     """``(loss f32 scalar, kurt f32 (T,), grads or None)`` of the grouped
     kurtosis regularizer — K7 on CUDA tensors (one call covers every
-    tensor), the plain version on CPU tensors. The gradients are views
-    of one flat buffer, each shaped like its weight."""
-    _check(weights, targets, mode)
-    dev = weights[0].device
+    tensor), the plain version on CPU tensors. The results are views of
+    one output buffer, each gradient shaped like its weight.
+
+    On the card the call builds nothing on the device: the tensor table
+    (a kernel parameter) is packed once per set of tensors and reused
+    while their addresses, shapes and the targets hold."""
+    dev = weights[0].device if weights else torch.device("cpu")
     if dev.type != "cuda":
         if dev.type != "cpu":
             raise ValueError(f"unsupported device {dev}")
         return kurtosis_grouped_plain(weights, targets, mode, with_grad=with_grad)
     from bdbnn_tpu_torch.nn.kernels import _build
 
-    if len(weights) > MAX_TENSORS:
-        raise ValueError(f"at most {MAX_TENSORS} tensors a call, got {len(weights)}")
-    if not all(w.is_contiguous() for w in weights):
-        raise ValueError("the kernel takes contiguous tensors")
+    plan = _plan(weights, targets, mode)
     lib = _build.library("kurtosis")
-    meta, tgt, blocks, total = _table(weights, targets)
-    t = len(weights)
-    partial = torch.empty((blocks, 5), dtype=torch.float64, device=dev)
-    coef = torch.empty((t, 4), dtype=torch.float64, device=dev)
-    kurt = torch.empty((t,), dtype=torch.float32, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    flat = torch.empty((total if with_grad else 0,), dtype=torch.float32, device=dev)
+    t = plan.t
+    out = torch.empty((plan.out_len if with_grad else t + 1,), dtype=torch.float32, device=dev)
+    partial = torch.empty((5 * plan.blocks,), dtype=torch.float64, device=dev)
     err = lib.bdbnn_kurtosis_grouped(
-        meta.data_ptr(), tgt.data_ptr(), t, blocks, CHUNK, MODES[mode], int(with_grad),
-        partial.data_ptr(), coef.data_ptr(), kurt.data_ptr(), loss.data_ptr(),
-        flat.data_ptr() if with_grad else None, _build.stream_ptr(dev),
+        plan.table_ptr, MODES[mode], int(with_grad), partial.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(lib, err, "kurtosis_grouped")
     kurtosis_grouped.launches += 1
     grads = None
     if with_grad:
-        grads, off = [], 0
-        for w in weights:
-            grads.append(flat[off : off + w.numel()].view(w.shape))
-            off += w.numel()
-    return loss, kurt, grads
+        grads = [out.as_strided(sh, st, off) for sh, st, off in plan.grads]
+    return out.as_strided((), (), t), out.as_strided((t,), (1,), 0), grads
 
 
 kurtosis_grouped.launches = 0

@@ -27,9 +27,15 @@ estimator whose backward K5 fuses is routed as in the reference
 approx; the others take ``fam.binarize_act(x, sched=tk)``'s choice —
 ede when ``tk`` is a (t, k) pair (ste / ede families), prox(δ) under
 the proximal family, approx under approx, else ste. The stochastic
-family samples its signs in training, which K1 does not fuse: it raises
-(ROADMAP A, "Later" 3). BatchNorm trains with flax semantics (batch
-mean, the fast biased variance, running stats ``0.9·ra + 0.1·batch``).
+family samples its signs in training: a non-react binary conv takes one
+uniform draw of its input's shape from the ``draws`` source its forward
+is given (the train step's per-step
+:class:`~bdbnn_tpu_torch.nn.binarize.StepDraws`), which K1 and K6 read
+to take the sampled sign, and K5 fuses the clipped-identity (ste)
+backward; without a source, and always in eval mode, it takes the hard
+sign (the reference's ``family_act``). BatchNorm trains with flax
+semantics (batch mean, the fast biased variance, running stats
+``0.9·ra + 0.1·batch``).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 
-from bdbnn_tpu_torch.nn.binarize import get_active_family
+from bdbnn_tpu_torch.nn.binarize import DrawSource, get_active_family
 from bdbnn_tpu_torch.nn.kernels import binary_conv2d, weight_binarize
 from bdbnn_tpu_torch.nn.kernels.binary_conv import BinaryConvFn
 
@@ -180,17 +186,11 @@ class _BinaryConvBase(nn.Module):
     def train_estimator(self, tk=None):
         """The activation sign estimator whose backward K5 fuses, as an
         ``(name, p0, p1)`` triple, routed as the reference's
-        ``family_act`` (react: always approx)."""
+        ``family_act`` (react: always approx; stochastic: the
+        clipped-identity ste backward of ``stoch_sign``)."""
         if self.has_shift:
             return ("approx", 0.0, 0.0)
         fam = get_active_family()
-        if fam.stochastic:
-            raise NotImplementedError(
-                "the stochastic binarizer family samples its activation "
-                "signs in training, which the fused K1 forward does not do; "
-                "training under it is ROADMAP A 'Later' item 3 (the "
-                "stochastic family in training)"
-            )
         if fam.name in ("ste", "ede") and tk is not None:
             t, k = tk
             return ("ede", float(t), float(k))
@@ -201,7 +201,9 @@ class _BinaryConvBase(nn.Module):
             return ("approx", 0.0, 0.0)
         return ("ste", 0.0, 0.0)
 
-    def binary_conv(self, x: Tensor, shift: Optional[Tensor], tk=None) -> Tensor:
+    def binary_conv(
+        self, x: Tensor, shift: Optional[Tensor], tk=None, draws: Optional[DrawSource] = None
+    ) -> Tensor:
         """±alpha binary conv of ``sign(x - shift)``: K3 (packed) → K2
         → K1, or K4 under the ``popcount`` packed impl; in training K2 →
         :class:`BinaryConvFn` (K1, with K5 + K6 backward). The weight
@@ -214,7 +216,8 @@ class _BinaryConvBase(nn.Module):
             popcount_binary_conv,
         )
 
-        lab = get_active_family().name == "lab"
+        fam = get_active_family()
+        lab = fam.name == "lab"
         if self.training:
             if self.packed:
                 raise ValueError(
@@ -222,10 +225,14 @@ class _BinaryConvBase(nn.Module):
                     "build the model without packed=True"
                 )
             estimator = self.train_estimator(tk)
+            x = x.contiguous()
+            # the stochastic family's draw (react never samples)
+            sample = draws is not None and fam.stochastic and not self.has_shift
+            u = draws(x).contiguous() if sample else None
             wsign, alpha = weight_binarize(self.float_weight.detach(), lab=lab)
             return BinaryConvFn.apply(
-                x.contiguous(), shift, self.float_weight, wsign, alpha, self.strides,
-                self.padding, estimator,
+                x, shift, self.float_weight, wsign, alpha, self.strides,
+                self.padding, estimator, u,
             )
         if self.packed:
             w = packed_dense_weight(self.sign, self.alpha, self.weight_shape)
@@ -242,10 +249,11 @@ class _BinaryConvBase(nn.Module):
             x, wsign, alpha, shift=shift, strides=self.strides, padding=self.padding
         )
 
-    def forward(self, x: Tensor, tk=None) -> Tensor:
+    def forward(self, x: Tensor, tk=None, draws: Optional[DrawSource] = None) -> Tensor:
         # ``tk`` (the family's schedule scalars) only changes the
-        # training backward; the forward is the hard sign
-        return self.binary_conv(x, self.act_shift if self.has_shift else None, tk)
+        # training backward; ``draws`` only the stochastic family's
+        # training forward
+        return self.binary_conv(x, self.act_shift if self.has_shift else None, tk, draws)
 
 
 class BinaryConvReact(_BinaryConvBase):
@@ -286,8 +294,8 @@ class FloatConv(nn.Module):
         )
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: Tensor, tk=None) -> Tensor:
-        del tk
+    def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
+        del tk, draws
         y = conv2d(x, self.weight, strides=self.strides)
         if self.bias is not None:
             y = y + self.bias

@@ -18,7 +18,6 @@ from bdbnn_tpu_torch.nn.binarize import resolve_family
 # ROADMAP A "Later" items, by number
 TS = "item 1: teacher-student step (kd losses, teacher, FloatBottleneck)"
 CKPT = "item 2: checkpoint/resume/events"
-STOCH = "item 3: the stochastic family in training"
 REMAT_BF16 = "item 4: remat and bf16"
 DDP = "item 6: DDP"
 OBS = "item 7: obs, scripts"
@@ -189,8 +188,6 @@ class RunConfig:
                 if item != DATA else f"option {f!r}: {item} is not ported yet; use --synthetic"
             )
         fam = resolve_family(self.binarizer, ede=self.ede)
-        if fam.stochastic:
-            raise NotImplementedError(f"--binarizer stochastic: ROADMAP A 'Later' {STOCH}")
         return dataclasses.replace(self, binarizer=fam.spec, ede=fam.name == "ede")
 
 

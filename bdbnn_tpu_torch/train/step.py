@@ -7,12 +7,18 @@ loss (CE + λ·kurt on K7 [+ L2 / |W|→±1]), one backward (K5 + K6 per
 binary conv, K7's gradient added into the hooked weights' ``.grad`` by
 autograd) and the optimizer update at the epoch-keyed LR. ``tk`` (the
 binarizer family's schedule scalars) and ``kurt_gate`` are per-call
-arguments; metrics stay device tensors until the loop drains them. The
-teacher–student step is not ported yet (ROADMAP A "Later" 1).
+arguments; metrics stay device tensors until the loop drains them. Under
+the stochastic family the forward samples its activation signs from the
+step's draws: :class:`~bdbnn_tpu_torch.nn.binarize.StepDraws` of
+``(rng_seed, step)`` (the reference's ``fold_in(PRNGKey(rng_seed),
+step)``), or the ``draws(step)`` source the caller passes to
+:func:`make_train_step`. The teacher–student step is not ported yet
+(ROADMAP A "Later" 1).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -23,6 +29,7 @@ from bdbnn_tpu_torch.losses.kurtosis import (
     l2_regularization,
     weight_to_pm1_regularization,
 )
+from bdbnn_tpu_torch.nn.binarize import DrawSource, StepDraws
 from bdbnn_tpu_torch.obs.probes import nonfinite_flag, probe_metrics, probe_signs
 from bdbnn_tpu_torch.train.optim import set_lr
 from bdbnn_tpu_torch.train.state import StepConfig, TrainState
@@ -104,10 +111,14 @@ def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepCo
     return metrics
 
 
-def make_train_step(model, optimizer, cfg: StepConfig) -> Callable:
+def make_train_step(
+    model, optimizer, cfg: StepConfig, draws: Optional[Callable[[int], DrawSource]] = None
+) -> Callable:
     """Plain train step: loss = CE + λ·kurt [+ L2 + WR]. Returns
     ``train_step(state, (images, labels), tk, kurt_gate) -> (state,
-    metrics)``; ``state`` is updated in place."""
+    metrics)``; ``state`` is updated in place. Under the stochastic family
+    ``draws(step)`` gives the step's draw source (default:
+    ``StepDraws(cfg.rng_seed, step)``)."""
     cfg = cfg.resolved()
     if cfg.teacher_student:
         raise NotImplementedError(
@@ -115,12 +126,10 @@ def make_train_step(model, optimizer, cfg: StepConfig) -> Callable:
             "item 1: teacher-student step)"
         )
 
+    if draws is None:
+        draws = functools.partial(StepDraws, cfg.rng_seed)
+
     def train_step(state: TrainState, batch, tk, kurt_gate: float):
-        if cfg.binarizer_stochastic:
-            raise NotImplementedError(
-                "training under the stochastic binarizer family is ROADMAP A "
-                "'Later' item 3 (the stochastic family in training)"
-            )
         model, opt = state.model, state.optimizer
         images, labels = batch
         images = prep_images(images, cfg.input_norm)
@@ -128,7 +137,9 @@ def make_train_step(model, optimizer, cfg: StepConfig) -> Callable:
         # the family's schedule reaches the convs only when it has one
         # (the reference's _apply_kwargs)
         sched = tuple(tk) if (cfg.ede or cfg.binarizer_schedule) else None
-        logits = model(images, sched)
+        # the stochastic family samples from the step's draws (the
+        # reference's per-step ``binarize`` rng stream)
+        logits = model(images, sched, draws(state.step) if cfg.binarizer_stochastic else None)
         ce = softmax_cross_entropy(logits, labels)
         reg, terms = regularization_terms(model, cfg, kurt_gate)
         loss = ce + reg

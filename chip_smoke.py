@@ -53,11 +53,12 @@ Phases (any failure exits non-zero and prints no result line):
              phase_k5_same_sign); K6 likewise at layer1 3x3 s1 64->64
              @56, where each sum runs over up to 802,816 positions
              (phase_k6_same_sign); K7 over the 19
-             flagship tensors to rtol 1e-5. Times each beside its plain
+             flagship tensors to rtol 1e-5 (bitwise across two runs, and
+             its loss and kurt the same bits without the gradient). Times each beside its plain
              version, the least time the card could take, and
              torch.nn.grad.conv2d_input / conv2d_weight on the same ±1
              operands (TF32 off, a yardstick); K7 also as its device
-             passes alone (one CUDA graph, its host table left out).
+             passes alone and as the whole call, each one CUDA graph.
              K5's and K6's bounds are at the bf16 tensor rate (6·MACs:
              three bf16 pieces of g·alpha), their f32 figure (2·MACs at
              67 TFLOP/s) is logged beside it;
@@ -80,8 +81,21 @@ Phases (any failure exits non-zero and prints no result line):
              events (images/s) and broken down by kernel with
              torch.profiler; the host input pipeline's transform and
              pinned copy of one batch are timed alone after [train];
-10. output — one ``{"kernels": [...]}`` line (K1-K7), then as the last
-             line ``{"ok": true, "device": {...}}``.
+10. train-stoch — the stochastic family in training: ``fit`` on ImageNet
+             resnet18_step2 (the flagship's 19 binary convs, no act_shift,
+             hardtanh) at -b 256 under --binarizer stochastic --w-kurtosis
+             --diffkurt, Adam, 3 steps and the eval pass, with the same
+             exact per-step launch counts as [train]; one step at batch 8
+             on the card against the CPU on the same draws (MarginDraws,
+             replayed), held as [train] holds its step; one -b 256 step
+             replayed from the same state and (seed, step), bitwise; K1
+             with the draw bitwise against its plain version and K6 with
+             it within its summation bound at layer1 3x3, layer2_0.conv1
+             s2 and layer4 3x3; a profile of the step naming torch.rand's
+             share;
+11. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
+             gives serve, train and train-stoch), then as the last line
+             ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
@@ -647,12 +661,13 @@ def dgrad_exact(gy, x, wsign, alpha, s, pad):
     return xp[:, pad : pad + h, pad : pad + w, :]
 
 
-def wgrad_exact(gy, x, w, alpha, shift, s, pad):
-    """K6 exact to float64 (the same argument as :func:`dgrad_exact`)."""
+def wgrad_exact(gy, x, w, alpha, shift, s, pad, u=None):
+    """K6 exact to float64 (the same argument as :func:`dgrad_exact`);
+    with the draw ``u``, of the sampled signs."""
     from bdbnn_tpu_torch.nn.kernels.binary_conv import binarize_input, im2col_nhwc
 
     kh, kw, c, o = w.shape
-    patches = im2col_nhwc(binarize_input(x, shift), kh, kw, s, pad).reshape(-1, kh * kw * c)
+    patches = im2col_nhwc(binarize_input(x, shift, u), kh, kw, s, pad).reshape(-1, kh * kw * c)
     dws = patches.double().t() @ (gy * alpha).double().reshape(-1, o)
     return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).double()
 
@@ -793,9 +808,11 @@ def phase_train_kernels(pk):
 
 def phase_k7(pk):
     """K7 over the flagship's 19 hooked latent weights (he-normal init)
-    against its plain version (rtol 1e-5, bitwise across two runs); timed
-    eager and as its device passes alone (:func:`k7_device_ms`). Returns
-    its record (without ``launches``) and ok."""
+    against its plain version (rtol 1e-5, bitwise across two runs, and
+    without the gradient the same loss and kurt bits); timed eager, as its
+    device passes alone (:func:`k7_device_ms`) and as the whole call
+    captured in a CUDA graph. Returns its record (without ``launches``)
+    and ok."""
     import torch
 
     from bdbnn_tpu_torch.losses.kurtosis import DIFFKURT_TARGETS_IMAGENET
@@ -809,6 +826,7 @@ def phase_k7(pk):
     n_el = sum(t.numel() for t in ws)
     loss, kurt, grads = kurtosis_grouped(ws, targets, "avg")
     loss2, kurt2, grads2 = kurtosis_grouped(ws, targets, "avg")
+    bare = kurtosis_grouped(ws, targets, "avg", with_grad=False)
     ploss, pkurt, pgrads = kurtosis_grouped_plain(ws, targets, "avg")
     torch.cuda.synchronize()
     gerr = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads, pgrads))
@@ -818,33 +836,40 @@ def phase_k7(pk):
         and bool(torch.allclose(kurt, pkurt, rtol=1e-5, atol=0))
         and gerr <= 1e-5
         and torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+        and torch.equal(bare[0], loss) and torch.equal(bare[1], kurt)
     )
     k7_err = max(float((loss - ploss).abs()), float((kurt - pkurt).abs().max()),
                  max(float((a - b).abs().max()) for a, b in zip(grads, pgrads)))
     ms = cuda_ms(lambda: kurtosis_grouped(ws, targets, "avg"), 50)
     dev_ms = k7_device_ms(ws, targets)
+    call_graph_ms = graph_ms(lambda: kurtosis_grouped(ws, targets, "avg"))
+    bare_ms = cuda_ms(lambda: kurtosis_grouped(ws, targets, "avg", with_grad=False), 50)
     plain_ms = cuda_ms(lambda: kurtosis_grouped_plain(ws, targets, "avg"), 5)
     b7 = bound(2 * 4 * n_el, 17.0 * n_el, pk["f64_tflops"], pk)
+    # the centered two-pass form's own floor: two reads for the mean and
+    # the moments, then a read and a write for the gradient
+    floor_ms = 4 * 4 * n_el / (pk["hbm_tbs"] * 1e12) * 1e3
     rec = {"shapes": [{
         "shape": f"19 flagship tensors, {n_el} elements", "count": 1, "ms": ms, "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": b7[0], "bound_by": b7[1], "max_abs_err": k7_err,
-        "ok": bool(k7_ok), "graph_ms": dev_ms,
+        "ok": bool(k7_ok), "graph_ms": dev_ms, "call_graph_ms": call_graph_ms,
+        "no_grad_ms": bare_ms,
     }]}
     log(f"[train_kernels] K7 19 tensors ({n_el} elements): ok={k7_ok} loss={float(loss)} "
         f"plain={float(ploss)} max grad err (of the tensor's largest)={gerr} kernel_ms={ms:.4f} "
-        f"(device alone, graph: {dev_ms:.4f}; the rest is the host's table and launches) "
-        f"plain_ms={plain_ms:.4f} bound_ms={b7[0]:.4f} ({b7[1]})")
+        f"(device passes alone, graph: {dev_ms:.4f}; the whole call as a graph: "
+        f"{call_graph_ms:.4f}; without the gradient, eager: {bare_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} bound_ms={b7[0]:.4f} ({b7[1]}; two-pass floor {floor_ms:.4f})")
     del model, ws, grads, grads2, pgrads
     torch.cuda.empty_cache()
     return rec, bool(k7_ok)
 
 
 def k7_device_ms(ws, targets) -> float:
-    """K7's device time alone: its four grid passes over ``ws`` (mode avg,
-    with the gradient) captured in one CUDA graph, from a tensor table
-    built once outside it. The wrapper builds that table on the host and
-    copies it through pinned memory at every call, which the graph leaves
-    out; the C entry is called as the wrapper calls it, with no count."""
+    """K7's device time alone: its three grid passes over ``ws`` (mode
+    avg, with the gradient) captured in one CUDA graph, its output and
+    scratch allocated once outside it; the C entry is called as the
+    wrapper calls it, with no count."""
     import torch
 
     from bdbnn_tpu_torch.nn.kernels import _build
@@ -852,19 +877,13 @@ def k7_device_ms(ws, targets) -> float:
 
     dev = ws[0].device
     lib = _build.library("kurtosis")
-    meta, tgt, blocks, total = KM._table(ws, targets)
-    t = len(ws)
-    partial = torch.empty((blocks, 5), dtype=torch.float64, device=dev)
-    coef = torch.empty((t, 4), dtype=torch.float64, device=dev)
-    kurt = torch.empty((t,), dtype=torch.float32, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    flat = torch.empty((total,), dtype=torch.float32, device=dev)
+    plan = KM._plan(ws, targets, "avg")
+    partial = torch.empty((5 * plan.blocks,), dtype=torch.float64, device=dev)
+    out = torch.empty((plan.out_len,), dtype=torch.float32, device=dev)
 
     def launch():
-        err = lib.bdbnn_kurtosis_grouped(
-            meta.data_ptr(), tgt.data_ptr(), t, blocks, KM.CHUNK, KM.MODES["avg"], 1,
-            partial.data_ptr(), coef.data_ptr(), kurt.data_ptr(), loss.data_ptr(),
-            flat.data_ptr(), _build.stream_ptr(dev))
+        err = lib.bdbnn_kurtosis_grouped(plan.table_ptr, KM.MODES["avg"], 1,
+                                         partial.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
         _build.check(lib, err, "kurtosis_grouped")
 
     return graph_ms(launch)
@@ -959,12 +978,22 @@ def train_config(**kw):
 def phase_train():
     """The training main path: ``fit`` on the flagship at -b 256. Returns
     (launch counts of the run, step records, ok)."""
+    return run_fit("[train]", "resnet18", TRAIN_STEPS)
+
+
+def run_fit(tag: str, arch: str, steps: int, **cfg_kw):
+    """``fit`` on ``arch`` (ImageNet, the BASELINE config 3 recipe) at -b
+    256 for ``steps`` steps and the eval pass, counts set to 0 just before
+    and read just after. Every loss must be finite and every step launch
+    K1, K2, K5 and K6 once a binary conv and K7 twice (the loss, and the
+    binarization probes' grouped forward). Returns (launch counts of the
+    run, step records, ok)."""
     import torch
 
     from bdbnn_tpu_torch.train.loop import fit
 
-    cfg = train_config(batch_size=TRAIN_BATCH, synthetic_train_size=TRAIN_STEPS * TRAIN_BATCH,
-                       synthetic_val_size=TRAIN_BATCH, device="cuda")
+    cfg = train_config(arch=arch, batch_size=TRAIN_BATCH, synthetic_train_size=steps * TRAIN_BATCH,
+                       synthetic_val_size=TRAIN_BATCH, device="cuda", **cfg_kw)
     events, per_step, losses = [], [], []
     prev = {}
 
@@ -988,19 +1017,20 @@ def phase_train():
     step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
     want = {"K1": N_BINARY_CONVS, "K2": N_BINARY_CONVS, "K3": 0, "K4": 0,
             "K5": N_BINARY_CONVS, "K6": N_BINARY_CONVS, "K7": 2}
-    ok = (len(loss_vals) == TRAIN_STEPS and all(math.isfinite(v) for v in loss_vals)
+    ok = (len(loss_vals) == steps and all(math.isfinite(v) for v in loss_vals)
           and all(c == want for c in per_step))
     mean_ms = sum(step_ms) / max(len(step_ms), 1)
-    log(f"[train] fit resnet18 imagenet -b {TRAIN_BATCH}: {TRAIN_STEPS} steps + eval in {wall:.1f}s "
-        f"-> {res}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[train] losses {loss_vals}")
-    log(f"[train] launches per step {per_step} (expected {want} each: K7 once for the loss "
+    log(f"{tag} fit {arch} imagenet -b {TRAIN_BATCH} {cfg_kw}: {steps} steps + eval in "
+        f"{wall:.1f}s -> {res}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{tag} losses {loss_vals}")
+    log(f"{tag} launches per step {per_step} (expected {want} each: K7 once for the loss "
         f"and once for the binarization probes); whole run {counts}")
-    log(f"[train] step ms after the warm-up step (CUDA events, fit's loop with its host "
+    log(f"{tag} step ms after the warm-up step (CUDA events, fit's loop with its host "
         f"input pipeline): {step_ms}; mean {mean_ms:.2f} ms = "
         f"{TRAIN_BATCH / mean_ms * 1e3:.1f} images/s")
     if not ok:
-        log("[train] FAIL: a loss is not finite or a step's launch counts differ")
+        log(f"{tag} FAIL: a loss is not finite or a step's launch counts differ")
     return counts, {"step_ms": step_ms, "losses": loss_vals}, ok
 
 
@@ -1032,9 +1062,57 @@ def time_host_input(batches: int = 3) -> None:
         f"(one thread), pin + copy ms {copy_ms}")
 
 
-def phase_train_parity() -> bool:
+class MarginDraws:
+    """Uniform draws from a numpy seed, in forward order, each kept 1e-4
+    from its threshold ``hard_sigmoid(x)`` of the activation it is drawn
+    for, so that last-ulp differences between two devices' activations
+    cannot flip a sample; records them for :class:`ReplayDraws`."""
+
+    MARGIN = 1e-4
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+        self.drawn = []
+
+    def __call__(self, x):
+        import numpy as np
+        import torch
+
+        from bdbnn_tpu_torch.nn.binarize import hard_sigmoid
+
+        p = hard_sigmoid(x.detach()).cpu().numpy()
+        u = self.rng.uniform(size=tuple(x.shape)).astype(np.float32)
+        m = self.MARGIN
+        u = np.where(np.abs(u - p) < m, np.where(p + m < 1.0, p + m, p - m), u).astype(np.float32)
+        if float(np.min(np.abs(u - p))) <= 0.9 * m:
+            raise AssertionError("a draw lies within 0.9 of the margin of its threshold")
+        self.drawn.append(u)
+        return torch.from_numpy(u).to(x.device)
+
+
+class ReplayDraws:
+    """The draws a :class:`MarginDraws` recorded, in the same order, on
+    the activation's device."""
+
+    def __init__(self, drawn):
+        self.queue = list(drawn)
+
+    def __call__(self, x):
+        import torch
+
+        u = self.queue.pop(0)
+        if tuple(u.shape) != tuple(x.shape):
+            raise ValueError(f"replayed draw {u.shape} for an activation {tuple(x.shape)}")
+        return torch.from_numpy(u).to(x.device)
+
+
+def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -> bool:
     """One train step on the card against the CPU plain step at batch 8,
-    from identical weights and batch. Held: the loss terms (rtol
+    from identical weights and batch (under the stochastic family, the
+    same draws: :class:`MarginDraws` on the card, replayed on the CPU).
+    Held: the loss terms (rtol
     TRAIN_LOSS_RTOL); every parameter's gradient (GRAD_TOL of its
     tensor's largest |entry|), which K5, K6, the dshift sum, K7's
     gradient and the estimator routing all reach; every updated
@@ -1050,24 +1128,27 @@ def phase_train_parity() -> bool:
     from bdbnn_tpu_torch.train.loop import build_datasets, build_training, epoch_schedule
     from bdbnn_tpu_torch.train.step import make_train_step
 
-    cfg = train_config(batch_size=8, synthetic_train_size=8, synthetic_val_size=8,
-                       device="cpu").validate()
+    cfg = train_config(arch=arch, batch_size=8, synthetic_train_size=8, synthetic_val_size=8,
+                       device="cpu", **cfg_kw).validate()
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     pipe, _, _ = build_datasets(cfg)
     x, y = next(iter(pipe.epoch(0)))
     tk, gate = epoch_schedule(family, cfg, 0)
     out = {}
     t0 = time.perf_counter()
-    for dev in ("cuda", "cpu"):
+    recorded = MarginDraws(seed=23)
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
         state, step_cfg = build_training(cfg, torch.device(dev), 1, 224)
         model, opt = state.model, state.optimizer
         old = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         wd = {id(p): grp["weight_decay"] for grp in opt.param_groups for p in grp["params"]}
-        step = make_train_step(model, opt, step_cfg)
+        source = recorded if side == "card" else ReplayDraws(recorded.drawn)
+        step = make_train_step(model, opt, step_cfg, draws=lambda _step: source)
         batch = (torch.from_numpy(np.array(x)).to(dev), torch.from_numpy(np.array(y)).to(dev))
         _, m = step(state, batch, tk, gate)
-        out[dev] = {
+        out[side] = {
             "m": {k: float(m[k]) for k in ("loss", "loss_ce", "loss_kurt")},
+            "draws": len(recorded.drawn) if side == "card" else len(source.queue),
             "grad": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
             "wd": {n: wd[id(p)] for n, p in model.named_parameters()},
             "old": old,
@@ -1075,8 +1156,10 @@ def phase_train_parity() -> bool:
             "lr": opt.param_groups[0]["lr"],
         }
         del state, step, model, opt
-    card, cpu = out["cuda"], out["cpu"]
+    card, cpu = out["card"], out["cpu"]
     fails = []
+    if family.stochastic and not (card["draws"] == N_BINARY_CONVS and cpu["draws"] == 0):
+        fails.append(f"the card drew {card['draws']} times, the CPU left {cpu['draws']} draws")
     rel = {k: abs(card["m"][k] - cpu["m"][k]) / abs(cpu["m"][k]) for k in cpu["m"]}
     fails += [f"{k} relative {v}" for k, v in rel.items() if not v <= TRAIN_LOSS_RTOL]
     fails += [f"{k} starts from other weights" for k in cpu["old"]
@@ -1109,13 +1192,13 @@ def phase_train_parity() -> bool:
         if not (perr <= 2e-3 and float(derr.abs().max()) <= 2.0 * lr * (1 + 1e-6)):
             fails.append(f"{name} update differs by {perr}·lr")
     ok = not fails
-    log(f"[train] one step at batch 8, card {card['m']} vs CPU plain {cpu['m']}: relative {rel} "
+    log(f"{tag} one step at batch 8, card {card['m']} vs CPU plain {cpu['m']}: relative {rel} "
         f"(tol {TRAIN_LOSS_RTOL}); worst gradient error {worst_g} of the tensor's largest "
         f"(tol {GRAD_TOL}, {len(cpu['grad'])} tensors); worst update error {worst_p}·lr on "
         f"{kept}/{total} entries (tol 2e-3·lr); worst batch-stat error {worst_bn} of its "
         f"tolerance; ok={ok} ({time.perf_counter() - t0:.1f}s)")
     for f in fails[:20]:
-        log(f"[train] FAIL: {f}")
+        log(f"{tag} FAIL: {f}")
     return ok
 
 
@@ -1154,9 +1237,11 @@ def phase_train_cli() -> bool:
     return set(res) == {"best_acc1", "best_epoch"}
 
 
-def profile_train_step(iters: int = 3) -> dict:
-    """A flagship train step at -b 256 alone: CUDA-event time per step on
-    a batch already on the card, then device time by kernel."""
+def profile_train_step(iters: int = 3, tag: str = "flagship", **cfg_kw) -> dict:
+    """A train step of the flagship (or ``cfg_kw``'s model) at -b 256
+    alone: CUDA-event time per step on a batch already on the card, then
+    device time by kernel, with ``torch.rand``'s share (the stochastic
+    family's draws) named."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1164,7 +1249,7 @@ def profile_train_step(iters: int = 3) -> dict:
     from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
     from bdbnn_tpu_torch.train.step import make_train_step
 
-    cfg = train_config(batch_size=TRAIN_BATCH, device="cuda").validate()
+    cfg = train_config(batch_size=TRAIN_BATCH, device="cuda", **cfg_kw).validate()
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     state, step_cfg = build_training(cfg, torch.device("cuda"), 10, 224)
     step = make_train_step(state.model, state.optimizer, step_cfg)
@@ -1173,7 +1258,7 @@ def profile_train_step(iters: int = 3) -> dict:
              torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
     tk, gate = epoch_schedule(family, cfg, 0)
     ms = cuda_ms(lambda: step(state, batch, tk, gate), iters, warmup=2)
-    log(f"[profile] flagship train step -b {TRAIN_BATCH}, batch on the card: {ms:.2f} ms "
+    log(f"[profile] {tag} train step -b {TRAIN_BATCH}, batch on the card: {ms:.2f} ms "
         f"= {TRAIN_BATCH / ms * 1e3:.1f} images/s (CUDA events, {iters} steps after 2 warm-up)")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1188,16 +1273,158 @@ def profile_train_step(iters: int = 3) -> dict:
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / 2
     busy = sum(per_kernel.values())
+    # torch.rand's kernel: the uniform distribution's elementwise kernel
+    rand_ms = sum(v for k, v in per_kernel.items()
+                  if "uniform" in k.lower() or "distribution_elementwise" in k)
     if busy == 0:
-        log("[profile] train step: the profiler saw no device time (not measured)")
+        log(f"[profile] {tag} train step: the profiler saw no device time (not measured)")
     else:
-        log(f"[profile] train step -b {TRAIN_BATCH}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-            f"host wall per step (busy share {busy / wall_ms:.3f})")
+        log(f"[profile] {tag} train step -b {TRAIN_BATCH}: device busy {busy:.3f} ms of "
+            f"{wall_ms:.3f} ms host wall per step (busy share {busy / wall_ms:.3f}); torch.rand "
+            f"(the stochastic draws) {rand_ms:.3f} ms")
         for name, kms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]   {kms:8.4f} ms  {name[:100]}")
     del state, step, batch
     torch.cuda.empty_cache()
-    return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms}
+    return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms, "rand_ms": rand_ms}
+
+
+# the stochastic family's main path: resnet18_step2 (BinaryConv, no
+# act_shift, hardtanh: the flagship's 19 binary convs at its ten shapes)
+# under the BASELINE config 3 recipe; its kernels held at three shapes
+STOCH_ARGS = dict(arch="resnet18_step2", binarizer="stochastic")
+STOCH_STEPS = 3
+STOCH_SHAPES = ("layer1 3x3 s1 64->64 @56", "layer2_0.conv1 3x3 s2 64->128 @56",
+                "layer4 3x3 s1 512->512 @7")
+
+
+def phase_train_stoch(pk):
+    """[train-stoch]: the stochastic family in training. ``fit`` on
+    ImageNet resnet18_step2 at -b 256 under --binarizer stochastic
+    --w-kurtosis --diffkurt (Adam), 3 steps and the eval pass, with exact
+    per-step launch counts; one step at batch 8 on the card against the
+    CPU on the same draws; one step replayed from the same state and
+    (seed, step), bitwise; K1 with the draw bitwise against its plain
+    version and K6 with it within the summation bound, at three shapes;
+    a profile of the step with torch.rand's share. Returns (launch counts
+    of the fit run, ok)."""
+    tag = "[train-stoch]"
+    arch = STOCH_ARGS["arch"]
+    kw = {k: v for k, v in STOCH_ARGS.items() if k != "arch"}
+    counts, _, ok_fit = run_fit(tag, arch, STOCH_STEPS, **kw)
+    ok_par = phase_train_parity(tag, arch, **kw)
+    ok_rep = stoch_replay(tag)
+    ok_k = stoch_kernels(tag, pk)
+    profile_train_step(tag=f"{arch} --binarizer stochastic", **STOCH_ARGS)
+    log(f"{tag} fit {ok_fit}, card vs CPU {ok_par}, bitwise replay {ok_rep}, kernels {ok_k}")
+    return counts, ok_fit and ok_par and ok_rep and ok_k
+
+
+def stoch_replay(tag: str) -> bool:
+    """One stochastic train step at -b 256 run twice from the same state
+    and (seed, step), its draws from the step's own generator: the loss,
+    every gradient, every updated parameter and batch statistic bitwise
+    equal (cuDNN held to its deterministic algorithms for the stem)."""
+    import copy
+
+    import torch
+
+    from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
+    from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
+    from bdbnn_tpu_torch.train.step import make_train_step
+
+    cfg = train_config(batch_size=TRAIN_BATCH, device="cuda", **STOCH_ARGS).validate()
+    family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
+    state, step_cfg = build_training(cfg, torch.device("cuda"), 10, 224)
+    model, opt = state.model, state.optimizer
+    step = make_train_step(model, opt, step_cfg)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
+             torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
+    tk, gate = epoch_schedule(family, cfg, 0)
+    model_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_sd = copy.deepcopy(opt.state_dict())
+    runs = []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            model.load_state_dict(model_sd)
+            opt.load_state_dict(opt_sd)
+            state.step = 0
+            _, m = step(state, batch, tk, gate)
+            runs.append({"loss": m["loss"].clone(),
+                         **{"grad " + n: p.grad.clone() for n, p in model.named_parameters()},
+                         **{k: v.clone() for k, v in model.state_dict().items()}})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    torch.cuda.synchronize()
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    ok = not differ and len(runs[0]) > 100
+    log(f"{tag} one step at -b {TRAIN_BATCH} twice from the same state and (seed, step): "
+        f"{len(runs[0])} tensors, bitwise equal {ok}; differing: {differ[:10]}")
+    del state, step, model, opt, batch, runs, model_sd, opt_sd
+    torch.cuda.empty_cache()
+    return ok
+
+
+def stoch_kernels(tag: str, pk) -> bool:
+    """K1 with the draw u bitwise against its plain version, and K6 with
+    it held as phase_train_kernels holds K6 (the float64 sum of the
+    sampled signs, the plain version, bitwise across two runs), at -b 256
+    and three shapes; the hard sign's dW must lie beyond that bound. Logs
+    K1's time with and without u."""
+    import torch
+
+    from bdbnn_tpu_torch.nn.kernels import (
+        binary_conv2d,
+        binary_conv2d_plain,
+        binary_conv2d_wgrad,
+        binary_conv2d_wgrad_plain,
+        weight_binarize,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, ok = TRAIN_BATCH, True
+    for name, hw, c, o, k, s, _ in FLAGSHIP_CONVS:
+        if name not in STOCH_SHAPES:
+            continue
+        pad, st = k // 2, (s, s)
+        ho = (hw + 2 * pad - k) // s + 1
+        x = torch.randn((b, hw, hw, c), generator=g, device=dev)
+        u = torch.rand((b, hw, hw, c), generator=g, device=dev)
+        w = 0.5 * torch.randn((k, k, c, o), generator=g, device=dev)
+        gy = torch.randn((b, ho, ho, o), generator=g, device=dev)
+        wsign, alpha = weight_binarize(w)
+        y = binary_conv2d(x, wsign, alpha, strides=st, u=u)
+        py = binary_conv2d_plain(x, wsign, alpha, strides=st, u=u)
+        k1_ok = torch.equal(y, py)
+        k1_ms = cuda_ms(lambda: binary_conv2d(x, wsign, alpha, strides=st, u=u), 10)
+        hard_ms = cuda_ms(lambda: binary_conv2d(x, wsign, alpha, strides=st), 10)
+        del y, py
+        dw = binary_conv2d_wgrad(gy, x, w, alpha, strides=st, u=u)
+        dw2 = binary_conv2d_wgrad(gy, x, w, alpha, strides=st, u=u)
+        pdw = binary_conv2d_wgrad_plain(gy, x, w, alpha, strides=st, u=u)
+        hard = binary_conv2d_wgrad_plain(gy, x, w, alpha, strides=st)
+        ex6 = wgrad_exact(gy, x, w, alpha, None, s, pad, u=u)
+        wscale = U * binary_conv2d_wgrad_plain(gy.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                               alpha.abs(), strides=st)
+        err6, err6_ex = (dw - pdw).abs(), (dw.double() - ex6).abs()
+        bound8 = 8 * wscale + U * pdw.abs() + 1e-30
+        k6_ok = (bool((err6 <= bound8).all())
+                 and bool((err6_ex <= 4 * wscale + U * ex6.abs() + 1e-30).all())
+                 and torch.equal(dw, dw2) and bool(((hard - pdw).abs() > 100 * bound8).any()))
+        k6_ms = cuda_ms(lambda: binary_conv2d_wgrad(gy, x, w, alpha, strides=st, u=u), 10)
+        log(f"{tag} {name} b{b}: K1 with u bitwise vs plain {k1_ok} ({k1_ms:.4f} ms; without u "
+            f"{hard_ms:.4f}); K6 with u within bound, bitwise across two runs, the hard sign "
+            f"beyond it: {k6_ok} max_abs_err={float(err6.max())} (err - u|ref|)/(u·Σ|terms|) max: "
+            f"kernel vs plain {_ratio(err6, pdw, wscale):.3f} (bound 8), kernel vs exact "
+            f"{_ratio(err6_ex, ex6, wscale.double()):.3f} (bound 4) ({k6_ms:.4f} ms)")
+        ok = ok and k1_ok and k6_ok
+        del x, u, w, gy, dw, dw2, pdw, hard, ex6, wscale, err6, err6_ex, bound8
+        torch.cuda.empty_cache()
+    return ok
 
 
 def main(argv=None) -> int:
@@ -1259,6 +1486,7 @@ def main(argv=None) -> int:
     ok_te = phase_train_cede()
     ok_tc = phase_train_cli()
     profile_train_step()
+    stoch_counts, ok_ts = phase_train_stoch(pk)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -1282,11 +1510,14 @@ def main(argv=None) -> int:
                 "K6": "bdbnn_tpu/nn/kernels/binary_conv.py:107",
                 "K7": "bdbnn_tpu/losses/kurtosis.py:51"}
     # each kernel's launches on the main path it belongs to: serving for
-    # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed)
-    by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0)} for k in sources}
+    # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed),
+    # and on the stochastic family's training path (K1, K2, K5-K7)
+    by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
+                   "train-stoch": stoch_counts.get(k, 0)} for k in sources}
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources}
     ok_used = all(v > 0 for v in used.values()) and all(
-        by_path[k]["train"] > 0 for k in ("K1", "K2"))
+        by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
+        for path in ("train", "train-stoch"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -1296,7 +1527,8 @@ def main(argv=None) -> int:
     wgraph = "; forward_graph_ms the 19 calls on the convs' own weights in one CUDA graph"
     ms_of = {"K1": step + "; forward_b32 holds the batch-32 forward's sums",
              "K2": fwd + wgraph, "K3": fwd + wgraph, "K4": fwd, "K5": step, "K6": step,
-             "K7": "one call over the 19 hooked tensors; graph_ms its four device passes alone"}
+             "K7": "one call over the 19 hooked tensors; graph_ms its three device passes alone, "
+                   "call_graph_ms the whole call as a CUDA graph"}
 
     def sums(sh):
         lib = [s["library_ms"] for s in sh]
@@ -1331,7 +1563,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
-           "train_cli": ok_tc, "launched": ok_used}
+           "train_cli": ok_tc, "train_stoch": ok_ts, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

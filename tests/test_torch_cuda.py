@@ -10,7 +10,12 @@ a few 2⁻²⁴·Σ|terms|; one rounding of the slope multiply), K5 and K6
 bitwise between two runs, K6 also against the float64 sum (within
 4·2⁻²⁴·Σ|terms| + 2⁻²⁴·|exact|), K5 and K6 also on same-sign terms
 (within 4·2⁻²⁴·Σ|terms| of the float64 sum); K7 to rtol 1e-5 (both sum
-in f64 and round once; the f32 mean can round the other way). Every test here is marked ``cuda`` and
+in f64 and round once; the f32 mean can round the other way), bitwise
+across two runs and between its calls with and without the gradient,
+across a changed tensor set, an in-place weight update and CUDA-graph
+replays. Under the stochastic family K1 with the draw ``u`` is bitwise
+equal to its plain version and K6 with ``u`` within its bound, at shapes
+where the sampled dW is far from the hard one. Every test here is marked ``cuda`` and
 skips with a reason where no CUDA device exists (this file imports torch
 and the port only, no JAX). On the GPU machine:
 
@@ -392,3 +397,151 @@ def test_k7_grouped_vs_plain(cuda, mode):
     for g, g2, pg in zip(grads, grads2, pgrads):
         assert torch.equal(g, g2)
         torch.testing.assert_close(g, pg, rtol=0, atol=1e-5 * float(pg.abs().max()) + 1e-30)
+
+
+# the stochastic family's draw u: no shift (react never samples), the
+# vector and the scalar prep paths (C % 4), the three flagship shapes the
+# chip smoke holds, and sizes off every tile edge
+STOCH_CASES = [c for c in CONV_CASES if not c[7]] + [
+    (2, 9, 9, 5, 4, 3, 1, False), (2, 8, 8, 8, 8, 3, 2, False), (2, 14, 14, 256, 96, 3, 2, False),
+    (8, 56, 56, 64, 64, 3, 1, False), (8, 56, 56, 64, 128, 3, 2, False),
+    (8, 7, 7, 512, 512, 3, 1, False), (3, 13, 11, 200, 131, 3, 2, False),
+]
+STOCH_IDS = [f"n{c[0]}-{c[1]}x{c[2]}-c{c[3]}-o{c[4]}-k{c[5]}s{c[6]}" for c in STOCH_CASES]
+
+
+def _draw(x, seed):
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.rand(x.shape, generator=g, device=x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STOCH_CASES, ids=STOCH_IDS)
+def test_k1_with_u_bitwise_vs_plain(cuda, case):
+    x, _, w = _operands(case, cuda, seed=31)
+    u = _draw(x, 32)
+    wsign, alpha = weight_binarize(w)
+    st = (case[6], case[6])
+    before = binary_conv2d.launches
+    y = binary_conv2d(x, wsign, alpha, strides=st, u=u)
+    plain = binary_conv2d_plain(x, wsign, alpha, strides=st, u=u)
+    hard = binary_conv2d_plain(x, wsign, alpha, strides=st)
+    torch.cuda.synchronize()
+    assert binary_conv2d.launches == before + 1
+    assert torch.equal(y, plain)
+    assert not torch.equal(y, hard)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STOCH_CASES, ids=STOCH_IDS)
+def test_k6_with_u_within_bound(cuda, case):
+    """K6 with u against its plain version (8·u·Σ|terms| + u|plain|) and
+    the float64 sum of the sampled signs (4·u·Σ|terms| + u|exact|), bitwise
+    across two runs; the hard sign's dW lies far beyond that bound, so a
+    K6 that ignored u would fail."""
+    from chip_smoke import wgrad_exact
+
+    x, _, w, g = _grad_operands(case, cuda, seed=33)
+    u = _draw(x, 34)
+    k, s = case[5], case[6]
+    st = (s, s)
+    _, alpha = weight_binarize_plain(w)
+    dw = binary_conv2d_wgrad(g, x, w, alpha, strides=st, u=u)
+    dw2 = binary_conv2d_wgrad(g, x, w, alpha, strides=st, u=u)
+    pdw = binary_conv2d_wgrad_plain(g, x, w, alpha, strides=st, u=u)
+    hard = binary_conv2d_wgrad_plain(g, x, w, alpha, strides=st)
+    exact = wgrad_exact(g, x, w, alpha, None, s, k // 2, u=u)
+    wterms = binary_conv2d_wgrad_plain(g.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                       alpha.abs(), strides=st)
+    torch.cuda.synchronize()
+    bound = 8 * U * wterms + U * pdw.abs() + 1e-30
+    assert bool(((dw - pdw).abs() <= bound).all())
+    assert bool(((dw.double() - exact).abs() <= 4 * U * wterms.double() + U * exact.abs() + 1e-30).all())
+    assert torch.equal(dw, dw2)
+    assert bool(((hard - pdw).abs() > 100 * bound).any())
+
+
+def _k7_weights(dev, seed, shapes=((3, 3, 64, 64), (1, 1, 64, 128), (3, 3, 128, 256), (7,), (20000,)),
+                means=(0.0, -8.0, 0.3, 2.0, 0.0)):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_t(5, size=s) * 0.05 + m).astype(np.float32)).to(dev)
+            for s, m in zip(shapes, means)]
+
+
+def _k7_matches_plain(got, ws, targets, mode, with_grad=True):
+    loss, kurt, grads = got
+    ploss, pkurt, pgrads = kurtosis_grouped_plain(ws, targets, mode, with_grad=with_grad)
+    torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(kurt, pkurt, rtol=1e-5, atol=0)
+    if with_grad:
+        for g, pg in zip(grads, pgrads):
+            assert g.shape == pg.shape
+            torch.testing.assert_close(g, pg, rtol=0, atol=1e-5 * float(pg.abs().max()) + 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["avg", "sum", "max"])
+def test_k7_without_grad_is_the_same_finalize(cuda, mode):
+    """Without the gradient K7 finalizes in one block: loss and kurt are
+    the same bits as the call with the gradient, twice."""
+    ws = _k7_weights(cuda, 13)
+    targets = (1.8, 1.4, 1.2, 3.0, 1.0)
+    full = kurtosis_grouped(ws, targets, mode)
+    bare = kurtosis_grouped(ws, targets, mode, with_grad=False)
+    bare2 = kurtosis_grouped(ws, targets, mode, with_grad=False)
+    torch.cuda.synchronize()
+    assert bare[2] is None
+    _k7_matches_plain(bare, ws, targets, mode, with_grad=False)
+    for a, b in ((full, bare), (bare, bare2)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_k7_follows_a_changed_tensor_set_and_in_place_updates(cuda):
+    """The tensor table is cached per set of addresses, shapes and targets:
+    another subset, other targets, weights updated in place (the same
+    addresses, new values), a weight of another shape at a reused address
+    and an offset view (no 16-byte access) each give the plain result."""
+    ws = _k7_weights(cuda, 14)
+    targets = (1.8, 1.4, 1.2, 3.0, 1.0)
+    for sub, tg in ((ws, targets), (ws[1:4], targets[1:4]), (ws[::2], (2.0, 1.0, 1.5)),
+                    (ws, (1.0,) * 5)):
+        _k7_matches_plain(kurtosis_grouped(sub, tg, "avg"), sub, tg, "avg")
+    for w in ws:
+        w.mul_(1.5).add_(0.01)
+    _k7_matches_plain(kurtosis_grouped(ws, targets, "max"), ws, targets, "max")
+    flat = ws[0].reshape(-1)
+    reshaped = [flat.view(64, 576), ws[1], flat[1:4097]]  # the last: 4 bytes off 16
+    _k7_matches_plain(kurtosis_grouped(reshaped, (1.0, 2.0, 3.0), "sum"), reshaped,
+                      (1.0, 2.0, 3.0), "sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+def test_k7_cuda_graph_replays(cuda, warm):
+    """K7 captured in a CUDA graph (its table already cached, or packed
+    during the capture): each replay reads the weights' current values and
+    equals an eager call, bitwise."""
+    from bdbnn_tpu_torch.nn.kernels import kurtosis as KM
+
+    ws = _k7_weights(cuda, 15)
+    targets = (1.8, 1.4, 1.2, 3.0, 1.0)
+    if warm:
+        kurtosis_grouped(ws, targets, "avg")
+    else:
+        KM._plans.clear()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        loss, kurt, grads = kurtosis_grouped(ws, targets, "avg")
+    torch.cuda.current_stream().wait_stream(side)
+    for step in range(3):
+        graph.replay()
+        eager = kurtosis_grouped(ws, targets, "avg")
+        torch.cuda.synchronize()
+        assert torch.equal(loss, eager[0]) and torch.equal(kurt, eager[1])
+        assert all(torch.equal(a, b) for a, b in zip(grads, eager[2]))
+        _k7_matches_plain((loss, kurt, grads), ws, targets, "avg")
+        for w in ws:
+            w.mul_(0.9).add_(0.003 * (step + 1))

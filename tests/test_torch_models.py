@@ -148,16 +148,21 @@ def test_registry_names_and_unported_options():
 
 
 def test_training_mode_raises_until_training_slice():
-    """Training mode runs since the training slice; what it does not run
-    yet raises: the stochastic family (sampled signs), remat, and a packed
-    model (no latent weight)."""
-    from bdbnn_tpu_torch.nn.binarize import active_family
+    """Training mode runs since the training slice, under the stochastic
+    family too (sampled signs from a step's draws: the same (seed, step)
+    gives the same output bitwise, another step another one); what it does
+    not run yet raises: remat, and a packed model (no latent weight)."""
+    from bdbnn_tpu_torch.nn.binarize import StepDraws, active_family
 
     model = treg.create_model("resnet8_tiny", "cifar10").train()
     assert model(torch.zeros(2, 16, 16, 3)).shape == (2, 10)
-    with active_family("stochastic"):
-        with pytest.raises(NotImplementedError, match="stochastic"):
-            model(torch.zeros(1, 16, 16, 3))
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 16, 16, 3)).astype(np.float32))
+    outs = []
+    with active_family("stochastic"), torch.no_grad():
+        for step in (0, 0, 1):
+            outs.append(model(x, None, StepDraws(5, step)))
+    assert outs[0].shape == (2, 10) and bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
     with pytest.raises(NotImplementedError, match="remat"):
         treg.create_model("resnet8_tiny", "cifar10", remat=True)
     packed = treg.create_model("resnet8_tiny", "cifar10", packed=True).train()

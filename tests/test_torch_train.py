@@ -27,8 +27,8 @@
   losses to rtol 1e-3 (after the first update the two runs' weights
   differ by the gradients' noise, which can move a pre-sign value across
   its threshold);
-- the CLI trains two steps with ``--device cpu`` and refuses to start
-  without a card.
+- the CLI trains two steps with ``--device cpu`` (also under
+  ``--binarizer stochastic``) and refuses to start without a card.
 """
 
 import functools
@@ -368,6 +368,15 @@ def test_cli_trains_two_steps_on_the_cpu(capsys):
     assert set(res) == {"best_acc1", "best_epoch"}
 
 
+def test_cli_trains_under_the_stochastic_family_on_the_cpu(capsys):
+    rc = cli.main(["--dataset", "cifar10", "-a", "resnet8_tiny", "--synthetic", "-b", "8",
+                   "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8",
+                   "--binarizer", "stochastic", "--w-kurtosis", "--seed", "1", "--device", "cpu"])
+    assert rc == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(res) == {"best_acc1", "best_epoch"}
+
+
 def test_cli_refuses_without_a_card_and_names_unported_options():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA card")
@@ -378,7 +387,6 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
     for extra, item in [(["--resume", "x"], "checkpoint"), (["--remat"], "remat"),
                         (["--dtype", "bfloat16"], "bf16"), (["--kd"], "teacher-student"),
                         (["--model-parallel", "2"], "DDP"), (["--profile-dir", "p"], "obs"),
-                        (["--binarizer", "stochastic"], "stochastic"),
                         (["--save-every-steps", "5"], "checkpoint")]:
         with pytest.raises(NotImplementedError, match=item):
             cli.main(args + extra + ["--device", "cpu"])

@@ -42,6 +42,7 @@ from bdbnn_tpu_torch.nn import layers as tl
 from bdbnn_tpu_torch.nn.kernels import (
     binary_conv2d_dgrad,
     binary_conv2d_dgrad_plain,
+    binary_conv2d_plain,
     binary_conv2d_wgrad,
     binary_conv2d_wgrad_plain,
     kurtosis_grouped,
@@ -207,9 +208,21 @@ def test_layer_routes_the_family_estimator():
         with tb.active_family(fam):
             assert conv.train_estimator(sched) == want
     assert tl.BinaryConvReact(4, 4).train_estimator((0.5, 2.0)) == ("approx", 0.0, 0.0)
+    # the stochastic family: the ste backward of stoch_sign; in training
+    # the conv takes the installed draw's sampled sign, else the hard sign
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.normal(0, 0.7, (1, 4, 4, 4)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=(1, 4, 4, 4)).astype(np.float32))
+    wsign, alpha = weight_binarize(conv.float_weight.detach())
     with tb.active_family("stochastic"):
-        with pytest.raises(NotImplementedError, match="stochastic"):
-            conv.train().forward(torch.zeros(1, 4, 4, 4))
+        assert conv.train_estimator(None) == ("ste", 0.0, 0.0)
+        with torch.no_grad():
+            sampled = conv.train().forward(x, None, lambda v: u)
+        with torch.no_grad():
+            hard = conv.forward(x)
+    assert torch.equal(sampled, binary_conv2d_plain(x, wsign, alpha, u=u))
+    assert torch.equal(hard, binary_conv2d_plain(x, wsign, alpha))
+    assert not torch.equal(sampled, hard)
 
 
 def test_wgrad_splits_cover_every_row():
