@@ -238,13 +238,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags the reference parses but keeps out of its RunConfig
+# flags the reference parses but keeps out of its RunConfig and the port
+# does not run yet (--kd, --imagenet_setting, --imagenet_setting_step_1/2
+# and --qk_dim are parsed and ignored, as in the reference)
 _PARSED_ONLY = [
-    ("kd", False, "item 1: teacher-student step"),
-    ("imagenet_setting", False, "item 1: teacher-student step"),
-    ("imagenet_setting_step_1", False, "item 1: teacher-student step"),
-    ("imagenet_setting_step_2", False, "item 1: teacher-student step"),
-    ("qk_dim", 128, "item 1: teacher-student step"),
     ("world_size", 1, "item 6: DDP"),
     ("rank", 0, "item 6: DDP"),
     ("dist_url", "", "item 6: DDP"),

@@ -6,8 +6,7 @@ Every factory accepts ``dtype`` (float32 only: bfloat16 raises
 (binary convs hold packed ``{sign, alpha}`` buffers instead of
 ``float_weight``) and
 ``generator`` (a seeded ``torch.Generator`` for the initial weights).
-``resnet50_float`` / ``resnet101_float`` (the bottleneck float teachers)
-raise ``NotImplementedError`` until the bottleneck block is ported.
+``resnet50_float`` / ``resnet101_float`` are the bottleneck float teachers.
 """
 
 from __future__ import annotations
@@ -57,14 +56,9 @@ def _make_imagenet(name, stage_sizes, variant, act, num_classes=1000,
     del pretrained  # reference-API parity; weights come through the bridge
     check_dtype(dtype)
     _check_remat(remat)
-    if block != "basic":
-        raise NotImplementedError(
-            f"{name}: the bottleneck float teachers arrive with the "
-            "FloatBottleneck port"
-        )
     return BiResNet(
         stage_sizes, num_classes, width=64, stem="imagenet", variant=variant,
-        act=act, twoblock=twoblock, packed=packed, generator=generator,
+        act=act, twoblock=twoblock, block=block, packed=packed, generator=generator,
     )
 
 

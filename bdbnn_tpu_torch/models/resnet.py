@@ -9,9 +9,12 @@ the natural-DFS conv order matches one for one (:func:`conv_weight_paths`).
 - ``BiBasicBlock`` — two 3x3 binary residual units, ``y = act(BN(conv(x))
   + shortcut)``, with an AvgPool + binary 1x1 downsample shortcut; the
   float twin is torchvision's BasicBlock.
-- ``BiResNet``     — basic-block ResNet over react / step2 / cifar /
-  float variants, imagenet (7x7/2 + maxpool) or cifar (3x3) stem, with
-  ``twoblock`` (odd-position blocks swap to the partner variant).
+- ``FloatBottleneck`` — torchvision's Bottleneck (expansion 4), the
+  resnet50/101 float teachers' block.
+- ``BiResNet``     — ResNet over react / step2 / cifar / float variants,
+  imagenet (7x7/2 + maxpool) or cifar (3x3) stem, with ``twoblock``
+  (odd-position blocks swap to the partner variant); basic blocks, or
+  bottleneck blocks for the float variant.
 - ``VGGSmallBinary`` — the binary VGG-Small CIFAR baseline.
 
 The stem conv and the classifier stay full precision (F.conv2d and a
@@ -24,9 +27,7 @@ and from the flax variable tree through :mod:`bdbnn_tpu_torch.bridge`.
 and the binary convs through K2 → K1 with the K5/K6 backward
 (:mod:`bdbnn_tpu_torch.nn.layers`); ``tk`` (the binarizer family's
 schedule scalars) and ``draws`` (the stochastic family's draw source)
-reach every conv. ``FloatBottleneck`` (resnet50/101
-float teachers) comes with the teacher–student step and ``remat`` with
-bf16 (ROADMAP A "Later" 1 and 4).
+reach every conv. ``remat`` comes with bf16 (ROADMAP A "Later" 4).
 """
 
 from __future__ import annotations
@@ -184,9 +185,53 @@ class BiBasicBlock(nn.Module):
         return torch.relu(y + identity)
 
 
+class FloatBottleneck(nn.Module):
+    """torchvision's Bottleneck for the float teachers (expansion 4):
+    ``relu(bn1(conv1_1x1(x)))`` → ``relu(bn2(conv2_3x3_stride(·)))`` →
+    ``bn3(conv3_1x1_4w(·))`` → add the block input (strided 1x1 conv + BN
+    when shapes change) → relu."""
+
+    EXPANSION = 4
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        strides: int = 1,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        g = generator
+        out_features = features * self.EXPANSION
+        self.needs_ds = strides != 1 or in_features != out_features
+        self.conv1 = FloatConv(in_features, features, (1, 1), (1, 1), generator=g)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = FloatConv(features, features, (3, 3), (strides, strides), generator=g)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = FloatConv(features, out_features, (1, 1), (1, 1), generator=g)
+        self.bn3 = BatchNorm(out_features)
+        if self.needs_ds:
+            self.downsample_conv = FloatConv(
+                in_features, out_features, (1, 1), (strides, strides), generator=g
+            )
+            self.downsample_bn = BatchNorm(out_features)
+
+    def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
+        del tk, draws  # float teachers have no binarizer
+        identity = x
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        if self.needs_ds:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(y + identity)
+
+
 class BiResNet(_FlaxBridged):
-    """Generic basic-block ResNet over binary or float conv variants;
-    NHWC f32 images in, f32 logits out."""
+    """Generic ResNet over binary or float conv variants; NHWC f32 images
+    in, f32 logits out. ``block="bottleneck"`` (float variant only) builds
+    :class:`FloatBottleneck` blocks; the binary families are basic-block."""
 
     _TWOBLOCK_PARTNER = {"react": "step2", "step2": "react", "cifar": "react"}
     _VARIANT_ACT = {"react": "rprelu", "step2": "hardtanh", "cifar": "hardtanh"}
@@ -201,12 +246,20 @@ class BiResNet(_FlaxBridged):
         act: str = "rprelu",
         twoblock: bool = False,
         *,
+        block: str = "basic",
         packed: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if stem not in ("imagenet", "cifar"):
             raise ValueError(f"unknown stem: {stem!r}")
+        if block not in ("basic", "bottleneck"):
+            raise ValueError(f"unknown block: {block!r}")
+        if block == "bottleneck" and variant != "float":
+            raise ValueError(
+                "bottleneck blocks are float-teacher only; the binary "
+                "families are basic-block by construction"
+            )
         self.stem = stem
         g = generator
         if stem == "imagenet":
@@ -226,14 +279,17 @@ class BiResNet(_FlaxBridged):
                     v = self._TWOBLOCK_PARTNER[v]
                     a = self._VARIANT_ACT[v]
                 name = f"layer{s + 1}_{b}"
-                self.add_module(
-                    name,
-                    BiBasicBlock(
+                if block == "bottleneck":
+                    mod = FloatBottleneck(in_features, features, strides, generator=g)
+                    out_features = features * FloatBottleneck.EXPANSION
+                else:
+                    mod = BiBasicBlock(
                         in_features, features, strides, v, a, packed=packed, generator=g
-                    ),
-                )
+                    )
+                    out_features = features
+                self.add_module(name, mod)
                 self.block_names.append(name)
-                in_features = features
+                in_features = out_features
                 block_idx += 1
         self.fc = nn.Linear(in_features, num_classes)
         lecun_normal_(self.fc.weight, in_features, g)
@@ -391,6 +447,13 @@ def get_by_path(params, path):
     return node
 
 
+def conv_weight_hwio(path, w: Tensor) -> Tensor:
+    """The conv weight at ``path`` in HWIO, the reference's layout: a
+    binary conv's ``float_weight`` is HWIO already, a ``FloatConv``'s
+    ``weight`` is OIHW and is permuted (a view)."""
+    return w.permute(2, 3, 1, 0) if path[-1] == "weight" else w
+
+
 def module_path_str(path) -> str:
     """'layer1_0.conv1' — path string without the trailing param name."""
     return ".".join(path[:-1])
@@ -400,8 +463,10 @@ __all__ = [
     "BN_EPS",
     "BiBasicBlock",
     "BiResNet",
+    "FloatBottleneck",
     "VGGSmallBinary",
     "bn_identity_stats",
+    "conv_weight_hwio",
     "conv_weight_paths",
     "fold_batch_norm",
     "get_by_path",

@@ -16,7 +16,6 @@ from typing import Optional, Tuple
 from bdbnn_tpu_torch.nn.binarize import resolve_family
 
 # ROADMAP A "Later" items, by number
-TS = "item 1: teacher-student step (kd losses, teacher, FloatBottleneck)"
 CKPT = "item 2: checkpoint/resume/events"
 REMAT_BF16 = "item 4: remat and bf16"
 DDP = "item 6: DDP"
@@ -25,16 +24,6 @@ DATA = "ImageNet from an image folder (ROADMAP A 7, the ImageFolder pipelines)"
 
 # field -> ROADMAP item; asked for when the value differs from the default
 UNSUPPORTED = {
-    "imagenet_setting_step_2_ts": TS,
-    "arch_teacher": TS,
-    "custom_resnet_teacher": TS,
-    "resume_teacher": TS,
-    "allow_random_teacher": TS,
-    "react": TS,
-    "alpha": TS,
-    "temperature": TS,
-    "beta": TS,
-    "w_lambda_ce": TS,
     "pretrained": CKPT,
     "pretrained_path": CKPT,
     "resume": CKPT,
@@ -108,7 +97,8 @@ class RunConfig:
     w_lambda_l2: float = 0.0
     w_wr_reg: bool = False
     w_lambda_wr: float = 0.0
-    # teacher-student
+    # teacher-student (custom_resnet_teacher and temperature are carried
+    # and unused, as in the reference)
     imagenet_setting_step_2_ts: bool = False
     arch_teacher: str = "resnet18_float"
     custom_resnet_teacher: bool = False

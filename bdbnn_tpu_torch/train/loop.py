@@ -9,15 +9,21 @@ and the eval pass at each epoch's end. Metrics stay on the device and
 are drained once every ``print_freq`` steps. It runs on the CUDA card
 unless ``cfg.device`` is "cpu", and raises without a card.
 
+A teacher–student run (``--imagenet_setting_step_2_ts``) adds the frozen
+float teacher of :func:`build_teacher` and the layer-KL conv pairs of
+:func:`match_kd_pairs`, and trains with
+:func:`~bdbnn_tpu_torch.train.step.make_ts_train_step`.
+
 Not in this slice (``RunConfig.validate`` raises for each option, naming
 its ROADMAP item): checkpoints and resume, the events/manifest
-telemetry, the health monitor, profiling windows, teacher-student
-training, DDP.
+telemetry, the health monitor, profiling windows, DDP.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import os
 import sys
 import time
 from typing import Callable, Dict, Optional
@@ -37,15 +43,24 @@ from bdbnn_tpu_torch.data import (
     normalize,
     synthetic_dataset,
 )
+from bdbnn_tpu_torch.losses.kd import match_conv_pairs
 from bdbnn_tpu_torch.losses.kurtosis import resolve_targets
-from bdbnn_tpu_torch.models import conv_weight_paths, create_model, module_path_str
+from bdbnn_tpu_torch.models import (
+    conv_weight_hwio,
+    conv_weight_paths,
+    create_model,
+    get_by_path,
+    load_state_dict_strict,
+    load_torch_checkpoint,
+    module_path_str,
+)
 from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
 from bdbnn_tpu_torch.obs.probes import NonFiniteLossError, drain_probe_report
 from bdbnn_tpu_torch.train.config import RunConfig
 from bdbnn_tpu_torch.train.ede import cpt_tk
 from bdbnn_tpu_torch.train.optim import make_optimizer
 from bdbnn_tpu_torch.train.state import StepConfig, TrainState
-from bdbnn_tpu_torch.train.step import make_eval_step, make_train_step
+from bdbnn_tpu_torch.train.step import make_eval_step, make_train_step, make_ts_train_step
 
 logger = logging.getLogger("bdbnn_tpu_torch.train")
 
@@ -181,7 +196,8 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
         t_mark = now
         flip_rate, kurt = drain_probe_report(sums, probe_sizes, steps)
         extra = "".join(
-            f" {k} {sums[k] / steps:.4e}" for k in ("loss_ce", "loss_kurt", "grad_norm") if k in sums
+            f" {k} {sums[k] / steps:.4e}"
+            for k in ("loss_ce", "loss_kl", "loss_kl_c", "loss_kurt", "grad_norm") if k in sums
         )
         logger.info(
             "Epoch: [%d][%d/%d] Loss %.4e Acc@1 %6.2f Acc@5 %6.2f img/s %8.1f%s%s",
@@ -276,6 +292,12 @@ def build_training(cfg: RunConfig, device: torch.device, steps_per_epoch: int, i
         w_lambda_l2=cfg.w_lambda_l2,
         w_wr_reg=cfg.w_wr_reg,
         w_lambda_wr=cfg.w_lambda_wr,
+        teacher_student=cfg.teacher_student,
+        react=cfg.react,
+        alpha=cfg.alpha,
+        beta=cfg.beta,
+        temperature=cfg.temperature,
+        w_lambda_ce=cfg.w_lambda_ce,
         ede=cfg.ede,
         binarizer=family.name,
         binarizer_schedule=family.schedule_len > 0,
@@ -288,6 +310,64 @@ def build_training(cfg: RunConfig, device: torch.device, steps_per_epoch: int, i
         track_nonfinite=cfg.nonfinite_policy != "ignore",
     )
     return TrainState(model=model, optimizer=opt, step=0), step_cfg
+
+
+def build_teacher(cfg: RunConfig, device: torch.device) -> torch.nn.Module:
+    """The frozen float teacher (↔ the reference's ``build_teacher``):
+    ``cfg.arch_teacher`` loaded strictly from the torch checkpoint
+    ``cfg.resume_teacher``, every parameter ``requires_grad=False``, in
+    eval mode. Without a checkpoint a teacher–student run raises unless
+    ``cfg.allow_random_teacher`` (seed 0's weights): distilling from a
+    random teacher is a meaningless run."""
+    teacher = create_model(cfg.arch_teacher, cfg.dataset, dtype=cfg.dtype,
+                           generator=torch.Generator().manual_seed(0))
+    if cfg.resume_teacher:
+        if os.path.isdir(cfg.resume_teacher):
+            raise NotImplementedError(
+                "a run directory as --resume_teacher is not ported yet: ROADMAP A "
+                "'Later' item 2: checkpoint/resume/events; pass a torch .pth.tar"
+            )
+        load_state_dict_strict(teacher, load_torch_checkpoint(cfg.resume_teacher),
+                               scope="teacher")
+    elif not cfg.allow_random_teacher:
+        raise ValueError(
+            "teacher-student run without --resume_teacher: the teacher would be "
+            "random-init and KD meaningless. Pass a teacher checkpoint (or "
+            "allow_random_teacher=True in smoke tests)."
+        )
+    teacher.requires_grad_(False)
+    return teacher.to(device).eval()
+
+
+def match_kd_pairs(model: torch.nn.Module, teacher: torch.nn.Module,
+                   step_cfg: StepConfig) -> StepConfig:
+    """``step_cfg`` with the layer KL's (student, teacher) conv pairs:
+    name-matched (stem and downsamples skipped), and shape-matched in
+    HWIO. Name-equal pairs of other shapes (a bottleneck teacher over a
+    basic-block student) are dropped, and raise when the resolved β is
+    not 0: the layer KL is elementwise."""
+    s_tree, t_tree = shape_tree(model), shape_tree(teacher)
+    s_by_name = {module_path_str(p): p for p in conv_weight_paths(s_tree)}
+    t_by_name = {module_path_str(p): p for p in conv_weight_paths(t_tree)}
+    kd_pairs, mismatched = [], []
+    for a, b in match_conv_pairs(list(s_by_name), list(t_by_name)):
+        sp, tp = s_by_name[a], t_by_name[b]
+        ss = tuple(conv_weight_hwio(sp, get_by_path(s_tree, sp)).shape)
+        ts = tuple(conv_weight_hwio(tp, get_by_path(t_tree, tp)).shape)
+        if ss == ts:
+            kd_pairs.append((sp, tp))
+        else:
+            mismatched.append((a, ss, ts))
+    if mismatched and step_cfg.resolved().beta != 0.0:
+        a, ss, ts = mismatched[0]
+        raise ValueError(
+            f"layer-KL (beta={step_cfg.beta}) needs shape-matched student/teacher conv "
+            f"pairs, but {len(mismatched)} name-matched pairs differ in shape (first: {a!r} "
+            f"student {ss} vs teacher {ts}, HWIO). Cross-architecture teachers (e.g. "
+            "resnet50_float over a basic-block student) support logit-only KD: use "
+            "--react or --beta 0."
+        )
+    return dataclasses.replace(step_cfg, kd_pairs=tuple(kd_pairs))
 
 
 def epoch_schedule(family, cfg: RunConfig, epoch: int):
@@ -328,7 +408,14 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
         n: state.model.get_parameter(".".join(p)).numel()
         for n, p in zip(step_cfg.probe_names, step_cfg.probe_paths)
     }
-    train_step = make_train_step(state.model, state.optimizer, step_cfg)
+    if cfg.teacher_student:
+        teacher = build_teacher(cfg, device)
+        step_cfg = match_kd_pairs(state.model, teacher, step_cfg)
+        logger.info("teacher %s from %s: %d kd pairs", cfg.arch_teacher,
+                    cfg.resume_teacher or "seed 0 (allow_random_teacher)", len(step_cfg.kd_pairs))
+        train_step = make_ts_train_step(state.model, teacher, state.optimizer, step_cfg)
+    else:
+        train_step = make_train_step(state.model, state.optimizer, step_cfg)
     eval_step = make_eval_step(state.model, input_norm=step_cfg.input_norm)
     if cfg.evaluate:
         return {"acc1": _validate(eval_step, state, val_pipe, device, 0, cfg.nonfinite_policy)}
@@ -358,9 +445,11 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
 __all__ = [
     "DeviceMetrics",
     "build_datasets",
+    "build_teacher",
     "build_training",
     "epoch_schedule",
     "fit",
+    "match_kd_pairs",
     "select_hooked_paths",
     "shape_tree",
     "to_device",

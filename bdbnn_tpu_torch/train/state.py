@@ -46,7 +46,7 @@ class StepConfig:
     w_lambda_l2: float = 0.0
     w_wr_reg: bool = False
     w_lambda_wr: float = 0.0
-    # distillation (the teacher-student step is not ported yet)
+    # distillation (the teacher-student step)
     teacher_student: bool = False
     react: bool = False
     alpha: float = 0.9

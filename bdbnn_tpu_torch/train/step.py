@@ -12,8 +12,10 @@ the stochastic family the forward samples its activation signs from the
 step's draws: :class:`~bdbnn_tpu_torch.nn.binarize.StepDraws` of
 ``(rng_seed, step)`` (the reference's ``fold_in(PRNGKey(rng_seed),
 step)``), or the ``draws(step)`` source the caller passes to
-:func:`make_train_step`. The teacher–student step is not ported yet
-(ROADMAP A "Later" 1).
+:func:`make_train_step`. :func:`make_ts_train_step` is the teacher–student
+step: the frozen float teacher runs on the same prepared images in eval
+mode without autograd, and the loss is ``β·layerKL + α·logitKL +
+w_lambda_ce·CE + λ·kurt``, each weight pair in HWIO.
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from bdbnn_tpu_torch.losses.kd import softmax_cross_entropy
+from bdbnn_tpu_torch.losses.kd import distribution_loss, layer_weight_kl, softmax_cross_entropy
 from bdbnn_tpu_torch.losses.kurtosis import (
     kurtosis_regularization,
     l2_regularization,
     weight_to_pm1_regularization,
 )
+from bdbnn_tpu_torch.models.resnet import conv_weight_hwio
 from bdbnn_tpu_torch.nn.binarize import DrawSource, StepDraws
 from bdbnn_tpu_torch.obs.probes import nonfinite_flag, probe_metrics, probe_signs
 from bdbnn_tpu_torch.train.optim import set_lr
@@ -111,21 +114,9 @@ def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepCo
     return metrics
 
 
-def make_train_step(
-    model, optimizer, cfg: StepConfig, draws: Optional[Callable[[int], DrawSource]] = None
-) -> Callable:
-    """Plain train step: loss = CE + λ·kurt [+ L2 + WR]. Returns
-    ``train_step(state, (images, labels), tk, kurt_gate) -> (state,
-    metrics)``; ``state`` is updated in place. Under the stochastic family
-    ``draws(step)`` gives the step's draw source (default:
-    ``StepDraws(cfg.rng_seed, step)``)."""
-    cfg = cfg.resolved()
-    if cfg.teacher_student:
-        raise NotImplementedError(
-            "the teacher-student step is not ported yet (ROADMAP A 'Later' "
-            "item 1: teacher-student step)"
-        )
-
+def _make_step(model, optimizer, cfg: StepConfig, draws, loss_terms) -> Callable:
+    """A train step whose loss is the sum of ``loss_terms(images, labels,
+    logits)`` (an ordered dict of named terms) and the regularizers."""
     if draws is None:
         draws = functools.partial(StepDraws, cfg.rng_seed)
 
@@ -140,9 +131,9 @@ def make_train_step(
         # the stochastic family samples from the step's draws (the
         # reference's per-step ``binarize`` rng stream)
         logits = model(images, sched, draws(state.step) if cfg.binarizer_stochastic else None)
-        ce = softmax_cross_entropy(logits, labels)
+        losses = loss_terms(images, labels, logits)
         reg, terms = regularization_terms(model, cfg, kurt_gate)
-        loss = ce + reg
+        loss = sum(losses.values()) + reg
         opt.zero_grad(set_to_none=True)
         loss.backward()
         params = [p for group in opt.param_groups for p in group["params"]]
@@ -152,12 +143,57 @@ def make_train_step(
         set_lr(opt, state.step)
         opt.step()
         state.step += 1
-        aux = {"loss": loss.detach(), "loss_ce": ce.detach(),
+        aux = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()},
                **{k: v.detach() for k, v in terms.items()}}
         metrics = step_metrics(aux, logits.detach(), labels, grads, old_signs, probed, cfg)
         return state, metrics
 
     return train_step
+
+
+def make_train_step(
+    model, optimizer, cfg: StepConfig, draws: Optional[Callable[[int], DrawSource]] = None
+) -> Callable:
+    """Plain train step: loss = CE + λ·kurt [+ L2 + WR]. Returns
+    ``train_step(state, (images, labels), tk, kurt_gate) -> (state,
+    metrics)``; ``state`` is updated in place. Under the stochastic family
+    ``draws(step)`` gives the step's draw source (default:
+    ``StepDraws(cfg.rng_seed, step)``)."""
+    cfg = cfg.resolved()
+    return _make_step(model, optimizer, cfg, draws,
+                      lambda images, labels, logits: {"loss_ce": softmax_cross_entropy(logits, labels)})
+
+
+def make_ts_train_step(
+    model, teacher, optimizer, cfg: StepConfig,
+    draws: Optional[Callable[[int], DrawSource]] = None,
+) -> Callable:
+    """Teacher–student step (↔ the reference's ``make_ts_train_step``):
+    loss = β·layerKL + α·logitKL + w_lambda_ce·CE + λ·kurt, with react's
+    overrides (β = w_lambda_ce = 0) from ``cfg.resolved()``. The teacher
+    takes the student's prepared images in eval mode under
+    ``torch.no_grad()``; ``cfg.kd_pairs`` names the (student, teacher)
+    conv weights of the layer KL, compared in HWIO. Metric keys:
+    ``loss``, ``loss_ce``, ``loss_kl``, ``loss_kl_c`` and the
+    regularizers'. ``state`` and ``draws`` as in :func:`make_train_step`."""
+    cfg = cfg.resolved()
+
+    def loss_terms(images, labels, logits):
+        teacher.eval()
+        with torch.no_grad():
+            t_logits = teacher(images)
+        ce = softmax_cross_entropy(logits, labels) * cfg.w_lambda_ce
+        kl_c = distribution_loss(logits, t_logits) * cfg.alpha
+        if cfg.beta != 0.0 and cfg.kd_pairs:
+            sw = [conv_weight_hwio(sp, param_by_path(model, sp)) for sp, _ in cfg.kd_pairs]
+            tw = [conv_weight_hwio(tp, param_by_path(teacher, tp)) for _, tp in cfg.kd_pairs]
+            kl_layer = layer_weight_kl(sw, tw) * cfg.beta
+        else:
+            kl_layer = torch.zeros((), dtype=torch.float32, device=logits.device)
+        # the reference's order of the sum: layer KL, logit KL, CE
+        return {"loss_kl": kl_layer, "loss_kl_c": kl_c, "loss_ce": ce}
+
+    return _make_step(model, optimizer, cfg, draws, loss_terms)
 
 
 def make_eval_step(model, input_norm=None) -> Callable:
@@ -185,6 +221,7 @@ def make_eval_step(model, input_norm=None) -> Callable:
 __all__ = [
     "make_eval_step",
     "make_train_step",
+    "make_ts_train_step",
     "param_by_path",
     "prep_images",
     "regularization_terms",

@@ -93,9 +93,27 @@ Phases (any failure exits non-zero and prints no result line):
              it within its summation bound at layer1 3x3, layer2_0.conv1
              s2 and layer4 3x3; a profile of the step naming torch.rand's
              share;
-11. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
-             gives serve, train and train-stoch), then as the last line
-             ``{"ok": true, "device": {...}}``.
+12. train-ts — the teacher–student step: teacher ``.pth.tar`` files in
+             torchvision's key layout from seeded float models
+             (write_teacher_checkpoint); ``fit`` on BASELINE config 4 in f32
+             (ImageNet resnet34 --react student, resnet34_float teacher,
+             --w-kurtosis) at -b 256 through --resume_teacher, 3 steps and
+             the eval pass: exactly 35 launches of K1, K2, K5, K6 and 2 of K7
+             a step (the teacher launches none), the teacher bitwise as
+             loaded afterwards, peak device memory; one TS step at batch 8
+             on the card against the CPU (as [train] holds its step, with
+             loss_kl and loss_kl_c; the CPU's binary convs and RPReLUs take
+             the card's inputs, InputReplay, since resnet34's batch-8 step
+             otherwise crosses a few thresholds by rounding and diverges);
+             the four-term loss on resnet18 with a
+             resnet18_float teacher (2 steps and the batch-8 step); a
+             resnet50_float teacher over resnet18 --react (2 steps); the CLI
+             trains 2 TS steps; a profile of path 1's step (images/s, busy
+             share, the K-kernels' shares) and its teacher forward and KD
+             loss terms timed alone;
+13. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
+             gives serve, train, train-stoch and train-ts), then as the last
+             line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
@@ -475,6 +493,58 @@ def make_flagship_artifact(out_dir: str):
                 mod.zeta.copy_(0.1 * torch.randn(n, generator=g))
                 mod.slope.copy_(0.1 + 0.3 * torch.rand(n, generator=g))
     write_artifact(model.to_flax(), out_dir, arch="resnet18", dataset="imagenet")
+
+
+def torchvision_state_dict(state_dict, prefix: str = "module."):
+    """A port float model's ``state_dict`` in torchvision's key layout, the
+    inverse of ``bdbnn_tpu_torch.models.torch_import.translate_key``:
+    ``layerS_B`` → ``layerS.B``, ``downsample_conv``/``downsample_bn`` →
+    ``downsample.0``/``.1``, DataParallel's ``module.`` prefix, and a
+    ``num_batches_tracked`` counter beside each BatchNorm's statistics."""
+    import re
+
+    import torch
+
+    out = {}
+    for key, t in state_dict.items():
+        k = re.sub(r"^layer(\d+)_(\d+)\.", r"layer\1.\2.", key)
+        k = k.replace("downsample_conv.", "downsample.0.").replace("downsample_bn.", "downsample.1.")
+        out[prefix + k] = t.detach().cpu().clone()
+        if k.endswith(".running_var"):
+            out[prefix + k[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(90)
+    return out
+
+
+def write_teacher_checkpoint(path: str, arch: str = "resnet34_float", dataset: str = "imagenet",
+                             seed: int = 0):
+    """A float teacher from a seeded generator, with non-trivial BN
+    weights and running statistics, saved as a reference-format
+    ``.pth.tar`` (``{"state_dict": ..., "epoch": ...}``) in torchvision's
+    key layout. The last BN of each residual branch is scaled by 0.5, so
+    that the residual sums do not grow through the depth and the
+    teacher's softmax is neither uniform nor saturated. Returns the model
+    (CPU, eval mode)."""
+    import torch
+
+    from bdbnn_tpu_torch.models import create_model
+    from bdbnn_tpu_torch.models.resnet import BiBasicBlock, FloatBottleneck
+    from bdbnn_tpu_torch.nn.layers import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    model = create_model(arch, dataset, generator=g)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.weight.numel()
+                mod.weight.copy_(0.5 + 0.5 * torch.rand(n, generator=g))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+        for mod in model.modules():
+            if isinstance(mod, (BiBasicBlock, FloatBottleneck)):
+                (mod.bn3 if isinstance(mod, FloatBottleneck) else mod.bn2).weight.mul_(0.5)
+    torch.save({"state_dict": torchvision_state_dict(model.state_dict()), "epoch": 90}, path)
+    return model.eval()
 
 
 def wrappers():
@@ -981,11 +1051,12 @@ def phase_train():
     return run_fit("[train]", "resnet18", TRAIN_STEPS)
 
 
-def run_fit(tag: str, arch: str, steps: int, **cfg_kw):
-    """``fit`` on ``arch`` (ImageNet, the BASELINE config 3 recipe) at -b
-    256 for ``steps`` steps and the eval pass, counts set to 0 just before
-    and read just after. Every loss must be finite and every step launch
-    K1, K2, K5 and K6 once a binary conv and K7 twice (the loss, and the
+def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cfg_kw):
+    """``fit`` on ``arch`` (ImageNet, the BASELINE config 3 recipe unless
+    ``cfg_kw`` changes it) at -b 256 for ``steps`` steps and the eval
+    pass, counts set to 0 just before and read just after. Every loss must
+    be finite and every step launch K1, K2, K5 and K6 once for each of the
+    model's ``n_convs`` binary convs and K7 twice (the loss, and the
     binarization probes' grouped forward). Returns (launch counts of the
     run, step records, ok)."""
     import torch
@@ -1015,14 +1086,14 @@ def run_fit(tag: str, arch: str, steps: int, **cfg_kw):
     torch.cuda.synchronize()
     loss_vals = [float(v) for v in losses]
     step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
-    want = {"K1": N_BINARY_CONVS, "K2": N_BINARY_CONVS, "K3": 0, "K4": 0,
-            "K5": N_BINARY_CONVS, "K6": N_BINARY_CONVS, "K7": 2}
+    want = {"K1": n_convs, "K2": n_convs, "K3": 0, "K4": 0, "K5": n_convs, "K6": n_convs, "K7": 2}
     ok = (len(loss_vals) == steps and all(math.isfinite(v) for v in loss_vals)
           and all(c == want for c in per_step))
     mean_ms = sum(step_ms) / max(len(step_ms), 1)
+    peak = torch.cuda.max_memory_allocated()
     log(f"{tag} fit {arch} imagenet -b {TRAIN_BATCH} {cfg_kw}: {steps} steps + eval in "
-        f"{wall:.1f}s -> {res}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{wall:.1f}s -> {res}; peak device memory (torch.cuda.max_memory_allocated) "
+        f"{peak} bytes = {peak / 2**30:.2f} GiB")
     log(f"{tag} losses {loss_vals}")
     log(f"{tag} launches per step {per_step} (expected {want} each: K7 once for the loss "
         f"and once for the binarization probes); whole run {counts}")
@@ -1031,7 +1102,7 @@ def run_fit(tag: str, arch: str, steps: int, **cfg_kw):
         f"{TRAIN_BATCH / mean_ms * 1e3:.1f} images/s")
     if not ok:
         log(f"{tag} FAIL: a loss is not finite or a step's launch counts differ")
-    return counts, {"step_ms": step_ms, "losses": loss_vals}, ok
+    return counts, {"step_ms": step_ms, "losses": loss_vals, "peak_bytes": peak}, ok
 
 
 def time_host_input(batches: int = 3) -> None:
@@ -1108,12 +1179,89 @@ class ReplayDraws:
         return torch.from_numpy(u).to(x.device)
 
 
-def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -> bool:
+class InputReplay:
+    """Records the input of every module where the forward branches on a
+    threshold — each binary conv (the sign of ``x - shift``) and each
+    RPReLU (its kink at ``gamma``) — on the card (forward pre-hooks, in
+    forward order), then feeds the CPU step's modules those exact values,
+    the gradient passing straight through to the CPU's own input.
+    Differences upstream (the stem conv, BN's batch sums in another order)
+    then cannot move a value across a threshold: at batch 8 a full-width
+    net has tens of millions of such values, some within rounding of their
+    threshold, and one sign that flips changes the batch statistics of
+    every later layer. Counts, per kind, the values the CPU's own inputs
+    would have put on the other side, and their largest difference from
+    the card's."""
+
+    def __init__(self, kinds=("conv", "rprelu")):
+        self.kinds = kinds
+        self.recorded, self.at = [], 0
+        self.flips = {k: 0 for k in kinds}
+        self.max_diff = 0.0
+
+    def hooks(self, model, side: str):
+        from bdbnn_tpu_torch.nn.layers import RPReLU, _BinaryConvBase
+
+        fn = self._record if side == "card" else self._replay
+        types = tuple(t for k, t in (("conv", _BinaryConvBase), ("rprelu", RPReLU))
+                      if k in self.kinds)
+        return [m.register_forward_pre_hook(fn) for m in model.modules() if isinstance(m, types)]
+
+    @staticmethod
+    def _threshold(mod):
+        if hasattr(mod, "gamma"):
+            return "rprelu", mod.gamma.detach()
+        return "conv", mod.act_shift.detach() if mod.has_shift else 0.0
+
+    def _record(self, mod, args):
+        self.recorded.append(args[0].detach().cpu().clone())
+
+    def _replay(self, mod, args):
+        import torch
+
+        x, card = args[0], self.recorded[self.at]
+        self.at += 1
+        kind, t = self._threshold(mod)
+        self.flips[kind] += int(((x.detach() - t >= 0) != (card - t >= 0)).sum())
+        self.max_diff = max(self.max_diff, float((x.detach() - card).abs().max()))
+
+        class Exact(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, own):
+                return card.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                return g
+
+        return (Exact.apply(x),) + tuple(args[1:])
+
+
+def make_step(cfg, state, step_cfg, draws=None):
+    """The train step ``fit`` builds for ``cfg``: under teacher–student
+    the teacher from ``cfg.resume_teacher`` on the model's device, its
+    layer-KL pairs and the TS step; else the plain step."""
+    from bdbnn_tpu_torch.train.loop import build_teacher, match_kd_pairs
+    from bdbnn_tpu_torch.train.step import make_train_step, make_ts_train_step
+
+    if not cfg.teacher_student:
+        return make_train_step(state.model, state.optimizer, step_cfg, draws=draws)
+    device = next(state.model.parameters()).device
+    teacher = build_teacher(cfg, device)
+    step_cfg = match_kd_pairs(state.model, teacher, step_cfg)
+    return make_ts_train_step(state.model, teacher, state.optimizer, step_cfg, draws=draws)
+
+
+def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inputs=(),
+                       **cfg_kw) -> bool:
     """One train step on the card against the CPU plain step at batch 8,
     from identical weights and batch (under the stochastic family, the
-    same draws: :class:`MarginDraws` on the card, replayed on the CPU).
+    same draws: :class:`MarginDraws` on the card, replayed on the CPU;
+    under teacher–student, the same teacher file, and the TS step; with
+    ``replay_inputs`` (module kinds), those modules on the CPU take the
+    card's inputs, :class:`InputReplay`).
     Held: the loss terms (rtol
-    TRAIN_LOSS_RTOL); every parameter's gradient (GRAD_TOL of its
+    TRAIN_LOSS_RTOL; under teacher–student loss_kl and loss_kl_c too); every parameter's gradient (GRAD_TOL of its
     tensor's largest |entry|), which K5, K6, the dshift sum, K7's
     gradient and the estimator routing all reach; every updated
     parameter: Adam's first update is lr·g/(|g| + eps), so an entry
@@ -1126,10 +1274,10 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -
 
     from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
     from bdbnn_tpu_torch.train.loop import build_datasets, build_training, epoch_schedule
-    from bdbnn_tpu_torch.train.step import make_train_step
 
     cfg = train_config(arch=arch, batch_size=8, synthetic_train_size=8, synthetic_val_size=8,
                        device="cpu", **cfg_kw).validate()
+    keys = ("loss", "loss_ce", "loss_kurt") + (("loss_kl", "loss_kl_c") if cfg.teacher_student else ())
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     pipe, _, _ = build_datasets(cfg)
     x, y = next(iter(pipe.epoch(0)))
@@ -1137,17 +1285,23 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -
     out = {}
     t0 = time.perf_counter()
     recorded = MarginDraws(seed=23)
+    inputs = InputReplay(replay_inputs)
     for side, dev in (("card", "cuda"), ("cpu", "cpu")):
         state, step_cfg = build_training(cfg, torch.device(dev), 1, 224)
         model, opt = state.model, state.optimizer
         old = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         wd = {id(p): grp["weight_decay"] for grp in opt.param_groups for p in grp["params"]}
         source = recorded if side == "card" else ReplayDraws(recorded.drawn)
-        step = make_train_step(model, opt, step_cfg, draws=lambda _step: source)
+        step = make_step(cfg, state, step_cfg, draws=lambda _step: source)
         batch = (torch.from_numpy(np.array(x)).to(dev), torch.from_numpy(np.array(y)).to(dev))
-        _, m = step(state, batch, tk, gate)
+        handles = inputs.hooks(model, side) if replay_inputs else []
+        try:
+            _, m = step(state, batch, tk, gate)
+        finally:
+            for h in handles:
+                h.remove()
         out[side] = {
-            "m": {k: float(m[k]) for k in ("loss", "loss_ce", "loss_kurt")},
+            "m": {k: float(m[k]) for k in keys},
             "draws": len(recorded.drawn) if side == "card" else len(source.queue),
             "grad": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
             "wd": {n: wd[id(p)] for n, p in model.named_parameters()},
@@ -1160,13 +1314,22 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -
     fails = []
     if family.stochastic and not (card["draws"] == N_BINARY_CONVS and cpu["draws"] == 0):
         fails.append(f"the card drew {card['draws']} times, the CPU left {cpu['draws']} draws")
-    rel = {k: abs(card["m"][k] - cpu["m"][k]) / abs(cpu["m"][k]) for k in cpu["m"]}
+    if replay_inputs:
+        if not (inputs.recorded and inputs.at == len(inputs.recorded)):
+            fails.append(f"the CPU replayed {inputs.at} of {len(inputs.recorded)} binary conv inputs")
+        log(f"{tag} module inputs replayed on the CPU ({', '.join(replay_inputs)}): "
+            f"{inputs.at}; values the CPU's own inputs would have put on the other side of "
+            f"their threshold: {inputs.flips}; largest |CPU - card| input difference "
+            f"{inputs.max_diff}")
+    rel = {k: (abs(card["m"][k] - cpu["m"][k]) / abs(cpu["m"][k]) if cpu["m"][k] != 0.0
+               else (0.0 if card["m"][k] == 0.0 else math.inf)) for k in cpu["m"]}
     fails += [f"{k} relative {v}" for k, v in rel.items() if not v <= TRAIN_LOSS_RTOL]
     fails += [f"{k} starts from other weights" for k in cpu["old"]
               if not torch.equal(card["old"][k], cpu["old"][k])]
     lr = cpu["lr"]
     worst_g = worst_p = worst_bn = 0.0
     kept = total = 0
+    g_errs = {}
     for name, v in cpu["new"].items():
         got, old = card["new"][name], cpu["old"][name]
         if name.endswith(("running_mean", "running_var")):
@@ -1180,6 +1343,7 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -
         gmax = max(float(g_ref.abs().max()), 1e-30)
         gerr = float((card["grad"][name] - g_ref).abs().max()) / gmax
         worst_g = max(worst_g, gerr)
+        g_errs[name] = gerr
         if not gerr <= GRAD_TOL:
             fails.append(f"{name} gradient differs by {gerr} of its largest |entry|")
         g_eff = g_ref + cpu["wd"][name] * old
@@ -1197,6 +1361,8 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", **cfg_kw) -
         f"(tol {GRAD_TOL}, {len(cpu['grad'])} tensors); worst update error {worst_p}·lr on "
         f"{kept}/{total} entries (tol 2e-3·lr); worst batch-stat error {worst_bn} of its "
         f"tolerance; ok={ok} ({time.perf_counter() - t0:.1f}s)")
+    log(f"{tag} largest gradient errors (of the tensor's largest |entry|): " + ", ".join(
+        f"{n} {e:.3e}" for n, e in sorted(g_errs.items(), key=lambda kv: -kv[1])[:8]))
     for f in fails[:20]:
         log(f"{tag} FAIL: {f}")
     return ok
@@ -1247,12 +1413,11 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", **cfg_kw) -> dict:
 
     from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
     from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
-    from bdbnn_tpu_torch.train.step import make_train_step
 
     cfg = train_config(batch_size=TRAIN_BATCH, device="cuda", **cfg_kw).validate()
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     state, step_cfg = build_training(cfg, torch.device("cuda"), 10, 224)
-    step = make_train_step(state.model, state.optimizer, step_cfg)
+    step = make_step(cfg, state, step_cfg)
     g = torch.Generator(device="cuda").manual_seed(3)
     batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
              torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
@@ -1282,11 +1447,34 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", **cfg_kw) -> dict:
         log(f"[profile] {tag} train step -b {TRAIN_BATCH}: device busy {busy:.3f} ms of "
             f"{wall_ms:.3f} ms host wall per step (busy share {busy / wall_ms:.3f}); torch.rand "
             f"(the stochastic draws) {rand_ms:.3f} ms")
+        shares = {k: sum(v for name, v in per_kernel.items() if kernel_id(name) == k)
+                  for k in K_KERNEL_NAMES}
+        log(f"[profile] {tag} K-kernels' device ms a step (share of busy): " + ", ".join(
+            f"{k} {v:.3f} ({v / busy:.3f})" for k, v in shares.items())
+            + f"; all K {sum(shares.values()):.3f} ({sum(shares.values()) / busy:.3f})")
         for name, kms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]   {kms:8.4f} ms  {name[:100]}")
     del state, step, batch
     torch.cuda.empty_cache()
     return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms, "rand_ms": rand_ms}
+
+
+# the device kernels of each K wrapper, by the name the profiler gives them
+K_KERNEL_NAMES = {
+    "K1": ("binary_conv_fwd_kernel", "fwd_sign_prep_kernel"),
+    "K2": ("weight_sign_kernel", "weight_alpha_finish_kernel"),
+    "K5": ("binary_conv_dgrad_kernel", "dgrad_split_kernel"),
+    "K6": ("binary_conv_wgrad_kernel", "binary_conv_wgrad_reduce_kernel", "wgrad_prep_kernel"),
+    "K7": ("kurt_mean_kernel", "kurt_moments_kernel", "kurt_grad_kernel"),
+}
+
+
+def kernel_id(name: str):
+    """The K wrapper a profiled device kernel belongs to, or None."""
+    for k, names in K_KERNEL_NAMES.items():
+        if any(n in name for n in names):
+            return k
+    return None
 
 
 # the stochastic family's main path: resnet18_step2 (BinaryConv, no
@@ -1427,6 +1615,152 @@ def stoch_kernels(tag: str, pk) -> bool:
     return ok
 
 
+# the teacher-student main path (path 1): BASELINE config 4 in f32 (ImageNet
+# resnet34 react student, 35 binary convs at the flagship's ten shapes;
+# resnet34_float teacher; loss α·logitKL + λ·kurt under --react). Path 2:
+# the four-term loss on resnet18 without --react, a resnet18_float teacher
+# (16 name- and shape-matched conv pairs). Path 3: the bottleneck teacher
+# resnet50_float over resnet18 under --react (logit-only KD).
+TS_CONVS = 35
+TS_STEPS = 3
+TS_PATHS = {
+    "path 1": dict(arch="resnet34", diffkurt=False, imagenet_setting_step_2_ts=True, react=True,
+                   arch_teacher="resnet34_float"),
+    "path 2": dict(arch="resnet18", diffkurt=False, imagenet_setting_step_2_ts=True, react=False,
+                   arch_teacher="resnet18_float", alpha=0.9, beta=200.0),
+    "path 3": dict(arch="resnet18", diffkurt=False, imagenet_setting_step_2_ts=True, react=True,
+                   arch_teacher="resnet50_float"),
+}
+
+
+def phase_train_ts():
+    """[train-ts]: the teacher–student step. (a) a teacher ``.pth.tar`` per
+    teacher arch in torchvision's key layout; (b) ``fit`` on path 1 at -b
+    256, 3 steps and the eval pass: finite losses, exactly 35 launches of
+    K1, K2, K5, K6 and 2 of K7 a step (the teacher launches none), the
+    teacher's parameters and statistics after the run bitwise what was
+    loaded; (c) one TS step at batch 8 on the card against the CPU, the
+    CPU's thresholded modules fed the card's inputs (:class:`InputReplay`);
+    (d) path 2, 2 steps and the batch-8 step; (e) path 3, 2 steps; (f) the
+    CLI trains 2 TS steps as a subprocess; (g) a profile of path 1's
+    step. Returns (path 1's launch counts, ok)."""
+    import torch
+
+    from bdbnn_tpu_torch.train import loop
+
+    tag = "[train-ts]"
+    oks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files, written = {}, {}
+        for arch in sorted({kw["arch_teacher"] for kw in TS_PATHS.values()}):
+            files[arch] = os.path.join(tmp, f"{arch}.pth.tar")
+            written[arch] = write_teacher_checkpoint(files[arch], arch, "imagenet", seed=11)
+        log(f"{tag} (a) wrote teacher files {sorted(files)} in {time.perf_counter() - t0:.1f}s")
+        kw = {name: {**p, "resume_teacher": files[p["arch_teacher"]]} for name, p in TS_PATHS.items()}
+
+        built = []
+        build_teacher = loop.build_teacher
+
+        def capture(cfg, device):
+            built.append(build_teacher(cfg, device))
+            return built[-1]
+
+        loop.build_teacher = capture
+        try:
+            p1 = {k: v for k, v in kw["path 1"].items() if k != "arch"}
+            counts, rec, oks["fit path 1"] = run_fit(f"{tag} (b) path 1", "resnet34", TS_STEPS,
+                                                     TS_CONVS, **p1)
+            ok_frozen = len(built) == 1 and not built[0].training
+            want = written["resnet34_float"].state_dict()
+            got = {k: v.cpu() for k, v in built[0].state_dict().items()} if built else {}
+            differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+            oks["teacher frozen"] = ok_frozen and not differ and set(got) == set(want)
+            log(f"{tag} (b) the teacher after fit: {len(want)} tensors, bitwise as loaded "
+                f"{not differ}, eval mode {ok_frozen}, requires_grad none "
+                f"{not any(p.requires_grad for p in built[0].parameters())}; differing {differ[:5]}")
+            del built[:]
+            for name, letter in (("path 2", "d"), ("path 3", "e")):
+                pk = {k: v for k, v in kw[name].items() if k != "arch"}
+                _, _, oks[f"fit {name}"] = run_fit(f"{tag} ({letter}) {name}", kw[name]["arch"],
+                                                   2, **pk)
+        finally:
+            loop.build_teacher = build_teacher
+        for name, letter in (("path 1", "c"), ("path 2", "d")):
+            pk = {k: v for k, v in kw[name].items() if k != "arch"}
+            oks[f"card vs CPU {name}"] = phase_train_parity(f"{tag} ({letter}) {name}",
+                                                            kw[name]["arch"],
+                                                            replay_inputs=("conv", "rprelu"), **pk)
+        oks["cli"] = phase_train_ts_cli(tag, files["resnet34_float"])
+        prof = profile_train_step(tag=f"{tag} (g) path 1 resnet34 + resnet34_float teacher",
+                                  **kw["path 1"])
+        teacher_ms, kd_ms = ts_parts(tag, kw["path 1"])
+    ok = all(oks.values())
+    log(f"{tag} {oks}; path 1 step {prof['step_ms']:.2f} ms = "
+        f"{TRAIN_BATCH / prof['step_ms'] * 1e3:.1f} images/s, the teacher's forward alone "
+        f"{teacher_ms / prof['step_ms']:.3f} of it, the KD loss terms alone "
+        f"{kd_ms / prof['step_ms']:.5f}; fit's peak device memory {rec['peak_bytes']} bytes; "
+        f"ok={ok}")
+    return counts, ok
+
+
+def phase_train_ts_cli(tag: str, teacher_file: str) -> bool:
+    """``python -m bdbnn_tpu_torch.cli`` trains path 1 for 2 steps."""
+    cmd = [sys.executable, "-m", "bdbnn_tpu_torch.cli", "--dataset", "imagenet", "-a", "resnet34",
+           "--synthetic", "-b", "256", "--epochs", "1", "--imagenet_setting_step_2_ts", "--react",
+           "--arch_teacher", "resnet34_float", "--resume_teacher", teacher_file, "--w-kurtosis",
+           "--kd", "--synthetic-train-size", "512", "--synthetic-val-size", "256", "--seed", "0"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    log(f"{tag} (f) {' '.join(cmd[1:])} -> exit {r.returncode} in {time.perf_counter() - t0:.1f}s")
+    if r.returncode != 0:
+        log(r.stdout[-2000:] + r.stderr[-4000:])
+        return False
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"{tag} (f) result {res}; last log lines: {r.stderr.strip().splitlines()[-3:]}")
+    return set(res) == {"best_acc1", "best_epoch"}
+
+
+def ts_parts(tag: str, cfg_kw: dict, iters: int = 10):
+    """Path 1's teacher forward and KD loss terms alone at -b 256 (CUDA
+    events after a warm-up): the teacher's eval forward under no_grad, and
+    the loss terms' forward and backward from the student's logits.
+    Returns their ms."""
+    import torch
+
+    from bdbnn_tpu_torch.losses.kd import distribution_loss, softmax_cross_entropy
+    from bdbnn_tpu_torch.train.loop import build_teacher
+
+    cfg = train_config(batch_size=TRAIN_BATCH, device="cuda", **cfg_kw).validate()
+    teacher = build_teacher(cfg, torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda")
+    labels = torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda")
+    logits = torch.randn((TRAIN_BATCH, 1000), generator=g, device="cuda", requires_grad=True)
+
+    def teacher_fwd():
+        with torch.no_grad():
+            return teacher(x)
+
+    t_logits = teacher_fwd()
+
+    w_ce = 0.0 if cfg.react else cfg.w_lambda_ce  # StepConfig.resolved()
+
+    def kd_terms():
+        loss = (distribution_loss(logits, t_logits) * cfg.alpha
+                + softmax_cross_entropy(logits, labels) * w_ce)
+        loss.backward()
+
+    t_ms = cuda_ms(teacher_fwd, iters)
+    kd_ms = cuda_ms(kd_terms, iters)
+    log(f"{tag} (g) alone at -b {TRAIN_BATCH}: the teacher's forward (resnet34_float, eval, "
+        f"no_grad, cuDNN f32, TF32 off) {t_ms:.3f} ms; the KD loss terms (α·logitKL + "
+        f"{w_ce}·CE, forward and backward) {kd_ms:.4f} ms (CUDA events, {iters} calls)")
+    del teacher, x, logits, t_logits
+    torch.cuda.empty_cache()
+    return t_ms, kd_ms
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1487,6 +1821,7 @@ def main(argv=None) -> int:
     ok_tc = phase_train_cli()
     profile_train_step()
     stoch_counts, ok_ts = phase_train_stoch(pk)
+    ts_counts, ok_tts = phase_train_ts()
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -1511,13 +1846,15 @@ def main(argv=None) -> int:
                 "K7": "bdbnn_tpu/losses/kurtosis.py:51"}
     # each kernel's launches on the main path it belongs to: serving for
     # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed),
-    # and on the stochastic family's training path (K1, K2, K5-K7)
+    # on the stochastic family's training path and on the teacher-student
+    # path (K1, K2, K5-K7)
     by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
-                   "train-stoch": stoch_counts.get(k, 0)} for k in sources}
+                   "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0)}
+               for k in sources}
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources}
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
-        for path in ("train", "train-stoch"))
+        for path in ("train", "train-stoch", "train-ts"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -1563,7 +1900,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
-           "train_cli": ok_tc, "train_stoch": ok_ts, "launched": ok_used}
+           "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

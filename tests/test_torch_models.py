@@ -138,9 +138,14 @@ def test_fold_batch_norm_and_conv_paths_match_reference():
 def test_registry_names_and_unported_options():
     for ds in ("cifar10", "imagenet"):
         assert treg.list_models(ds) == jreg.list_models(ds)
-    for arch in ("resnet50_float", "resnet101_float"):
-        with pytest.raises(NotImplementedError, match="bottleneck"):
-            treg.create_model(arch, "imagenet")
+    # the bottleneck float teachers build (torchvision's parameter
+    # counts); bottleneck blocks are float only
+    for arch, n_params in (("resnet50_float", 25_557_032), ("resnet101_float", 44_549_160)):
+        model = treg.create_model(arch, "imagenet")
+        assert isinstance(model.layer1_0, tres.FloatBottleneck)
+        assert sum(p.numel() for p in model.parameters()) == n_params
+    with pytest.raises(ValueError, match="bottleneck"):
+        tres.BiResNet((1, 1), 10, width=8, variant="react", block="bottleneck")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         treg.create_model("resnet8_tiny", "cifar10", dtype="bfloat16")
     with pytest.raises(ValueError, match="unknown arch"):

@@ -385,7 +385,7 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(args)
     for extra, item in [(["--resume", "x"], "checkpoint"), (["--remat"], "remat"),
-                        (["--dtype", "bfloat16"], "bf16"), (["--kd"], "teacher-student"),
+                        (["--dtype", "bfloat16"], "bf16"), (["--pretrained"], "checkpoint"),
                         (["--model-parallel", "2"], "DDP"), (["--profile-dir", "p"], "obs"),
                         (["--save-every-steps", "5"], "checkpoint")]:
         with pytest.raises(NotImplementedError, match=item):
