@@ -12,6 +12,11 @@ as JSON on the last line. Options the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item; the GPU/NCCL-era flags
 (``--world-size`` and the like) raise too (DDP).
 
+A run writes its run dir under ``--log_path`` (checkpoints, events,
+manifest); SIGTERM makes it checkpoint and exit with code 75, and
+``--resume <run dir>`` continues it. ``export RUN_DIR -o ARTIFACT``
+freezes a run's checkpoint into a serving artifact.
+
 ``predict ARTIFACT [DATA]`` runs an export artifact over a val split
 through the bucketed engine and reports top-1 against the artifact's
 recorded checkpoint accuracy (``--check`` exits 3 when they differ, 2
@@ -21,8 +26,8 @@ reference's training loop builds it: synthetic images from seed 2 (with
 ImageNet normalization for ``imagenet``), or the CIFAR test split from
 DATA.
 
-Both run on the CUDA card unless ``--device cpu`` is given, and raise
-without a card.
+Training and ``predict`` run on the CUDA card unless ``--device cpu`` is
+given, and raise without a card; ``export`` is host work.
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ def build_val_pipeline(artifact, *, data: str, synthetic: bool,
             ) from e
         return Pipeline(ds, batch, seed=seed)
     raise NotImplementedError(
-        "ImageNet from an image folder arrives with the training-data "
-        "slice of the port; use --synthetic"
+        "ImageNet from an image folder is not ported yet (ROADMAP A 'Later' "
+        "item 8); use --synthetic"
     )
 
 
@@ -271,12 +276,56 @@ def train_main(argv) -> int:
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
     from bdbnn_tpu_torch.train.loop import fit
+    from bdbnn_tpu_torch.train.resilience import PREEMPT_EXIT_CODE, PreemptedError
 
-    print(json.dumps(fit(cfg), sort_keys=True), flush=True)
+    try:
+        result = fit(cfg)
+    except PreemptedError as e:
+        # the checkpoint already landed (fit saves before raising): exit
+        # EX_TEMPFAIL so a supervisor restarts the run with --resume
+        print(
+            f"[bdbnn_tpu_torch] preempted by signal {e.signum} at epoch {e.epoch} step "
+            f"{e.step_in_epoch}; checkpoint saved — restart with --resume <run_dir> to "
+            "continue.",
+            file=sys.stderr,
+        )
+        return PREEMPT_EXIT_CODE
+    print(json.dumps(result, sort_keys=True), flush=True)
     return 0
 
 
-COMMANDS = {"predict": predict_main}
+def export_main(argv) -> int:
+    """``export RUN_DIR -o ARTIFACT``: freeze a run dir's checkpoint
+    (``model_best`` preferred) into a serving artifact, and record an
+    ``export`` event on the run's timeline."""
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli export",
+        description="Freeze a run dir's checkpoint (model_best preferred) into a serving "
+        "artifact.",
+    )
+    ap.add_argument("source", help="run dir or checkpoint dir")
+    ap.add_argument("-o", "--out", required=True, help="artifact dir")
+    ap.add_argument("--arch", default=None, help="override the arch recorded in the run")
+    ap.add_argument("--dataset", default=None, choices=["cifar10", "cifar100", "imagenet"],
+                    help="override the dataset recorded in the run")
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.serve.export import export_artifact
+
+    artifact = export_artifact(args.source, args.out, arch=args.arch, dataset=args.dataset)
+    print(json.dumps({
+        "artifact": args.out,
+        "arch": artifact["arch"],
+        "dataset": artifact["dataset"],
+        "binarized_convs": artifact["stats"]["binarized_convs"],
+        "compression_ratio": artifact["stats"]["compression_ratio"],
+        "checkpoint_acc1": artifact["eval"]["checkpoint_acc1"],
+        "integrity": artifact["checkpoint"]["integrity"],
+    }, indent=2, sort_keys=True))
+    return 0
+
+
+COMMANDS = {"predict": predict_main, "export": export_main}
 
 
 def main(argv=None) -> int:

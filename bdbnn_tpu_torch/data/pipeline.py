@@ -148,12 +148,15 @@ class Pipeline:
             return len(self.ds) // self.batch_size
         return math.ceil(len(self.ds) / self.batch_size)
 
-    def _epoch_batches(self, epoch: int):
+    def _epoch_batches(self, epoch: int, start_step: int = 0):
         idx = host_shard_indices(
             len(self.ds), epoch, seed=self.seed, shuffle=self.train,
             drop_remainder_to=self.batch_size if self.train else None,
         )
-        for bi in range((len(idx) + self.batch_size - 1) // self.batch_size):
+        # every draw is keyed by (seed, epoch, sample or batch index), so
+        # starting at batch ``start_step`` skips the earlier batches
+        # without replaying their draws
+        for bi in range(start_step, (len(idx) + self.batch_size - 1) // self.batch_size):
             sel = idx[bi * self.batch_size : (bi + 1) * self.batch_size]
             if self._keyed is not None:
                 keys = sample_augment_keys(self.seed, epoch, sel)
@@ -162,29 +165,44 @@ class Pipeline:
             rng = np.random.default_rng((self.seed, epoch, 0, 1, bi))
             yield self.transform(self.ds.images[sel], rng), self.ds.labels[sel]
 
-    def epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """The batches of ``epoch``."""
+    def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """The batches of ``epoch`` from batch ``start_step`` on (the
+        mid-epoch resume cursor: a checkpoint taken after step k-1
+        resumes with ``start_step=k`` and sees exactly the batches an
+        uninterrupted run would have seen)."""
         if self.prefetch <= 0:
-            yield from self._epoch_batches(epoch)
+            yield from self._epoch_batches(epoch, start_step)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         failure = []
+        stop = threading.Event()
 
         def worker():
             try:
-                for item in self._epoch_batches(epoch):
+                for item in self._epoch_batches(epoch, start_step):
                     q.put(item)
+                    if stop.is_set():
+                        return
             except BaseException as e:  # re-raised in the consumer below
                 failure.append(e)
             finally:
                 q.put(sentinel)
 
         threading.Thread(target=worker, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                break
-            yield item
+        done = False
+        try:
+            while not done:
+                item = q.get()
+                done = item is sentinel
+                if not done:
+                    yield item
+        finally:
+            # a consumer that stops early (a preempted epoch) releases the
+            # worker: it returns after its current batch, and the drain
+            # frees its puts
+            stop.set()
+            while not done:
+                done = q.get() is sentinel
         if failure:
             raise failure[0]

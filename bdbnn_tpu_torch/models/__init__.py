@@ -4,6 +4,7 @@ from bdbnn_tpu_torch.models.torch_import import (
     convert_torch_state_dict,
     load_state_dict_strict,
     load_torch_checkpoint,
+    overlay_state_dict,
 )
 from bdbnn_tpu_torch.models.resnet import (
     BN_EPS,
@@ -41,4 +42,5 @@ __all__ = [
     "load_state_dict_strict",
     "load_torch_checkpoint",
     "module_path_str",
+    "overlay_state_dict",
 ]

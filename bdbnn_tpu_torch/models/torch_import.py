@@ -13,10 +13,12 @@ OIHW, Linear ``(out, in)``, BN ``weight``/``bias``/``running_mean``/
   ``downsample_bn``;
 - ``num_batches_tracked`` is skipped.
 
-:func:`load_state_dict_strict` loads the result as strictly as the
-reference's ``_overlay(..., allow_missing=False)``: a shape mismatch, a
-checkpoint key the model does not consume, or a model key the checkpoint
-lacks each raise.
+:func:`overlay_state_dict` loads the result as the reference's
+``_overlay`` does: a shape mismatch or a checkpoint key the model does
+not consume raises, and so does a model key the checkpoint lacks unless
+missing keys are allowed; ``alias_float_weight`` puts a float conv's
+OIHW ``weight`` on a binary conv's HWIO ``float_weight``.
+:func:`load_state_dict_strict` is the strict case.
 """
 
 from __future__ import annotations
@@ -67,40 +69,71 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return convert_torch_state_dict(state_dict)
 
 
+def overlay_state_dict(
+    model: torch.nn.Module,
+    state_dict: Mapping[str, torch.Tensor],
+    *,
+    scope: str = "checkpoint",
+    allow_missing: bool = False,
+    alias_float_weight: bool = False,
+) -> torch.nn.Module:
+    """Load ``state_dict`` into ``model`` as the reference's ``_overlay``
+    does: every entry onto a model entry of the same shape (cast to its
+    dtype and device); a checkpoint key the model does not consume
+    raises; a model key the checkpoint lacks raises unless
+    ``allow_missing``. ``alias_float_weight`` puts a checkpoint conv
+    ``weight`` (OIHW, torchvision's layout) on the model's binary
+    ``float_weight`` (HWIO) when the model has no ``weight`` there — a
+    binary student initialized from a float checkpoint; its binary
+    extras (act_shift, RPReLU) then keep their initial values."""
+    own = model.state_dict()
+    merged: Dict[str, torch.Tensor] = {}
+    unconsumed = []
+    for key, val in state_dict.items():
+        target = key
+        if key not in own and alias_float_weight and key.endswith(".weight"):
+            alias = key[: -len("weight")] + "float_weight"
+            if alias in own:
+                target = alias
+                if val.dim() == 4:  # OIHW -> HWIO
+                    val = val.permute(2, 3, 1, 0)
+        if target not in own:
+            unconsumed.append(key)
+            continue
+        if tuple(val.shape) != tuple(own[target].shape):
+            raise ValueError(
+                f"{scope}: shape mismatch at {target}: checkpoint {tuple(val.shape)} vs "
+                f"model {tuple(own[target].shape)}"
+            )
+        merged[target] = val.to(device=own[target].device, dtype=own[target].dtype).contiguous()
+    if unconsumed:
+        unconsumed.sort()
+        raise ValueError(
+            f"{scope}: checkpoint keys not consumed by the model (arch mismatch?): "
+            f"{unconsumed[:8]}" + ("..." if len(unconsumed) > 8 else "")
+        )
+    missing = sorted(set(own) - set(merged))
+    if missing and not allow_missing:
+        raise ValueError(
+            f"{scope}: model params missing from checkpoint: {missing[:8]}"
+            + ("..." if len(missing) > 8 else "")
+        )
+    model.load_state_dict(merged, strict=not missing)
+    return model
+
+
 def load_state_dict_strict(
     model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor], *, scope: str = "checkpoint"
 ) -> torch.nn.Module:
     """Load ``state_dict`` into ``model``: every entry onto a model entry
     of the same shape, every model entry covered, cast to its dtype."""
-    own = model.state_dict()
-    for key, val in state_dict.items():
-        if key in own and tuple(val.shape) != tuple(own[key].shape):
-            raise ValueError(
-                f"{scope}: shape mismatch at {key}: checkpoint {tuple(val.shape)} vs "
-                f"model {tuple(own[key].shape)}"
-            )
-    unconsumed = sorted(set(state_dict) - set(own))
-    if unconsumed:
-        raise ValueError(
-            f"{scope}: checkpoint keys not consumed by the model (arch mismatch?): "
-            f"{unconsumed[:8]}" + ("..." if len(unconsumed) > 8 else "")
-        )
-    missing = sorted(set(own) - set(state_dict))
-    if missing:
-        raise ValueError(
-            f"{scope}: model params missing from checkpoint: {missing[:8]}"
-            + ("..." if len(missing) > 8 else "")
-        )
-    model.load_state_dict(
-        {k: v.to(device=own[k].device, dtype=own[k].dtype) for k, v in state_dict.items()},
-        strict=True,
-    )
-    return model
+    return overlay_state_dict(model, state_dict, scope=scope)
 
 
 __all__ = [
     "convert_torch_state_dict",
     "load_state_dict_strict",
     "load_torch_checkpoint",
+    "overlay_state_dict",
     "translate_key",
 ]

@@ -10,10 +10,13 @@ listed); ``artifact.json`` indexes every tensor and records the sha256
 of ``weights.npz``, which both loaders verify. An artifact written here
 loads in the JAX engine, and one the JAX package exported loads here.
 
-:func:`write_artifact` is the writer half of the reference's
-``export_artifact``: it takes a flax-layout variable tree (the port's
-``model.to_flax()``). Reading training checkpoints arrives with the
-checkpoint slice.
+:func:`write_artifact` freezes a flax-layout variable tree (the port's
+``model.to_flax()``); :func:`export_artifact` is the reference's: it
+reads a port run dir or checkpoint dir (``model_best`` preferred,
+``checkpoint.old`` the fallback), takes the binarizer family, config
+hash and device kind from the run's manifest and the recorded accuracy
+from its ``eval`` events, writes the artifact and appends an ``export``
+event to the run's timeline.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import hashlib
 import json
 import os
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from bdbnn_tpu_torch.obs.events import jsonsafe
 
 ARTIFACT_NAME = "artifact.json"
 WEIGHTS_NAME = "weights.npz"
@@ -34,6 +39,14 @@ ARTIFACT_SCHEMA_VERSION = 1
 FORBIDDEN_STATE = ("float_weight", "opt_state", "ede", "momentum", "rng")
 
 _NUM_CLASSES = {"cifar10": 10, "cifar100": 100, "imagenet": 1000}
+
+# the config fields that define a recipe (the reference's
+# ``bdbnn_tpu/obs/compare.py`` RECIPE_FIELDS), copied into the artifact
+RECIPE_FIELDS = (
+    "arch", "dataset", "ede", "w_kurtosis", "w_kurtosis_target", "kurtosis_mode",
+    "imagenet_setting_step_2_ts", "react", "twoblock", "dtype", "batch_size", "epochs", "lr",
+    "opt_policy", "binarizer",
+)
 
 
 def _flat_leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -76,12 +89,19 @@ def write_artifact(
     dataset: str,
     dtype: str = "float32",
     twoblock: bool = False,
+    family=None,
+    eval_block: Optional[Dict[str, Any]] = None,
+    checkpoint: Optional[Dict[str, Any]] = None,
+    provenance: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Freeze a flax-layout ``{params, batch_stats}`` tree into
     ``out_dir`` (``artifact.json`` + ``weights.npz``); returns the
     manifest. BN is folded, each binary conv is binarized once with the
-    active family's alpha, and the pair lands atomically: weights first
-    (tmp + rename), then the manifest that records their sha256."""
+    alpha of ``family`` (default: the active binarizer family), and the
+    pair lands atomically: weights first (tmp + rename), then the
+    manifest that records their sha256. ``eval_block``, ``checkpoint``
+    and ``provenance`` replace the manifest's blocks of those names (an
+    export from a run fills them)."""
     from bdbnn_tpu_torch.models.resnet import fold_batch_norm
     from bdbnn_tpu_torch.nn.binarize import get_active_family, weight_alpha_np
 
@@ -96,7 +116,7 @@ def write_artifact(
             "batch_stats": to_np(variables.get("batch_stats", {}) or {}),
         }
     )
-    family = get_active_family()
+    family = family or get_active_family()
 
     tensors: List[Dict[str, Any]] = []
     arrays: Dict[str, np.ndarray] = {}
@@ -153,7 +173,7 @@ def write_artifact(
         "num_classes": _NUM_CLASSES[dataset],
         "image_size": 224 if dataset == "imagenet" else 32,
         "model": {"dtype": dtype, "twoblock": bool(twoblock)},
-        "eval": {
+        "eval": eval_block or {
             "source": "weights",
             "checkpoint_acc1": None,
             "best_seen_acc1": None,
@@ -161,8 +181,8 @@ def write_artifact(
             "final_eval_acc1": None,
             "evals_recorded": 0,
         },
-        "checkpoint": {"source": None, "integrity": None, "fallback": None},
-        "provenance": {
+        "checkpoint": checkpoint or {"source": None, "integrity": None, "fallback": None},
+        "provenance": provenance or {
             "run_dir": None,
             "config_hash": None,
             "device_kind": None,
@@ -187,8 +207,86 @@ def write_artifact(
     os.replace(wtmp, os.path.join(out_dir, WEIGHTS_NAME))
     tmp = os.path.join(out_dir, ARTIFACT_NAME + ".tmp")
     with open(tmp, "w") as f:
-        json.dump(artifact, f, indent=2, sort_keys=True)
+        json.dump(jsonsafe(artifact), f, indent=2, sort_keys=True)
     os.replace(tmp, os.path.join(out_dir, ARTIFACT_NAME))
+    return artifact
+
+
+def export_artifact(
+    source: str,
+    out_dir: str,
+    *,
+    arch: Optional[str] = None,
+    dataset: Optional[str] = None,
+) -> Dict[str, Any]:
+    """Freeze ``source`` (a port run dir or checkpoint dir) into
+    ``out_dir``; returns the artifact manifest. ``arch``/``dataset``
+    override what the run's manifest or the checkpoint recorded (a bare
+    checkpoint dir has no manifest)."""
+    from bdbnn_tpu_torch.nn.binarize import resolve_family
+    from bdbnn_tpu_torch.obs.events import EventWriter, read_events
+    from bdbnn_tpu_torch.obs.manifest import read_manifest
+    from bdbnn_tpu_torch.utils.checkpoint import BEST_NAME, load_export_payload
+
+    payload = load_export_payload(source)
+    # the run manifest is in the source dir or its parent (a checkpoint dir)
+    run_dir = manifest = None
+    for cand in (source, os.path.dirname(source.rstrip(os.sep))):
+        if cand and os.path.isdir(cand):
+            m = read_manifest(cand)
+            if m is not None:
+                manifest, run_dir = m, cand
+                break
+    config = (manifest or {}).get("config") or {}
+    arch = arch or config.get("arch") or payload["arch"]
+    dataset = dataset or config.get("dataset")
+    if not arch:
+        raise ValueError("checkpoint records no arch and none was passed; use --arch")
+    if not dataset:
+        raise ValueError(
+            "checkpoint records no dataset (bare checkpoint dir with no run manifest) and "
+            "none was passed; use --dataset"
+        )
+    # alpha is the scale of the family that trained the weights
+    family = resolve_family(config.get("binarizer", ""), ede=bool(config.get("ede")))
+    # only a model_best payload's best_acc1 is the exported weights' own
+    # recorded top-1; a rolling checkpoint's weights were never evaluated
+    from_best = os.path.basename(payload["source"].rstrip(os.sep)).startswith(BEST_NAME)
+    eval_events = read_events(run_dir, "eval") if run_dir else []
+    recorded = {
+        "source": "model_best" if from_best else "checkpoint",
+        "checkpoint_acc1": payload["best_acc1"] if from_best else None,
+        "best_seen_acc1": payload["best_acc1"],
+        "checkpoint_epoch": payload["epoch"],
+        "final_eval_acc1": eval_events[-1].get("acc1") if eval_events else None,
+        "evals_recorded": len(eval_events),
+    }
+    artifact = write_artifact(
+        {"params": payload["params"], "batch_stats": payload["batch_stats"]}, out_dir,
+        arch=arch, dataset=dataset, dtype=config.get("dtype", "float32"),
+        twoblock=bool(config.get("twoblock", False)), family=family, eval_block=recorded,
+        checkpoint={"source": payload["source"], "integrity": payload["integrity"],
+                    "fallback": payload["fallback"]},
+        provenance={
+            "run_dir": os.path.abspath(run_dir) if run_dir else None,
+            "config_hash": (manifest or {}).get("config_hash"),
+            "device_kind": (manifest or {}).get("device_kind"),
+            "recipe": {k: config.get(k) for k in RECIPE_FIELDS},
+            "config": config,
+        },
+    )
+    if run_dir is not None:
+        ev = EventWriter(run_dir)
+        try:
+            ev.emit(
+                "export", artifact=os.path.abspath(out_dir), arch=arch, dataset=dataset,
+                checkpoint=payload["source"], integrity=payload["integrity"],
+                binarized_convs=artifact["stats"]["binarized_convs"],
+                compression_ratio=artifact["stats"]["compression_ratio"],
+                checkpoint_acc1=recorded["checkpoint_acc1"],
+            )
+        finally:
+            ev.close()
     return artifact
 
 
@@ -307,6 +405,7 @@ __all__ = [
     "ARTIFACT_SCHEMA_VERSION",
     "FORBIDDEN_STATE",
     "WEIGHTS_NAME",
+    "export_artifact",
     "load_artifact_packed",
     "load_artifact_variables",
     "read_artifact",

@@ -16,22 +16,13 @@ from typing import Optional, Tuple
 from bdbnn_tpu_torch.nn.binarize import resolve_family
 
 # ROADMAP A "Later" items, by number
-CKPT = "item 2: checkpoint/resume/events"
 REMAT_BF16 = "item 4: remat and bf16"
 DDP = "item 6: DDP"
 OBS = "item 7: obs, scripts"
-DATA = "ImageNet from an image folder (ROADMAP A 7, the ImageFolder pipelines)"
+DATA = "ImageNet from an image folder (ROADMAP A 'Later' item 8)"
 
 # field -> ROADMAP item; asked for when the value differs from the default
 UNSUPPORTED = {
-    "pretrained": CKPT,
-    "pretrained_path": CKPT,
-    "resume": CKPT,
-    "reset_resume": CKPT,
-    "save_every_steps": CKPT,
-    "save_every_mins": CKPT,
-    "log_path": CKPT,
-    "events_max_mb": CKPT,
     "remat": REMAT_BF16,
     "dtype": REMAT_BF16,
     "model_parallel": DDP,
@@ -165,6 +156,16 @@ class RunConfig:
             raise ValueError(f"unknown nonfinite_policy {self.nonfinite_policy!r} (raise | warn | ignore)")
         if not 0.0 <= self.target_acc < 100.0:
             raise ValueError(f"target_acc is a top-1 PERCENTAGE in [0, 100), got {self.target_acc!r}")
+        if self.events_max_mb < 0:
+            raise ValueError("--events-max-mb must be >= 0 (0 disables rotation)")
+        if self.save_every_steps < 0 or self.save_every_mins < 0:
+            raise ValueError(
+                "--save-every-steps / --save-every-mins must be >= 0 (0 disables the cadence)"
+            )
+        if self.pretrained and not self.pretrained_path:
+            raise ValueError(
+                "--pretrained needs --pretrained-path (a local torchvision-layout .pth file)"
+            )
         if self.device_normalize and self.synthetic:
             raise ValueError(
                 "--device-normalize needs uint8 pipelines; the synthetic "

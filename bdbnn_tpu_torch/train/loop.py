@@ -1,5 +1,5 @@
-"""Training orchestration — the core of ``bdbnn_tpu/train/loop.py``'s
-``fit`` (``_fit``, ``_train_epoch``, ``_validate``) on the port.
+"""Training orchestration — ``bdbnn_tpu/train/loop.py``'s ``fit``
+(``_fit``, ``_train_epoch``, ``_validate``, ``_Resilience``) on the port.
 
 :func:`fit` builds the datasets (synthetic or CIFAR), the model from the
 registry with an explicit ``torch.Generator(seed)``, the optimizer, the
@@ -9,14 +9,30 @@ and the eval pass at each epoch's end. Metrics stay on the device and
 are drained once every ``print_freq`` steps. It runs on the CUDA card
 unless ``cfg.device`` is "cpu", and raises without a card.
 
+The run dir is the reference's, ``<log_path>/<kurtosis_target>/<stamp>/``:
+``log.txt``, ``scalars.jsonl``, ``manifest.json`` (with the restart
+lineage of a resumed run), ``events.jsonl`` (rotated past
+``--events-max-mb``), ``checkpoint/`` (+ ``.old``) and ``model_best/``.
+A checkpoint is committed at each epoch's end, every
+``--save-every-steps`` steps or ``--save-every-mins`` minutes, and on
+SIGTERM/SIGINT, after which :class:`PreemptedError` is raised (the CLI
+exits 75). ``--resume`` takes a run dir or a checkpoint dir (model,
+optimizer, step, cursor, best, host RNG: the resumed run is bitwise the
+uninterrupted one, since the draws and the LR are keyed by the step and
+the batches by (seed, epoch, index)) or a reference-format ``.pth`` /
+``.pth.tar`` (weights, and the LR step fast-forwarded to the epoch).
+``--pretrained`` initializes the student from a float torchvision-layout
+file, and ``--resume_teacher`` takes a port run dir too.
+
 A teacher–student run (``--imagenet_setting_step_2_ts``) adds the frozen
 float teacher of :func:`build_teacher` and the layer-KL conv pairs of
 :func:`match_kd_pairs`, and trains with
 :func:`~bdbnn_tpu_torch.train.step.make_ts_train_step`.
 
 Not in this slice (``RunConfig.validate`` raises for each option, naming
-its ROADMAP item): checkpoints and resume, the events/manifest
-telemetry, the health monitor, profiling windows, DDP.
+its ROADMAP item): the health monitor and its forensics, profiling
+windows and the ``memory`` event (item 7), ImageNet from disk and the
+``data_error`` event (item 8), DDP (item 6).
 """
 
 from __future__ import annotations
@@ -24,9 +40,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import sys
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,30 +63,42 @@ from bdbnn_tpu_torch.losses.kurtosis import resolve_targets
 from bdbnn_tpu_torch.models import (
     conv_weight_hwio,
     conv_weight_paths,
+    convert_torch_state_dict,
     create_model,
     get_by_path,
     load_state_dict_strict,
     load_torch_checkpoint,
     module_path_str,
+    overlay_state_dict,
 )
 from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
+from bdbnn_tpu_torch.obs.events import EventWriter
+from bdbnn_tpu_torch.obs.manifest import read_manifest, write_manifest
 from bdbnn_tpu_torch.obs.probes import NonFiniteLossError, drain_probe_report
+from bdbnn_tpu_torch.obs.timing import StepPhaseTimer
 from bdbnn_tpu_torch.train.config import RunConfig
 from bdbnn_tpu_torch.train.ede import cpt_tk
 from bdbnn_tpu_torch.train.optim import make_optimizer
+from bdbnn_tpu_torch.train.resilience import CheckpointPolicy, PreemptedError, PreemptionHandler
 from bdbnn_tpu_torch.train.state import StepConfig, TrainState
 from bdbnn_tpu_torch.train.step import make_eval_step, make_train_step, make_ts_train_step
+from bdbnn_tpu_torch.utils.checkpoint import (
+    PAYLOAD_NAME,
+    _candidate_dirs,
+    checkpoint_bytes,
+    load_checkpoint,
+    load_variables,
+    read_resume_state,
+    save_checkpoint,
+)
+from bdbnn_tpu_torch.utils.logging_utils import ScalarWriter, make_log_dir, setup_logger
+from bdbnn_tpu_torch.utils.meters import DeviceMetrics, Mean, ProgressLog, Throughput, format_eta
 
 logger = logging.getLogger("bdbnn_tpu_torch.train")
 
-
-def _setup_logging() -> None:
-    if not logger.handlers:
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        logger.addHandler(h)
-        logger.setLevel(logging.INFO)
-        logger.propagate = False
+# the writer topology a single-process port run records (the reference's
+# ``topology()`` keys; DDP is ROADMAP A "Later" item 6)
+TOPOLOGY = {"processes": 1, "devices": 1}
 
 
 def shape_tree(model: torch.nn.Module) -> dict:
@@ -131,29 +158,9 @@ def build_datasets(cfg: RunConfig):
             device_normalize=cfg.device_normalize,
         )
         return mk(train_ds, True), mk(val_ds, False), image_size
-    raise NotImplementedError("ImageNet from an image folder is not ported yet; use --synthetic")
-
-
-class DeviceMetrics:
-    """Sums of per-step device scalars; :meth:`drain` is the one host
-    sync per interval."""
-
-    def __init__(self) -> None:
-        self._acc: Optional[Dict[str, torch.Tensor]] = None
-        self.pending_steps = 0
-
-    def add(self, metrics: Dict[str, torch.Tensor]) -> None:
-        m = {k: v.to(torch.float64) for k, v in metrics.items()}
-        self._acc = m if self._acc is None else {k: self._acc[k] + v for k, v in m.items()}
-        self.pending_steps += 1
-
-    def drain(self) -> Dict[str, float]:
-        if self._acc is None:
-            return {}
-        keys = sorted(self._acc)
-        vals = torch.stack([self._acc[k] for k in keys]).cpu().tolist()
-        self._acc, self.pending_steps = None, 0
-        return dict(zip(keys, vals))
+    raise NotImplementedError(
+        "ImageNet from an image folder is not ported yet (ROADMAP A 'Later' item 8); use --synthetic"
+    )
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -165,69 +172,161 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _nonfinite(policy: str, msg: str) -> None:
+def _apply_nonfinite_policy(policy: str, events, msg: str, **fields) -> None:
+    """``cfg.nonfinite_policy`` at a detection site: record the event,
+    then raise / warn / stay silent."""
+    if events is not None:
+        events.emit("nonfinite", policy=policy, message=msg, **fields)
     if policy == "raise":
-        raise NonFiniteLossError(msg + " (nonfinite_policy='raise')")
+        raise NonFiniteLossError(
+            msg + " (nonfinite_policy='raise'; pass --nonfinite-policy warn to keep going)"
+        )
     if policy == "warn":
         logger.warning("%s (nonfinite_policy='warn')", msg)
 
 
-def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_epoch,
-                 device, probe_sizes, on_step):
+@dataclasses.dataclass
+class ObsHooks:
+    """What the epoch loop reports into: the event channel, the scalar
+    writer, the step-phase timer, the probe sizes and the non-finite
+    policy."""
+
+    events: EventWriter
+    writer: ScalarWriter
+    timer: StepPhaseTimer
+    probe_sizes: Dict[str, int]
+    nonfinite_policy: str
+
+
+def _interval_observe(obs: ObsHooks, epoch, step_idx, interval_steps, sums, n, rate, probe_m):
+    """Drain-time telemetry on the already-fetched sums: the non-finite
+    check, the per-layer probes and the ``train_interval`` event."""
+    bad = int(sums.get("nonfinite", 0))
+    if bad:
+        _apply_nonfinite_policy(
+            obs.nonfinite_policy, obs.events,
+            f"non-finite train loss in {bad}/{interval_steps} step(s) of the interval ending "
+            f"at epoch {epoch} step {step_idx}",
+            epoch=epoch, step=step_idx, bad_steps=bad, where="train",
+        )
+    flip_rate, kurt = drain_probe_report(sums, obs.probe_sizes, interval_steps)
+    for name, v in flip_rate.items():
+        probe_m.setdefault(f"Probe flip {name}", Mean(name)).add(v, interval_steps)
+    for name, v in kurt.items():
+        probe_m.setdefault(f"Probe kurt {name}", Mean(name)).add(v, interval_steps)
+    obs.events.emit(
+        "train_interval",
+        epoch=epoch,
+        step=step_idx,
+        steps=interval_steps,
+        loss=round(sums["loss_sum"] / n, 6),
+        top1=round(100.0 * sums["top1"] / n, 3),
+        img_per_s=round(rate, 2),
+        **({"grad_norm": round(sums["grad_norm"] / interval_steps, 6)}
+           if "grad_norm" in sums else {}),
+        **obs.timer.snapshot(),
+        **({"flip_rate": {k: round(v, 8) for k, v in flip_rate.items()}} if flip_rate else {}),
+        **({"kurtosis": {k: round(v, 4) for k, v in kurt.items()}} if kurt else {}),
+    )
+
+
+def _add_component_means(comp_m, sums, interval_steps) -> None:
+    """Fold the drained loss-component sums (``loss_ce``, ``loss_kl*``,
+    ``loss_kurt``, ..., ``grad_norm``) into host meters."""
+    if not interval_steps:
+        return
+    for key, val in sums.items():
+        if (key.startswith("loss_") and key != "loss_sum") or key == "grad_norm":
+            comp_m.setdefault(key, Mean(key)).add(val / interval_steps, interval_steps)
+
+
+def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_epoch, device,
+                 obs: ObsHooks, on_step=None, start_step: int = 0, resil=None):
+    """One epoch from batch ``start_step``. The loop never waits for the
+    device but at the drain every ``print_freq`` steps; the telemetry
+    rides the same drains. After each step but the epoch's last,
+    ``resil.after_step`` may checkpoint (cadence) or checkpoint and raise
+    (preemption)."""
     devmet = DeviceMetrics()
-    seen = loss_sum = top1 = 0.0
-    t0 = time.perf_counter()
-    t_mark, n_mark = t0, 0.0
+    loss_m, top1_m, top5_m = Mean("Loss", "{:.4e}"), Mean("Acc@1", "{:6.2f}"), Mean("Acc@5", "{:6.2f}")
+    comp_m: Dict[str, Mean] = {}
+    probe_m: Dict[str, Mean] = {}
+    thr = Throughput()
+    progress = ProgressLog(steps_per_epoch, logger, prefix=f"Epoch: [{epoch}]")
+    timer = obs.timer
+    t_epoch = time.time()
+    timer.reset()
 
     def drain(step_idx):
-        nonlocal seen, loss_sum, top1, t_mark, n_mark
-        steps = devmet.pending_steps
-        sums = devmet.drain()
+        interval_steps = devmet.pending_steps
+        t_mark = time.perf_counter()
+        sums = devmet.drain()  # the one host sync of the interval
+        timer.add("drain", time.perf_counter() - t_mark)
         n = max(sums["count"], 1.0)
-        seen += n
-        loss_sum += sums["loss_sum"]
-        top1 += sums["top1"]
-        if sums.get("nonfinite", 0):
-            _nonfinite(cfg.nonfinite_policy,
-                       f"non-finite train loss in {int(sums['nonfinite'])}/{steps} step(s) "
-                       f"of the interval ending at epoch {epoch} step {step_idx}")
-        now = time.perf_counter()
-        rate = n / max(now - t_mark, 1e-9)
-        t_mark = now
-        flip_rate, kurt = drain_probe_report(sums, probe_sizes, steps)
-        extra = "".join(
-            f" {k} {sums[k] / steps:.4e}"
-            for k in ("loss_ce", "loss_kl", "loss_kl_c", "loss_kurt", "grad_norm") if k in sums
-        )
-        logger.info(
-            "Epoch: [%d][%d/%d] Loss %.4e Acc@1 %6.2f Acc@5 %6.2f img/s %8.1f%s%s",
-            epoch, step_idx, steps_per_epoch, sums["loss_sum"] / n, 100.0 * sums["top1"] / n,
-            100.0 * sums["top5"] / n, rate, extra,
-            (f" flip_rate(mean) {np.mean(list(flip_rate.values())):.3e}"
-             f" kurt(mean) {np.mean(list(kurt.values())):.4f}") if flip_rate else "",
-        )
+        _add_component_means(comp_m, sums, interval_steps)
+        loss_m.add(sums["loss_sum"] / n, n)
+        top1_m.add(100.0 * sums["top1"] / n, n)
+        top5_m.add(100.0 * sums["top5"] / n, n)
+        rate = thr.tick(n)
+        _interval_observe(obs, epoch, step_idx, interval_steps, sums, n, rate, probe_m)
+        progress.emit(step_idx, [loss_m.render(), top1_m.render(), top5_m.render(),
+                                 f"img/s {rate:8.1f}"])
+        sec_per_step = (time.time() - t_epoch) / max(step_idx + 1 - start_step, 1)
+        remain = (cfg.epochs - epoch) * steps_per_epoch - step_idx
+        logger.info(">>>>>>>>>>>> Remaining Time: %s <<<<<<<<<<<<", format_eta(remain * sec_per_step))
 
-    step_idx = -1
-    for x, y in pipe.epoch(epoch):
-        step_idx += 1
-        batch = (to_device(x, device), to_device(y, device))
-        state, m = train_step(state, batch, tk, kurt_gate)
-        devmet.add(m)
-        if on_step is not None:
-            on_step(epoch, step_idx, m)
-        if step_idx % cfg.print_freq == 0:
-            drain(step_idx)
+    it = pipe.epoch(epoch, start_step)
+    step_idx = start_step - 1
+    try:
+        while True:
+            t_mark = time.perf_counter()
+            try:
+                x, y = next(it)
+            except StopIteration:
+                break
+            step_idx += 1
+            timer.add("data_wait", time.perf_counter() - t_mark)
+            t_mark = time.perf_counter()
+            state, m = train_step(state, (to_device(x, device), to_device(y, device)), tk,
+                                  kurt_gate)
+            devmet.add(m)
+            t_done = time.perf_counter()
+            timer.add("dispatch", t_done - t_mark)
+            if timer.compile_s is None:
+                # the process's first step: on the card it loads and first
+                # launches the kernels
+                timer.record_compile(t_done - t_mark)
+                obs.events.emit("compile", seconds=round(t_done - t_mark, 3))
+            if on_step is not None:
+                on_step(epoch, step_idx, m)
+            if step_idx % cfg.print_freq == 0:
+                drain(step_idx)
+            # a step boundary: the state is consistent and saveable (the
+            # epoch's last step is followed by the epoch-end save instead)
+            if resil is not None and step_idx + 1 < steps_per_epoch:
+                resil.after_step(state, epoch, step_idx + 1)
+    finally:
+        it.close()
     if devmet.pending_steps:
         drain(step_idx)
-    logger.info("Epoch %d: train loss %.4e top1 %.2f (%.1fs)", epoch,
-                loss_sum / max(seen, 1.0), 100.0 * top1 / max(seen, 1.0),
-                time.perf_counter() - t0)
+    writer = obs.writer
+    writer.add_scalar("Train Loss", loss_m.mean, epoch)
+    writer.add_scalar("Train Acc1", top1_m.mean, epoch)
+    writer.add_scalar("Train Acc5", top5_m.mean, epoch)
+    writer.add_scalar("Train img/s/chip", thr.cumulative, epoch)
+    for key, meter in sorted(comp_m.items()):
+        writer.add_scalar(f"Train {key}", meter.mean, epoch)
+    for key, meter in sorted(probe_m.items()):
+        writer.add_scalar(key, meter.mean, epoch)
+    obs.events.emit("epoch", epoch=epoch, loss=round(loss_m.mean, 6), top1=round(top1_m.mean, 3),
+                    img_per_s_chip=round(thr.cumulative, 2),
+                    wall_s=round(time.time() - t_epoch, 3))
     return state
 
 
-def _validate(eval_step, state, pipe, device, epoch, nonfinite_policy="raise") -> float:
+def _validate(eval_step, state, pipe, device, epoch, obs: ObsHooks) -> float:
     """Top-1 over the val split: fixed-shape padded batches, sums on the
-    device, one fetch."""
+    device, one fetch; the ``eval`` event and the Val scalars."""
     bs = pipe.batch_size
     totals = None
     for x, y in pipe.epoch(0):
@@ -245,9 +344,16 @@ def _validate(eval_step, state, pipe, device, epoch, nonfinite_policy="raise") -
     acc1 = 100.0 * got.get("top1", 0.0) / count
     acc5 = 100.0 * got.get("top5", 0.0) / count
     loss = got.get("loss_sum", 0.0) / count
-    logger.info(" * Acc@1 %.3f Acc@5 %.3f (val loss %.4f) epoch %d", acc1, acc5, loss, epoch)
-    if nonfinite_policy != "ignore" and not np.isfinite(loss):
-        _nonfinite(nonfinite_policy, f"non-finite validation loss at epoch {epoch}")
+    logger.info(" * Acc@1 %.3f Acc@5 %.3f (val loss %.4f)", acc1, acc5, loss)
+    obs.writer.add_scalar("Val Loss", loss, epoch)
+    obs.writer.add_scalar("Val Acc1", acc1, epoch)
+    obs.writer.add_scalar("Val Acc5", acc5, epoch)
+    obs.events.emit("eval", epoch=epoch, acc1=round(acc1, 4), acc5=round(acc5, 4),
+                    loss=round(loss, 6), count=int(got.get("count", 0.0)))
+    if obs.nonfinite_policy != "ignore" and not np.isfinite(loss):
+        _apply_nonfinite_policy(obs.nonfinite_policy, obs.events,
+                                f"non-finite validation loss at epoch {epoch}",
+                                epoch=epoch, where="eval")
     return acc1
 
 
@@ -314,21 +420,21 @@ def build_training(cfg: RunConfig, device: torch.device, steps_per_epoch: int, i
 
 def build_teacher(cfg: RunConfig, device: torch.device) -> torch.nn.Module:
     """The frozen float teacher (↔ the reference's ``build_teacher``):
-    ``cfg.arch_teacher`` loaded strictly from the torch checkpoint
-    ``cfg.resume_teacher``, every parameter ``requires_grad=False``, in
-    eval mode. Without a checkpoint a teacher–student run raises unless
+    ``cfg.arch_teacher`` loaded strictly from ``cfg.resume_teacher`` — a
+    torch ``.pth.tar`` in torchvision's layout, or a port run dir or
+    checkpoint dir (its ``model_best`` preferred, :func:`load_variables`)
+    — every parameter ``requires_grad=False``, in eval mode. Without a
+    checkpoint a teacher–student run raises unless
     ``cfg.allow_random_teacher`` (seed 0's weights): distilling from a
     random teacher is a meaningless run."""
     teacher = create_model(cfg.arch_teacher, cfg.dataset, dtype=cfg.dtype,
                            generator=torch.Generator().manual_seed(0))
     if cfg.resume_teacher:
         if os.path.isdir(cfg.resume_teacher):
-            raise NotImplementedError(
-                "a run directory as --resume_teacher is not ported yet: ROADMAP A "
-                "'Later' item 2: checkpoint/resume/events; pass a torch .pth.tar"
-            )
-        load_state_dict_strict(teacher, load_torch_checkpoint(cfg.resume_teacher),
-                               scope="teacher")
+            loaded = load_variables(cfg.resume_teacher)
+        else:
+            loaded = load_torch_checkpoint(cfg.resume_teacher)
+        load_state_dict_strict(teacher, loaded, scope="teacher")
     elif not cfg.allow_random_teacher:
         raise ValueError(
             "teacher-student run without --resume_teacher: the teacher would be "
@@ -380,13 +486,124 @@ def epoch_schedule(family, cfg: RunConfig, epoch: int):
     return tk, 1.0 if epoch >= cfg.kurtepoch else 0.0
 
 
+def _pack_host_rng() -> Dict:
+    """The legacy ``np.random`` global state as strict-JSON scalars (the
+    sidecar carries it)."""
+    name, keys, pos, has_gauss, cached = np.random.get_state(legacy=True)
+    return {"name": name, "keys": [int(x) for x in keys], "pos": int(pos),
+            "has_gauss": int(has_gauss), "cached_gaussian": float(cached)}
+
+
+def _unpack_host_rng(d: Dict) -> None:
+    np.random.set_state((d["name"], np.asarray(d["keys"], dtype=np.uint32), int(d["pos"]),
+                         int(d["has_gauss"]), float(d["cached_gaussian"])))
+
+
+def _resume_lineage(resume_path: str) -> Dict:
+    """Manifest extras of a resumed run: ``resumed_from``,
+    ``restart_lineage`` (every earlier run dir of the chain, oldest first,
+    carried from the earlier run's own manifest), and the topology the
+    checkpoint's writer recorded against this run's."""
+    if not resume_path:
+        return {}
+    prior_dir = resume_path
+    if os.path.isfile(prior_dir):
+        prior_dir = os.path.dirname(prior_dir) or "."
+    prior = None
+    # the manifest is in the --resume path itself (a run dir) or in its
+    # parent (a checkpoint dir)
+    for cand in (prior_dir, os.path.dirname(prior_dir.rstrip(os.sep))):
+        if cand:
+            m = read_manifest(cand)
+            if m is not None:
+                prior, prior_dir = m, cand
+                break
+    lineage = list((prior or {}).get("restart_lineage") or [])
+    lineage.append(os.path.abspath(prior_dir))
+    out = {"resumed_from": os.path.abspath(resume_path), "restart_lineage": lineage}
+    if not os.path.isfile(resume_path):
+        topo = next((read_resume_state(c).get("topology") for c in _candidate_dirs(resume_path)
+                     if os.path.isdir(c) and read_resume_state(c).get("topology")), None)
+        if topo is not None:
+            out["topology_from"] = topo
+            out["topology_to"] = dict(TOPOLOGY)
+    return out
+
+
+def _fast_forward_adam(opt: torch.optim.Optimizer, step: int) -> None:
+    """Adam's per-parameter step counts set to ``step`` with zero moments
+    — what the reference's count fast-forward leaves after resuming from a
+    torch file (its moments restart, its bias correction does not)."""
+    if not isinstance(opt, torch.optim.Adam):
+        return
+    for group in opt.param_groups:
+        for p in group["params"]:
+            opt.state[p] = {
+                "step": torch.tensor(float(step), dtype=torch.float32),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
+
+
+@dataclasses.dataclass
+class _Resilience:
+    """fit()'s preemption and cadence bundle (the reference's, one
+    process: the local flags are the agreement). ``save(state, epoch,
+    step_in_epoch, reason)`` commits a checkpoint, emits its event and
+    resets the cadence."""
+
+    handler: PreemptionHandler
+    policy: CheckpointPolicy
+    save: Any
+    events: EventWriter
+
+    def preempt_exit(self, state, epoch: int, step_in_epoch: int,
+                     already_durable: bool = False) -> None:
+        """Make the state durable (unless a checkpoint of exactly this
+        state just committed), emit ``preempt``, raise."""
+        signum = int(self.handler.signum or 0)
+        target_epoch = epoch if step_in_epoch else epoch + 1
+        if not already_durable:
+            self.save(state, epoch, step_in_epoch, "preempt")
+        self.events.emit("preempt", signum=signum, epoch=target_epoch,
+                         step_in_epoch=step_in_epoch, saved=True, coordinated=False,
+                         coordination_step=step_in_epoch)
+        raise PreemptedError(signum, target_epoch, step_in_epoch)
+
+    def after_step(self, state, epoch: int, next_step: int) -> None:
+        """At a step boundary: preemption → checkpoint, event, raise;
+        cadence due → mid-epoch checkpoint and continue."""
+        cadence = False
+        if self.policy.active:
+            self.policy.tick()
+            cadence = self.policy.due()
+        if self.handler.signum:
+            self.preempt_exit(state, epoch, next_step)
+        if cadence:
+            self.save(state, epoch, next_step, "interval")
+
+    def poll_boundary(self) -> int:
+        """The latched signal number at an epoch boundary (0: none)."""
+        return int(self.handler.signum or 0)
+
+
 def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, float]:
-    """End-to-end training. ``on_step(epoch, step, metrics)`` is called
-    after every train step (metrics are device tensors). Returns the
-    reference's result keys: ``best_acc1``, ``best_epoch`` (and
-    ``time_to_target_s`` when ``target_acc`` was reached); ``acc1`` with
-    ``evaluate``."""
-    _setup_logging()
+    """End-to-end training into a run dir under ``cfg.log_path``.
+    ``on_step(epoch, step, metrics)`` is called after every train step
+    (metrics are device tensors). Returns the reference's result keys:
+    ``best_acc1``, ``best_epoch`` (and ``time_to_target_s`` when
+    ``target_acc`` was reached); ``acc1`` with ``evaluate``. Raises
+    :class:`PreemptedError` after a preemption checkpoint."""
+    resources: list = []
+    try:
+        return _fit(cfg, resources, on_step)
+    finally:
+        # the scalar and event writers close on every exit path
+        for r in resources:
+            r.close()
+
+
+def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
     cfg = cfg.validate()
     device = resolve_device(cfg.device or None)
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
@@ -395,12 +612,30 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+
+    log_path = make_log_dir(cfg.log_path, cfg.w_kurtosis_target)
+    setup_logger(log_path, name=logger.name)
+    writer = ScalarWriter(log_path)
+    resources.append(writer)
+    logger.info("config: %s", cfg)
+    manifest = write_manifest(log_path, cfg, extra=_resume_lineage(cfg.resume), device=device)
+    events = EventWriter(log_path, max_bytes=int(cfg.events_max_mb * 2**20))
+    resources.append(events)
+    logger.info("telemetry: manifest.json + events.jsonl in %s (config %s)", log_path,
+                manifest["config_hash"])
+
     if cfg.seed is not None:
         np.random.seed(cfg.seed)
-    logger.info("config: %s", cfg)
     train_pipe, val_pipe, image_size = build_datasets(cfg)
     steps_per_epoch = max(train_pipe.steps_per_epoch(), 1)
     state, step_cfg = build_training(cfg, device, steps_per_epoch, image_size)
+    if cfg.pretrained:
+        # a float checkpoint initializes the student: conv weights land on
+        # float_weight (OIHW -> HWIO), binary extras keep their init
+        overlay_state_dict(state.model, load_torch_checkpoint(cfg.pretrained_path),
+                           scope="pretrained student", allow_missing=True,
+                           alias_float_weight=True)
+        logger.info("initialized student from %s", cfg.pretrained_path)
     logger.info("model %s on %s: %d params, %d hooked, %d probed", cfg.arch, device,
                 sum(p.numel() for p in state.model.parameters()), len(step_cfg.kurt_paths),
                 len(step_cfg.probe_paths))
@@ -417,25 +652,202 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
     else:
         train_step = make_train_step(state.model, state.optimizer, step_cfg)
     eval_step = make_eval_step(state.model, input_norm=step_cfg.input_norm)
-    if cfg.evaluate:
-        return {"acc1": _validate(eval_step, state, val_pipe, device, 0, cfg.nonfinite_policy)}
 
+    def _sched(epoch):
+        """(ede_t, ede_k, kurt_gate) entering ``epoch``, as the reference
+        records them in checkpoint and restore events."""
+        t, k = cpt_tk(epoch, cfg.epochs) if cfg.ede else (1.0, 1.0)
+        return float(t), float(k), 1.0 if epoch >= cfg.kurtepoch else 0.0
+
+    def _sched_values(epoch):
+        """The active family's schedule tuple entering ``epoch``."""
+        return [float(v) for v in family.schedule(epoch, cfg.epochs)]
+
+    best_acc1, best_epoch = 0.0, -1
+    start_epoch, start_step = cfg.start_epoch, 0
+    if cfg.resume:
+        resume = cfg.resume
+        if os.path.basename(resume) == PAYLOAD_NAME:
+            resume = os.path.dirname(resume)
+        if resume.endswith((".pth", ".pth.tar", ".pt")):
+            # a reference-format torch student checkpoint
+            raw = torch.load(resume, map_location="cpu", weights_only=True)
+            sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
+            overlay_state_dict(state.model, convert_torch_state_dict(sd), scope="resume student",
+                               allow_missing=True, alias_float_weight=True)
+            if isinstance(raw, dict) and not cfg.reset_resume:
+                start_epoch = int(raw.get("epoch", 0))
+                best_acc1 = float(raw.get("best_acc1", 0.0))
+                # the LR schedule and the draws are keyed by the step: it
+                # moves to the epoch's start; the Adam moments restart
+                resume_step = start_epoch * steps_per_epoch
+                state.step = resume_step
+                _fast_forward_adam(state.optimizer, resume_step)
+                ede_t, ede_k, kurt_gate = _sched(start_epoch)
+                logger.warning(
+                    "torch .pth resume: LR schedule fast-forwarded to step %d (EDE t=%.6g "
+                    "k=%.6g, kurt gate %.0f at epoch %d); Adam moments restart",
+                    resume_step, ede_t, ede_k, kurt_gate, start_epoch,
+                )
+                events.emit(
+                    "restore", source=resume, format="torch", fallback=False, integrity="missing",
+                    epoch=start_epoch, step_in_epoch=0, lr_step=resume_step,
+                    ede_t=ede_t, ede_k=ede_k, kurt_gate=kurt_gate,
+                    restored=["params", "batch_stats", "epoch", "best_acc1", "lr_step",
+                              "ede_schedule"],
+                    not_restored=["opt_moments", "step_in_epoch", "host_rng", "best_epoch"],
+                )
+            else:
+                events.emit(
+                    "restore", source=resume, format="torch", fallback=False, integrity="missing",
+                    epoch=start_epoch, step_in_epoch=0, restored=["params", "batch_stats"],
+                    not_restored=["epoch", "best_acc1", "lr_step", "opt_moments",
+                                  "step_in_epoch", "host_rng", "best_epoch"],
+                )
+        else:
+            t0 = time.perf_counter()
+            restored = load_checkpoint(resume, state, reset_resume=cfg.reset_resume)
+            load_s = time.perf_counter() - t0
+            start_epoch = restored["epoch"]
+            best_acc1 = restored["best_acc1"]
+            best_epoch = restored["best_epoch"]
+            start_step = restored["step_in_epoch"]
+            if restored.get("host_rng"):
+                _unpack_host_rng(restored["host_rng"])
+            if restored["fallback"]:
+                logger.warning("committed checkpoint unusable; restored the previous one "
+                               "from %s", restored["source"])
+            topo_from = restored.get("topology")
+            resharded = None
+            if topo_from:
+                resharded = any(int(topo_from.get(k, -1)) != v for k, v in TOPOLOGY.items())
+            ede_t, ede_k, kurt_gate = _sched(start_epoch)
+            events.emit(
+                "restore",
+                source=restored["source"],
+                format="native",
+                fallback=bool(restored["fallback"]),
+                integrity=restored["integrity"],
+                epoch=start_epoch,
+                step_in_epoch=start_step,
+                lr_step=int(state.step),
+                ede_t=ede_t,
+                ede_k=ede_k,
+                kurt_gate=kurt_gate,
+                binarizer=cfg.binarizer,
+                sched=_sched_values(start_epoch),
+                topology_from=topo_from,
+                topology_to=dict(TOPOLOGY),
+                resharded=resharded,
+                restored=["params", "batch_stats", "opt_state", "lr_step", "epoch",
+                          "best_acc1", "best_epoch", "step_in_epoch", "host_rng"]
+                if not cfg.reset_resume else ["params", "batch_stats"],
+                not_restored=[] if not cfg.reset_resume else [
+                    "opt_state", "lr_step", "epoch", "best_acc1", "best_epoch",
+                    "step_in_epoch", "host_rng"],
+                seconds=round(load_s, 3),
+            )
+        logger.info("resumed from %s at epoch %d step %d", cfg.resume, start_epoch, start_step)
+
+    obs = ObsHooks(events=events, writer=writer, timer=StepPhaseTimer(), probe_sizes=probe_sizes,
+                   nonfinite_policy=cfg.nonfinite_policy)
+    if cfg.evaluate:
+        return {"acc1": _validate(eval_step, state, val_pipe, device, 0, obs)}
+
+    # time to target counts from a run's start; a resumed process cannot
+    # know the wall clock before it, so the metric is off
     t_fit = time.time()
     time_to_target = None
-    best_acc1, best_epoch = 0.0, -1
-    for epoch in range(cfg.start_epoch, cfg.epochs):
-        tk, kurt_gate = epoch_schedule(family, cfg, epoch)
-        state = _train_epoch(train_step, state, train_pipe, epoch, tk, kurt_gate, cfg,
-                             steps_per_epoch, device, probe_sizes, on_step)
-        acc1 = _validate(eval_step, state, val_pipe, device, epoch, cfg.nonfinite_policy)
-        if time_to_target is None and cfg.target_acc > 0 and acc1 >= cfg.target_acc:
-            time_to_target = time.time() - t_fit
-            logger.info(" ##### reached target Acc@1 %.2f at epoch %d after %.1fs",
-                        cfg.target_acc, epoch, time_to_target)
-        if acc1 > best_acc1:
-            best_epoch = epoch
-        best_acc1 = max(acc1, best_acc1)
-        logger.info(" ***** Best acc is Acc@1 %.3f, epoch %d", best_acc1, best_epoch)
+    track_target = cfg.target_acc > 0 and start_epoch == 0 and not cfg.resume
+    if cfg.target_acc > 0 and not track_target:
+        logger.warning("time-to-target disabled: resumed at epoch %d, pre-resume wall-clock "
+                       "unknown", start_epoch)
+    events.emit("run_start", config_hash=manifest["config_hash"], start_epoch=start_epoch,
+                start_step=start_step, epochs=cfg.epochs, steps_per_epoch=steps_per_epoch,
+                probed_layers=list(probe_sizes))
+
+    policy = CheckpointPolicy(cfg.save_every_steps, cfg.save_every_mins)
+
+    def _save_ckpt(st, epoch, step_in_epoch, reason, is_best=False):
+        """Commit a checkpoint (mid-epoch when step_in_epoch > 0) with the
+        full resume state, emit the ``checkpoint`` event with the schedule
+        scalars the resumed run must reproduce bitwise, reset the
+        cadence."""
+        t0 = time.time()
+        target_epoch = epoch if step_in_epoch else epoch + 1
+        ede_t, ede_k, kurt_gate = _sched(target_epoch)
+        lr_step = int(st.step)
+        path = save_checkpoint(
+            log_path, st, epoch=epoch, arch=cfg.arch, best_acc1=best_acc1, is_best=is_best,
+            step_in_epoch=step_in_epoch,
+            resume_state={
+                "best_epoch": int(best_epoch),
+                "host_rng": _pack_host_rng(),
+                "lr_step": lr_step,
+                "ede_t": ede_t,
+                "ede_k": ede_k,
+                "kurt_gate": kurt_gate,
+                "binarizer": cfg.binarizer,
+                "sched": _sched_values(target_epoch),
+                "topology": dict(TOPOLOGY),
+            },
+        )
+        events.emit(
+            "checkpoint", reason=reason, epoch=target_epoch, step_in_epoch=step_in_epoch,
+            lr_step=lr_step, ede_t=ede_t, ede_k=ede_k, kurt_gate=kurt_gate,
+            binarizer=cfg.binarizer, sched=_sched_values(target_epoch), coordinated=False,
+            path=path, seconds=round(time.time() - t0, 3), bytes=checkpoint_bytes(path),
+        )
+        policy.note_saved()
+
+    if start_step >= steps_per_epoch:
+        logger.warning("resume cursor step %d >= %d steps/epoch (config change since the "
+                       "checkpoint?); epoch %d will run no steps", start_step, steps_per_epoch,
+                       start_epoch)
+
+    handler = PreemptionHandler()
+    resil = _Resilience(handler, policy, _save_ckpt, events)
+    with handler:
+        for epoch in range(start_epoch, cfg.epochs):
+            tk, kurt_gate = epoch_schedule(family, cfg, epoch)
+            if cfg.ede:
+                t, k = cpt_tk(epoch, cfg.epochs)
+                writer.add_scalar("EDE t", float(t), epoch)
+                writer.add_scalar("EDE k", float(k), epoch)
+            elif family.schedule(epoch, cfg.epochs):
+                for i, v in enumerate(family.schedule(epoch, cfg.epochs)):
+                    writer.add_scalar(f"Binarizer {family.name} s{i}", float(v), epoch)
+            state = _train_epoch(train_step, state, train_pipe, epoch, tk, kurt_gate, cfg,
+                                 steps_per_epoch, device, obs, on_step,
+                                 start_step=start_step if epoch == start_epoch else 0,
+                                 resil=resil)
+            # a signal during the epoch's last step: save now, before the
+            # eval pass outlasts the grace period
+            if resil.poll_boundary():
+                resil.preempt_exit(state, epoch, 0)
+            acc1 = _validate(eval_step, state, val_pipe, device, epoch, obs)
+            if time_to_target is None and track_target and acc1 >= cfg.target_acc:
+                time_to_target = time.time() - t_fit
+                writer.add_scalar("Time to target (s)", time_to_target, epoch)
+                logger.info(" ##### reached target Acc@1 %.2f at epoch %d after %.1fs",
+                            cfg.target_acc, epoch, time_to_target)
+            is_best = acc1 > best_acc1
+            if is_best:
+                best_epoch = epoch
+            best_acc1 = max(acc1, best_acc1)
+            writer.add_scalar("Best val Acc1", best_acc1, epoch)
+            logger.info(" ***** Best acc is Acc@1 %.3f, epoch %d, log %s", best_acc1, best_epoch,
+                        log_path)
+            _save_ckpt(state, epoch, 0, "epoch", is_best=is_best)
+            # a signal during eval or the save: the epoch-end checkpoint
+            # is already durable
+            if resil.poll_boundary():
+                resil.preempt_exit(state, epoch, 0, already_durable=True)
+
+    events.emit("run_end", best_acc1=best_acc1, best_epoch=best_epoch,
+                wall_s=round(time.time() - t_fit, 1),
+                **({"time_to_target_s": round(time_to_target, 1)}
+                   if time_to_target is not None else {}))
     out = {"best_acc1": best_acc1, "best_epoch": float(best_epoch)}
     if time_to_target is not None:
         out["time_to_target_s"] = round(time_to_target, 1)
@@ -443,7 +855,8 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
 
 
 __all__ = [
-    "DeviceMetrics",
+    "ObsHooks",
+    "TOPOLOGY",
     "build_datasets",
     "build_teacher",
     "build_training",

@@ -111,9 +111,26 @@ Phases (any failure exits non-zero and prints no result line):
              trains 2 TS steps; a profile of path 1's step (images/s, busy
              share, the K-kernels' shares) and its teacher forward and KD
              loss terms timed alone;
-13. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
-             gives serve, train, train-stoch and train-ts), then as the last
-             line ``{"ok": true, "device": {...}}``.
+13. train-resume — checkpoints, preemption and resume of the flagship
+             recipe, 2 epochs × 4 steps at -b 256 with --save-every-steps
+             2, cuDNN deterministic: (a) run A uninterrupted (its K1, K2,
+             K5, K6, K7 launches); (b) run B through ``cli.main``
+             SIGTERMed after its checkpoint of epoch 1 step 2: exit 75,
+             preempt and checkpoint events, the committed state bitwise
+             the saved one; (c) B resumed: restore schedule fields bitwise
+             the checkpoint event's, every later loss and the final model,
+             optimizer state and step bitwise A's; (d) the CLI in a
+             subprocess SIGKILLed after its first mid-epoch checkpoint,
+             resumed, held as (c); (e) A's checkpoint loaded on the CPU,
+             bitwise the card's state; (f) a resnet18_float run dir as the
+             teacher of a resnet18 --react student, bitwise after fit; (g)
+             A exported and served in three modes at bucket 32 (bitwise
+             across modes, within CPU_LOGIT_TOL of the CPU engine), its
+             recorded accuracy A's; (h) each checkpoint's seconds and
+             bytes, the restore seconds, the step time around the saves;
+14. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
+             gives serve, train, train-stoch, train-ts and train-resume),
+             then as the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
@@ -1039,9 +1056,29 @@ def _hold_same_sign(label: str, got, plain, exact) -> bool:
     return ok
 
 
+def fresh_log_root() -> str:
+    """A new empty directory for one run's ``log_path`` (its run dir is
+    ``<root>/<kurtosis target>/<stamp>``, one-second stamps: two runs
+    under one root in one second would share it), under one per-process
+    directory removed at exit."""
+    import atexit
+    import shutil
+
+    if not _LOG_ROOTS:
+        _LOG_ROOTS.append(tempfile.mkdtemp(prefix="chip_smoke_runs-"))
+        atexit.register(shutil.rmtree, _LOG_ROOTS[0], True)
+    return tempfile.mkdtemp(prefix="run-", dir=_LOG_ROOTS[0])
+
+
+_LOG_ROOTS: list = []
+
+
 def train_config(**kw):
+    """The flagship recipe with ``kw`` over it; ``log_path`` defaults to a
+    fresh temporary root."""
     from bdbnn_tpu_torch.train.config import RunConfig
 
+    kw.setdefault("log_path", fresh_log_root())
     return RunConfig(**{**TRAIN_ARGS, **kw})
 
 
@@ -1376,7 +1413,7 @@ def phase_train_cede() -> bool:
     losses = []
     cfg = RunConfig(dataset="cifar10", arch="resnet20", synthetic=True, batch_size=128, epochs=1,
                     ede=True, synthetic_train_size=256, synthetic_val_size=128, seed=0,
-                    print_freq=1, device="cuda")
+                    print_freq=1, device="cuda", log_path=fresh_log_root())
     reset_counts()
     t0 = time.perf_counter()
     res = fit(cfg, on_step=lambda e, i, m: losses.append(float(m["loss"])))
@@ -1391,7 +1428,8 @@ def phase_train_cede() -> bool:
 def phase_train_cli() -> bool:
     cmd = [sys.executable, "-m", "bdbnn_tpu_torch.cli", "--dataset", "imagenet", "-a", "resnet18",
            "--synthetic", "-b", "256", "--epochs", "1", "--w-kurtosis", "--diffkurt",
-           "--synthetic-train-size", "512", "--synthetic-val-size", "256", "--seed", "0"]
+           "--synthetic-train-size", "512", "--synthetic-val-size", "256", "--seed", "0",
+           "--log_path", fresh_log_root()]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
     log(f"[train-cli] {' '.join(cmd[1:])} -> exit {r.returncode} in {time.perf_counter() - t0:.1f}s")
@@ -1709,7 +1747,8 @@ def phase_train_ts_cli(tag: str, teacher_file: str) -> bool:
     cmd = [sys.executable, "-m", "bdbnn_tpu_torch.cli", "--dataset", "imagenet", "-a", "resnet34",
            "--synthetic", "-b", "256", "--epochs", "1", "--imagenet_setting_step_2_ts", "--react",
            "--arch_teacher", "resnet34_float", "--resume_teacher", teacher_file, "--w-kurtosis",
-           "--kd", "--synthetic-train-size", "512", "--synthetic-val-size", "256", "--seed", "0"]
+           "--kd", "--synthetic-train-size", "512", "--synthetic-val-size", "256", "--seed", "0",
+           "--log_path", fresh_log_root()]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
     log(f"{tag} (f) {' '.join(cmd[1:])} -> exit {r.returncode} in {time.perf_counter() - t0:.1f}s")
@@ -1759,6 +1798,416 @@ def ts_parts(tag: str, cfg_kw: dict, iters: int = 10):
     del teacher, x, logits, t_logits
     torch.cuda.empty_cache()
     return t_ms, kd_ms
+
+
+# [train-resume]: the flagship recipe, 2 epochs of 4 steps at -b 256, a
+# checkpoint every 2 steps; every fit under its own temporary log_path
+RESUME_STEPS = 4
+# 4096 val images: an untrained model's top-1 on random labels is about
+# 0.1%, and model_best is written only when an eval's top-1 beats 0, so
+# (f) and (g) read a model_best only if some image is right
+RESUME_ARGS = dict(epochs=2, save_every_steps=2, batch_size=TRAIN_BATCH,
+                   synthetic_train_size=RESUME_STEPS * TRAIN_BATCH, synthetic_val_size=4096,
+                   device="cuda")
+# (f): the student and its float teacher's arch
+RESUME_TS = ("resnet18", "resnet18_float")
+SCHED_KEYS = ("epoch", "step_in_epoch", "lr_step", "ede_t", "ede_k", "kurt_gate", "sched",
+              "binarizer")
+# the CLI run of (d), with cuDNN held to its deterministic algorithms as
+# the in-process runs are (the stem conv's backward)
+SIGKILL_CHILD = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+                 "from bdbnn_tpu_torch import cli; sys.exit(cli.main(sys.argv[1:]))")
+
+
+def resume_cli_args(root: str) -> list:
+    """The CLI flags of RESUME_ARGS over TRAIN_ARGS, under ``root``."""
+    kw = {**TRAIN_ARGS, **RESUME_ARGS}
+    assert kw["w_kurtosis"] and kw["diffkurt"] and kw["synthetic"]
+    return ["--dataset", kw["dataset"], "-a", kw["arch"], "--synthetic", "-b",
+            str(kw["batch_size"]), "--epochs", str(kw["epochs"]), "-lr", str(kw["lr"]),
+            "--w-kurtosis", "--diffkurt", "--seed", str(kw["seed"]), "-p", str(kw["print_freq"]),
+            "--save-every-steps", str(kw["save_every_steps"]),
+            "--synthetic-train-size", str(kw["synthetic_train_size"]),
+            "--synthetic-val-size", str(kw["synthetic_val_size"]), "--device", kw["device"],
+            "--log_path", root]
+
+
+def run_dir_of(root: str) -> str:
+    from bdbnn_tpu_torch.obs.events import EVENTS_NAME
+
+    (d,) = {dp for dp, _, fs in os.walk(root) if EVENTS_NAME in fs}
+    return d
+
+
+def final_payload(run_dir: str) -> dict:
+    import torch
+
+    from bdbnn_tpu_torch.utils import checkpoint as ck
+
+    return torch.load(os.path.join(run_dir, ck.CKPT_NAME, ck.PAYLOAD_NAME), map_location="cpu",
+                      weights_only=True)["state"]
+
+
+def state_diff(a: dict, b: dict) -> list:
+    """(name, max |a - b|) of every tensor that differs between two
+    ``state_payload`` dicts (model, optimizer moments, step)."""
+    import torch
+
+    out = []
+    if a["step"] != b["step"]:
+        out.append(("step", abs(a["step"] - b["step"])))
+    flat = lambda s: {**{"model " + k: v for k, v in s["model"].items()},
+                      **{f"optimizer {i} {k}": v for i, st in s["optimizer"]["state"].items()
+                         for k, v in st.items()}}
+    fa, fb = flat(a), flat(b)
+    for k in sorted(set(fa) | set(fb)):
+        if k not in fa or k not in fb:
+            out.append((k, "missing"))
+            continue
+        x, y = fa[k].cpu(), fb[k].cpu()
+        if not torch.equal(x, y):
+            out.append((k, float((x.double() - y.double()).abs().max())))
+    return out
+
+
+def device_snapshot(state) -> dict:
+    """The state's model and optimizer tensors cloned where they lie (on
+    the card: an enqueued copy, no wait), in ``state_payload``'s layout."""
+    def clone(obj):
+        if hasattr(obj, "detach"):
+            return obj.detach().clone()
+        if isinstance(obj, dict):
+            return {k: clone(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(clone(v) for v in obj)
+        return obj
+
+    return {"model": clone(state.model.state_dict()),
+            "optimizer": clone(state.optimizer.state_dict()), "step": int(state.step)}
+
+
+class SaveSpy:
+    """Wraps the loop's ``save_checkpoint``: a snapshot of the state the
+    last save was given (cloned on its device, so the save's own timing
+    is not disturbed), and the seconds of each save."""
+
+    def __init__(self, loop):
+        self.loop, self.real = loop, loop.save_checkpoint
+        self.last, self.seconds = None, []
+
+    def __enter__(self):
+        def save(path, state, **kw):
+            self.last = (kw, device_snapshot(state))
+            t0 = time.perf_counter()
+            out = self.real(path, state, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        self.loop.save_checkpoint = save
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.save_checkpoint = self.real
+
+
+def resumed_like(tag: str, label: str, got_losses: dict, got_final: dict, a: dict) -> bool:
+    """Each loss of a resumed run and its final state bitwise those of the
+    uninterrupted run A; prints what differs and by how much."""
+    import torch
+
+    want = {k: v for k, v in a["losses"].items() if k >= min(got_losses)}
+    differ = [k for k in want if k not in got_losses or not torch.equal(got_losses[k], want[k])]
+    diff = state_diff(got_final, a["final"])
+    ok = sorted(got_losses) == sorted(want) and not differ and not diff
+    log(f"{tag} {label}: steps {sorted(got_losses)}; each loss bitwise A's {not differ} "
+        f"(differing {[(k, float(got_losses[k]), float(want[k])) for k in differ[:4]]}); final "
+        f"model, optimizer state and step bitwise A's {not diff} (differing, max |diff|: "
+        f"{diff[:8]}{' ...' if len(diff) > 8 else ''} of {len(diff)})")
+    return ok
+
+
+def phase_train_resume(pk):
+    """[train-resume]: checkpoints, preemption and resume of the flagship
+    ``fit`` (RESUME_ARGS: 2 epochs × 4 steps at -b 256, a checkpoint every
+    2 steps), cuDNN deterministic throughout. (a) run A uninterrupted;
+    (b) run B through ``cli.main``, SIGTERMed from a thread right after
+    its checkpoint event of epoch 1 step 2: exit 75, ``preempt`` and
+    ``checkpoint`` events, the committed state bitwise what the save was
+    given; (c) B resumed: the ``restore`` event's schedule fields bitwise
+    the checkpoint event's, each later loss and the final model,
+    optimizer state and step bitwise A's; (d) the CLI in a subprocess,
+    SIGKILLed right after its first mid-epoch checkpoint event, resumed
+    and held as (c); (e) A's final checkpoint loaded with
+    ``device="cpu"``, bitwise the card's state; (f) a resnet18_float run
+    dir as the teacher of a resnet18 --react student, bitwise what
+    ``load_variables`` reads after ``fit``; (g) A exported and served on
+    the card in three modes at bucket 32, bitwise across modes and
+    within CPU_LOGIT_TOL of the CPU engine, its recorded accuracy A's
+    best eval. Prints each checkpoint's seconds and bytes, the restore
+    seconds, and the step time around the saves. Returns (run A's launch
+    counts, ok)."""
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch import cli
+    from bdbnn_tpu_torch.obs import events as tevents
+    from bdbnn_tpu_torch.obs.events import read_events
+    from bdbnn_tpu_torch.train import loop
+    from bdbnn_tpu_torch.utils import checkpoint as ck
+
+    tag = "[train-resume]"
+    oks = {}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) run A
+        losses, walls, events = {}, [], []
+
+        def on_step(epoch, step, m):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            walls.append(time.perf_counter())
+            losses[(epoch, step)] = m["loss"].clone()
+
+        root_a = fresh_log_root()
+        reset_counts()
+        t0 = time.perf_counter()
+        with SaveSpy(loop) as spy_a:
+            res_a = loop.fit(train_config(log_path=root_a, **RESUME_ARGS), on_step=on_step)
+        counts = read_counts()
+        torch.cuda.synchronize()
+        dir_a = run_dir_of(root_a)
+        a = {"losses": losses, "final": final_payload(dir_a), "res": res_a}
+        ckpts = read_events(dir_a, "checkpoint")
+        evals = read_events(dir_a, "eval")
+        want = {"K1": 8 * N_BINARY_CONVS, "K2": 8 * N_BINARY_CONVS, "K5": 8 * N_BINARY_CONVS,
+                "K6": 8 * N_BINARY_CONVS, "K7": 16}
+        loss_vals = [float(v) for v in losses.values()]
+        oks["a"] = (len(losses) == 2 * RESUME_STEPS and all(math.isfinite(v) for v in loss_vals)
+                    and all(counts[k] >= n for k, n in want.items()) and len(ckpts) == 4
+                    and not state_diff(spy_a.last[1], a["final"]))
+        log(f"{tag} (a) run A: fit {2 * RESUME_STEPS} steps + 2 evals in "
+            f"{time.perf_counter() - t0:.1f}s -> {res_a}; losses {loss_vals}; launches {counts} "
+            f"(at least {want}: the evals add K1 and K2); final checkpoint bitwise what its save "
+            f"was given {not state_diff(spy_a.last[1], a['final'])}")
+        for e in ckpts:
+            log(f"{tag} (h) checkpoint {e['reason']} epoch {e['epoch']} step {e['step_in_epoch']}:"
+                f" seconds {e['seconds']} (event), {e['bytes']} bytes = "
+                f"{e['bytes'] / 2**20:.1f} MiB")
+        log(f"{tag} (h) save_checkpoint seconds, host clock (device copy, torch.save, sha256, "
+            f"commit; model_best copies on improving evals): {[round(x, 4) for x in spy_a.seconds]}")
+        # what a save adds to the step it follows: host time between the
+        # on_step calls around it, against the others of the same epoch
+        step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+        gap_ms = [(walls[i] - walls[i - 1]) * 1e3 for i in range(1, len(walls))]
+        keys = sorted(losses)
+        after_save = [i for i in range(1, len(keys)) if keys[i][1] == 2]
+        plain = [i for i in range(1, len(keys)) if keys[i][1] in (1, 3)]
+        mean = lambda xs: sum(xs) / max(len(xs), 1)
+        log(f"{tag} (h) fit step ms (CUDA events between on_step calls) {[round(x, 2) for x in step_ms]};"
+            f" host ms between steps {[round(x, 2) for x in gap_ms]}; steps with no save or eval "
+            f"before them: mean {mean([gap_ms[i - 1] for i in plain]):.2f} ms host, "
+            f"{mean([step_ms[i - 1] for i in plain]):.2f} ms events; steps after a mid-epoch "
+            f"save: {mean([gap_ms[i - 1] for i in after_save]):.2f} ms host, "
+            f"{mean([step_ms[i - 1] for i in after_save]):.2f} ms events")
+
+        # (b) run B: SIGTERM through the CLI
+        root_b = fresh_log_root()
+        real_emit = tevents.EventWriter.emit
+
+        def emit(self, kind, **fields):
+            rec = real_emit(self, kind, **fields)
+            if kind == "checkpoint" and (fields["epoch"], fields["step_in_epoch"]) == (1, 2):
+                t = threading.Thread(target=os.kill, args=(os.getpid(), signal.SIGTERM))
+                t.start()
+                t.join()
+            return rec
+
+        tevents.EventWriter.emit = emit
+        try:
+            with SaveSpy(loop) as spy_b:
+                rc = cli.main(resume_cli_args(root_b))
+        finally:
+            tevents.EventWriter.emit = real_emit
+        dir_b = run_dir_of(root_b)
+        pre = read_events(dir_b, "preempt")
+        last_b = read_events(dir_b, "checkpoint")[-1]
+        committed = state_diff(final_payload(dir_b), spy_b.last[1])
+        oks["b"] = (rc == 75 and len(pre) == 1 and pre[0]["signum"] == signal.SIGTERM
+                    and (last_b["reason"], last_b["epoch"], last_b["step_in_epoch"])
+                    == ("preempt", 1, 3) and not committed)
+        log(f"{tag} (b) run B, SIGTERM after the checkpoint of epoch 1 step 2: cli.main -> {rc}; "
+            f"preempt {pre}; last checkpoint {last_b['reason']} ({last_b['epoch']}, "
+            f"{last_b['step_in_epoch']}) lr_step {last_b['lr_step']}; committed state bitwise "
+            f"what the save was given {not committed} {committed[:4]}")
+
+        # (c) resume B
+        losses_c = {}
+        root_c = fresh_log_root()
+        loop.fit(train_config(log_path=root_c, resume=dir_b, **RESUME_ARGS),
+                 on_step=lambda e, i, m: losses_c.__setitem__((e, i), m["loss"].clone()))
+        dir_c = run_dir_of(root_c)
+        (restore,) = read_events(dir_c, "restore")
+        same_sched = {k: restore[k] for k in SCHED_KEYS} == {k: last_b[k] for k in SCHED_KEYS}
+        log(f"{tag} (c) resume B: restore event {dict((k, restore[k]) for k in SCHED_KEYS)}, "
+            f"bitwise the checkpoint event's {same_sched}; load_checkpoint {restore['seconds']} s "
+            f"(integrity {restore['integrity']}, fallback {restore['fallback']})")
+        oks["c"] = same_sched and resumed_like(tag, "(c) resume B", losses_c,
+                                               final_payload(dir_c), a)
+
+        # (d) SIGKILL the CLI in a subprocess after its first mid-epoch checkpoint
+        root_d = fresh_log_root()
+        err_path = os.path.join(root_d, "stderr.txt")
+        with open(err_path, "w") as err_f:
+            proc = subprocess.Popen([sys.executable, "-c", SIGKILL_CHILD,
+                                     *resume_cli_args(root_d)],
+                                    cwd=REPO, stdout=subprocess.DEVNULL, stderr=err_f)
+        hit = None
+        try:
+            deadline = time.time() + 300
+            while hit is None and proc.poll() is None and time.time() < deadline:
+                time.sleep(0.02)
+                evs = [e for dp, _, fs in os.walk(root_d) if tevents.EVENTS_NAME in fs
+                       for e in read_events(dp, "checkpoint")]
+                hit = next((e for e in evs if e["step_in_epoch"] > 0), None)
+            proc.kill()
+            rc_d = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(err_path) as f:
+            err = f.read()
+        if hit is None:
+            log(f"{tag} (d) FAIL: the subprocess never checkpointed mid-epoch: {err[-3000:]}")
+            oks["d"] = False
+        else:
+            dir_d = run_dir_of(root_d)
+            victim = read_events(dir_d, "checkpoint")
+            log(f"{tag} (d) subprocess killed (exit {rc_d}) after its checkpoint ({hit['epoch']}, "
+                f"{hit['step_in_epoch']}); its checkpoint events {[(e['epoch'], e['step_in_epoch']) for e in victim]}")
+            losses_d = {}
+            root_d2 = fresh_log_root()
+            loop.fit(train_config(log_path=root_d2, resume=dir_d, **RESUME_ARGS),
+                     on_step=lambda e, i, m: losses_d.__setitem__((e, i), m["loss"].clone()))
+            dir_d2 = run_dir_of(root_d2)
+            (restore_d,) = read_events(dir_d2, "restore")
+            src = next(e for e in reversed(victim) if (e["epoch"], e["step_in_epoch"])
+                       == (restore_d["epoch"], restore_d["step_in_epoch"]))
+            same_d = {k: restore_d[k] for k in SCHED_KEYS} == {k: src[k] for k in SCHED_KEYS}
+            log(f"{tag} (d) restore ({restore_d['epoch']}, {restore_d['step_in_epoch']}) from "
+                f"{restore_d['source']} (fallback {restore_d['fallback']}), schedule fields "
+                f"bitwise its checkpoint event's {same_d}; load_checkpoint {restore_d['seconds']} s")
+            oks["d"] = rc_d == -signal.SIGKILL and same_d and resumed_like(
+                tag, "(d) resume after SIGKILL", losses_d, final_payload(dir_d2), a)
+
+        # (e) A's final checkpoint on the CPU
+        cfg_cpu = train_config(log_path=root_a, **{**RESUME_ARGS, "device": "cpu"}).validate()
+        state_cpu, _ = loop.build_training(cfg_cpu, torch.device("cpu"), RESUME_STEPS, 224)
+        t0 = time.perf_counter()
+        ck.load_checkpoint(dir_a, state_cpu)
+        load_cpu_s = time.perf_counter() - t0
+        diff_e = state_diff(ck.state_payload(state_cpu), spy_a.last[1])
+        oks["e"] = not diff_e
+        log(f"{tag} (e) A's final checkpoint loaded with device='cpu' in {load_cpu_s:.3f}s: "
+            f"bitwise the card's state {not diff_e} {diff_e[:4]}")
+        del state_cpu
+
+        # (f) a float run dir as the teacher
+        root_f = fresh_log_root()
+        student, float_arch = RESUME_TS
+        loop.fit(train_config(log_path=root_f, arch=float_arch, diffkurt=False,
+                              w_kurtosis=False, batch_size=TRAIN_BATCH,
+                              synthetic_train_size=2 * TRAIN_BATCH,
+                              synthetic_val_size=RESUME_ARGS["synthetic_val_size"],
+                              device=RESUME_ARGS["device"]))
+        dir_f = run_dir_of(root_f)
+        built = []
+        build_teacher = loop.build_teacher
+        loop.build_teacher = lambda cfg, device: (built.append(build_teacher(cfg, device)),
+                                                  built[-1])[1]
+        try:
+            _, _, ok_ts = run_fit(f"{tag} (f) {student} --react, teacher from a run dir",
+                                  student, 2, diffkurt=False, imagenet_setting_step_2_ts=True,
+                                  react=True, arch_teacher=float_arch, resume_teacher=dir_f)
+        finally:
+            loop.build_teacher = build_teacher
+        which = ck.BEST_NAME if os.path.isdir(os.path.join(dir_f, ck.BEST_NAME)) else ck.CKPT_NAME
+        want_t = ck.load_variables(dir_f)
+        got_t = {k: v.cpu() for k, v in built[0].state_dict().items()} if built else {}
+        differ_t = [k for k in want_t if k not in got_t or not torch.equal(got_t[k], want_t[k])]
+        oks["f"] = ok_ts and len(built) == 1 and not differ_t and set(got_t) == set(want_t)
+        log(f"{tag} (f) the teacher after fit: {len(want_t)} tensors bitwise the float run's "
+            f"{which} {not differ_t}; differing {differ_t[:4]}")
+        del built[:]
+
+        # (g) export A and serve it
+        oks["g"] = serve_exported(tag, dir_a, evals, res_a["best_acc1"])
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    ok = all(oks.values())
+    log(f"{tag} {oks} ok={ok}")
+    return counts, ok
+
+
+def serve_exported(tag: str, run_dir: str, evals: list, best_acc1: float) -> bool:
+    """(g): ``export_artifact(run_dir)`` served on the card in dense,
+    unpack and popcount modes at bucket 32: logits finite and bitwise
+    equal across modes, within CPU_LOGIT_TOL of the CPU engine on images
+    whose stem sums are exact (one nonzero pixel in any 7×7 window, so
+    everything up to the pool is bitwise on both devices), and the
+    artifact's recorded accuracy the run's best top-1 (``fit``'s result;
+    the eval events round it to 4 decimals)."""
+    import numpy as np
+
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine, max_abs_logit_drift
+    from bdbnn_tpu_torch.serve.export import export_artifact
+    from bdbnn_tpu_torch.utils import checkpoint as ck
+
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "art")
+        t0 = time.perf_counter()
+        a = export_artifact(run_dir, art)
+        best = max(e["acc1"] for e in evals)
+        has_best = os.path.isdir(os.path.join(run_dir, ck.BEST_NAME))
+        rec = a["eval"]
+        acc_ok = (rec["checkpoint_acc1"] == best_acc1 and round(best_acc1, 4) == best
+                  if has_best else
+                  rec["checkpoint_acc1"] is None and rec["best_seen_acc1"] == best == 0.0)
+        log(f"{tag} (g) exported in {time.perf_counter() - t0:.1f}s: source {rec['source']}, "
+            f"checkpoint_acc1 {rec['checkpoint_acc1']}, A's best_acc1 {best_acc1}, its eval "
+            f"events {[e['acc1'] for e in evals]} "
+            f"(model_best written: {has_best}; without one the artifact records no accuracy) "
+            f"-> {acc_ok}; integrity {a['checkpoint']['integrity']}")
+        ok = ok and acc_ok and a["checkpoint"]["integrity"] == "ok"
+        modes = {"dense": {}, "unpack": {"packed": True, "packed_impl": "unpack"},
+                 "popcount": {"packed": True, "packed_impl": "popcount"}}
+        engines = {m: InferenceEngine(art, buckets=(32,), device="cuda", **kw)
+                   for m, kw in modes.items()}
+        rng = np.random.default_rng(4)
+        hw, classes = a["image_size"], a["num_classes"]
+        x = rng.normal(size=(32, hw, hw, 3)).astype(np.float32)
+        out = {m: e.predict_logits(x) for m, e in engines.items()}
+        fin = all(np.all(np.isfinite(v)) and v.shape == (32, classes) for v in out.values())
+        same = all(np.array_equal(out[m].view(np.uint32), out["dense"].view(np.uint32))
+                   for m in ("unpack", "popcount"))
+        sparse = np.zeros_like(x)
+        sparse[:, ::7, ::7, :] = rng.normal(size=sparse[:, ::7, ::7, :].shape)
+        cpu = InferenceEngine(art, buckets=(32,), device="cpu")
+        c, d = cpu.predict_logits(sparse), engines["dense"].predict_logits(sparse)
+        rel = float(np.max(np.abs(c - d))) / max(float(np.max(np.abs(c))), 1e-30)
+        top1 = bool(np.array_equal(c.argmax(-1), d.argmax(-1)))
+        log(f"{tag} (g) bucket 32: logits finite {fin}, bitwise across dense/unpack/popcount "
+            f"{same} (popcount vs dense {max_abs_logit_drift(out['popcount'], out['dense'])}); "
+            f"CPU engine vs card on exact-stem images: relative {rel} (tol {CPU_LOGIT_TOL}), "
+            f"top-1 equal {top1}")
+        ok = ok and fin and same and rel <= CPU_LOGIT_TOL and top1
+    return ok
 
 
 def main(argv=None) -> int:
@@ -1822,6 +2271,7 @@ def main(argv=None) -> int:
     profile_train_step()
     stoch_counts, ok_ts = phase_train_stoch(pk)
     ts_counts, ok_tts = phase_train_ts()
+    resume_counts, ok_tr = phase_train_resume(pk)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -1846,15 +2296,16 @@ def main(argv=None) -> int:
                 "K7": "bdbnn_tpu/losses/kurtosis.py:51"}
     # each kernel's launches on the main path it belongs to: serving for
     # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed),
-    # on the stochastic family's training path and on the teacher-student
-    # path (K1, K2, K5-K7)
+    # on the stochastic family's training path, on the teacher-student
+    # path and on the checkpoint/resume path's run A (K1, K2, K5-K7)
     by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
-                   "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0)}
+                   "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
+                   "train-resume": resume_counts.get(k, 0)}
                for k in sources}
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources}
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
-        for path in ("train", "train-stoch", "train-ts"))
+        for path in ("train", "train-stoch", "train-ts", "train-resume"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -1900,7 +2351,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
-           "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "launched": ok_used}
+           "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
+           "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

@@ -64,14 +64,17 @@ def test_every_port_module_imports_without_jax():
 
 def test_training_slice_modules_are_scanned():
     """The scans above cover the training slice's modules and kernels,
-    and the teacher–student slice's (KD losses, teacher loading, the
-    bottleneck teacher)."""
+    the teacher–student slice's (KD losses, teacher loading, the
+    bottleneck teacher), and the run dir's (checkpoints, resilience,
+    logging, meters, manifest, events, step-phase timing)."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     for mod in ("train/loop.py", "train/step.py", "train/optim.py", "train/state.py",
                 "train/config.py", "train/ede.py", "losses/kurtosis.py", "losses/kd.py",
                 "obs/probes.py", "nn/kernels/kurtosis.py", "nn/kernels/binary_conv.py",
                 "data/pipeline.py", "cli.py", "models/torch_import.py", "models/resnet.py",
-                "models/registry.py"):
+                "models/registry.py", "utils/__init__.py", "utils/checkpoint.py",
+                "utils/logging_utils.py", "utils/meters.py", "train/resilience.py",
+                "obs/manifest.py", "obs/events.py", "obs/timing.py", "serve/export.py"):
         assert os.path.join("bdbnn_tpu_torch", mod) in rel
     for src in ("binary_conv_dgrad.cu", "binary_conv_wgrad.cu", "kurtosis.cu"):
         assert os.path.isfile(os.path.join(REPO, "bdbnn_tpu_torch", "csrc", src))

@@ -64,6 +64,7 @@ from bdbnn_tpu_torch.train.loop import (
 )
 from bdbnn_tpu_torch.train.state import StepConfig, TrainState
 from bdbnn_tpu_torch.train.step import make_ts_train_step
+from bdbnn_tpu_torch.utils.checkpoint import save_checkpoint
 from chip_smoke import torchvision_state_dict, write_teacher_checkpoint
 
 GRAD_TOL = 1e-3
@@ -473,7 +474,8 @@ def test_shape_guard_in_both_fits(tmp_path, monkeypatch, react):
               seed=0)
     outcomes = []
     for fit_fn, cfg in ((jloop.fit, JRunConfig(log_path=str(tmp_path / "jlog"), **kw)),
-                        (tloop.fit, RunConfig(device="cpu", **kw))):
+                        (tloop.fit, RunConfig(device="cpu", log_path=str(tmp_path / "tlog"),
+                                              **kw))):
         with pytest.raises((ValueError, _Reached)) as e:
             fit_fn(cfg)
         outcomes.append(e.value)
@@ -486,16 +488,29 @@ def test_shape_guard_in_both_fits(tmp_path, monkeypatch, react):
 
 
 def test_build_teacher_refuses_a_random_teacher_and_a_run_dir(tmp_path):
+    """A random teacher and a directory that holds no run are refused; a
+    port run dir loads, its ``model_best`` bitwise."""
     cfg = RunConfig(dataset="cifar10", arch="resnet20", imagenet_setting_step_2_ts=True,
                     arch_teacher="resnet20_float", device="cpu")
     with pytest.raises(ValueError, match="random-init"):
         build_teacher(cfg, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="'Later' item 2"):
-        build_teacher(RunConfig(**{**cfg.__dict__, "resume_teacher": str(tmp_path)}),
+    (tmp_path / "not_a_run").mkdir()
+    with pytest.raises(RuntimeError, match="no loadable checkpoint"):
+        build_teacher(RunConfig(**{**cfg.__dict__, "resume_teacher": str(tmp_path / "not_a_run")}),
                       torch.device("cpu"))
+    written = write_teacher_checkpoint(str(tmp_path / "t.pth.tar"), "resnet20_float", "cifar10",
+                                       seed=4)
+    opt = toptim.make_optimizer(written, dataset="cifar10", lr=0.1, epochs=1, steps_per_epoch=1)
+    save_checkpoint(str(tmp_path / "run"), TrainState(model=written, optimizer=opt), epoch=0,
+                    arch="resnet20_float", best_acc1=10.0, is_best=True)
+    loaded = build_teacher(RunConfig(**{**cfg.__dict__, "resume_teacher": str(tmp_path / "run")}),
+                           torch.device("cpu"))
+    want, got = written.state_dict(), loaded.state_dict()
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
     teacher = build_teacher(RunConfig(**{**cfg.__dict__, "allow_random_teacher": True}),
                             torch.device("cpu"))
-    assert not teacher.training and not any(p.requires_grad for p in teacher.parameters())
+    for t in (loaded, teacher):
+        assert not t.training and not any(p.requires_grad for p in t.parameters())
 
 
 def test_fit_leaves_the_loaded_teacher_bitwise_unchanged(tmp_path, monkeypatch):
@@ -512,7 +527,8 @@ def test_fit_leaves_the_loaded_teacher_bitwise_unchanged(tmp_path, monkeypatch):
     res = tloop.fit(RunConfig(dataset="cifar10", arch="resnet20", synthetic=True, batch_size=8,
                               epochs=1, synthetic_train_size=16, synthetic_val_size=8, seed=1,
                               imagenet_setting_step_2_ts=True, arch_teacher="resnet20_float",
-                              resume_teacher=path, w_kurtosis=True, print_freq=1, device="cpu"),
+                              resume_teacher=path, w_kurtosis=True, print_freq=1, device="cpu",
+                              log_path=str(tmp_path / "log")),
                     on_step=lambda e, i, m: losses.append({k: float(m[k]) for k in
                                                            ("loss", "loss_kl", "loss_kl_c")}))
     assert set(res) == {"best_acc1", "best_epoch"} and len(losses) == 2
@@ -531,7 +547,8 @@ def test_cli_trains_two_ts_steps_on_the_cpu(tmp_path, capsys):
                    "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8",
                    "--imagenet_setting_step_2_ts", "--react", "--arch_teacher", "resnet20_float",
                    "--resume_teacher", path, "--w-kurtosis", "--kd", "--alpha", "0.8",
-                   "--temperature", "3", "--w-lambda-ce", "0.5", "--seed", "1", "--device", "cpu"])
+                   "--temperature", "3", "--w-lambda-ce", "0.5", "--seed", "1", "--device", "cpu",
+                   "--log_path", str(tmp_path / "log")])
     assert rc == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(res) == {"best_acc1", "best_epoch"}

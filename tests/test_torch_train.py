@@ -359,19 +359,21 @@ def test_three_steps_losses_track_the_reference(case_id):
 
 # -- CLI ------------------------------------------------------------------------
 
-def test_cli_trains_two_steps_on_the_cpu(capsys):
+def test_cli_trains_two_steps_on_the_cpu(tmp_path, capsys):
     rc = cli.main(["--dataset", "cifar10", "-a", "resnet8_tiny", "--synthetic", "-b", "8",
                    "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8",
-                   "--w-kurtosis", "--ede", "--seed", "1", "--device", "cpu"])
+                   "--w-kurtosis", "--ede", "--seed", "1", "--device", "cpu",
+                   "--log_path", str(tmp_path)])
     assert rc == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(res) == {"best_acc1", "best_epoch"}
 
 
-def test_cli_trains_under_the_stochastic_family_on_the_cpu(capsys):
+def test_cli_trains_under_the_stochastic_family_on_the_cpu(tmp_path, capsys):
     rc = cli.main(["--dataset", "cifar10", "-a", "resnet8_tiny", "--synthetic", "-b", "8",
                    "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8",
-                   "--binarizer", "stochastic", "--w-kurtosis", "--seed", "1", "--device", "cpu"])
+                   "--binarizer", "stochastic", "--w-kurtosis", "--seed", "1", "--device", "cpu",
+                   "--log_path", str(tmp_path)])
     assert rc == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(res) == {"best_acc1", "best_epoch"}
@@ -384,9 +386,9 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
             "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(args)
-    for extra, item in [(["--resume", "x"], "checkpoint"), (["--remat"], "remat"),
-                        (["--dtype", "bfloat16"], "bf16"), (["--pretrained"], "checkpoint"),
+    for extra, item in [(["--input-backend", "threads"], "item 8"), (["--remat"], "remat"),
+                        (["--dtype", "bfloat16"], "bf16"), (["--distributed-init"], "DDP"),
                         (["--model-parallel", "2"], "DDP"), (["--profile-dir", "p"], "obs"),
-                        (["--save-every-steps", "5"], "checkpoint")]:
+                        (["--health-threshold", "grad_norm=1"], "obs")]:
         with pytest.raises(NotImplementedError, match=item):
             cli.main(args + extra + ["--device", "cpu"])
