@@ -10,25 +10,27 @@ by hand for ``sm_90a`` (``csrc/*.cu``, built with ``nvcc`` at first use
 into ``build/kernels/``, bound with ``ctypes``). Each kernel wrapper
 takes its plain PyTorch version only for tensors that lie on the CPU.
 
-This module imports torch only.
+This module imports torch only when :func:`resolve_device` is called, so
+the image-folder pipeline's spawned decode workers, which import the
+package's data modules, start without torch.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+def resolve_device(device: Optional[Union[str, "torch.device"]] = None) -> "torch.device":
     """The device an entry point runs on: ``None`` means the CUDA card.
 
     Never falls back: asking for CUDA (explicitly or by default) on a
     machine without a CUDA device raises ``RuntimeError``. Pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels.
     """
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -23,8 +23,11 @@ recorded checkpoint accuracy (``--check`` exits 3 when they differ, 2
 when the artifact records none) — the counterpart of
 ``python -m bdbnn_tpu.cli predict``. The val split is built as the
 reference's training loop builds it: synthetic images from seed 2 (with
-ImageNet normalization for ``imagenet``), or the CIFAR test split from
-DATA.
+ImageNet normalization for ``imagenet``), the CIFAR test split from
+DATA, or the image folder DATA/val under the run's recorded input
+backend and ``-j``. It is normalized on the host even when the run
+normalized on the card (``--device-normalize``): the engine takes
+normalized float32 images.
 
 Training and ``predict`` run on the CUDA card unless ``--device cpu`` is
 given, and raise without a card; ``export`` is host work.
@@ -40,7 +43,9 @@ import sys
 def build_val_pipeline(artifact, *, data: str, synthetic: bool,
                        synthetic_val_size=None, batch_size=None):
     """The val split of the run the artifact came from: its recorded
-    config (seed, sizes) with CLI overrides for location and size."""
+    config (seed, sizes, input backend) with CLI overrides for location
+    and size, always normalized on the host. A folder pipeline's worker
+    pool is the caller's to close."""
     from bdbnn_tpu_torch.data import (
         IMAGENET_MEAN,
         IMAGENET_STD,
@@ -74,10 +79,14 @@ def build_val_pipeline(artifact, *, data: str, synthetic: bool,
                 "valid DATA dir, or --synthetic for a smoke run"
             ) from e
         return Pipeline(ds, batch, seed=seed)
-    raise NotImplementedError(
-        "ImageNet from an image folder is not ported yet (ROADMAP A 'Later' "
-        "item 8); use --synthetic"
-    )
+    from bdbnn_tpu_torch.train.config import RunConfig
+    from bdbnn_tpu_torch.train.loop import build_datasets
+
+    fields = RunConfig.__dataclass_fields__
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items() if k in fields}
+    kw.update(dataset=dataset, data=data or cfg.get("data") or "", batch_size=batch,
+              synthetic=False, device_normalize=False)
+    return build_datasets(RunConfig(**kw), val_only=True)[1]
 
 
 def predict_main(argv) -> int:
@@ -113,8 +122,12 @@ def predict_main(argv) -> int:
         artifact, data=args.data, synthetic=args.synthetic,
         synthetic_val_size=args.synthetic_val_size, batch_size=args.batch_size,
     )
-    engine = InferenceEngine(args.artifact, buckets=(pipe.batch_size,), device=args.device)
-    result = evaluate_split(engine, pipe)
+    try:
+        engine = InferenceEngine(args.artifact, buckets=(pipe.batch_size,), device=args.device)
+        result = evaluate_split(engine, pipe)
+    finally:
+        if hasattr(pipe, "close"):
+            pipe.close()
     recorded = artifact.get("eval", {}).get("checkpoint_acc1")
     out = {
         "artifact": args.artifact,

@@ -1,16 +1,16 @@
-"""Dataset sources: CIFAR-10/100 binary batches and synthetic images —
-the port's own copy of ``bdbnn_tpu/data/datasets.py`` (numpy only).
+"""Dataset sources: CIFAR-10/100 binary batches, ImageFolder and
+synthetic images — the port's own copy of ``bdbnn_tpu/data/datasets.py``
+(numpy, and PIL imported when an image is decoded).
 
 All sources return uint8 HWC images + int64 labels; normalization
-happens in :mod:`bdbnn_tpu_torch.data.pipeline`. The ImageFolder source
-(ImageNet on disk) arrives with the training-data slice.
+happens in :mod:`bdbnn_tpu_torch.data.pipeline`.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -101,3 +101,38 @@ def _try_npz(data_root: str, split: str) -> Optional[ArrayDataset]:
             if "images" in z:
                 return ArrayDataset(z["images"].astype(np.uint8), z["labels"])
     return None
+
+
+class ImageFolder:
+    """Class-per-subdirectory image tree (ImageNet's ``train/`` and
+    ``val/`` layout), decoded lazily with PIL. Sorted class names give the
+    label indices, torchvision's convention, so label spaces agree with
+    torch-trained teachers; each class dir is walked recursively in
+    sorted order, and a file counts when its extension, in any case, is
+    one of ``EXTS``."""
+
+    EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+    def __init__(self, root: str):
+        self.root = root
+        classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+        if not classes:
+            raise FileNotFoundError(f"no class subdirectories under {root}")
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[Tuple[str, int]] = []
+        for c in classes:
+            for dirpath, _, filenames in sorted(os.walk(os.path.join(root, c))):
+                for fn in sorted(filenames):
+                    if fn.lower().endswith(self.EXTS):
+                        self.samples.append((os.path.join(dirpath, fn), self.class_to_idx[c]))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def load(self, index: int):
+        """(RGB PIL image, label) of sample ``index``."""
+        from PIL import Image
+
+        path, label = self.samples[index]
+        with Image.open(path) as im:
+            return im.convert("RGB"), label

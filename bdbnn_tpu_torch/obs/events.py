@@ -24,6 +24,9 @@ names and field names, so the reference's ``summarize``, ``watch`` and
   matching ``checkpoint`` event recorded
 - ``preempt``     — a preemption signal latched and the checkpoint
   landed; the process exits with code 75 next
+- ``data_error``  — an undecodable image was replaced by its next
+  decodable neighbour (the folder pipelines): ``index``, ``substitute``,
+  ``path``, ``error``, with ``epoch`` (train) or ``where="eval"``
 - ``run_end``     — best acc/epoch, total wall seconds
 - ``export``      — a checkpoint was frozen into a serving artifact
   (serve/export.py), appended to the source run's timeline
@@ -60,6 +63,7 @@ KNOWN_KINDS = frozenset(
         "checkpoint",
         "restore",
         "preempt",
+        "data_error",
         "run_end",
         "export",
     }

@@ -19,7 +19,14 @@ from bdbnn_tpu_torch.nn.binarize import resolve_family
 REMAT_BF16 = "item 4: remat and bf16"
 DDP = "item 6: DDP"
 OBS = "item 7: obs, scripts"
-DATA = "ImageNet from an image folder (ROADMAP A 'Later' item 8)"
+
+# the reference's tf.data input engine (``TFDataImageFolderPipeline``,
+# bdbnn_tpu/data/pipeline.py:695) runs on TensorFlow, which the GPU
+# machine does not have; the port runs without it
+TFDATA_UNPORTED = (
+    "--input-backend tfdata: the TensorFlow input pipeline (TFDataImageFolderPipeline) is "
+    "not ported, since the port runs without TensorFlow; use --input-backend mp or threads"
+)
 
 # field -> ROADMAP item; asked for when the value differs from the default
 UNSUPPORTED = {
@@ -32,8 +39,6 @@ UNSUPPORTED = {
     "health_forensics_steps": OBS,
     "health_max_forensics": OBS,
     "health_thresholds": OBS,
-    "workers": DATA,
-    "input_backend": DATA,
 }
 
 
@@ -135,11 +140,20 @@ class RunConfig:
         """(field, ROADMAP item) of every option asked for that the port
         does not run yet."""
         defaults = RunConfig()
-        out = [(f, item) for f, item in UNSUPPORTED.items()
-               if getattr(self, f) != getattr(defaults, f)]
-        if self.dataset == "imagenet" and not self.synthetic and not self.evaluate:
-            out.append(("data", DATA))
-        return out
+        return [(f, item) for f, item in UNSUPPORTED.items()
+                if getattr(self, f) != getattr(defaults, f)]
+
+    def input_engine(self) -> Tuple[str, int]:
+        """(backend, workers) of the image-folder pipelines, chosen as the
+        reference chooses where TensorFlow is absent: ``-j`` defaults to 4;
+        ``auto`` and ``mp`` take worker processes when ``-j`` > 0, else
+        threads. ``tfdata`` raises ``RuntimeError``."""
+        if self.input_backend == "tfdata":
+            raise RuntimeError(TFDATA_UNPORTED)
+        workers = 4 if self.workers is None else self.workers
+        if self.input_backend in ("auto", "mp"):
+            return ("mp" if workers > 0 else "threads"), workers
+        return self.input_backend, workers
 
     def validate(self) -> "RunConfig":
         if self.dataset not in ("cifar10", "cifar100", "imagenet"):
@@ -152,6 +166,8 @@ class RunConfig:
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if self.opt_policy not in ("", "sgd-cosine", "adam-linear"):
             raise ValueError(f"unknown opt_policy {self.opt_policy!r}")
+        if self.input_backend not in ("auto", "tfdata", "mp", "threads"):
+            raise ValueError(f"unknown input_backend {self.input_backend!r}")
         if self.nonfinite_policy not in ("raise", "warn", "ignore"):
             raise ValueError(f"unknown nonfinite_policy {self.nonfinite_policy!r} (raise | warn | ignore)")
         if not 0.0 <= self.target_acc < 100.0:
@@ -174,12 +190,10 @@ class RunConfig:
         missing = self.unsupported()
         if missing:
             f, item = missing[0]
-            raise NotImplementedError(
-                f"option {f!r} is not ported yet: ROADMAP A 'Later' {item}"
-                if item != DATA else f"option {f!r}: {item} is not ported yet; use --synthetic"
-            )
+            raise NotImplementedError(f"option {f!r} is not ported yet: ROADMAP A 'Later' {item}")
+        self.input_engine()  # tfdata raises before anything is built
         fam = resolve_family(self.binarizer, ede=self.ede)
         return dataclasses.replace(self, binarizer=fam.spec, ede=fam.name == "ede")
 
 
-__all__ = ["RunConfig", "UNSUPPORTED"]
+__all__ = ["RunConfig", "TFDATA_UNPORTED", "UNSUPPORTED"]

@@ -29,10 +29,17 @@ float teacher of :func:`build_teacher` and the layer-KL conv pairs of
 :func:`match_kd_pairs`, and trains with
 :func:`~bdbnn_tpu_torch.train.step.make_ts_train_step`.
 
+ImageNet trains from an image folder (``DATA/train``, ``DATA/val``)
+through worker processes or a thread pool (``--input-backend``, ``-j``;
+:meth:`RunConfig.input_engine`); the pools close on every exit of
+:func:`fit`, a substituted undecodable image is a ``data_error`` event,
+and ``--device-normalize`` sends uint8 to the card, where the step
+normalizes it.
+
 Not in this slice (``RunConfig.validate`` raises for each option, naming
-its ROADMAP item): the health monitor and its forensics, profiling
-windows and the ``memory`` event (item 7), ImageNet from disk and the
-``data_error`` event (item 8), DDP (item 6).
+its ROADMAP item): profiling windows and the ``memory`` event (item 7),
+DDP (item 6). The health monitor (item 7) is not ported: a run with
+``cfg.health`` on (the default) says so in one warning.
 """
 
 from __future__ import annotations
@@ -52,6 +59,9 @@ from bdbnn_tpu_torch.data import (
     IMAGENET_STD,
     CIFAR_MEAN,
     CIFAR_STD,
+    ImageFolder,
+    ImageFolderPipeline,
+    MPImageFolderPipeline,
     Pipeline,
     load_cifar10,
     load_cifar100,
@@ -76,7 +86,7 @@ from bdbnn_tpu_torch.obs.events import EventWriter
 from bdbnn_tpu_torch.obs.manifest import read_manifest, write_manifest
 from bdbnn_tpu_torch.obs.probes import NonFiniteLossError, drain_probe_report
 from bdbnn_tpu_torch.obs.timing import StepPhaseTimer
-from bdbnn_tpu_torch.train.config import RunConfig
+from bdbnn_tpu_torch.train.config import OBS, RunConfig
 from bdbnn_tpu_torch.train.ede import cpt_tk
 from bdbnn_tpu_torch.train.optim import make_optimizer
 from bdbnn_tpu_torch.train.resilience import CheckpointPolicy, PreemptedError, PreemptionHandler
@@ -128,10 +138,14 @@ def select_hooked_paths(params, cfg: RunConfig):
     return tuple(by_name[n] for n in selected)
 
 
-def build_datasets(cfg: RunConfig):
+def build_datasets(cfg: RunConfig, *, val_only: bool = False):
     """(train pipeline, val pipeline, image size), as the reference
     builds them: synthetic images from seeds 1 (train) and 2 (val), with
-    ImageNet normalization for ``imagenet``; or the CIFAR splits."""
+    ImageNet normalization for ``imagenet``; the CIFAR splits; or the
+    image folders ``cfg.data/train`` and ``cfg.data/val`` under
+    :meth:`RunConfig.input_engine`'s backend. A missing data dir raises
+    ``FileNotFoundError``. ``val_only`` (``cli predict``) builds no train
+    split and returns None in its place."""
     image_size = 224 if cfg.dataset == "imagenet" else 32
     seed = cfg.seed or 0
     if cfg.synthetic:
@@ -142,12 +156,15 @@ def build_datasets(cfg: RunConfig):
             ds, cfg.batch_size, train=train, transform=transform, seed=seed, prefetch=2
         )
         val_ds = synthetic_dataset(cfg.synthetic_val_size, image_size, cfg.num_classes, seed=2)
+        if val_only:
+            return None, mk(val_ds, False), image_size
         train_ds = synthetic_dataset(cfg.synthetic_train_size, image_size, cfg.num_classes, seed=1)
         return mk(train_ds, True), mk(val_ds, False), image_size
     if cfg.dataset in ("cifar10", "cifar100"):
         loader = load_cifar10 if cfg.dataset == "cifar10" else load_cifar100
         try:
-            train_ds, val_ds = loader(cfg.data, "train"), loader(cfg.data, "test")
+            train_ds = None if val_only else loader(cfg.data, "train")
+            val_ds = loader(cfg.data, "test")
         except (FileNotFoundError, OSError) as e:
             raise FileNotFoundError(
                 f"{cfg.dataset} data not found under {cfg.data!r} ({e}); "
@@ -157,10 +174,23 @@ def build_datasets(cfg: RunConfig):
             ds, cfg.batch_size, train=train, seed=seed, prefetch=2,
             device_normalize=cfg.device_normalize,
         )
-        return mk(train_ds, True), mk(val_ds, False), image_size
-    raise NotImplementedError(
-        "ImageNet from an image folder is not ported yet (ROADMAP A 'Later' item 8); use --synthetic"
+        return (None if val_only else mk(train_ds, True)), mk(val_ds, False), image_size
+    backend, workers = cfg.input_engine()
+    cls, extra = ((MPImageFolderPipeline, {"num_workers": workers}) if backend == "mp"
+                  else (ImageFolderPipeline, {}))
+    mk = lambda split, train: cls(
+        ImageFolder(os.path.join(cfg.data, split)), cfg.batch_size, train=train, seed=seed,
+        device_normalize=cfg.device_normalize, **extra,
     )
+    try:
+        train_pipe = None if val_only else mk("train", True)
+        val_pipe = mk("val", False)
+    except (FileNotFoundError, OSError) as e:
+        raise FileNotFoundError(
+            f"imagenet data not found under {cfg.data!r} ({e}); "
+            "pass a valid --data dir, or --synthetic for a smoke run"
+        ) from e
+    return train_pipe, val_pipe, image_size
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -275,6 +305,9 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
         remain = (cfg.epochs - epoch) * steps_per_epoch - step_idx
         logger.info(">>>>>>>>>>>> Remaining Time: %s <<<<<<<<<<<<", format_eta(remain * sec_per_step))
 
+    if hasattr(pipe, "on_data_error"):
+        # a substituted undecodable image is an event, not a dead run
+        pipe.on_data_error = lambda info: obs.events.emit("data_error", epoch=epoch, **info)
     it = pipe.epoch(epoch, start_step)
     step_idx = start_step - 1
     try:
@@ -598,7 +631,8 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
     try:
         return _fit(cfg, resources, on_step)
     finally:
-        # the scalar and event writers close on every exit path
+        # the scalar and event writers and the input worker pools close on
+        # every exit path
         for r in resources:
             r.close()
 
@@ -624,9 +658,16 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
     logger.info("telemetry: manifest.json + events.jsonl in %s (config %s)", log_path,
                 manifest["config_hash"])
 
+    if cfg.health:
+        logger.warning("the health monitor is not ported yet (ROADMAP A 'Later' %s): this run "
+                       "has none; --no-health silences this warning", OBS)
+
     if cfg.seed is not None:
         np.random.seed(cfg.seed)
     train_pipe, val_pipe, image_size = build_datasets(cfg)
+    resources.extend(p for p in (train_pipe, val_pipe) if hasattr(p, "close"))
+    if hasattr(val_pipe, "on_data_error"):
+        val_pipe.on_data_error = lambda info: events.emit("data_error", where="eval", **info)
     steps_per_epoch = max(train_pipe.steps_per_epoch(), 1)
     state, step_cfg = build_training(cfg, device, steps_per_epoch, image_size)
     if cfg.pretrained:

@@ -62,14 +62,17 @@ def topk_correct(
 def prep_images(images: Tensor, input_norm) -> Tensor:
     """Device-side normalization of raw uint8 batches (StepConfig
     .input_norm): ``(x/255 - mean)/std`` in float32, the host pipeline's
-    arithmetic."""
+    arithmetic, bitwise its ``normalize``. The divisor 255 is a tensor on
+    the batch's device: CUDA's division by a host scalar multiplies by its
+    reciprocal, which is an ulp off x/255 for 126 of the 256 values."""
     if input_norm is None:
         return images
     mean, std = input_norm
-    x = images.to(torch.float32) / 255.0
+    x = images.to(torch.float32)
+    d = torch.tensor(255.0, dtype=torch.float32, device=x.device)
     m = torch.tensor(mean, dtype=torch.float32, device=x.device)
     s = torch.tensor(std, dtype=torch.float32, device=x.device)
-    return (x - m) / s
+    return (x / d - m) / s
 
 
 def regularization_terms(model, cfg: StepConfig, kurt_gate: float) -> Tuple[Tensor, Dict[str, Tensor]]:

@@ -128,9 +128,27 @@ Phases (any failure exits non-zero and prints no result line):
              across modes, within CPU_LOGIT_TOL of the CPU engine), its
              recorded accuracy A's; (h) each checkpoint's seconds and
              bytes, the restore seconds, the step time around the saves;
-14. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
-             gives serve, train, train-stoch, train-ts and train-resume),
-             then as the last line ``{"ok": true, "device": {...}}``.
+14. train-folder — ImageNet from an image folder: a seeded tree of
+             ImageNet-shaped JPEGs (write_image_folder: 16 classes, 1,537
+             train files with one truncated, 512 val, about 100 kB each);
+             on the card's host, the worker-process pipeline bitwise at -j 1
+             and -j W, eval batches bitwise across the two backends, each
+             backend's ``start_step`` tail bitwise, one substitution for the
+             truncated file; ``prep_images`` on the card bitwise the host
+             normalize; ``fit`` on the flagship recipe with
+             --device-normalize under --input-backend mp -j W (2 epochs of
+             6 steps, each with the eval of 512) and threads (2 steps),
+             with exact launch counts, a ``data_error`` event for the
+             truncated file and no worker left; the run
+             exported and ``cli predict`` over the val split, its engine
+             held to the checkpoint's training eval forward on the same
+             images; decode, batch, transfer, copy, step and device-step
+             times and the device's idle share beside the card's name and
+             power limit;
+15. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
+             gives serve, train, train-stoch, train-ts, train-resume and
+             train-folder), then as the last line ``{"ok": true, "device":
+             {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
@@ -562,6 +580,62 @@ def write_teacher_checkpoint(path: str, arch: str = "resnet34_float", dataset: s
                 (mod.bn3 if isinstance(mod, FloatBottleneck) else mod.bn2).weight.mul_(0.5)
     torch.save({"state_dict": torchvision_state_dict(model.state_dict()), "epoch": 90}, path)
     return model.eval()
+
+
+def write_image_folder(root: str, classes: int = 16, train: int = 1537, val: int = 512,
+                       seed: int = 0, scale: float = 1.0, extreme_every: int = 128,
+                       threads: int = 8) -> dict:
+    """A seeded ImageNet-shaped JPEG tree ``root/{train,val}/cKK/NNNNN.jpg``
+    (image i of a split in class i % classes), written with PIL at quality
+    90. Sizes lie around ImageNet's usual 500×375 (× ``scale``), half of
+    them portrait; every ``extreme_every``-th image is 1200×80 or 80×1200
+    (× ``scale``), an aspect RandomResizedCrop's 10 tries almost never
+    fit, so its center-crop fallback runs. Content is a bicubic upsampling
+    of a random field with one value a 6×6 patch, plus uniform noise of
+    ±20: at 500×375 about 100 KB a file, so sizes and decode cost resemble
+    a photo's (pure noise would compress far worse). The
+    train file that seed ``seed``'s epoch-0 order puts second is then cut
+    to half its bytes: a truncated JPEG. Returns the truncated file's
+    path and index, the file count, bytes on disk and seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from bdbnn_tpu_torch.data import ImageFolder, host_shard_indices
+
+    t0 = time.perf_counter()
+
+    def one(job):
+        split, i = job
+        rng = np.random.default_rng((seed, 0 if split == "train" else 1, i))
+        if extreme_every and i % extreme_every == extreme_every - 1:
+            w, h = (1200, 80) if (i // extreme_every) % 2 else (80, 1200)
+        else:
+            w, h = (int(v * rng.uniform(0.8, 1.2)) for v in (500, 375))
+            if rng.random() < 0.5:
+                w, h = h, w
+        w, h = max(int(w * scale), 1), max(int(h * scale), 1)
+        field = rng.integers(0, 256, (max(h // 6, 2), max(w // 6, 2), 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(field).resize((w, h), Image.BICUBIC), np.int16)
+        img = img + rng.integers(-20, 21, img.shape, dtype=np.int16)
+        path = os.path.join(root, split, f"c{i % classes:02d}", f"{i:05d}.jpg")
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=90)
+        return os.path.getsize(path)
+
+    jobs = [("train", i) for i in range(train)] + [("val", i) for i in range(val)]
+    for split in ("train", "val"):
+        for c in range(classes):
+            os.makedirs(os.path.join(root, split, f"c{c:02d}"), exist_ok=True)
+    with ThreadPoolExecutor(threads) as pool:
+        sizes = list(pool.map(one, jobs))
+    folder = ImageFolder(os.path.join(root, "train"))
+    index = int(host_shard_indices(len(folder), 0, seed=seed)[1])
+    path = folder.samples[index][0]
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    return {"truncated": path, "index": index, "files": len(jobs), "bytes": sum(sizes),
+            "seconds": time.perf_counter() - t0}
 
 
 def wrappers():
@@ -1090,15 +1164,17 @@ def phase_train():
 
 def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cfg_kw):
     """``fit`` on ``arch`` (ImageNet, the BASELINE config 3 recipe unless
-    ``cfg_kw`` changes it) at -b 256 for ``steps`` steps and the eval
-    pass, counts set to 0 just before and read just after. Every loss must
-    be finite and every step launch K1, K2, K5 and K6 once for each of the
-    model's ``n_convs`` binary convs and K7 twice (the loss, and the
-    binarization probes' grouped forward). Returns (launch counts of the
-    run, step records, ok)."""
+    ``cfg_kw`` changes it) at -b 256 for ``steps`` steps and the eval pass
+    of each epoch, counts set to 0 just before and read just after. Every
+    loss must be finite and every step launch K1, K2, K5 and K6 once for
+    each of the model's ``n_convs`` binary convs and K7 twice (the loss,
+    and the binarization probes' grouped forward); the eval passes'
+    launches count in the run's, not in a step's. Step times are taken
+    between the steps of one epoch. Returns (launch counts of the run,
+    step records, ok)."""
     import torch
 
-    from bdbnn_tpu_torch.train.loop import fit
+    from bdbnn_tpu_torch.train import loop
 
     cfg = train_config(arch=arch, batch_size=TRAIN_BATCH, synthetic_train_size=steps * TRAIN_BATCH,
                        synthetic_val_size=TRAIN_BATCH, device="cuda", **cfg_kw)
@@ -1108,33 +1184,44 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cf
     def on_step(epoch, step, m):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        events.append(ev)
+        events.append((epoch, ev))
         now = read_counts()
         per_step.append({k: now[k] - prev.get(k, 0) for k in now})
         prev.update(now)
         losses.append(m["loss"])
 
+    real_validate = loop._validate
+
+    def validate(*a, **kw):
+        acc1 = real_validate(*a, **kw)
+        prev.update(read_counts())
+        return acc1
+
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    loop._validate = validate
     t0 = time.perf_counter()
-    res = fit(cfg, on_step=on_step)
+    try:
+        res = loop.fit(cfg, on_step=on_step)
+    finally:
+        loop._validate = real_validate
     wall = time.perf_counter() - t0
     counts = read_counts()
     torch.cuda.synchronize()
     loss_vals = [float(v) for v in losses]
-    step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+    step_ms = [b.elapsed_time(e) for (ea, b), (eb, e) in zip(events, events[1:]) if ea == eb]
     want = {"K1": n_convs, "K2": n_convs, "K3": 0, "K4": 0, "K5": n_convs, "K6": n_convs, "K7": 2}
-    ok = (len(loss_vals) == steps and all(math.isfinite(v) for v in loss_vals)
+    ok = (len(loss_vals) == steps * cfg.epochs and all(math.isfinite(v) for v in loss_vals)
           and all(c == want for c in per_step))
     mean_ms = sum(step_ms) / max(len(step_ms), 1)
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag} fit {arch} imagenet -b {TRAIN_BATCH} {cfg_kw}: {steps} steps + eval in "
-        f"{wall:.1f}s -> {res}; peak device memory (torch.cuda.max_memory_allocated) "
+    log(f"{tag} fit {arch} imagenet -b {TRAIN_BATCH} {cfg_kw}: {cfg.epochs} x {steps} steps + "
+        f"eval in {wall:.1f}s -> {res}; peak device memory (torch.cuda.max_memory_allocated) "
         f"{peak} bytes = {peak / 2**30:.2f} GiB")
     log(f"{tag} losses {loss_vals}")
     log(f"{tag} launches per step {per_step} (expected {want} each: K7 once for the loss "
         f"and once for the binarization probes); whole run {counts}")
-    log(f"{tag} step ms after the warm-up step (CUDA events, fit's loop with its host "
+    log(f"{tag} step ms after each epoch's first step (CUDA events, fit's loop with its host "
         f"input pipeline): {step_ms}; mean {mean_ms:.2f} ms = "
         f"{TRAIN_BATCH / mean_ms * 1e3:.1f} images/s")
     if not ok:
@@ -1441,11 +1528,11 @@ def phase_train_cli() -> bool:
     return set(res) == {"best_acc1", "best_epoch"}
 
 
-def profile_train_step(iters: int = 3, tag: str = "flagship", **cfg_kw) -> dict:
+def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, **cfg_kw) -> dict:
     """A train step of the flagship (or ``cfg_kw``'s model) at -b 256
-    alone: CUDA-event time per step on a batch already on the card, then
-    device time by kernel, with ``torch.rand``'s share (the stochastic
-    family's draws) named."""
+    alone: CUDA-event time per step on a batch already on the card
+    (``batch``, else seeded normal images), then device time by kernel,
+    with ``torch.rand``'s share (the stochastic family's draws) named."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1456,9 +1543,10 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", **cfg_kw) -> dict:
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     state, step_cfg = build_training(cfg, torch.device("cuda"), 10, 224)
     step = make_step(cfg, state, step_cfg)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
-             torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
+    if batch is None:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
+                 torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
     tk, gate = epoch_schedule(family, cfg, 0)
     ms = cuda_ms(lambda: step(state, batch, tk, gate), iters, warmup=2)
     log(f"[profile] {tag} train step -b {TRAIN_BATCH}, batch on the card: {ms:.2f} ms "
@@ -2210,6 +2298,338 @@ def serve_exported(tag: str, run_dir: str, evals: list, best_acc1: float) -> boo
     return ok
 
 
+# [train-folder]: ImageNet from an image folder. The tree (write_image_folder):
+# 16 classes, 1,537 train JPEGs (6 steps at -b 256, one file truncated) and
+# 512 val; fit runs the flagship recipe on it for 1 epoch
+FOLDER_STEPS = 6
+FOLDER_VAL = 512
+# two epochs: the second's wall time holds no first step of fit (its
+# first launches, the first pinned block)
+FOLDER_EPOCHS = 2
+FOLDER_THREAD_STEPS = 2
+
+
+def _timed_build(task):
+    """``_mp_build_batch`` in an input worker, timed there: (seconds,
+    batch). Its round trip less these seconds is the batch's transfer."""
+    from bdbnn_tpu_torch.data.pipeline import _mp_build_batch
+
+    t0 = time.perf_counter()
+    out = _mp_build_batch(task)
+    return time.perf_counter() - t0, out
+
+
+def _batches_equal(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        xa.dtype == xb.dtype and np.array_equal(xa, xb) and np.array_equal(ya, yb)
+        for (xa, ya), (xb, yb) in zip(a, b))
+
+
+def _thread_subset(root: str, folder, out: str) -> str:
+    """A data dir beside ``root`` whose train split links every third train
+    file (FOLDER_THREAD_STEPS batches and one over) and whose val split is
+    ``root``'s."""
+    for path, _ in folder.samples[::3]:
+        rel = os.path.relpath(path, os.path.join(root, "train"))
+        os.makedirs(os.path.dirname(os.path.join(out, "train", rel)), exist_ok=True)
+        os.symlink(path, os.path.join(out, "train", rel))
+    os.symlink(os.path.join(root, "val"), os.path.join(out, "val"))
+    return out
+
+
+def phase_train_folder(smi_line: str):
+    """[train-folder]: ImageNet from an image folder on the flagship.
+    (a) write_image_folder's tree, its bytes and seconds; (b) on the card's
+    host: ``mp`` train batches bitwise at -j 1 and -j W, ``threads`` and
+    ``mp`` eval batches bitwise, ``epoch(0, start_step=4)`` bitwise
+    batches 4... of the uninterrupted epoch for both backends, and the
+    truncated file one substitution with the expected index, substitute
+    and path; ``prep_images`` on the card bitwise the host ``normalize``
+    of the first batch; (c) ``fit`` with --device-normalize
+    --input-backend mp -j W (W = cores − 2, at most 16) for 2 epochs of 6
+    steps, each with the eval of 512 images, and under --input-backend
+    threads for 2 steps: finite losses, 19 launches each of K1, K2, K5,
+    K6 and 2 of K7 a step, one ``data_error`` event naming the truncated
+    file in each epoch that holds it, no input worker alive after
+    ``fit``; (d) the run exported and ``cli predict`` on the card over
+    the folder's val split: exit 0, count 512, device cuda, its hits the
+    engine's on the same images; the exported checkpoint's training eval
+    forward (BN unfolded, normalized on the card) hits what its eval event
+    says, and the engine's logits (BN folded into the artifact) match that
+    forward's within CPU_LOGIT_TOL of the largest |logit| on the median
+    image. The rest differ where rounding flips a binary activation's sign
+    at its threshold: their count and the top-1 disagreements are logged,
+    and predict's top-1 may differ from the eval's by those images;
+    (e) times beside the card's name and power limit:
+    decode per image on one thread, a batch of 256 alone per backend, the
+    pin and copy of a uint8 batch, fit's step per backend and epoch, the
+    device step on a folder batch on the card, and the device's idle
+    share of fit's steps. Returns (the mp run's launch counts, ok)."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch import cli
+    from bdbnn_tpu_torch.data import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        ImageFolder,
+        ImageFolderPipeline,
+        MPImageFolderPipeline,
+        host_shard_indices,
+        normalize,
+    )
+    from bdbnn_tpu_torch.data.pipeline import _load_one
+    from bdbnn_tpu_torch.models import create_model
+    from bdbnn_tpu_torch.obs.events import read_events
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.export import export_artifact
+    from bdbnn_tpu_torch.train.step import prep_images
+    from bdbnn_tpu_torch.utils.checkpoint import load_variables
+
+    tag = "[train-folder]"
+    cores = os.cpu_count() or 1
+    workers = max(1, min(16, cores - 2))
+    log(f"{tag} host: os.cpu_count() {cores}, affinity {len(os.sched_getaffinity(0))} cpus; "
+        f"-j {workers}")
+    norm = (tuple(map(float, IMAGENET_MEAN)), tuple(map(float, IMAGENET_STD)))
+    oks = {}
+    pipes = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_folder-")
+    try:
+        # (a) the tree
+        info = write_image_folder(root, val=FOLDER_VAL, threads=cores)
+        log(f"{tag} (a) wrote {info['files']} JPEGs, {info['bytes']} bytes "
+            f"({info['bytes'] / info['files'] / 1e3:.1f} kB a file) in {info['seconds']:.2f}s "
+            f"on {cores} host threads; truncated {os.path.relpath(info['truncated'], root)} "
+            f"(train index {info['index']})")
+        train, val = (ImageFolder(os.path.join(root, s)) for s in ("train", "val"))
+
+        # (e) decode alone, one thread, in this process
+        times = {}
+        for split, folder, is_train in (("train", train, True), ("eval", val, False)):
+            t0 = time.perf_counter()
+            for i in range(TRAIN_BATCH):
+                _load_one(folder, i, np.random.default_rng(i), is_train, 224)
+            times[split] = (time.perf_counter() - t0) / TRAIN_BATCH * 1e3
+        log(f"{tag} (e) decode + transform per image, one thread: train {times['train']:.3f} "
+            f"ms, eval {times['eval']:.3f} ms [{smi_line}; {cores} host cores]")
+
+        # (b) pipeline gates on the host
+        def mk(cls, folder, is_train, **kw):
+            pipe = cls(folder, TRAIN_BATCH, train=is_train, seed=0, device_normalize=True, **kw)
+            if hasattr(pipe, "close"):  # a worker pool to close
+                pipes.append(pipe)
+            return pipe
+
+        mpw = mk(MPImageFolderPipeline, train, True, num_workers=workers)
+        # one worker, one batch in flight: a batch's time alone
+        mp1 = mk(MPImageFolderPipeline, train, True, num_workers=1, prefetch_batches=1)
+        thr = mk(ImageFolderPipeline, train, True)
+        mp_val = mk(MPImageFolderPipeline, val, False, num_workers=workers)
+        thr_val = mk(ImageFolderPipeline, val, False)
+        errs = {"mp": [], "threads": []}
+        mpw.on_data_error, thr.on_data_error = errs["mp"].append, errs["threads"].append
+        t0 = time.perf_counter()
+        full_mp = list(mpw.epoch(0))
+        t_mp_cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full_thr = list(thr.epoch(0))
+        t_thr = time.perf_counter() - t0
+        mpw.on_data_error = thr.on_data_error = None
+        t0 = time.perf_counter()
+        n_warm = len(list(mpw.epoch(1)))
+        t_mp_warm = time.perf_counter() - t0
+        it = thr.epoch(1)
+        t0 = time.perf_counter()
+        next(it)
+        t_thr_one = time.perf_counter() - t0
+        it.close()
+        mp1._get_pool().apply(int, (0,))  # the worker is up
+        it = mp1.epoch(0)
+        t0 = time.perf_counter()
+        first_j1 = [next(it)]
+        t_mp_one = time.perf_counter() - t0
+        first_j1.append(next(it))
+        it.close()
+        # each worker builds one batch, timed inside it: the round trip's
+        # rest is the 38.5 MB's way back through the pool's pipe
+        idx3 = host_shard_indices(len(train), 3, seed=0, drop_remainder_to=TRAIN_BATCH)
+        tasks = [(3, idx3[k * TRAIN_BATCH:(k + 1) * TRAIN_BATCH].tolist())
+                 for k in range(min(workers, len(idx3) // TRAIN_BATCH))]
+        t0 = time.perf_counter()
+        inner = [r.get()[0] for r in [mpw._get_pool().apply_async(_timed_build, (t,))
+                                      for t in tasks]]
+        t_trip = time.perf_counter() - t0
+        log(f"{tag} (e) {len(tasks)} batches, one a worker: built in {[round(t, 3) for t in inner]} "
+            f"s inside the workers, {t_trip:.3f} s round trip [{smi_line}]")
+        oks["mp -j 1 == -j W"] = _batches_equal(first_j1, full_mp[:2])
+        oks["threads eval == mp eval"] = _batches_equal(list(thr_val.epoch(0)),
+                                                        list(mp_val.epoch(0)))
+        oks["mp start_step 4"] = _batches_equal(list(mpw.epoch(0, start_step=4)), full_mp[4:])
+        oks["threads start_step 4"] = _batches_equal(list(thr.epoch(0, start_step=4)),
+                                                     full_thr[4:])
+        n = len(train)
+        want = {"index": info["index"], "substitute": (info["index"] + 1) % n,
+                "path": info["truncated"]}
+        for backend, got in errs.items():
+            oks[f"{backend} data_error"] = (
+                len(got) == 1 and {k: got[0][k] for k in want} == want
+                and got[0]["error"].startswith("OSError"))
+        log(f"{tag} (b) data errors: mp {errs['mp']}; threads {errs['threads']}")
+        shapes = {x.shape for x, _ in full_mp + full_thr}
+        oks["batch shapes"] = shapes == {(TRAIN_BATCH, 224, 224, 3)}
+        log(f"{tag} (e) a -b {TRAIN_BATCH} batch alone: mp {t_mp_one * 1e3:.1f} ms (one worker "
+            f"decodes it), threads {t_thr_one * 1e3:.1f} ms (8 threads); an epoch of "
+            f"{len(full_mp)} batches: mp -j {workers} {t_mp_warm * 1e3 / n_warm:.1f} ms a "
+            f"batch with the pool warm ({t_mp_cold:.2f}s for the first epoch, the pool's "
+            f"spawn included), threads {t_thr * 1e3 / len(full_thr):.1f} ms a batch "
+            f"[{smi_line}]")
+
+        # the card's normalize against the host's, and the pinned copy
+        x0 = full_mp[0][0]
+        dev = torch.device("cuda")
+        t_pin = []
+        for _ in range(4):  # the first pin allocates the pinned block, later ones reuse it
+            t0 = time.perf_counter()
+            pinned = torch.from_numpy(x0).pin_memory()
+            t_pin.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xd = pinned.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t_copy = time.perf_counter() - t0
+        copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 5)
+        got = prep_images(xd, norm).cpu().numpy()
+        host = normalize(x0, IMAGENET_MEAN, IMAGENET_STD)
+        oks["normalize bitwise"] = got.dtype == host.dtype and np.array_equal(
+            got.view(np.uint32), host.view(np.uint32))
+        scalar = ((xd.to(torch.float32) / 255.0 - torch.tensor(norm[0], device=dev))
+                  / torch.tensor(norm[1], device=dev)).cpu().numpy()
+        ulps = np.abs(scalar.view(np.int32).astype(np.int64) - host.view(np.int32))
+        log(f"{tag} (b) prep_images on the card vs host normalize, {x0.nbytes} bytes of uint8: "
+            f"bitwise {oks['normalize bitwise']}; dividing by the host scalar 255.0 instead "
+            f"differs at {int(np.count_nonzero(ulps))} of {ulps.size} values, at most "
+            f"{int(ulps.max())} ulp(s)")
+        log(f"{tag} (e) uint8 batch to the card: pin_memory {[round(t, 2) for t in t_pin]} ms, "
+            f"copy "
+            f"{t_copy * 1e3:.2f} ms (first), {copy_ms:.3f} ms (CUDA events, pinned, 5 copies) "
+            f"[{smi_line}]")
+        del full_thr, first_j1, got, host, scalar, ulps
+        for p in pipes:
+            p.close()
+        pipes.clear()
+
+        # (c) fit on the folder, worker processes then threads
+        logs = fresh_log_root()
+        before = multiprocessing.active_children()
+        counts, rec, oks["fit mp"] = run_fit(
+            tag, "resnet18", FOLDER_STEPS, data=root, synthetic=False, device_normalize=True,
+            input_backend="mp", workers=workers, epochs=FOLDER_EPOCHS, log_path=logs)
+        left = [c for c in multiprocessing.active_children() if c not in before]
+        oks["no worker left"] = left == []
+        run_dir = run_dir_of(logs)
+        derr = read_events(run_dir, "data_error")
+        # one substitution in each epoch whose batches hold the truncated
+        # file (epoch 0's do, by write_image_folder's choice)
+        want_epochs = [e for e in range(FOLDER_EPOCHS) if info["index"] in host_shard_indices(
+            len(train), e, seed=0, drop_remainder_to=TRAIN_BATCH)]
+        oks["fit data_error"] = (
+            want_epochs[:1] == [0] and [e["epoch"] for e in derr] == want_epochs
+            and all(e["path"] == info["truncated"] for e in derr))
+        evals = read_events(run_dir, "eval")
+        oks["eval count"] = [e["count"] for e in evals] == [FOLDER_VAL] * FOLDER_EPOCHS
+        log(f"{tag} (c) -j {workers} ({cores} host cores): data_error events {derr}; workers left "
+            f"after fit {left}; evals {evals}")
+        ivals = read_events(run_dir, "train_interval")
+        epoch_step_ms = {}
+        for e in read_events(run_dir, "epoch"):
+            wait = sum(i["data_wait_s"] for i in ivals if i["epoch"] == e["epoch"])
+            epoch_step_ms[e["epoch"]] = e["wall_s"] * 1e3 / FOLDER_STEPS
+            log(f"{tag} (e) fit, mp, epoch {e['epoch']}: {e['wall_s']} s for {FOLDER_STEPS} "
+                f"steps = {epoch_step_ms[e['epoch']]:.2f} ms a step (the epoch event's wall_s), "
+                f"of which the loop waited for input {wait:.3f} s (train_interval data_wait_s) "
+                f"[{smi_line}]")
+        sub = _thread_subset(root, train, os.path.join(root, "threads"))
+        _, rec_thr, oks["fit threads"] = run_fit(
+            tag + "[threads]", "resnet18", FOLDER_THREAD_STEPS, data=sub, synthetic=False,
+            device_normalize=True, input_backend="threads")
+
+        # (d) predict over the export, and the export's engine against the
+        # training eval forward of the same checkpoint on the same images
+        art = os.path.join(root, "art")
+        export_artifact(run_dir, art)
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["predict", art, root])
+        wall = time.perf_counter() - t0
+        pcounts = read_counts()
+        res = json.loads(out.getvalue())
+        # the artifact holds model_best (the best eval), or the last
+        # checkpoint when no eval beat 0
+        acc_e = res["recorded_checkpoint_acc1"]
+        if acc_e is None:
+            acc_e = 100.0 * round(evals[-1]["acc1"] * FOLDER_VAL / 100.0) / FOLDER_VAL
+        model = create_model("resnet18", "imagenet")
+        model.load_state_dict(load_variables(run_dir))
+        model = model.to(dev).eval()
+        engine = InferenceEngine(art, buckets=(TRAIN_BATCH,), device="cuda")
+        le, lp, ys = [], [], []
+        for x, y in ImageFolderPipeline(val, TRAIN_BATCH, train=False,
+                                        device_normalize=True).epoch(0):
+            with torch.no_grad():
+                le.append(model(prep_images(torch.from_numpy(x).to(dev), norm)).cpu().numpy())
+            lp.append(engine.predict_logits(normalize(x, IMAGENET_MEAN, IMAGENET_STD)))
+            ys.append(y)
+        le, lp, ys = (np.concatenate(v) for v in (le, lp, ys))
+        drift = np.abs(le - lp).max(-1) / np.abs(le).max(-1)
+        hits_e, hits_p = int((le.argmax(-1) == ys).sum()), int((lp.argmax(-1) == ys).sum())
+        flips = int((le.argmax(-1) != lp.argmax(-1)).sum())
+        oks["predict"] = (rc == 0 and res["count"] == FOLDER_VAL and res["correct"] == hits_p
+                          and res["device"].startswith("cuda"))
+        oks["eval forward"] = hits_e == round(acc_e * FOLDER_VAL / 100.0)
+        oks["engine vs eval forward"] = float(np.median(drift)) <= CPU_LOGIT_TOL
+        log(f"{tag} (d) cli predict {art} {root}: exit {rc} in {wall:.1f}s, top1 {res['top1']} "
+            f"({res['correct']} of {res['count']}) device {res['device']}, recorded checkpoint "
+            f"acc1 {res['recorded_checkpoint_acc1']} (match {res['match']}); the eval events' "
+            f"acc1 {[e['acc1'] for e in evals]}; launches {pcounts}")
+        log(f"{tag} (d) the exported checkpoint's training eval forward (BN unfolded, the uint8 "
+            f"normalized on the card) hits {hits_e}, the engine (BN folded, host normalize) "
+            f"{hits_p}; per-image max |logit difference| / max |logit|: median "
+            f"{np.median(drift):.3e} (tol {CPU_LOGIT_TOL}), 90th pct "
+            f"{np.quantile(drift, 0.9):.3e}, max {drift.max():.3e}; images above 1e-4 "
+            f"{int((drift > 1e-4).sum())}, top-1 disagreements {flips} of {len(ys)}")
+        del model, engine
+
+        # (e) the device step on a folder batch already on the card
+        batch = (xd, torch.from_numpy(full_mp[0][1]).to(dev))
+        prof = profile_train_step(tag="flagship (folder batch, uint8, --device-normalize)",
+                                  batch=batch, data=root, synthetic=False, device_normalize=True)
+        steps = {"mp, epoch 0 (fit's first step included)": epoch_step_ms[0],
+                 "mp, epoch 1": epoch_step_ms[1],
+                 "threads": sum(rec_thr["step_ms"]) / max(len(rec_thr["step_ms"]), 1)}
+        for label, ms in steps.items():
+            log(f"{tag} (e) fit's step, {label}: {ms:.2f} ms = {TRAIN_BATCH / ms * 1e3:.1f} "
+                f"images/s; device step alone {prof['step_ms']:.2f} ms; the device's idle share "
+                f"of fit's steps (1 − device step / fit's step) {1 - prof['step_ms'] / ms:.3f} "
+                f"[{smi_line}; -j {workers}, {cores} host cores]")
+    finally:
+        for p in pipes:
+            p.close()
+        shutil.rmtree(root, ignore_errors=True)
+    ok = all(oks.values())
+    log(f"{tag} {oks} ok={ok}")
+    return counts, ok
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2272,6 +2692,7 @@ def main(argv=None) -> int:
     stoch_counts, ok_ts = phase_train_stoch(pk)
     ts_counts, ok_tts = phase_train_ts()
     resume_counts, ok_tr = phase_train_resume(pk)
+    folder_counts, ok_tf = phase_train_folder(smi_line)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -2297,15 +2718,17 @@ def main(argv=None) -> int:
     # each kernel's launches on the main path it belongs to: serving for
     # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed),
     # on the stochastic family's training path, on the teacher-student
-    # path and on the checkpoint/resume path's run A (K1, K2, K5-K7)
+    # path, on the checkpoint/resume path's run A and on the image-folder
+    # path's mp run (K1, K2, K5-K7)
     by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
-                   "train-resume": resume_counts.get(k, 0)}
+                   "train-resume": resume_counts.get(k, 0),
+                   "train-folder": folder_counts.get(k, 0)}
                for k in sources}
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources}
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
-        for path in ("train", "train-stoch", "train-ts", "train-resume"))
+        for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -2352,7 +2775,7 @@ def main(argv=None) -> int:
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
-           "launched": ok_used}
+           "train_folder": ok_tf, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

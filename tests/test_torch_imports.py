@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``bdbnn_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``flax`` or anything of
 ``bdbnn_tpu`` (an AST scan of every import statement, top level or
-nested), and every module imports with those packages absent."""
+nested), every module imports with those packages absent, and a spawned
+image-folder decode worker imports none of them (nor torch)."""
 
 import ast
 import os
@@ -74,7 +75,32 @@ def test_training_slice_modules_are_scanned():
                 "data/pipeline.py", "cli.py", "models/torch_import.py", "models/resnet.py",
                 "models/registry.py", "utils/__init__.py", "utils/checkpoint.py",
                 "utils/logging_utils.py", "utils/meters.py", "train/resilience.py",
-                "obs/manifest.py", "obs/events.py", "obs/timing.py", "serve/export.py"):
+                "obs/manifest.py", "obs/events.py", "obs/timing.py", "serve/export.py",
+                "data/pipeline.py", "data/datasets.py"):
         assert os.path.join("bdbnn_tpu_torch", mod) in rel
     for src in ("binary_conv_dgrad.cu", "binary_conv_wgrad.cu", "kurtosis.cu"):
         assert os.path.isfile(os.path.join(REPO, "bdbnn_tpu_torch", "csrc", src))
+
+
+def test_a_spawned_decode_worker_imports_no_jax_and_no_torch(tmp_path):
+    """A worker of ``MPImageFolderPipeline`` after it built a batch: the
+    modules it holds include the port's pipeline and PIL, and nothing of
+    JAX, the JAX package or torch."""
+    import numpy as np
+    from PIL import Image
+
+    from bdbnn_tpu_torch.data import ImageFolder, MPImageFolderPipeline
+
+    os.makedirs(tmp_path / "c0")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "c0" / "a.png")
+    pipe = MPImageFolderPipeline(ImageFolder(str(tmp_path)), 1, train=False, image_size=4,
+                                 num_workers=1)
+    try:
+        (x, _), = list(pipe.epoch(0))
+        assert x.shape == (1, 4, 4, 3)
+        mods = pipe._get_pool().apply(eval, ("sorted(__import__('sys').modules)",))
+    finally:
+        pipe.close()
+    assert "bdbnn_tpu_torch.data.pipeline" in mods and "PIL.Image" in mods
+    roots = {m.split(".")[0] for m in mods}
+    assert not roots & set(FORBIDDEN + ("torch",)), sorted(roots & set(FORBIDDEN + ("torch",)))

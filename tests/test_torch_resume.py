@@ -12,10 +12,15 @@
   ``checkpoint`` event it resumes from, under ste, ``--ede`` and
   ``--binarizer stochastic``;
 - a port run dir works as ``--resume_teacher``: the teacher is bitwise
-  the float run's ``model_best``.
+  the float run's ``model_best``;
+- on an image folder (``resnet18_step2`` at 224², -b 2, 1 epoch × 4
+  steps, worker processes at ``-j 1``), a SIGTERM mid-epoch exits 75 with
+  no input worker left alive, and the resumed run is bitwise the
+  uninterrupted one: the folder pipeline's ``epoch(start_step)`` holds.
 """
 
 import json
+import multiprocessing
 import os
 import signal
 import subprocess
@@ -26,6 +31,7 @@ import time
 import pytest
 import torch
 
+import chip_smoke
 from bdbnn_tpu_torch import cli
 from bdbnn_tpu_torch.obs import events as tevents
 from bdbnn_tpu_torch.obs.events import read_events
@@ -69,11 +75,11 @@ def run_dir_of(root):
     return d
 
 
-def _fit(root, **over):
-    """fit with BASE + ``over`` under ``root``: (result, run dir, losses
-    by (epoch, step))."""
+def _fit(root, base=BASE, **over):
+    """fit with ``base`` + ``over`` under ``root``: (result, run dir,
+    losses by (epoch, step))."""
     losses = {}
-    res = tloop.fit(RunConfig(**{**BASE, "log_path": str(root), **over}),
+    res = tloop.fit(RunConfig(**{**base, "log_path": str(root), **over}),
                     on_step=lambda e, i, m: losses.__setitem__((e, i), m["loss"].clone()))
     return res, run_dir_of(root), losses
 
@@ -99,18 +105,17 @@ def baseline(tmp_path_factory):
     return {"res": res, "run_dir": run_dir, "losses": losses, "final": _final(run_dir)}
 
 
-@pytest.fixture(scope="module")
-def preempted(tmp_path_factory):
-    """``cli.main`` SIGTERMed by a thread right after the checkpoint event
-    of epoch 1 step 2; every state a save was given, snapshotted."""
-    root = tmp_path_factory.mktemp("sigterm")
+def _sigtermed(root, argv, at):
+    """``cli.main(argv)`` SIGTERMed by a thread right after the checkpoint
+    event of (epoch, step_in_epoch) ``at``; every state a save was given,
+    snapshotted, and the worker processes it left alive."""
     mp = pytest.MonkeyPatch()
     real_emit, real_save = tevents.EventWriter.emit, tloop.save_checkpoint
     given = []
 
     def emit(self, kind, **fields):
         rec = real_emit(self, kind, **fields)
-        if kind == "checkpoint" and (fields["epoch"], fields["step_in_epoch"]) == (1, 2):
+        if kind == "checkpoint" and (fields["epoch"], fields["step_in_epoch"]) == at:
             t = threading.Thread(target=os.kill, args=(os.getpid(), signal.SIGTERM))
             t.start()
             t.join()
@@ -122,11 +127,21 @@ def preempted(tmp_path_factory):
 
     mp.setattr(tevents.EventWriter, "emit", emit)
     mp.setattr(tloop, "save_checkpoint", save)
+    before = multiprocessing.active_children()
     try:
-        rc = cli.main(_args(root))
+        rc = cli.main(argv)
     finally:
         mp.undo()
-    return {"rc": rc, "run_dir": run_dir_of(root), "given": given}
+    left = [c for c in multiprocessing.active_children() if c not in before]
+    return {"rc": rc, "run_dir": run_dir_of(root), "given": given, "left": left}
+
+
+@pytest.fixture(scope="module")
+def preempted(tmp_path_factory):
+    """``cli.main`` SIGTERMed right after the checkpoint event of epoch 1
+    step 2."""
+    root = tmp_path_factory.mktemp("sigterm")
+    return _sigtermed(root, _args(root), (1, 2))
 
 
 def test_sigterm_exits_75_with_preempt_and_checkpoint_events(preempted):
@@ -256,3 +271,51 @@ def test_a_port_run_dir_is_a_teacher(tmp_path, monkeypatch):
     got = teacher.state_dict()
     assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
     assert all(torch.equal(want[k], best["state"]["model"][k]) for k in want)
+
+
+# -- on an image folder ------------------------------------------------------------
+
+FOLDER = dict(dataset="imagenet", arch="resnet18_step2", batch_size=2, epochs=1, seed=1,
+              save_every_steps=2, print_freq=2, w_kurtosis=True, input_backend="mp", workers=1,
+              device="cpu")
+
+
+@pytest.fixture(scope="module")
+def folder(tmp_path_factory):
+    """9 train JPEGs (4 steps at -b 2, one file truncated) and 2 val."""
+    root = str(tmp_path_factory.mktemp("folder"))
+    chip_smoke.write_image_folder(root, classes=2, train=9, val=2, scale=0.16, threads=2)
+    return root
+
+
+@pytest.fixture(scope="module")
+def folder_baseline(folder, tmp_path_factory):
+    res, run_dir, losses = _fit(tmp_path_factory.mktemp("folder_a"), FOLDER, data=folder)
+    return {"res": res, "run_dir": run_dir, "losses": losses, "final": _final(run_dir)}
+
+
+@pytest.fixture(scope="module")
+def folder_preempted(folder, tmp_path_factory):
+    root = tmp_path_factory.mktemp("folder_sigterm")
+    argv = [folder, "--dataset", "imagenet", "-a", FOLDER["arch"], "-b", "2", "--epochs", "1",
+            "--seed", "1", "--save-every-steps", "2", "-p", "2", "--w-kurtosis",
+            "--input-backend", "mp", "-j", "1", "--device", "cpu", "--log_path", str(root)]
+    return _sigtermed(root, argv, (0, 2))
+
+
+def test_folder_sigterm_exits_75_and_leaves_no_input_worker(folder_preempted):
+    assert folder_preempted["rc"] == PREEMPT_EXIT_CODE
+    assert folder_preempted["left"] == []
+    run_dir = folder_preempted["run_dir"]
+    (p,) = read_events(run_dir, "preempt")
+    assert (p["epoch"], p["step_in_epoch"]) == (0, 3)
+    assert len(read_events(run_dir, "data_error")) == 1
+
+
+def test_folder_resume_after_sigterm_is_bitwise_the_uninterrupted_run(folder, folder_baseline,
+                                                                       folder_preempted, tmp_path):
+    res, run_dir, losses = _fit(tmp_path, FOLDER, data=folder,
+                                resume=folder_preempted["run_dir"])
+    assert sorted(folder_baseline["losses"]) == [(0, 0), (0, 1), (0, 2), (0, 3)]
+    _assert_resumed_like_baseline(folder_baseline, run_dir, losses, (0, 3))
+    assert res == folder_baseline["res"]

@@ -386,7 +386,9 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
             "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(args)
-    for extra, item in [(["--input-backend", "threads"], "item 8"), (["--remat"], "remat"),
+    with pytest.raises(RuntimeError, match="TensorFlow input pipeline"):
+        cli.main(args + ["--input-backend", "tfdata", "--device", "cpu"])
+    for extra, item in [(["--remat"], "remat"),
                         (["--dtype", "bfloat16"], "bf16"), (["--distributed-init"], "DDP"),
                         (["--model-parallel", "2"], "DDP"), (["--profile-dir", "p"], "obs"),
                         (["--health-threshold", "grad_norm=1"], "obs")]:
