@@ -6,6 +6,8 @@
 //   f32, so hi + mid + lo == ga and each piece times ±1 (or 0) is an
 //   exact bf16 product (nn/kernels/binary_conv.py:split_bf16x3 is its
 //   plain version);
+// - in the bf16 mode (a bf16 model), the one piece ga = bf16(g * alpha)
+//   of bf16 g and alpha: the reference's bf16 multiply;
 // - mma.sync m16n8k16 bf16 with f32 accumulators (the cp.async and
 //   ldmatrix helpers it is fed by are in async_copy.cuh);
 // - the compensated (Kahan) add of a k step's sum into an f32 total, with
@@ -59,6 +61,30 @@ __device__ __forceinline__ void split_ga8(const float* __restrict__ g,
 #pragma unroll
     for (int q = 0; q < 3; ++q)
         *reinterpret_cast<uint4*>(dst + q * OP) = make_uint4(p[q][0], p[q][1], p[q][2], p[q][3]);
+}
+
+// The bf16 mode's split pass item: ga = bf16(g * alpha) (the product of
+// two bf16 values is exact in f32, then rounded once, as the reference's
+// bf16 multiply) for o0 .. o0 + 7 of g row `row`, written to gs (rows,
+// 1, OP) as one 16-byte row; zero beyond O.
+__device__ __forceinline__ void split_ga8(const __nv_bfloat16* __restrict__ g,
+                                          const __nv_bfloat16* __restrict__ alpha,
+                                          __nv_bfloat16* __restrict__ gs, long long row, int o0,
+                                          int O, int OP) {
+    uint32_t p[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+        uint32_t b[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int o = o0 + e + q;
+            b[q] = o < O ? bf16_bits(__float2bfloat16_rn(__fmul_rn(
+                               __bfloat162float(g[row * O + o]), __bfloat162float(alpha[o]))))
+                         : 0u;
+        }
+        p[e / 2] = b[0] | (b[1] << 16);
+    }
+    *reinterpret_cast<uint4*>(gs + row * OP + o0) = make_uint4(p[0], p[1], p[2], p[3]);
 }
 
 // d += a · b on the tensor cores: m16n8k16, bf16 operands, f32 accumulators

@@ -12,6 +12,17 @@
 // (O, kh, kw, C) = (O, K) row-major — the layout K1 (binary_conv.cu) and
 // K4 (packed.cu) read, with K contiguous; alpha f32 (O,).
 //
+// bf16 mode (a bf16 model, layers.py: w = latent.astype(bfloat16) before
+// the sign and alpha): each weight is rounded to bf16 (RNE) first, and a
+// result below the smallest normal is read as zero, so a negative weight
+// that rounds to -0 or to a bf16 subnormal takes the sign +1, as the
+// reference's comparison does (XLA reads subnormals as zero, as a TPU
+// does); alpha is the mean of the rounded |W| (the
+// sum in float64 as below, the mean rounded to f32 and then to bf16, as
+// jnp.mean's f32 mean is cast to bf16), written as bf16 (O,). lab rounds
+// each W² to bf16 and takes bf16(mean W² / bf16(mean |W| + 1e-12)), the
+// reference's bf16 ops in order.
+//
 // Bound on the H100: bytes — 4 bytes of W read and 1 byte of sign
 // written per weight, with a few flops each. The flagship's weights run
 // from 32 KB (1x1 64->128) to 9.4 MB (3x3 512->512); a forward's 19 hold
@@ -36,6 +47,8 @@
 // reads and writes element by element (VEC = false).
 #include "common.cuh"
 
+#include <cuda_bf16.h>
+
 namespace {
 
 constexpr int TO = 64;                   // output channels a block
@@ -53,10 +66,38 @@ __device__ __forceinline__ float alpha_of(double s_abs, double s_sq, int K, int 
     return mean_sq / (mean_abs + 1e-12f);
 }
 
-template <bool VEC>
+__device__ __forceinline__ float round_bf16(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// bf16(v), a subnormal result read as zero
+__device__ __forceinline__ float round_bf16_flush(float v) {
+    const float r = round_bf16(v);
+    return fabsf(r) < 1.17549435e-38f ? 0.f : r;
+}
+
+// alpha of the bf16 mode, each of the reference's bf16 ops rounded
+__device__ __forceinline__ __nv_bfloat16 alpha_of_bf16(double s_abs, double s_sq, int K, int lab) {
+    const float mean_abs = round_bf16((float)(s_abs / (double)K));
+    if (!lab) return __float2bfloat16_rn(mean_abs);
+    const float mean_sq = round_bf16((float)(s_sq / (double)K));
+    return __float2bfloat16_rn(__fdiv_rn(mean_sq, round_bf16(__fadd_rn(mean_abs, 1e-12f))));
+}
+
+// alpha[o] in the mode's dtype: f32, or bf16 when BF16
+template <bool BF16>
+__device__ __forceinline__ void store_alpha(void* alpha, int o, double s_abs, double s_sq, int K,
+                                            int lab) {
+    if (BF16)
+        static_cast<__nv_bfloat16*>(alpha)[o] = alpha_of_bf16(s_abs, s_sq, K, lab);
+    else
+        static_cast<float*>(alpha)[o] = alpha_of(s_abs, s_sq, K, lab);
+}
+
+template <bool VEC, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 weight_sign_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
-                   double* __restrict__ part, float* __restrict__ alpha, int K, int O,
+                   double* __restrict__ part, void* __restrict__ alpha, int K, int O,
                    int rows, int splits, int lab) {
     __shared__ uint32_t tile[TO * WSTRIDE];
     __shared__ double red[2][GROUPS][TO];
@@ -90,6 +131,10 @@ weight_sign_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
 #pragma unroll
                 for (int j = 0; j < 4; ++j) v[i][j] = (k < ke && o + j < O) ? __ldg(src + j) : 0.f;
             }
+            if (BF16) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) v[i][j] = round_bf16_flush(v[i][j]);
+            }
         }
         uint32_t word[4] = {0u, 0u, 0u, 0u};  // channel o + j, row i in byte i
 #pragma unroll
@@ -98,7 +143,12 @@ weight_sign_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
             for (int j = 0; j < 4; ++j) {
                 const double d = (double)v[i][j];
                 s_abs[j] += fabs(d);
-                if (lab) s_sq[j] = fma(d, d, s_sq[j]);
+                if (lab) {
+                    if (BF16)
+                        s_sq[j] += (double)round_bf16(__fmul_rn(v[i][j], v[i][j]));
+                    else
+                        s_sq[j] = fma(d, d, s_sq[j]);
+                }
                 word[j] |= (v[i][j] >= 0.f ? 0x01u : 0xFFu) << (8 * i);
             }
         }
@@ -140,7 +190,7 @@ weight_sign_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
             s += red[1][g][tid];
         }
         if (splits == 1) {
-            alpha[o0 + tid] = alpha_of(a, s, K, lab);
+            store_alpha<BF16>(alpha, o0 + tid, a, s, K, lab);
         } else {
             part[(long long)blockIdx.y * O + o0 + tid] = a;
             part[((long long)splits + blockIdx.y) * O + o0 + tid] = s;
@@ -149,8 +199,9 @@ weight_sign_kernel(const float* __restrict__ w, int8_t* __restrict__ sign,
 }
 
 // alpha[o] from the (2, splits, O) float64 partials, added in split order.
+template <bool BF16>
 __global__ void __launch_bounds__(FINISH_THREADS)
-weight_alpha_finish_kernel(const double* __restrict__ part, float* __restrict__ alpha, int K,
+weight_alpha_finish_kernel(const double* __restrict__ part, void* __restrict__ alpha, int K,
                            int O, int splits, int lab) {
     const int o = blockIdx.x * FINISH_THREADS + threadIdx.x;
     if (o >= O) return;
@@ -160,15 +211,17 @@ weight_alpha_finish_kernel(const double* __restrict__ part, float* __restrict__ 
         a += part[(long long)i * O + o];
         if (lab) s += part[((long long)splits + i) * O + o];
     }
-    alpha[o] = alpha_of(a, s, K, lab);
+    store_alpha<BF16>(alpha, o, a, s, K, lab);
 }
 
 }  // namespace
 
 // part: float64 (2, splits, O) scratch, or NULL when splits == 1; rows a
-// multiple of 16 (weight_binarize_splits).
+// multiple of 16 (weight_binarize_splits); bf16: the bf16 mode (alpha is
+// then bf16).
 BDBNN_EXPORT int bdbnn_weight_binarize(const void* w, void* sign, void* alpha, void* part, int K,
-                                       int O, int rows, int splits, int lab, void* stream) {
+                                       int O, int rows, int splits, int lab, int bf16,
+                                       void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bool vec = O % 4 == 0 && K % 16 == 0 && rows % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
@@ -177,12 +230,13 @@ BDBNN_EXPORT int bdbnn_weight_binarize(const void* w, void* sign, void* alpha, v
     const float* wf = static_cast<const float*>(w);
     int8_t* s8 = static_cast<int8_t*>(sign);
     double* pd = static_cast<double*>(part);
-    float* af = static_cast<float*>(alpha);
-    auto kernel = vec ? weight_sign_kernel<true> : weight_sign_kernel<false>;
-    kernel<<<grid, THREADS, 0, st>>>(wf, s8, pd, af, K, O, rows, splits, lab);
+    auto kernel = vec ? (bf16 ? weight_sign_kernel<true, true> : weight_sign_kernel<true, false>)
+                      : (bf16 ? weight_sign_kernel<false, true> : weight_sign_kernel<false, false>);
+    kernel<<<grid, THREADS, 0, st>>>(wf, s8, pd, alpha, K, O, rows, splits, lab);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return (int)err;
-    weight_alpha_finish_kernel<<<(unsigned)((O + FINISH_THREADS - 1) / FINISH_THREADS),
-                                 FINISH_THREADS, 0, st>>>(pd, af, K, O, splits, lab);
+    auto finish = bf16 ? weight_alpha_finish_kernel<true> : weight_alpha_finish_kernel<false>;
+    finish<<<(unsigned)((O + FINISH_THREADS - 1) / FINISH_THREADS), FINISH_THREADS, 0, st>>>(
+        pd, alpha, K, O, splits, lab);
     return (int)cudaGetLastError();
 }

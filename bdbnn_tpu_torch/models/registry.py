@@ -1,11 +1,12 @@
 """Model registry — constructor-by-name, counterpart of
 ``bdbnn_tpu/models/registry.py`` with the same arch names.
 
-Every factory accepts ``dtype`` (float32 only: bfloat16 raises
-``NotImplementedError``, ROADMAP A "Later" 4), ``twoblock``, ``packed``
-(binary convs hold packed ``{sign, alpha}`` buffers instead of
-``float_weight``) and
-``generator`` (a seeded ``torch.Generator`` for the initial weights).
+Every factory accepts ``dtype`` (``float32`` or ``bfloat16``: the compute
+dtype, parameters stay f32), ``twoblock``, ``remat`` (the ResNets' blocks
+recomputed in the backward; ``vgg_small`` refuses it with the reference's
+``ValueError``), ``packed`` (binary convs hold packed ``{sign, alpha}``
+buffers instead of ``float_weight``) and ``generator`` (a seeded
+``torch.Generator`` for the initial weights).
 ``resnet50_float`` / ``resnet101_float`` are the bottleneck float teachers.
 """
 
@@ -21,32 +22,12 @@ def _cifar_classes(dataset: str) -> int:
     return {"cifar10": 10, "cifar100": 100}[dataset]
 
 
-def check_dtype(dtype) -> None:
-    """The port runs float32 only so far."""
-    if dtype in (None, "float32"):
-        return
-    if dtype == "bfloat16":
-        raise NotImplementedError(
-            "bfloat16 models are not ported yet (ROADMAP A 'Later' item 4: "
-            "remat and bf16); the port runs float32"
-        )
-    raise ValueError(f"unknown dtype {dtype!r}; use float32|bfloat16")
-
-
-def _check_remat(remat: bool) -> None:
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP A 'Later' item 4: remat and bf16)"
-        )
-
-
 def _make_cifar(name, stage_sizes, width, variant, act, num_classes,
                 dtype=None, twoblock=False, remat=False, packed=False, generator=None):
-    check_dtype(dtype)
-    _check_remat(remat)
     return BiResNet(
         stage_sizes, num_classes, width=width, stem="cifar", variant=variant,
-        act=act, twoblock=twoblock, packed=packed, generator=generator,
+        act=act, twoblock=twoblock, dtype=dtype, remat=remat, packed=packed,
+        generator=generator,
     )
 
 
@@ -54,11 +35,10 @@ def _make_imagenet(name, stage_sizes, variant, act, num_classes=1000,
                    pretrained=False, dtype=None, twoblock=False, remat=False,
                    block="basic", packed=False, generator=None):
     del pretrained  # reference-API parity; weights come through the bridge
-    check_dtype(dtype)
-    _check_remat(remat)
     return BiResNet(
         stage_sizes, num_classes, width=64, stem="imagenet", variant=variant,
-        act=act, twoblock=twoblock, block=block, packed=packed, generator=generator,
+        act=act, twoblock=twoblock, block=block, dtype=dtype, remat=remat,
+        packed=packed, generator=generator,
     )
 
 
@@ -70,12 +50,12 @@ def _make_vgg(num_classes, variant="cifar", dtype=None, twoblock=False,
         )
     if remat:
         raise ValueError(
-            "--remat rematerializes ResNet residual blocks; vgg_small has none"
+            "--remat rematerializes ResNet residual blocks; vgg_small "
+            "has none (its activations are small — remat buys nothing)"
         )
-    check_dtype(dtype)
     return VGGSmallBinary(
-        num_classes, variant=variant, image_size=image_size, packed=packed,
-        generator=generator,
+        num_classes, variant=variant, image_size=image_size, dtype=dtype,
+        packed=packed, generator=generator,
     )
 
 

@@ -27,17 +27,34 @@ and from the flax variable tree through :mod:`bdbnn_tpu_torch.bridge`.
 and the binary convs through K2 → K1 with the K5/K6 backward
 (:mod:`bdbnn_tpu_torch.nn.layers`); ``tk`` (the binarizer family's
 schedule scalars) and ``draws`` (the stochastic family's draw source)
-reach every conv. ``remat`` comes with bf16 (ROADMAP A "Later" 4).
+reach every conv.
+
+``dtype=torch.bfloat16`` is the reference's ``--dtype bfloat16``: the
+images are cast to bf16, every module computes in bf16 (BatchNorm's
+statistics and normalize in f32), the global pool averages in f32 and
+rounds to bf16, the classifier is a bf16 product plus the bf16 bias, and
+the logits are f32. Parameters and running statistics stay f32.
+
+``remat=True`` (ResNets; the reference's ``nn.remat`` of each block)
+runs each residual block under ``torch.utils.checkpoint`` when autograd
+records: its activations are dropped after the forward and recomputed in
+the backward. The recompute takes the same stochastic draws as the
+forward (:class:`_DrawTape`) and leaves the BatchNorm running statistics
+alone (:func:`~bdbnn_tpu_torch.nn.layers.frozen_running_stats`), so a
+step computes what it computes without remat; its binary convs launch K2
+and K1 twice, K5 and K6 once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bdbnn_tpu_torch.nn.layers import (
     BN_EPS,
@@ -47,6 +64,7 @@ from bdbnn_tpu_torch.nn.layers import (
     BinaryConvReact,
     FloatConv,
     RPReLU,
+    frozen_running_stats,
     lecun_normal_,
 )
 
@@ -88,6 +106,77 @@ def avg_pool(x: Tensor, s: int) -> Tensor:
             tap = x[:, i : i + s * ho : s, j : j + s * wo : s, :]
             total = tap if total is None else total + tap
     return (total / float(s * s)).contiguous()
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """The compute dtype of a model: None / "float32" / torch.float32,
+    or "bfloat16" / torch.bfloat16."""
+    if dtype in (None, "float32", torch.float32):
+        return torch.float32
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unknown dtype {dtype!r}; use float32|bfloat16")
+
+
+def _pool_and_classify(fc: nn.Linear, x: Tensor, dtype: torch.dtype, pool: bool) -> Tensor:
+    """Global average pool (``pool``) and the classifier, f32 logits. In
+    bf16 the pool averages in f32 and rounds (``jnp.mean``), and the
+    classifier rounds its product and then its bias add (flax ``Dense``
+    with ``dtype=bfloat16``)."""
+    if dtype == torch.float32:
+        return fc(x.mean(dim=(1, 2)) if pool else x)
+    if pool:
+        x = x.to(torch.float32).mean(dim=(1, 2)).to(dtype)
+    y = nn.functional.linear(x, fc.weight.to(dtype)) + fc.bias.to(dtype)
+    return y.to(torch.float32)
+
+
+class _DrawTape:
+    """A residual block's draw source under remat: the forward takes its
+    draws from ``source`` and keeps them; the recompute in the backward
+    hands the same tensors out again in the same order, so it samples the
+    signs the forward sampled."""
+
+    def __init__(self, source):
+        self.source = source
+        self._tape = []
+        self._replay = None
+        self._ran = False
+
+    def start(self) -> "_DrawTape":
+        self._replay = iter(self._tape) if self._ran else None
+        self._ran = True
+        return self
+
+    def __call__(self, x: Tensor) -> Tensor:
+        if self._replay is not None:
+            return next(self._replay)
+        u = self.source(x)
+        self._tape.append(u)
+        return u
+
+
+def _recompute_contexts():
+    # checkpoint's context_fn: nothing around the forward, the running
+    # statistics held still around the recompute
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
+def run_block(block: nn.Module, x: Tensor, tk, draws, remat: bool) -> Tensor:
+    """``block(x, tk, draws)``, under ``torch.utils.checkpoint`` when
+    ``remat`` and autograd records. No block reads the global RNG, so
+    checkpoint does not stash it."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(x, tk, draws)
+    tape = _DrawTape(draws) if draws is not None else None
+
+    def forward(inp: Tensor) -> Tensor:
+        return block(inp, tk, tape.start() if tape is not None else None)
+
+    return checkpoint(
+        forward, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=_recompute_contexts,
+    )
 
 
 def _nchw(f, x: Tensor, *args, **kwargs) -> Tensor:
@@ -230,8 +319,10 @@ class FloatBottleneck(nn.Module):
 
 class BiResNet(_FlaxBridged):
     """Generic ResNet over binary or float conv variants; NHWC f32 images
-    in, f32 logits out. ``block="bottleneck"`` (float variant only) builds
-    :class:`FloatBottleneck` blocks; the binary families are basic-block."""
+    in, f32 logits out, computing in ``dtype`` (f32 or bf16), each block
+    under checkpoint with ``remat``. ``block="bottleneck"`` (float variant
+    only) builds :class:`FloatBottleneck` blocks; the binary families are
+    basic-block."""
 
     _TWOBLOCK_PARTNER = {"react": "step2", "step2": "react", "cifar": "react"}
     _VARIANT_ACT = {"react": "rprelu", "step2": "hardtanh", "cifar": "hardtanh"}
@@ -247,10 +338,14 @@ class BiResNet(_FlaxBridged):
         twoblock: bool = False,
         *,
         block: str = "basic",
+        dtype=None,
+        remat: bool = False,
         packed: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
+        self.remat = bool(remat)
         if stem not in ("imagenet", "cifar"):
             raise ValueError(f"unknown stem: {stem!r}")
         if block not in ("basic", "bottleneck"):
@@ -297,21 +392,20 @@ class BiResNet(_FlaxBridged):
             self.fc.bias.zero_()
 
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(x.to(self.dtype))))
         if self.stem == "imagenet":
             # torch MaxPool2d(3, stride=2, padding=1): -inf padding, as
             # the reference's reduce_window
             x = _nchw(nn.functional.max_pool2d, x, 3, 2, 1)
         for name in self.block_names:
-            x = getattr(self, name)(x, tk, draws)
-        x = x.mean(dim=(1, 2))  # global average pool
-        return self.fc(x)
+            x = run_block(getattr(self, name), x, tk, draws, self.remat)
+        return _pool_and_classify(self.fc, x, self.dtype, pool=True)
 
 
 class VGGSmallBinary(_FlaxBridged):
     """Binary VGG-Small (6 convs 128-128-256-256-512-512 + FC), first conv
-    full precision. ``image_size`` fixes the classifier's input width
-    (flax infers it at init)."""
+    full precision, computing in ``dtype`` (f32 logits). ``image_size``
+    fixes the classifier's input width (flax infers it at init)."""
 
     def __init__(
         self,
@@ -319,10 +413,12 @@ class VGGSmallBinary(_FlaxBridged):
         variant: str = "cifar",
         image_size: int = 32,
         *,
+        dtype=None,
         packed: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         conv_cls = _CONV_CLASSES[variant]
         widths = (128, 128, 256, 256, 512, 512)
         self.n_convs = len(widths)
@@ -342,13 +438,14 @@ class VGGSmallBinary(_FlaxBridged):
             self.fc.bias.zero_()
 
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
+        x = x.to(self.dtype)
         for i in range(self.n_convs):
             x = getattr(self, f"conv{i + 1}")(x, tk, draws)
             x = getattr(self, f"bn{i + 1}")(x)
             if i % 2 == 1:
                 x = _nchw(nn.functional.max_pool2d, x, 2, 2)
             x = torch.clamp(x, -1.0, 1.0)
-        return self.fc(x.reshape(x.shape[0], -1))
+        return _pool_and_classify(self.fc, x.reshape(x.shape[0], -1), self.dtype, pool=False)
 
 
 # ---------------------------------------------------------------------------
@@ -471,4 +568,6 @@ __all__ = [
     "fold_batch_norm",
     "get_by_path",
     "module_path_str",
+    "resolve_dtype",
+    "run_block",
 ]

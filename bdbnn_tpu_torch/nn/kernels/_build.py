@@ -43,25 +43,26 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv": {
         # x, shift (or NULL), u (or NULL), wsign, alpha, sx scratch, wpad
         # scratch (or NULL), y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo,
-        # CP, stream
+        # CP, bf16, stream
         "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P),
     },
     "binary_conv_dgrad": {
         # g, x, shift (or NULL), wsign, alpha, taps, gs scratch, wb
         # scratch, dx, N, H, W, C, O, kh, kw, stride, Ho, Wo, OP, CP,
-        # estimator, p0, p1, stream
+        # estimator, p0, p1, bf16, stream
         "bdbnn_binary_conv_dgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _F, _F, _P),
+                                    _I, _I, _F, _F, _I, _P),
     },
     "binary_conv_wgrad": {
         # g, x, shift (or NULL), u (or NULL), w, alpha, gs scratch, sx
         # scratch, partial scratch, dw, N, H, W, C, O, kh, kw, stride, pad,
-        # Ho, Wo, OP, CP, splits, rows_per_split, stream
+        # Ho, Wo, OP, CP, splits, rows_per_split, bf16, stream
         "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _P),
+                                    _I, _I, _I, _I, _I, _I, _P),
     },
     "kurtosis": {
         # table (host bytes, copied into the launches), mode, with_grad,
@@ -70,8 +71,8 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
     "weight_binarize": {
         # w (K, O) f32, sign (O, K) int8, alpha (O,), part (2, splits, O)
-        # f64 scratch (or NULL), K, O, rows, splits, lab, stream
-        "bdbnn_weight_binarize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # f64 scratch (or NULL), K, O, rows, splits, lab, bf16, stream
+        "bdbnn_weight_binarize": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "packed": {
         # packed uint8, alpha (O,), out (K*O,) f32, n = K*O, O, stream

@@ -42,6 +42,21 @@ hand-written CUDA kernels:
   and what ``chip_smoke.py`` holds each kernel against on the card.
   Each is an explicit im2col / col2im and an f32 matrix product.
 
+bf16 mode. A bf16 model's binary conv hands the kernels bf16 ``x``,
+``shift``, ``u``, ``alpha`` and ``g``, and each kernel computes what the
+reference's bf16 ops compute (``bdbnn_tpu/nn/kernels/binary_conv.py``
+``_forward`` and its ``jax.vjp``), never an f32 kernel on upcast copies:
+
+- K1 writes bf16 ``y = bf16(bf16(dot)·alpha)`` — the reference's bf16
+  conv rounds the exact dot, its bf16 multiply rounds again;
+- K5 takes ``ga = bf16(g·alpha)`` as its one bf16 piece (the reference's
+  cotangent is that bf16 product), rounds the sum to bf16, and applies
+  the estimator's slope at ``bf16(x - shift)`` in the reference's bf16
+  ops (EDE's ``t, k`` and prox's ``δ`` rounded to bf16); dx is bf16;
+- K6 takes the same one piece, and returns ``f32(bf16(Σ)·1{|bf16(W)| <=
+  1})``: the reference's weight cotangent is bf16, its STE mask reads the
+  bf16-rounded weight, and the cast to the f32 latent passes it on.
+
 Padding is symmetric ``k//2`` ("auto", torch-style) or explicit
 symmetric pairs, applied AFTER the sign as in the reference (a padding
 tap contributes 0 to y and to dW and receives nothing in dx, never
@@ -98,10 +113,15 @@ def _check_strides(strides) -> int:
     return sh
 
 
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_conv_args(x: Tensor, wsign: Tensor, alpha: Tensor, shift: Optional[Tensor]):
-    """Validate the operands of K1 / K4; returns (N, H, W, C, O, kh, kw)."""
-    if x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"x must be float32 NHWC, got {x.dtype} {tuple(x.shape)}")
+    """Validate the operands of K1 / K4; returns (N, H, W, C, O, kh, kw).
+    ``x`` is float32 or bfloat16, and ``alpha`` and ``shift`` take its
+    dtype."""
+    if x.dim() != 4 or x.dtype not in ACT_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 NHWC, got {x.dtype} {tuple(x.shape)}")
     if wsign.dim() != 4 or wsign.dtype != torch.int8:
         raise ValueError(
             f"wsign must be int8 (O, kh, kw, C), got {wsign.dtype} {tuple(wsign.shape)}"
@@ -110,10 +130,10 @@ def check_conv_args(x: Tensor, wsign: Tensor, alpha: Tensor, shift: Optional[Ten
     o, kh, kw, cw = (int(d) for d in wsign.shape)
     if cw != c:
         raise ValueError(f"wsign has {cw} input channels, x has {c}")
-    if alpha.shape != (o,) or alpha.dtype != torch.float32:
-        raise ValueError(f"alpha must be float32 ({o},), got {alpha.dtype} {tuple(alpha.shape)}")
-    if shift is not None and (shift.shape != (c,) or shift.dtype != torch.float32):
-        raise ValueError(f"shift must be float32 ({c},), got {shift.dtype} {tuple(shift.shape)}")
+    if alpha.shape != (o,) or alpha.dtype != x.dtype:
+        raise ValueError(f"alpha must be {x.dtype} ({o},), got {alpha.dtype} {tuple(alpha.shape)}")
+    if shift is not None and (shift.shape != (c,) or shift.dtype != x.dtype):
+        raise ValueError(f"shift must be {x.dtype} ({c},), got {shift.dtype} {tuple(shift.shape)}")
     tensors = [x, wsign, alpha] + ([shift] if shift is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError("all operands must be on one device")
@@ -128,9 +148,9 @@ def check_draw(u: Optional[Tensor], x: Tensor, shift: Optional[Tensor]) -> None:
         return
     if shift is not None:
         raise ValueError("a draw u never comes with a shift: the reference never combines them")
-    if u.dtype != torch.float32 or u.shape != x.shape or u.device != x.device:
+    if u.dtype != x.dtype or u.shape != x.shape or u.device != x.device:
         raise ValueError(
-            f"u must be float32 {tuple(x.shape)} on {x.device}, got {u.dtype} "
+            f"u must be {x.dtype} {tuple(x.shape)} on {x.device}, got {u.dtype} "
             f"{tuple(u.shape)} on {u.device}"
         )
     if x.is_cuda and not u.is_contiguous():
@@ -172,7 +192,8 @@ def binary_conv2d_plain(
     u: Optional[Tensor] = None,
 ) -> Tensor:
     """Plain PyTorch K1: ``sign(x - shift)`` (or the sampled sign of the
-    draw ``u``) → zero pad → ±1 conv in f32 → ``· alpha``. The conv is
+    draw ``u``) → zero pad → ±1 conv in f32 → ``· alpha`` (in bf16: the
+    dot rounded to bf16, then the bf16 multiply). The conv is
     an explicit im2col and an f32 matrix product rather than
     ``F.conv2d``: every ±1 product and every partial
     sum is an exact integer below 2^24, so any summation order gives
@@ -181,10 +202,10 @@ def binary_conv2d_plain(
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
-    patches = im2col_nhwc(binarize_input(x, shift, u), kh, kw, stride, pad)
+    patches = im2col_nhwc(binarize_input(x, shift, u).to(torch.float32), kh, kw, stride, pad)
     ho, wo = patches.shape[1], patches.shape[2]
     dot = patches.reshape(-1, kh * kw * c) @ wsign.reshape(o, -1).to(torch.float32).t()
-    return (dot * alpha).reshape(n, ho, wo, o)
+    return (dot.to(x.dtype) * alpha).reshape(n, ho, wo, o)
 
 
 # K1's reduction runs over int8 rows of one tap's channels, padded to a
@@ -213,8 +234,9 @@ def binary_conv2d(
     u: Optional[Tensor] = None,
 ) -> Tensor:
     """``conv(sign(x - shift), wsign) * alpha`` — K1 on a CUDA tensor,
-    the plain version on a CPU tensor. f32 NHWC in, f32 NHWC out. With
-    the draw ``u`` the sign is the sampled one (no ``shift`` then).
+    the plain version on a CPU tensor. f32 NHWC in, f32 NHWC out; bf16
+    in, bf16 out (the bf16 mode). With the draw ``u`` the sign is the
+    sampled one (no ``shift`` then).
 
     K1's scratch is allocated here: the int8 sign (N, H, W, CP) and, only
     where the weight sign cannot be read as it is (C not a multiple of
@@ -238,20 +260,24 @@ def binary_conv2d(
     wpad = None
     if cp != c or wsign.data_ptr() % 16:
         wpad = torch.empty((o, kh, kw, cp), dtype=torch.int8, device=x.device)
-    y = torch.empty((n, ho, wo, o), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    y = torch.empty((n, ho, wo, o), dtype=x.dtype, device=x.device)
     lib = _build.library("binary_conv")
     err = lib.bdbnn_binary_conv_fwd(
         x.data_ptr(), shift.data_ptr() if shift is not None else None,
         u.data_ptr() if u is not None else None, wsign.data_ptr(), alpha.data_ptr(), sx.data_ptr(),
         wpad.data_ptr() if wpad is not None else None, y.data_ptr(),
-        n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, _build.stream_ptr(x.device),
+        n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, int(bf16), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d")
     binary_conv2d.launches += 1
+    binary_conv2d.launches_bf16 += bf16
     return y
 
 
+# launches of the kernel, and of its bf16 mode alone
 binary_conv2d.launches = 0
+binary_conv2d.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -289,9 +315,9 @@ def estimator_slope(v: Tensor, estimator: Estimator) -> Optional[Tensor]:
 
 
 def _check_grad(g: Tensor, n: int, ho: int, wo: int, o: int, x: Tensor) -> None:
-    if g.dtype != torch.float32 or tuple(g.shape) != (n, ho, wo, o):
+    if g.dtype != x.dtype or tuple(g.shape) != (n, ho, wo, o):
         raise ValueError(
-            f"g must be float32 {(n, ho, wo, o)}, got {g.dtype} {tuple(g.shape)}"
+            f"g must be {x.dtype} {(n, ho, wo, o)}, got {g.dtype} {tuple(g.shape)}"
         )
     if g.device != x.device:
         raise ValueError("all operands must be on one device")
@@ -313,13 +339,16 @@ def binary_conv2d_dgrad_plain(
     """Plain PyTorch K5: ``ga = g·alpha``; the (M, kh·kw·C) columns
     ``ga @ sign W`` as one f32 matrix product; col2im adds them into the
     zero-padded input tap by tap (a padding position is cropped away, so
-    it receives nothing); then the estimator's slope at ``x - shift``."""
+    it receives nothing); then the estimator's slope at ``x - shift``.
+    In bf16 ``ga`` is the bf16 product, the sum is rounded to bf16 and
+    the slope is taken in bf16 ops (:func:`estimator_slope` on bf16
+    tensors rounds each op, as the reference's bf16 backward does)."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
     _check_grad(g, n, ho, wo, o, x)
-    ga = g * alpha
+    ga = (g * alpha).to(torch.float32)
     cols = ga.reshape(-1, o) @ wsign.reshape(o, -1).to(torch.float32)
     cols = cols.reshape(n, ho, wo, kh, kw, c)
     xp = torch.zeros((n, h + 2 * pad, w + 2 * pad, c), dtype=torch.float32, device=x.device)
@@ -328,7 +357,7 @@ def binary_conv2d_dgrad_plain(
             xp[:, i : i + stride * (ho - 1) + 1 : stride, j : j + stride * (wo - 1) + 1 : stride, :] += (
                 cols[:, :, :, i, j, :]
             )
-    dxb = xp[:, pad : pad + h, pad : pad + w, :]
+    dxb = xp[:, pad : pad + h, pad : pad + w, :].to(x.dtype)
     slope = estimator_slope(x - shift if shift is not None else x, estimator)
     return (dxb * slope) if slope is not None else dxb.contiguous()
 
@@ -390,10 +419,12 @@ def binary_conv2d_dgrad(
     estimator: Estimator = ("none", 0.0, 0.0),
 ) -> Tensor:
     """``slope(x - shift) · conv_transpose(g·alpha, sign W)`` — K5 on a
-    CUDA tensor, the plain version on a CPU tensor. f32 NHWC like ``x``.
+    CUDA tensor, the plain version on a CPU tensor. NHWC in ``x``'s
+    dtype (bf16 ``x``, ``g``, ``shift``, ``alpha``: the bf16 mode).
 
     K5 allocates its scratch here: ``g·alpha`` split into three bf16
-    pieces (N, Ho, Wo, 3, OP) and the ±1 sign as bf16 (kh·kw, OP, CP),
+    pieces (N, Ho, Wo, 3, OP) — one piece in the bf16 mode — and the ±1
+    sign as bf16 (kh·kw, OP, CP),
     OP and CP being O and C padded to the kernel's stage and 16-byte
     rows; the parity-class table lives on the card, one per conv
     geometry and device."""
@@ -418,8 +449,9 @@ def binary_conv2d_dgrad(
         taps = _tap_tables[key] = torch.tensor(
             dgrad_tap_table(kh, kw, stride, pad), dtype=torch.int32, device=x.device
         )
+    bf16 = x.dtype == torch.bfloat16
     op, cp = _round_up(o, DGRAD_O_STAGE), _round_up(c, 8)
-    gs = torch.empty((n, ho, wo, 3, op), dtype=torch.bfloat16, device=x.device)
+    gs = torch.empty((n, ho, wo, ga_pieces(x.dtype), op), dtype=torch.bfloat16, device=x.device)
     wb = torch.empty((kh * kw, op, cp), dtype=torch.bfloat16, device=x.device)
     dx = torch.empty_like(x)
     lib = _build.library("binary_conv_dgrad")
@@ -427,24 +459,35 @@ def binary_conv2d_dgrad(
         g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
         wsign.data_ptr(), alpha.data_ptr(), taps.data_ptr(), gs.data_ptr(), wb.data_ptr(),
         dx.data_ptr(), n, h, w, c, o, kh, kw, stride, ho, wo, op, cp, ESTIMATORS[name], p0, p1,
-        _build.stream_ptr(x.device),
+        int(bf16), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_dgrad")
     binary_conv2d_dgrad.launches += 1
+    binary_conv2d_dgrad.launches_bf16 += bf16
     return dx
 
 
+# launches of the kernel, and of its bf16 mode alone
 binary_conv2d_dgrad.launches = 0
+binary_conv2d_dgrad.launches_bf16 = 0
+
+
+def ga_pieces(dtype: torch.dtype) -> int:
+    """The bf16 pieces of ``g·alpha`` K5 and K6 multiply: three exact
+    pieces of the f32 product, or the bf16 mode's one bf16 product."""
+    return 1 if dtype == torch.bfloat16 else 3
 
 
 def _check_latent(w: Tensor, x: Tensor, alpha: Tensor) -> Tuple[int, int, int, int]:
     if w.dim() != 4 or w.dtype != torch.float32:
         raise ValueError(f"w must be float32 HWIO, got {w.dtype} {tuple(w.shape)}")
     kh, kw, c, o = (int(d) for d in w.shape)
-    if x.dim() != 4 or x.dtype != torch.float32 or int(x.shape[3]) != c:
-        raise ValueError(f"x must be float32 NHWC with {c} channels, got {x.dtype} {tuple(x.shape)}")
-    if alpha.shape != (o,) or alpha.dtype != torch.float32:
-        raise ValueError(f"alpha must be float32 ({o},), got {alpha.dtype} {tuple(alpha.shape)}")
+    if x.dim() != 4 or x.dtype not in ACT_DTYPES or int(x.shape[3]) != c:
+        raise ValueError(
+            f"x must be float32 or bfloat16 NHWC with {c} channels, got {x.dtype} {tuple(x.shape)}"
+        )
+    if alpha.shape != (o,) or alpha.dtype != x.dtype:
+        raise ValueError(f"alpha must be {x.dtype} ({o},), got {alpha.dtype} {tuple(alpha.shape)}")
     if w.device != x.device or alpha.device != x.device:
         raise ValueError("all operands must be on one device")
     if x.is_cuda and not all(t.is_contiguous() for t in (w, x, alpha)):
@@ -466,15 +509,20 @@ def binary_conv2d_wgrad_plain(
     """Plain PyTorch K6: im2col of ``sign(x - shift)`` (or the sampled
     sign of the draw ``u``; zero padding after the sign), ``patchesᵀ @
     (g·alpha)`` as one f32 matrix product, then the STE mask ``1{|W| <=
-    1}``; HWIO like ``w``."""
+    1}``; f32 HWIO like ``w``. In bf16 ``g·alpha`` is the bf16 product,
+    the sum is rounded to bf16 and the mask reads ``bf16(W)``."""
     kh, kw, c, o = _check_latent(w, x, alpha)
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
-    patches = im2col_nhwc(binarize_input(x, shift, u), kh, kw, stride, pad)
+    patches = im2col_nhwc(binarize_input(x, shift, u).to(torch.float32), kh, kw, stride, pad)
     n, ho, wo = (int(d) for d in patches.shape[:3])
     _check_grad(g, n, ho, wo, o, x)
-    dws = patches.reshape(-1, kh * kw * c).t() @ (g * alpha).reshape(-1, o)
-    return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).to(torch.float32)
+    ga = (g * alpha).to(torch.float32)
+    dws = (patches.reshape(-1, kh * kw * c).t() @ ga.reshape(-1, o)).reshape(kh, kw, c, o)
+    if x.dtype == torch.bfloat16:
+        wb = w.to(torch.bfloat16)
+        return (dws.to(torch.bfloat16) * (wb.abs() <= 1.0).to(torch.bfloat16)).to(torch.float32)
+    return dws * (w.abs() <= 1.0).to(torch.float32)
 
 
 def wgrad_sign_bf16(
@@ -522,10 +570,13 @@ def binary_conv2d_wgrad(
 ) -> Tensor:
     """``1{|W| <= 1} · conv(sign(x - shift)ᵀ, g·alpha)`` in HWIO — K6 on
     a CUDA tensor, the plain version on a CPU tensor. With the draw ``u``
-    the sign is the sampled one (no ``shift`` then).
+    the sign is the sampled one (no ``shift`` then). bf16 ``x``, ``g``,
+    ``shift``, ``u`` and ``alpha`` take the bf16 mode; ``w`` and dW are
+    f32 in both.
 
     K6 allocates its scratch here: ``g·alpha`` split into three bf16
-    pieces (N, Ho, Wo, 3, OP) as K5 lays it out, the activation sign as
+    pieces (N, Ho, Wo, 3, OP) as K5 lays it out (one piece in the bf16
+    mode), the activation sign as
     bf16 (N, H, W, CP), and the f32 partial sums of the split reduction
     (splits, kh·kw·C, O)."""
     kh, kw, c, o = _check_latent(w, x, alpha)
@@ -538,9 +589,9 @@ def binary_conv2d_wgrad(
         )
     from bdbnn_tpu_torch.nn.kernels import _build
 
-    if shift is not None and (shift.shape != (c,) or shift.dtype != torch.float32
+    if shift is not None and (shift.shape != (c,) or shift.dtype != x.dtype
                               or shift.device != x.device or not shift.is_contiguous()):
-        raise ValueError(f"shift must be a contiguous float32 ({c},) on {x.device}")
+        raise ValueError(f"shift must be a contiguous {x.dtype} ({c},) on {x.device}")
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
     n, h, wd = (int(d) for d in x.shape[:3])
@@ -548,9 +599,10 @@ def binary_conv2d_wgrad(
     _check_grad(g, n, ho, wo, o, x)
     if n * ho * wo >= 2**30:  # the GEMM's position ranges stay in int32
         raise ValueError(f"K6 takes under 2^30 output positions, got {n}x{ho}x{wo}")
+    bf16 = x.dtype == torch.bfloat16
     op, cp = _round_up(o, DGRAD_O_STAGE), _round_up(c, 8)
     splits, rows = wgrad_splits(n * ho * wo, kh * kw * cp, o)
-    gs = torch.empty((n, ho, wo, 3, op), dtype=torch.bfloat16, device=x.device)
+    gs = torch.empty((n, ho, wo, ga_pieces(x.dtype), op), dtype=torch.bfloat16, device=x.device)
     sx = torch.empty((n, h, wd, cp), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, kh * kw * c, o), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
@@ -559,20 +611,27 @@ def binary_conv2d_wgrad(
         g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
         u.data_ptr() if u is not None else None, w.data_ptr(), alpha.data_ptr(), gs.data_ptr(), sx.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), n, h, wd, c, o, kh, kw, stride, pad, ho, wo, op, cp, splits, rows,
-        _build.stream_ptr(x.device),
+        int(bf16), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_wgrad")
     binary_conv2d_wgrad.launches += 1
+    binary_conv2d_wgrad.launches_bf16 += bf16
     return dw
 
 
+# launches of the kernel, and of its bf16 mode alone
 binary_conv2d_wgrad.launches = 0
+binary_conv2d_wgrad.launches_bf16 = 0
 
 
 class BinaryConvFn(torch.autograd.Function):
     """The binary conv the layers train through: K1 forward; K5 (dx,
     with the estimator's slope) and K6 (dW, with the STE mask) backward.
-    ``shift`` (react's ``act_shift``, or None) gets ``-Σ_{n,h,w} dx``;
+    ``shift`` (react's ``act_shift``, or None) gets ``-Σ_{n,h,w} dx``
+    (in a bf16 model the shift, x, alpha and draw are bf16 and each kernel
+    takes its bf16 mode; the sum of the bf16 dx is taken in f32 and
+    rounded to bf16 — the reference's XLA:CPU adds a bf16 reduction in
+    bf16 one term at a time, so its shift gradient is coarser);
     ``wsign``/``alpha`` come from K2 on the detached latent weight and
     get no gradient (the reference's ``stop_gradient`` on alpha).
 
@@ -627,9 +686,10 @@ def binary_conv2d_mxu(
     padding="auto",
 ) -> Tensor:
     """±alpha binary conv with the JAX signature: ``xb`` ±1 (N,H,W,C),
-    ``wb_sign`` ±1 HWIO (kh,kw,C,O), ``alpha`` per output channel. Runs
-    through :func:`binary_conv2d` (sign of a ±1 input is itself)."""
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=xb.device).reshape(-1)
+    ``wb_sign`` ±1 HWIO (kh,kw,C,O), ``alpha`` per output channel (taken
+    in ``xb``'s dtype, f32 or bf16). Runs through :func:`binary_conv2d`
+    (sign of a ±1 input is itself)."""
+    alpha = torch.as_tensor(alpha, device=xb.device).to(xb.dtype).reshape(-1)
     return binary_conv2d(
         xb.contiguous(), sign_int8_from_hwio(wb_sign), alpha.contiguous(),
         strides=strides, padding=padding,
@@ -650,6 +710,7 @@ __all__ = [
     "binary_conv2d_wgrad_plain",
     "check_draw",
     "dgrad_parity_classes",
+    "ga_pieces",
     "dgrad_tap_table",
     "estimator_slope",
     "im2col_nhwc",

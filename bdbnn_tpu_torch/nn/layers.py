@@ -36,11 +36,24 @@ backward; without a source, and always in eval mode, it takes the hard
 sign (the reference's ``family_act``). BatchNorm trains with flax
 semantics (batch mean, the fast biased variance, running stats
 ``0.9·ra + 0.1·batch``).
+
+bf16 models (flax's mixed-precision recipe, as the reference runs
+``--dtype bfloat16``): parameters and running statistics stay f32, and
+each module computes in its input's dtype. ``LearnableBias``, ``RPReLU``
+and ``FloatConv`` cast their parameters to it; ``BatchNorm`` takes f32
+statistics of the bf16 input, normalizes in f32 and casts to bf16 once
+(flax ``_normalize``); a binary conv casts its ``act_shift`` and hands
+bf16 operands to the kernels' bf16 modes (K2 rounds the f32 latent
+weight to bf16 itself). Under remat (``models/resnet.py``) a residual
+block's forward runs again in the backward; :func:`frozen_running_stats`
+keeps that recompute from updating the running statistics a second time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Optional, Tuple
 
 import torch
@@ -79,6 +92,22 @@ def conv2d(x: Tensor, w: Tensor, *, strides: Tuple[int, int] = (1, 1), padding="
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """BatchNorm in training mode leaves its running statistics as they
+    are inside this context: remat's recompute of a block's forward
+    (the reference updates them once a step, in its one forward)."""
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
+
+
 class BatchNorm(nn.Module):
     """flax ``BatchNorm`` over the last (channel) axis:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, the reference's
@@ -90,7 +119,8 @@ class BatchNorm(nn.Module):
     ``use_fast_variance``): the batch mean and ``max(0, E[x²] − E[x]²)``,
     the biased variance, and updates the running statistics as
     ``0.9·ra + (1 − 0.9)·batch`` — torch's ``F.batch_norm`` stores the
-    unbiased variance and is not a drop-in."""
+    unbiased variance and is not a drop-in. A bf16 input is normalized in
+    f32 from f32 statistics and the output cast to bf16 once."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -102,20 +132,25 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         if self.training:
+            # the statistics take their own f32 copy of a bf16 x, as flax's
+            # _compute_stats does: its gradient reaches x rounded to bf16
+            # and is added there to the normalize's (a no-op for f32)
+            xs = x.to(torch.float32)
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(
-                    BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean
-                )
-                self.running_var.copy_(
-                    BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var
-                )
+            mean = xs.mean(dim=dims)
+            var = torch.clamp((xs * xs).mean(dim=dims) - mean * mean, min=0.0)
+            if not getattr(_recompute, "on", False):
+                with torch.no_grad():
+                    self.running_mean.copy_(
+                        BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean
+                    )
+                    self.running_var.copy_(
+                        BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var
+                    )
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x.to(torch.float32) - mean) * mul + self.bias).to(x.dtype)
 
 
 class LearnableBias(nn.Module):
@@ -126,7 +161,7 @@ class LearnableBias(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: Tensor) -> Tensor:
-        return x + self.bias
+        return x + self.bias.to(x.dtype)
 
 
 class RPReLU(nn.Module):
@@ -139,9 +174,9 @@ class RPReLU(nn.Module):
         self.slope = nn.Parameter(torch.full((features,), 0.25))
 
     def forward(self, x: Tensor) -> Tensor:
-        y = x - self.gamma
-        y = torch.where(y >= 0, y, self.slope * y)
-        return y + self.zeta
+        y = x - self.gamma.to(x.dtype)
+        y = torch.where(y >= 0, y, self.slope.to(x.dtype) * y)
+        return y + self.zeta.to(x.dtype)
 
 
 class _BinaryConvBase(nn.Module):
@@ -209,7 +244,10 @@ class _BinaryConvBase(nn.Module):
         :class:`BinaryConvFn` (K1, with K5 + K6 backward). The weight
         sign and alpha come from the active binarizer family (alpha:
         mean|W|, or ``lab``'s ΣW²/Σ|W|, detached); the export fixed point
-        mean|sign·alpha| == alpha makes the packed path family-invariant."""
+        mean|sign·alpha| == alpha makes the packed path family-invariant.
+        A bf16 ``x`` takes the kernels' bf16 modes: K2 rounds the weight
+        to bf16 before its sign and alpha (alpha bf16), the shift is cast
+        to bf16, and K1 / K5 / K6 run on bf16 operands."""
         from bdbnn_tpu_torch.nn.packed import (
             get_packed_impl,
             packed_dense_weight,
@@ -218,6 +256,8 @@ class _BinaryConvBase(nn.Module):
 
         fam = get_active_family()
         lab = fam.name == "lab"
+        if shift is not None:
+            shift = shift.to(x.dtype)
         if self.training:
             if self.packed:
                 raise ValueError(
@@ -229,7 +269,7 @@ class _BinaryConvBase(nn.Module):
             # the stochastic family's draw (react never samples)
             sample = draws is not None and fam.stochastic and not self.has_shift
             u = draws(x).contiguous() if sample else None
-            wsign, alpha = weight_binarize(self.float_weight.detach(), lab=lab)
+            wsign, alpha = weight_binarize(self.float_weight.detach(), lab=lab, dtype=x.dtype)
             return BinaryConvFn.apply(
                 x, shift, self.float_weight, wsign, alpha, self.strides,
                 self.padding, estimator, u,
@@ -238,7 +278,7 @@ class _BinaryConvBase(nn.Module):
             w = packed_dense_weight(self.sign, self.alpha, self.weight_shape)
         else:
             w = self.float_weight.detach()
-        wsign, alpha = weight_binarize(w, lab=lab)
+        wsign, alpha = weight_binarize(w, lab=lab, dtype=x.dtype)
         x = x.contiguous()
         shift = shift.detach() if shift is not None else None
         if self.packed and get_packed_impl() == "popcount":
@@ -296,9 +336,9 @@ class FloatConv(nn.Module):
 
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         del tk, draws
-        y = conv2d(x, self.weight, strides=self.strides)
+        y = conv2d(x, self.weight.to(x.dtype), strides=self.strides)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(x.dtype)
         return y
 
 
@@ -313,6 +353,7 @@ __all__ = [
     "LearnableBias",
     "RPReLU",
     "conv2d",
+    "frozen_running_stats",
     "he_normal_",
     "lecun_normal_",
 ]

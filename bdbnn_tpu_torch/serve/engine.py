@@ -19,7 +19,10 @@ one device. Two residency modes for the binary convs:
   instead of K1.
 
 The three modes give bitwise-equal logits: the decode is exact, and K1
-and K4 compute the same exact integer dots with the same epilogue.
+and K4 compute the same exact integer dots with the same epilogue. An
+artifact that records ``dtype=bfloat16`` builds a bf16 model (the bf16
+modes of K2 and K1, f32 logits) and serves in dense and packed/unpack;
+packed/popcount refuses it, as the reference does.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (the plain PyTorch versions); there is no fallback.
@@ -103,14 +106,18 @@ class InferenceEngine:
         self.packed = bool(packed)
         self.packed_impl = packed_impl
         model_cfg = self.artifact.get("model", {})
-        if model_cfg.get("dtype", "float32") == "bfloat16":
-            raise NotImplementedError(
-                "bfloat16 artifacts are served by a later slice of the port "
-                "(bf16 kernels); this slice serves float32 artifacts"
+        model_dtype = model_cfg.get("dtype", "float32")
+        if self.packed and packed_impl == "popcount" and model_dtype == "bfloat16":
+            # the reference's refusal: bf16 conv accumulation rounds past
+            # 256 terms, the popcount dot is exact integers
+            raise ValueError(
+                "packed_impl='popcount' needs a float32 artifact; this "
+                "one records dtype=bfloat16 — use packed_impl='unpack'"
             )
         self._model = create_model(
             self.arch,
             self.dataset,
+            dtype=model_dtype,
             twoblock=bool(model_cfg.get("twoblock", False)),
             packed=self.packed,
         )

@@ -16,7 +16,6 @@ from typing import Optional, Tuple
 from bdbnn_tpu_torch.nn.binarize import resolve_family
 
 # ROADMAP A "Later" items, by number
-REMAT_BF16 = "item 4: remat and bf16"
 DDP = "item 6: DDP"
 OBS = "item 7: obs, scripts"
 
@@ -30,8 +29,6 @@ TFDATA_UNPORTED = (
 
 # field -> ROADMAP item; asked for when the value differs from the default
 UNSUPPORTED = {
-    "remat": REMAT_BF16,
-    "dtype": REMAT_BF16,
     "model_parallel": DDP,
     "distributed_init": DDP,
     "profile_dir": OBS,

@@ -36,6 +36,12 @@ through worker processes or a thread pool (``--input-backend``, ``-j``;
 and ``--device-normalize`` sends uint8 to the card, where the step
 normalizes it.
 
+``--dtype bfloat16`` builds the student and the teacher as bf16 models
+(the kernels' bf16 modes; parameters, optimizer state and running
+statistics f32, so the losses and the kurtosis run on f32 logits and f32
+latent weights); ``--remat`` recomputes each residual block in the
+backward (``models/resnet.py``).
+
 Not in this slice (``RunConfig.validate`` raises for each option, naming
 its ROADMAP item): profiling windows and the ``memory`` event (item 7),
 DDP (item 6). The health monitor (item 7) is not ported: a run with

@@ -145,10 +145,32 @@ Phases (any failure exits non-zero and prints no result line):
              images; decode, batch, transfer, copy, step and device-step
              times and the device's idle share beside the card's name and
              power limit;
-15. output — one ``{"kernels": [...]}`` line (K1-K7; ``launches_by_path``
-             gives serve, train, train-stoch, train-ts, train-resume and
-             train-folder), then as the last line ``{"ok": true, "device":
-             {...}}``.
+15. train-bf16 — bf16 compute and remat (MIGRATION.md recipes 3-5 run
+             --dtype bfloat16): (a) K1, K2, K5 and K6 in their bf16 modes at
+             the flagship's ten conv shapes at -b 256 against their plain
+             bf16 versions (K1 and K2's sign bitwise, K2's alpha within one
+             bf16 rounding, K5 and K6 within the float64-sum bound plus one
+             bf16 rounding), each timed beside cuDNN's bf16 conv2d /
+             conv2d_input / conv2d_weight on the same ±1 operands; (b)
+             ``fit`` on the flagship recipe with --dtype bfloat16, 3 steps
+             and the eval pass, 19 bf16-mode launches each of K1, K2, K5, K6
+             and 2 of K7 a step, one batch-8 step on the card against the
+             CPU with InputReplay (BF16_PARITY), the device step beside
+             f32's; (c) the same with --remat: K1 and K2 at 38 a step, the
+             BN running statistics bitwise (b)'s, step time and peak memory
+             against the runs without remat in f32 and bf16; (d) BASELINE
+             config 4 in bf16 (resnet34 --react, a seeded resnet34_float
+             teacher file), 3 steps with exact launch counts, the step, the
+             teacher's share of it and peak memory; (e) (b)'s run exported
+             and served in dense and packed/unpack at bucket 32 (bitwise
+             across modes, within two bf16 ulps of the CPU engine on
+             one-channel exact-stem images), packed/popcount refused;
+16. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
+             bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
+             serve, train, train-stoch, train-ts, train-resume, train-folder
+             and train-bf16, and for a bf16 mode train-bf16,
+             train-bf16-remat, train-bf16-ts and serve-bf16), then as the
+             last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
@@ -662,10 +684,22 @@ def wrappers():
 def reset_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
 
 
 def read_counts() -> dict:
     return {k: fn.launches for k, fn in wrappers().items()}
+
+
+# the kernels with a bf16 mode; each wrapper counts the mode's launches
+# apart (``launches_bf16``) beside all of its launches (``launches``)
+BF16_KERNELS = ("K1", "K2", "K5", "K6")
+
+
+def read_bf16_counts() -> dict:
+    w = wrappers()
+    return {f"{k} bf16": w[k].launches_bf16 for k in BF16_KERNELS}
 
 
 def phase_main(art: str):
@@ -1162,16 +1196,19 @@ def phase_train():
     return run_fit("[train]", "resnet18", TRAIN_STEPS)
 
 
-def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cfg_kw):
+def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, fwd_repeats: int = 1,
+            **cfg_kw):
     """``fit`` on ``arch`` (ImageNet, the BASELINE config 3 recipe unless
     ``cfg_kw`` changes it) at -b 256 for ``steps`` steps and the eval pass
     of each epoch, counts set to 0 just before and read just after. Every
-    loss must be finite and every step launch K1, K2, K5 and K6 once for
-    each of the model's ``n_convs`` binary convs and K7 twice (the loss,
-    and the binarization probes' grouped forward); the eval passes'
-    launches count in the run's, not in a step's. Step times are taken
-    between the steps of one epoch. Returns (launch counts of the run,
-    step records, ok)."""
+    loss must be finite and every step launch K5 and K6 once for each of
+    the model's ``n_convs`` binary convs, K1 and K2 ``fwd_repeats`` times
+    (2 under remat: the forward and its recompute) and K7 twice (the loss,
+    and the binarization probes' grouped forward); a bf16 run launches
+    only the bf16 modes of K1, K2, K5 and K6, an f32 run none of them. The
+    eval passes' launches count in the run's, not in a step's. Step times
+    are taken between the steps of one epoch. Returns (launch counts of
+    the run with the bf16 modes' apart, step records, ok)."""
     import torch
 
     from bdbnn_tpu_torch.train import loop
@@ -1185,7 +1222,7 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cf
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((epoch, ev))
-        now = read_counts()
+        now = {**read_counts(), **read_bf16_counts()}
         per_step.append({k: now[k] - prev.get(k, 0) for k in now})
         prev.update(now)
         losses.append(m["loss"])
@@ -1194,7 +1231,7 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cf
 
     def validate(*a, **kw):
         acc1 = real_validate(*a, **kw)
-        prev.update(read_counts())
+        prev.update({**read_counts(), **read_bf16_counts()})
         return acc1
 
     torch.cuda.reset_peak_memory_stats()
@@ -1206,11 +1243,14 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cf
     finally:
         loop._validate = real_validate
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = {**read_counts(), **read_bf16_counts()}
     torch.cuda.synchronize()
     loss_vals = [float(v) for v in losses]
     step_ms = [b.elapsed_time(e) for (ea, b), (eb, e) in zip(events, events[1:]) if ea == eb]
-    want = {"K1": n_convs, "K2": n_convs, "K3": 0, "K4": 0, "K5": n_convs, "K6": n_convs, "K7": 2}
+    fwd = fwd_repeats * n_convs
+    want = {"K1": fwd, "K2": fwd, "K3": 0, "K4": 0, "K5": n_convs, "K6": n_convs, "K7": 2}
+    bf16 = cfg.dtype == "bfloat16"
+    want.update({f"{k} bf16": want[k] if bf16 else 0 for k in BF16_KERNELS})
     ok = (len(loss_vals) == steps * cfg.epochs and all(math.isfinite(v) for v in loss_vals)
           and all(c == want for c in per_step))
     mean_ms = sum(step_ms) / max(len(step_ms), 1)
@@ -1220,7 +1260,8 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, **cf
         f"{peak} bytes = {peak / 2**30:.2f} GiB")
     log(f"{tag} losses {loss_vals}")
     log(f"{tag} launches per step {per_step} (expected {want} each: K7 once for the loss "
-        f"and once for the binarization probes); whole run {counts}")
+        f"and once for the binarization probes; 'bf16' the bf16 modes' launches among them); "
+        f"whole run {counts}")
     log(f"{tag} step ms after each epoch's first step (CUDA events, fit's loop with its host "
         f"input pipeline): {step_ms}; mean {mean_ms:.2f} ms = "
         f"{TRAIN_BATCH / mean_ms * 1e3:.1f} images/s")
@@ -1376,8 +1417,25 @@ def make_step(cfg, state, step_cfg, draws=None):
     return make_ts_train_step(state.model, teacher, state.optimizer, step_cfg, draws=draws)
 
 
+# card vs CPU at batch 8 in bf16 (see phase_train_parity): both sides
+# round every activation to bf16, and a sum that lands on the other side
+# of a bf16 rounding boundary on one device (the stem conv and BN's
+# means in another order, K5's and K6's sums against the plain f32
+# products) moves a value by one bf16 rounding, up to 2^-8 of it. The
+# loss to one such rounding; each gradient to 0.1 of its tensor's largest
+# |entry|: a binary conv's weight gradient takes a bf16 cotangent that
+# has come back through every later layer, each of whose backward ops
+# rounds it again (19 binary convs with their BN and RPReLU: some fifty
+# roundings reach layer1_0.conv1), so its difference grows with the depth
+# behind it; Adam's first update held where the decayed gradient is at
+# least 0.2 of its tensor's largest, twice that tolerance, where its sign
+# cannot differ; the batch statistics to 2^-8 of their largest.
+BF16_PARITY = dict(loss_rtol=2.0**-8, grad_tol=0.1, keep_frac=0.2, bn_atol=2.0**-8)
+
+
 def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inputs=(),
-                       **cfg_kw) -> bool:
+                       loss_rtol: float = TRAIN_LOSS_RTOL, grad_tol: float = GRAD_TOL,
+                       keep_frac: float = 1e-3, bn_atol: float = 1e-4, **cfg_kw) -> bool:
     """One train step on the card against the CPU plain step at batch 8,
     from identical weights and batch (under the stochastic family, the
     same draws: :class:`MarginDraws` on the card, replayed on the CPU;
@@ -1392,7 +1450,9 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inpu
     whose decayed gradient is under 1e-3 of its tensor's largest can turn
     summation noise into an update of up to 2·lr and is held only to
     that, the others to 2e-3·lr; the batch statistics to rtol 1e-5 with
-    1e-4 of the tensor's largest |entry|."""
+    1e-4 of the tensor's largest |entry|. A bf16 run takes
+    :data:`BF16_PARITY`'s tolerances in their place (``loss_rtol``,
+    ``grad_tol``, ``keep_frac``, ``bn_atol``)."""
     import numpy as np
     import torch
 
@@ -1447,7 +1507,7 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inpu
             f"{inputs.max_diff}")
     rel = {k: (abs(card["m"][k] - cpu["m"][k]) / abs(cpu["m"][k]) if cpu["m"][k] != 0.0
                else (0.0 if card["m"][k] == 0.0 else math.inf)) for k in cpu["m"]}
-    fails += [f"{k} relative {v}" for k, v in rel.items() if not v <= TRAIN_LOSS_RTOL]
+    fails += [f"{k} relative {v}" for k, v in rel.items() if not v <= loss_rtol]
     fails += [f"{k} starts from other weights" for k in cpu["old"]
               if not torch.equal(card["old"][k], cpu["old"][k])]
     lr = cpu["lr"]
@@ -1457,7 +1517,7 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inpu
     for name, v in cpu["new"].items():
         got, old = card["new"][name], cpu["old"][name]
         if name.endswith(("running_mean", "running_var")):
-            atol = 1e-4 * float(v.abs().max())
+            atol = bn_atol * float(v.abs().max())
             err = float(((got - v).abs() - 1e-5 * v.abs()).max())
             worst_bn = max(worst_bn, err / max(atol, 1e-30))
             if not err <= atol:
@@ -1468,10 +1528,10 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inpu
         gerr = float((card["grad"][name] - g_ref).abs().max()) / gmax
         worst_g = max(worst_g, gerr)
         g_errs[name] = gerr
-        if not gerr <= GRAD_TOL:
+        if not gerr <= grad_tol:
             fails.append(f"{name} gradient differs by {gerr} of its largest |entry|")
         g_eff = g_ref + cpu["wd"][name] * old
-        keep = g_eff.abs() >= 1e-3 * float(g_eff.abs().max())
+        keep = g_eff.abs() >= keep_frac * float(g_eff.abs().max())
         kept += int(keep.sum())
         total += keep.numel()
         derr = (got - old) - (v - old)
@@ -1481,8 +1541,8 @@ def phase_train_parity(tag: str = "[train]", arch: str = "resnet18", replay_inpu
             fails.append(f"{name} update differs by {perr}·lr")
     ok = not fails
     log(f"{tag} one step at batch 8, card {card['m']} vs CPU plain {cpu['m']}: relative {rel} "
-        f"(tol {TRAIN_LOSS_RTOL}); worst gradient error {worst_g} of the tensor's largest "
-        f"(tol {GRAD_TOL}, {len(cpu['grad'])} tensors); worst update error {worst_p}·lr on "
+        f"(tol {loss_rtol}); worst gradient error {worst_g} of the tensor's largest "
+        f"(tol {grad_tol}, {len(cpu['grad'])} tensors); worst update error {worst_p}·lr on "
         f"{kept}/{total} entries (tol 2e-3·lr); worst batch-stat error {worst_bn} of its "
         f"tolerance; ok={ok} ({time.perf_counter() - t0:.1f}s)")
     log(f"{tag} largest gradient errors (of the tensor's largest |entry|): " + ", ".join(
@@ -1528,11 +1588,15 @@ def phase_train_cli() -> bool:
     return set(res) == {"best_acc1", "best_epoch"}
 
 
-def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, **cfg_kw) -> dict:
+def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, trace: bool = True,
+                       **cfg_kw) -> dict:
     """A train step of the flagship (or ``cfg_kw``'s model) at -b 256
     alone: CUDA-event time per step on a batch already on the card
-    (``batch``, else seeded normal images), then device time by kernel,
-    with ``torch.rand``'s share (the stochastic family's draws) named."""
+    (``batch``, else seeded normal images) and the peak device memory of
+    those steps (``torch.cuda.max_memory_allocated``: model, optimizer
+    state, batch and the step's activations); then, with ``trace``,
+    device time by kernel, with ``torch.rand``'s share (the stochastic
+    family's draws) named."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1548,9 +1612,17 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, **cfg_
         batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
                  torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
     tk, gate = epoch_schedule(family, cfg, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: step(state, batch, tk, gate), iters, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
     log(f"[profile] {tag} train step -b {TRAIN_BATCH}, batch on the card: {ms:.2f} ms "
-        f"= {TRAIN_BATCH / ms * 1e3:.1f} images/s (CUDA events, {iters} steps after 2 warm-up)")
+        f"= {TRAIN_BATCH / ms * 1e3:.1f} images/s (CUDA events, {iters} steps after 2 warm-up); "
+        f"peak device memory {peak} bytes = {peak / 2**30:.2f} GiB")
+    if not trace:
+        del state, step, batch
+        torch.cuda.empty_cache()
+        return {"step_ms": ms, "peak_bytes": peak}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1582,7 +1654,8 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, **cfg_
             log(f"[profile]   {kms:8.4f} ms  {name[:100]}")
     del state, step, batch
     torch.cuda.empty_cache()
-    return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms, "rand_ms": rand_ms}
+    return {"step_ms": ms, "busy_ms": busy, "wall_ms": wall_ms, "rand_ms": rand_ms,
+            "peak_bytes": peak}
 
 
 # the device kernels of each K wrapper, by the name the profiler gives them
@@ -1881,7 +1954,7 @@ def ts_parts(tag: str, cfg_kw: dict, iters: int = 10):
     t_ms = cuda_ms(teacher_fwd, iters)
     kd_ms = cuda_ms(kd_terms, iters)
     log(f"{tag} (g) alone at -b {TRAIN_BATCH}: the teacher's forward (resnet34_float, eval, "
-        f"no_grad, cuDNN f32, TF32 off) {t_ms:.3f} ms; the KD loss terms (α·logitKL + "
+        f"no_grad, cuDNN {cfg.dtype}, TF32 off) {t_ms:.3f} ms; the KD loss terms (α·logitKL + "
         f"{w_ce}·CE, forward and backward) {kd_ms:.4f} ms (CUDA events, {iters} calls)")
     del teacher, x, logits, t_logits
     torch.cuda.empty_cache()
@@ -2630,6 +2703,282 @@ def phase_train_folder(smi_line: str):
     return counts, ok
 
 
+# [train-bf16]: bf16 compute and remat, as MIGRATION.md's ImageNet
+# recipes 3-5 run (--dtype bfloat16). UB bounds one bf16 rounding of a
+# value (its distance to either bf16 neighbour is at most 2^-8 of it).
+UB = 2.0**-8
+BF16_STEPS = 3
+
+
+def bf16_kernels(tag: str, pk):
+    """(a) K1, K2, K5 and K6 in their bf16 modes at the flagship's ten
+    distinct binary conv shapes at -b 256, each held to its plain bf16
+    version: K1 and K2's sign bitwise, K2's alpha within one bf16 rounding
+    (both sum in float64) and bitwise across two runs; K5 (the flagship's
+    approx slope) and K6 to the float64 sum of the same bf16 products
+    within the f32 summation bound 4u·Σ|terms| plus one bf16 rounding of
+    the result, and to the plain version within 8u·Σ|terms| (the plain's
+    f32 sum has its own error) plus two roundings; K5 and K6 bitwise
+    across two runs. Times each beside its plain version and cuDNN's bf16
+    ``conv2d`` / ``conv2d_input`` / ``conv2d_weight`` on the same ±1
+    operands (the library yardstick); bounds from bf16 bytes and, for K5
+    and K6, 2·MACs at the bf16 tensor rate (one bf16 piece of g·alpha).
+    Returns per-kernel records (without ``launches``) and ok."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn import grad as tgrad
+
+    from bdbnn_tpu_torch.nn.kernels import (
+        binary_conv2d,
+        binary_conv2d_dgrad,
+        binary_conv2d_dgrad_plain,
+        binary_conv2d_plain,
+        binary_conv2d_wgrad,
+        binary_conv2d_wgrad_plain,
+        weight_binarize,
+        weight_binarize_plain,
+    )
+    from bdbnn_tpu_torch.nn.kernels.binary_conv import binarize_input, estimator_slope
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    recs = {f"{k} bf16": {"shapes": []} for k in BF16_KERNELS}
+    ok = True
+    approx = ("approx", 0.0, 0.0)
+    b = TRAIN_BATCH
+    for name, hw, c, o, k, s, count in FLAGSHIP_CONVS:
+        pad = k // 2
+        ho = (hw + 2 * pad - k) // s + 1
+        st = (s, s)
+        m, kk = b * ho * ho, k * k * c
+        macs = m * o * kk
+        x = torch.randn((b, hw, hw, c), generator=g, device=dev).to(bf)
+        shift = (0.1 * torch.randn((c,), generator=g, device=dev)).to(bf)
+        w = 0.5 * torch.randn((k, k, c, o), generator=g, device=dev)  # some |W| > 1
+        gy = torch.randn((b, ho, ho, o), generator=g, device=dev).to(bf)
+        rows = {}
+        # K2
+        sign, alpha = weight_binarize(w, dtype=bf)
+        sign2, alpha2 = weight_binarize(w, dtype=bf)
+        psign, palpha = weight_binarize_plain(w, dtype=bf)
+        a_err = (alpha.float() - palpha.float()).abs()
+        k2_ok = (torch.equal(sign, psign) and bool((a_err <= UB * palpha.float().abs()).all())
+                 and torch.equal(sign, sign2) and torch.equal(alpha, alpha2))
+        nw = w.numel()
+        rows["K2"] = _conv_row(name, b, count, cuda_ms(lambda: weight_binarize(w, dtype=bf), 50),
+                               cuda_ms(lambda: weight_binarize_plain(w, dtype=bf), 20), None,
+                               bound(nw * 4 + nw + o * 2, 3.0 * nw, pk["f32_tflops"], pk),
+                               float(a_err.max()), k2_ok)
+        # K1, and cuDNN's bf16 conv on the same ±1 operands
+        y, py = (binary_conv2d(x, sign, alpha, shift=shift, strides=st),
+                 binary_conv2d_plain(x, sign, alpha, shift=shift, strides=st))
+        k1_ok = torch.equal(y, py)
+        xb = binarize_input(x, shift).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        wf = sign.permute(0, 3, 1, 2).to(bf).contiguous(memory_format=torch.channels_last)
+        rows["K1"] = _conv_row(
+            name, b, count,
+            cuda_ms(lambda: binary_conv2d(x, sign, alpha, shift=shift, strides=st), 20),
+            cuda_ms(lambda: binary_conv2d_plain(x, sign, alpha, shift=shift, strides=st), 3),
+            cuda_ms(lambda: F.conv2d(xb, wf, stride=st, padding=pad), 20),
+            bound(b * hw * hw * c * 2 + o * kk + o * 2 + c * 2 + m * o * 2, 2.0 * macs,
+                  pk["int8_tops"], pk),
+            float((y.float() - py.float()).abs().max()), k1_ok)
+        del y, py
+        # K5: the sum against the float64 one, then the approx slope
+        dx = binary_conv2d_dgrad(gy, x, sign, alpha, shift=shift, strides=st, estimator=approx)
+        dx2 = binary_conv2d_dgrad(gy, x, sign, alpha, shift=shift, strides=st, estimator=approx)
+        pdx = binary_conv2d_dgrad_plain(gy, x, sign, alpha, shift=shift, strides=st,
+                                        estimator=approx)
+        exact = dgrad_exact(gy, x, sign, alpha, s, pad)  # of the bf16 products g·alpha
+        ga = (gy * alpha).float()
+        terms = binary_conv2d_dgrad_plain(ga.abs(), x.float(), torch.ones_like(sign),
+                                          torch.ones((o,), device=dev), strides=st).double()
+        slope = estimator_slope(x - shift, approx).double().abs()
+        ex = exact * slope
+        err_ex = (dx.double() - ex).abs()
+        err = (dx.double() - pdx.double()).abs()
+        # the sum and the slope multiply each round once more on each side
+        bound_ex = (4 * U * terms + UB * exact.abs()) * slope + UB * (dx.double().abs() + ex.abs())
+        bound_p = ((8 * U * terms + 2 * UB * exact.abs()) * slope
+                   + UB * (dx.double().abs() + pdx.double().abs()))
+        k5_ok = (torch.equal(dx, dx2) and bool((err_ex <= bound_ex + 1e-30).all())
+                 and bool((err <= bound_p + 1e-30).all()))
+        log(f"{tag} (a) K5 bf16 {name} b{b} approx: within bound and bitwise across two runs "
+            f"{k5_ok}; entries off the plain version {int((err > 0).sum())} of {err.numel()}, "
+            f"off the rounded float64 sum {int((err_ex > UB * ex.abs()).sum())}; largest error "
+            f"over its bound: vs exact {float((err_ex / (bound_ex + 1e-30)).max()):.3f}, vs plain "
+            f"{float((err / (bound_p + 1e-30)).max()):.3f}")
+        gan = ga.to(bf).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        rows["K5"] = _conv_row(
+            name, b, count,
+            cuda_ms(lambda: binary_conv2d_dgrad(gy, x, sign, alpha, shift=shift, strides=st,
+                                                estimator=approx), 10),
+            cuda_ms(lambda: binary_conv2d_dgrad_plain(gy, x, sign, alpha, shift=shift, strides=st,
+                                                      estimator=approx), 3),
+            cuda_ms(lambda: tgrad.conv2d_input((b, c, hw, hw), wf, gan, stride=s, padding=pad), 10),
+            bound(gy.numel() * 2 + 2 * x.numel() * 2 + sign.numel() + (o + c) * 2, 2.0 * macs,
+                  pk["bf16_tflops"], pk),
+            float(err.max()), k5_ok)
+        del dx, dx2, pdx, exact, terms, slope, ex, err, err_ex, bound_ex, bound_p
+        # K6: against the float64 sum, masked on bf16(W)
+        dw = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
+        dw2 = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
+        pdw = binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st)
+        ex6 = wgrad_exact(gy, x, w.to(bf).float(), alpha, shift, s, pad)
+        wterms = binary_conv2d_wgrad_plain(ga.abs(), torch.ones_like(x, dtype=torch.float32),
+                                           torch.zeros_like(w), torch.ones((o,), device=dev),
+                                           strides=st).double()
+        err6_ex = (dw.double() - ex6).abs()
+        err6 = (dw - pdw).abs().double()
+        k6_ok = (torch.equal(dw, dw2)
+                 and bool((err6_ex <= 4 * U * wterms + UB * ex6.abs() + 1e-30).all())
+                 and bool((err6 <= 8 * U * wterms + UB * (dw.abs() + pdw.abs()).double()
+                           + 1e-30).all()))
+        log(f"{tag} (a) K6 bf16 {name} b{b}: within bound and bitwise across two runs {k6_ok}; "
+            f"entries off the plain version {int((err6 > 0).sum())} of {err6.numel()}")
+        rows["K6"] = _conv_row(
+            name, b, count,
+            cuda_ms(lambda: binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st), 10),
+            cuda_ms(lambda: binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st), 3),
+            cuda_ms(lambda: tgrad.conv2d_weight(xb, wf.shape, gan, stride=s, padding=pad), 10),
+            bound(gy.numel() * 2 + x.numel() * 2 + 2 * w.numel() * 4 + (o + c) * 2, 2.0 * macs,
+                  pk["bf16_tflops"], pk),
+            float(err6.max()), k6_ok)
+        for kname in BF16_KERNELS:
+            r = rows[kname]
+            recs[f"{kname} bf16"]["shapes"].append(r)
+            _log_row(f"{kname} bf16", r)
+            ok = ok and r["ok"]
+        del x, gy, w, dw, dw2, pdw, ex6, wterms, err6, err6_ex, ga, gan, xb, wf
+        torch.cuda.empty_cache()
+    return recs, ok
+
+
+def phase_train_bf16(pk, f32_prof: dict):
+    """[train-bf16]: (a) the bf16 modes of K1, K2, K5 and K6 against their
+    plain versions (:func:`bf16_kernels`); (b) ``fit`` on the flagship
+    recipe with --dtype bfloat16 at -b 256, 3 steps and the eval pass,
+    exact launch counts (19 bf16 launches each of K1, K2, K5, K6 a step, 2
+    of K7), finite losses; one batch-8 step on the card against the CPU
+    with InputReplay, to :data:`BF16_PARITY`; the device step beside f32's
+    ([profile], ``f32_prof``); (c) the same recipe with --remat: K1 and K2
+    at 38 a step, the BN running statistics bitwise those of (b) (cuDNN
+    deterministic in both), the step time and peak memory beside the runs
+    without remat, in f32 and bf16; (d) BASELINE config 4 in bf16
+    (resnet34 --react, a seeded resnet34_float teacher file, 3 steps):
+    exact launch counts, the step, the teacher's forward alone as a share
+    of it, fit's peak memory; (e) (b)'s run exported and served in dense
+    and packed/unpack at bucket 32 (:func:`serve_bf16`). Returns
+    (launch counts of (b), (c), (d) and (e), per-kernel records of (a), ok)."""
+    import torch
+
+    tag = "[train-bf16]"
+    oks = {}
+    t0 = time.perf_counter()
+    krecs, oks["(a) kernels"] = bf16_kernels(tag, pk)
+    log(f"{tag} (a) in {time.perf_counter() - t0:.1f}s")
+    bf = dict(dtype="bfloat16")
+    roots = {"b": fresh_log_root(), "c": fresh_log_root()}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts = {}
+        counts["train-bf16"], rec_b, oks["(b) fit"] = run_fit(
+            f"{tag} (b)", "resnet18", BF16_STEPS, log_path=roots["b"], **bf)
+        counts["train-bf16-remat"], rec_c, oks["(c) fit remat"] = run_fit(
+            f"{tag} (c)", "resnet18", BF16_STEPS, fwd_repeats=2, remat=True, log_path=roots["c"], **bf)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    sb, sc = (final_payload(run_dir_of(roots[k])) for k in ("b", "c"))
+    stats = [k for k in sb["model"] if k.endswith(("running_mean", "running_var"))]
+    differ = [k for k in stats if not torch.equal(sb["model"][k], sc["model"][k])]
+    oks["(c) BN stats as without remat"] = bool(stats) and not differ
+    log(f"{tag} (c) remat against (b) after {BF16_STEPS} steps: {len(stats)} running statistics, "
+        f"bitwise {not differ} (differing: {differ[:4]}); losses bitwise "
+        f"{rec_b['losses'] == rec_c['losses']}; tensors of model and optimizer that differ "
+        f"{len(state_diff(sb, sc))}")
+    oks["(b) card vs CPU"] = phase_train_parity(f"{tag} (b)", "resnet18",
+                                                replay_inputs=("conv", "rprelu"), **BF16_PARITY, **bf)
+    prof = {"f32": f32_prof,
+            "bf16": profile_train_step(tag=f"{tag} (b) flagship bf16", **bf),
+            "f32 remat": profile_train_step(tag=f"{tag} (c) flagship f32 remat", trace=False,
+                                            remat=True),
+            "bf16 remat": profile_train_step(tag=f"{tag} (c) flagship bf16 remat", trace=False,
+                                             remat=True, **bf)}
+    log(f"{tag} (b)/(c) flagship train step -b {TRAIN_BATCH} on the card, by mode: " + "; ".join(
+        f"{k} {v['step_ms']:.2f} ms = {TRAIN_BATCH / v['step_ms'] * 1e3:.1f} images/s, peak "
+        f"{v['peak_bytes'] / 2**30:.2f} GiB" for k, v in prof.items())
+        + f"; bf16 / f32 step {prof['bf16']['step_ms'] / f32_prof['step_ms']:.3f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        teacher = os.path.join(tmp, "resnet34_float.pth.tar")
+        write_teacher_checkpoint(teacher, "resnet34_float", "imagenet", seed=11)
+        p1 = {k: v for k, v in TS_PATHS["path 1"].items() if k != "arch"}
+        p1.update(resume_teacher=teacher, **bf)
+        counts["train-bf16-ts"], rec_d, oks["(d) fit"] = run_fit(
+            f"{tag} (d) BASELINE config 4", "resnet34", TS_STEPS, TS_CONVS, **p1)
+        prof_d = profile_train_step(tag=f"{tag} (d) resnet34 + resnet34_float bf16", arch="resnet34",
+                                    **p1)
+        teacher_ms, kd_ms = ts_parts(f"{tag} (d)", {"arch": "resnet34", **p1})
+    log(f"{tag} (d) BASELINE config 4 in bf16: step {prof_d['step_ms']:.2f} ms = "
+        f"{TRAIN_BATCH / prof_d['step_ms'] * 1e3:.1f} images/s, the teacher's forward alone "
+        f"{teacher_ms:.3f} ms = {teacher_ms / prof_d['step_ms']:.3f} of it, the KD loss terms "
+        f"{kd_ms / prof_d['step_ms']:.5f}; fit's peak device memory {rec_d['peak_bytes']} bytes "
+        f"= {rec_d['peak_bytes'] / 2**30:.2f} GiB")
+    counts["serve-bf16"], oks["(e) serve"] = serve_bf16(tag, run_dir_of(roots["b"]))
+    ok = all(oks.values())
+    log(f"{tag} {oks} ok={ok}")
+    return counts, krecs, ok
+
+
+def serve_bf16(tag: str, run_dir: str):
+    """(e) the bf16 run exported (the artifact records dtype=bfloat16) and
+    served on the card at bucket 32 in dense and packed/unpack: logits
+    finite and bitwise across the two modes; against the CPU engine on
+    images with one nonzero value in any 7×7 window of one channel (each
+    stem sum is one exact product, so both devices are bitwise up to the
+    pool), within two bf16 ulps of the largest |logit| (the pool's f32 mean
+    and the classifier's f32 sum run in another order on each device and
+    may round to the neighbouring bf16 value); packed/popcount refused
+    with the reference's ValueError. Returns (launch counts of the two
+    modes' forwards, ok)."""
+    import numpy as np
+
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.export import export_artifact
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "art")
+        a = export_artifact(run_dir, art)
+        engines = {"dense": InferenceEngine(art, buckets=(32,), device="cuda"),
+                   "unpack": InferenceEngine(art, buckets=(32,), device="cuda", packed=True)}
+        x = np.random.default_rng(6).normal(size=(32, 224, 224, 3)).astype(np.float32)
+        reset_counts()
+        out = {m: e.predict_logits(x) for m, e in engines.items()}
+        counts = {**read_counts(), **read_bf16_counts()}
+        fin = all(np.all(np.isfinite(v)) and v.shape == (32, 1000) for v in out.values())
+        same = np.array_equal(out["dense"].view(np.uint32), out["unpack"].view(np.uint32))
+        sparse = np.zeros_like(x)
+        sparse[:, ::7, ::7, 0] = np.random.default_rng(7).normal(size=sparse[:, ::7, ::7, 0].shape)
+        c = InferenceEngine(art, buckets=(32,), device="cpu").predict_logits(sparse)
+        d = engines["dense"].predict_logits(sparse)
+        rel = float(np.max(np.abs(c - d))) / max(float(np.max(np.abs(c))), 1e-30)
+        try:
+            InferenceEngine(art, buckets=(32,), device="cuda", packed=True, packed_impl="popcount")
+            refused = False
+        except ValueError:
+            refused = True
+        want = {"K1 bf16": 2 * N_BINARY_CONVS, "K2 bf16": 2 * N_BINARY_CONVS}
+        ok = (a["model"]["dtype"] == "bfloat16" and fin and same and rel <= 2 * UB and refused
+              and all(counts[k] == n for k, n in want.items()) and counts["K4"] == 0)
+        log(f"{tag} (e) the bf16 artifact (dtype {a['model']['dtype']}) at bucket 32: logits "
+            f"finite {fin}, bitwise across dense/unpack {same}; CPU engine vs card on "
+            f"one-channel exact-stem images: relative {rel} (tol {2 * UB}), top-1 equal on "
+            f"{int((c.argmax(-1) == d.argmax(-1)).sum())} of 32; popcount refused {refused}; "
+            f"launches {counts} (one forward a mode: {want} each); ok={ok}")
+    return counts, ok
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2688,11 +3037,13 @@ def main(argv=None) -> int:
     ok_tp = phase_train_parity()
     ok_te = phase_train_cede()
     ok_tc = phase_train_cli()
-    profile_train_step()
+    f32_prof = profile_train_step()
     stoch_counts, ok_ts = phase_train_stoch(pk)
     ts_counts, ok_tts = phase_train_ts()
     resume_counts, ok_tr = phase_train_resume(pk)
     folder_counts, ok_tf = phase_train_folder(smi_line)
+    bf16_counts, brecs, ok_tb = phase_train_bf16(pk, f32_prof)
+    recs.update(brecs)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -2719,16 +3070,27 @@ def main(argv=None) -> int:
     # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed),
     # on the stochastic family's training path, on the teacher-student
     # path, on the checkpoint/resume path's run A and on the image-folder
-    # path's mp run (K1, K2, K5-K7)
+    # path's mp run (K1, K2, K5-K7), and on the bf16 flagship's (K1, K2,
+    # K5-K7). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # launches: on the bf16 flagship's path, its remat run, the bf16
+    # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
                    "train-resume": resume_counts.get(k, 0),
-                   "train-folder": folder_counts.get(k, 0)}
+                   "train-folder": folder_counts.get(k, 0),
+                   "train-bf16": bf16_counts["train-bf16"].get(k, 0)}
                for k in sources}
-    used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources}
+    for k in BF16_KERNELS:
+        sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
+        names[f"{k} bf16"] = names[k].replace(" (", " bf16 mode (", 1)
+        by_path[f"{k} bf16"] = {path: c.get(f"{k} bf16", 0) for path, c in bf16_counts.items()}
+    used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources
+            if k in recs and not k.endswith("bf16")}
+    used.update({f"{k} bf16": by_path[f"{k} bf16"]["train-bf16"] for k in BF16_KERNELS})
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
-        for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder"))
+        for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder",
+                     "train-bf16"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -2740,6 +3102,8 @@ def main(argv=None) -> int:
              "K2": fwd + wgraph, "K3": fwd + wgraph, "K4": fwd, "K5": step, "K6": step,
              "K7": "one call over the 19 hooked tensors; graph_ms its three device passes alone, "
                    "call_graph_ms the whole call as a CUDA graph"}
+    ms_of.update({f"{k} bf16": step + "; bf16 operands, library_ms cuDNN's bf16 call"
+                  for k in BF16_KERNELS})
 
     def sums(sh):
         lib = [s["library_ms"] for s in sh]
@@ -2751,7 +3115,7 @@ def main(argv=None) -> int:
             out["graph_ms"] = total("graph_ms")
         return out
 
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7") + tuple(f"{k} bf16" for k in BF16_KERNELS):
         sh = recs[k]["shapes"]
         rec = {
             "name": f"{k} {names[k]}",
@@ -2775,7 +3139,7 @@ def main(argv=None) -> int:
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
-           "train_folder": ok_tf, "launched": ok_used}
+           "train_folder": ok_tf, "train_bf16": ok_tb, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

@@ -15,7 +15,11 @@ across two runs and between its calls with and without the gradient,
 across a changed tensor set, an in-place weight update and CUDA-graph
 replays. Under the stochastic family K1 with the draw ``u`` is bitwise
 equal to its plain version and K6 with ``u`` within its bound, at shapes
-where the sampled dW is far from the hard one. Every test here is marked ``cuda`` and
+where the sampled dW is far from the hard one. The bf16 modes: K1 bitwise
+its plain bf16 version (hard sign and draw), K2's sign bitwise and its
+alpha within one bf16 rounding, K5 and K6 within the f32 summation bound
+plus a bf16 rounding on each side, all bitwise across two runs and
+counted apart (``launches_bf16``). Every test here is marked ``cuda`` and
 skips with a reason where no CUDA device exists (this file imports torch
 and the port only, no JAX). On the GPU machine:
 
@@ -545,3 +549,133 @@ def test_k7_cuda_graph_replays(cuda, warm):
         _k7_matches_plain((loss, kurt, grads), ws, targets, "avg")
         for w in ws:
             w.mul_(0.9).add_(0.003 * (step + 1))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 modes of K1, K2, K5 and K6 (a bf16 model's binary convs)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# one bf16 rounding, relative: half an ulp, at most 2⁻⁸ of the value
+UB = 2.0**-8
+BF16_CASES = CONV_CASES + [
+    (4, 56, 56, 64, 64, 3, 1, True), (4, 56, 56, 64, 128, 3, 2, True),
+    (4, 7, 7, 512, 512, 3, 1, True), (3, 13, 11, 200, 131, 3, 2, False),
+]
+
+
+def _bf16_operands(case, dev, seed):
+    x, shift, w = _operands(case, dev, seed)
+    return x.to(BF16), shift.to(BF16) if shift is not None else None, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_k1_bf16_bitwise_vs_plain(cuda, case):
+    """K1's bf16 mode writes bf16(bf16(dot)·alpha): bitwise its plain
+    version, with the hard sign and with a bf16 draw (no shift)."""
+    x, shift, w = _bf16_operands(case, cuda, seed=41)
+    wsign, alpha = weight_binarize(w, dtype=BF16)
+    st = (case[6], case[6])
+    before = (binary_conv2d.launches, binary_conv2d.launches_bf16)
+    y = binary_conv2d(x, wsign, alpha, shift=shift, strides=st)
+    plain = binary_conv2d_plain(x, wsign, alpha, shift=shift, strides=st)
+    u = _draw(x, 42).to(BF16)
+    yu = binary_conv2d(x, wsign, alpha, strides=st, u=u)
+    plain_u = binary_conv2d_plain(x, wsign, alpha, strides=st, u=u)
+    torch.cuda.synchronize()
+    assert (binary_conv2d.launches, binary_conv2d.launches_bf16) == (before[0] + 2, before[1] + 2)
+    assert y.dtype == BF16 and torch.equal(y, plain)
+    assert torch.equal(yu, plain_u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lab", [False, True])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "w+4B"])
+@pytest.mark.parametrize("shape", WEIGHT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k2_bf16_vs_plain(cuda, lab, shape, offset):
+    """K2's bf16 mode: the sign of bf16(W) bitwise (a negative subnormal
+    rounds to -0 and takes +1), alpha bf16 within one bf16 rounding of the
+    plain version (both sum in float64) and bitwise across two runs."""
+    w = _weight(shape, cuda, 43, offset)
+    w.reshape(-1)[7::29] = -1e-40  # rounds to -0 in bf16
+    before = weight_binarize.launches_bf16
+    sign, alpha = weight_binarize(w, lab=lab, dtype=BF16)
+    sign2, alpha2 = weight_binarize(w, lab=lab, dtype=BF16)
+    psign, palpha = weight_binarize_plain(w, lab=lab, dtype=BF16)
+    torch.cuda.synchronize()
+    assert weight_binarize.launches_bf16 == before + 2
+    assert torch.equal(sign, psign) and alpha.dtype == BF16
+    assert bool(((alpha.float() - palpha.float()).abs() <= UB * palpha.float().abs()).all())
+    assert torch.equal(sign, sign2) and torch.equal(alpha, alpha2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("est", ESTIMATORS, ids=[e[0] for e in ESTIMATORS])
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_k5_k6_bf16_vs_plain(cuda, case, est):
+    """K5's and K6's bf16 modes (one bf16 piece of g·alpha) against their
+    plain versions: the sums before the bf16 rounding agree to the f32
+    summation bound 8·2⁻²⁴·Σ|terms|, so the rounded sums lie within that
+    plus one bf16 rounding on each side, and the slope multiply rounds once
+    more on each side; bitwise across two runs."""
+    x, shift, w, g = _grad_operands(case, cuda, seed=44)
+    x, g = x.to(BF16), g.to(BF16)
+    shift = shift.to(BF16) if shift is not None else None
+    st = (case[6], case[6])
+    wsign, alpha = weight_binarize_plain(w, dtype=BF16)
+    before = (binary_conv2d_dgrad.launches_bf16, binary_conv2d_wgrad.launches_bf16)
+    dx = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    dx2 = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    dw = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=st)
+    dw2 = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=st)
+    pdx = binary_conv2d_dgrad_plain(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    pdw = binary_conv2d_wgrad_plain(g, x, w, alpha, shift=shift, strides=st)
+    torch.cuda.synchronize()
+    assert (binary_conv2d_dgrad.launches_bf16, binary_conv2d_wgrad.launches_bf16) == (
+        before[0] + 2, before[1] + 2
+    )
+    assert dx.dtype == BF16 and dw.dtype == torch.float32
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    ga = (g * alpha).float()
+    terms = binary_conv2d_dgrad_plain(ga.abs(), x.float(), torch.ones_like(wsign),
+                                      torch.ones_like(alpha, dtype=torch.float32), strides=st)
+    sum_plain = binary_conv2d_dgrad_plain(g, x, wsign, alpha, shift=shift, strides=st).float()
+    slope = estimator_slope((x - shift if shift is not None else x), est).float().abs()
+    bound5 = ((8 * U * terms + 2 * UB * sum_plain.abs()) * slope
+              + UB * (dx.float().abs() + pdx.float().abs()) + 1e-30)
+    over = (dx.float() - pdx.float()).abs() - bound5
+    if bool((over > 0).any()):
+        i = int(over.reshape(-1).argmax())
+        v = (x - shift if shift is not None else x).reshape(-1)[i]
+        raw = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st).reshape(-1)[i]
+        pytest.fail(
+            f"dx beyond the bound at {int((over > 0).sum())} entries; the worst, flat index {i}: "
+            f"v={float(v)!r} plain slope={float(slope.reshape(-1)[i])!r} "
+            f"cpu slope={float(estimator_slope(v.cpu().reshape(1), est)[0])!r} "
+            f"dx={float(dx.reshape(-1)[i])!r} plain dx={float(pdx.reshape(-1)[i])!r} "
+            f"sum={float(raw)!r} plain sum={float(sum_plain.reshape(-1)[i])!r}"
+        )
+    wterms = binary_conv2d_wgrad_plain(ga.abs(), torch.ones_like(x.float()), torch.zeros_like(w),
+                                       torch.ones_like(alpha, dtype=torch.float32), strides=st)
+    assert bool(((dw - pdw).abs() <= 8 * U * wterms + UB * (dw.abs() + pdw.abs()) + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STOCH_CASES[-4:], ids=STOCH_IDS[-4:])
+def test_k6_bf16_with_u_within_bound(cuda, case):
+    x, _, w, g = _grad_operands(case, cuda, seed=45)
+    x, g = x.to(BF16), g.to(BF16)
+    u = _draw(x, 46).to(BF16)
+    st = (case[6], case[6])
+    _, alpha = weight_binarize_plain(w, dtype=BF16)
+    dw = binary_conv2d_wgrad(g, x, w, alpha, strides=st, u=u)
+    pdw = binary_conv2d_wgrad_plain(g, x, w, alpha, strides=st, u=u)
+    hard = binary_conv2d_wgrad_plain(g, x, w, alpha, strides=st)
+    ga = (g * alpha).float()
+    wterms = binary_conv2d_wgrad_plain(ga.abs(), torch.ones_like(x.float()), torch.zeros_like(w),
+                                       torch.ones_like(alpha, dtype=torch.float32), strides=st)
+    torch.cuda.synchronize()
+    bound = 8 * U * wterms + UB * (dw.abs() + pdw.abs()) + 1e-30
+    assert bool(((dw - pdw).abs() <= bound).all())
+    assert bool(((hard - pdw).abs() > 100 * bound).any())

@@ -146,8 +146,14 @@ def test_registry_names_and_unported_options():
         assert sum(p.numel() for p in model.parameters()) == n_params
     with pytest.raises(ValueError, match="bottleneck"):
         tres.BiResNet((1, 1), 10, width=8, variant="react", block="bottleneck")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        treg.create_model("resnet8_tiny", "cifar10", dtype="bfloat16")
+    # bf16 builds (f32 parameters and running stats, f32 logits), as the
+    # reference's dtype=bfloat16 does
+    model = treg.create_model("resnet8_tiny", "cifar10", dtype="bfloat16")
+    assert model.dtype == torch.bfloat16
+    assert {t.dtype for t in model.state_dict().values()} == {torch.float32}
+    assert model.eval()(torch.zeros(2, 16, 16, 3)).dtype == torch.float32
+    with pytest.raises(ValueError, match="dtype"):
+        treg.create_model("resnet8_tiny", "cifar10", dtype="float16")
     with pytest.raises(ValueError, match="unknown arch"):
         treg.create_model("nope", "cifar10")
 
@@ -155,8 +161,9 @@ def test_registry_names_and_unported_options():
 def test_training_mode_raises_until_training_slice():
     """Training mode runs since the training slice, under the stochastic
     family too (sampled signs from a step's draws: the same (seed, step)
-    gives the same output bitwise, another step another one); what it does
-    not run yet raises: remat, and a packed model (no latent weight)."""
+    gives the same output bitwise, another step another one), and under
+    remat for the ResNets; vgg_small refuses remat with the reference's
+    ValueError, and a packed model (no latent weight) refuses training."""
     from bdbnn_tpu_torch.nn.binarize import StepDraws, active_family
 
     model = treg.create_model("resnet8_tiny", "cifar10").train()
@@ -168,8 +175,10 @@ def test_training_mode_raises_until_training_slice():
             outs.append(model(x, None, StepDraws(5, step)))
     assert outs[0].shape == (2, 10) and bool(torch.isfinite(outs[0]).all())
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
-    with pytest.raises(NotImplementedError, match="remat"):
-        treg.create_model("resnet8_tiny", "cifar10", remat=True)
+    remat = treg.create_model("resnet8_tiny", "cifar10", remat=True).train()
+    assert remat.remat and remat(torch.zeros(2, 16, 16, 3)).shape == (2, 10)
+    with pytest.raises(ValueError, match="vgg_small"):
+        treg.create_model("vgg_small", "cifar10", remat=True)
     packed = treg.create_model("resnet8_tiny", "cifar10", packed=True).train()
     with pytest.raises(ValueError, match="packed"):
         packed(torch.zeros(1, 16, 16, 3))

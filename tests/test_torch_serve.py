@@ -169,8 +169,18 @@ def test_engine_has_no_cpu_fallback_and_validates(port_artifact, tmp_path):
     art["model"]["dtype"] = "bfloat16"
     with open(path, "w") as f:
         json.dump(art, f)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tengine.InferenceEngine(bf16, device="cpu")
+    # a bf16 artifact serves (f32 logits of a bf16 forward) in dense and
+    # packed/unpack; packed/popcount refuses it, as the reference does
+    eng = tengine.InferenceEngine(bf16, device="cpu", buckets=(2,))
+    assert eng._model.dtype == torch.bfloat16
+    logits = eng.predict_logits(np.zeros((2, eng.image_size, eng.image_size, 3), np.float32))
+    assert logits.dtype == np.float32 and np.isfinite(logits).all()
+    unpack = tengine.InferenceEngine(bf16, device="cpu", buckets=(2,), packed=True)
+    np.testing.assert_array_equal(
+        unpack.predict_logits(np.zeros((2, eng.image_size, eng.image_size, 3), np.float32)), logits
+    )
+    with pytest.raises(ValueError, match="popcount"):
+        tengine.InferenceEngine(bf16, device="cpu", packed=True, packed_impl="popcount")
 
 
 def test_cli_predict_synthetic_on_cpu(port_artifact):

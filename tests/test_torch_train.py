@@ -379,6 +379,21 @@ def test_cli_trains_under_the_stochastic_family_on_the_cpu(tmp_path, capsys):
     assert set(res) == {"best_acc1", "best_epoch"}
 
 
+@pytest.mark.parametrize("extra", [["--dtype", "bfloat16"], ["--remat"],
+                                   ["--dtype", "bfloat16", "--remat"]],
+                         ids=["bf16", "remat", "bf16-remat"])
+def test_cli_trains_bf16_and_remat_on_the_cpu(tmp_path, capsys, extra):
+    """--dtype bfloat16 and --remat train through the CLI (they raised
+    before the bf16 slice): two steps and the eval, finite results."""
+    rc = cli.main(["--dataset", "cifar10", "-a", "resnet8_tiny", "--synthetic", "-b", "8",
+                   "--epochs", "1", "--synthetic-train-size", "16", "--synthetic-val-size", "8",
+                   "--w-kurtosis", "--seed", "1", "--device", "cpu", "--log_path", str(tmp_path),
+                   *extra])
+    assert rc == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(res) == {"best_acc1", "best_epoch"} and np.isfinite(res["best_acc1"])
+
+
 def test_cli_refuses_without_a_card_and_names_unported_options():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA card")
@@ -388,8 +403,7 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
         cli.main(args)
     with pytest.raises(RuntimeError, match="TensorFlow input pipeline"):
         cli.main(args + ["--input-backend", "tfdata", "--device", "cpu"])
-    for extra, item in [(["--remat"], "remat"),
-                        (["--dtype", "bfloat16"], "bf16"), (["--distributed-init"], "DDP"),
+    for extra, item in [(["--distributed-init"], "DDP"),
                         (["--model-parallel", "2"], "DDP"), (["--profile-dir", "p"], "obs"),
                         (["--health-threshold", "grad_norm=1"], "obs")]:
         with pytest.raises(NotImplementedError, match=item):
