@@ -9,8 +9,15 @@ plus ``--device``:
 
 runs :func:`bdbnn_tpu_torch.train.loop.fit` and prints its result dict
 as JSON on the last line. Options the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item; the GPU/NCCL-era flags
-(``--world-size`` and the like) raise too (DDP).
+``NotImplementedError`` naming their ROADMAP item. A data-parallel job
+over N cards starts one process a card with torchrun:
+
+    torchrun --nproc-per-node N -m bdbnn_tpu_torch.cli DATA ... --distributed-init
+
+(``-b`` stays the global batch; ``--device cpu`` trains the ranks on the
+CPU over gloo). The reference's rendezvous-era flags (``--world-size``,
+``--rank``, ``--dist-url`` and the like) are noted on stderr and ignored,
+as the reference does: torchrun's environment describes the job.
 
 A run writes its run dir under ``--log_path`` (checkpoints, events,
 manifest); SIGTERM makes it checkpoint and exit with code 75, and
@@ -256,27 +263,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags the reference parses but keeps out of its RunConfig and the port
-# does not run yet (--kd, --imagenet_setting, --imagenet_setting_step_1/2
-# and --qk_dim are parsed and ignored, as in the reference)
-_PARSED_ONLY = [
-    ("world_size", 1, "item 6: DDP"),
-    ("rank", 0, "item 6: DDP"),
-    ("dist_url", "", "item 6: DDP"),
-    ("master_addr", "", "item 6: DDP"),
-    ("dist_backend", "", "item 6: DDP"),
-    ("gpu", None, "item 6: DDP (pick a card with --device cuda:N)"),
-    ("multiprocessing_distributed", False, "item 6: DDP"),
+# the reference's rendezvous-era flags: parsed, noted and ignored, as the
+# reference does (--kd, --imagenet_setting, --imagenet_setting_step_1/2
+# and --qk_dim are parsed and ignored too)
+_LEGACY = [
+    ("world_size", 1), ("rank", 0), ("dist_url", ""), ("master_addr", ""),
+    ("dist_backend", ""), ("gpu", None), ("multiprocessing_distributed", False),
 ]
 
 
 def args_to_config(args: argparse.Namespace):
     from bdbnn_tpu_torch.train.config import RunConfig
 
-    for name, default, item in _PARSED_ONLY:
+    for name, default in _LEGACY:
         if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name} is not ported yet: ROADMAP A 'Later' {item}"
+            print(
+                f"[bdbnn_tpu_torch] note: --{name.replace('_', '-')} is a rendezvous-era "
+                "flag; ignored (start the job with torchrun and --distributed-init: "
+                "torchrun's environment describes it).",
+                file=sys.stderr,
             )
     fields = {f for f in RunConfig.__dataclass_fields__}
     kw = {k: v for k, v in vars(args).items() if k in fields}

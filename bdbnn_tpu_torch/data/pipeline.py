@@ -13,7 +13,13 @@ two folder backends key their draws differently, as the reference's do
 (a splitmix64 key a sample for threads, a ``SeedSequence`` of (seed,
 epoch, index) for worker processes): their train batches differ from
 each other, their eval batches (no draws) do not. The tf.data backend
-needs TensorFlow and is not ported. One host only."""
+needs TensorFlow and is not ported.
+
+In a data-parallel job each pipeline feeds one rank (``host_id`` of
+``num_hosts``) its ``host_id``-strided share of the global permutation at
+the per-rank batch size; the keyed per-sample draws are the same on any
+number of ranks, and ``eval_steps()`` is the count of eval batches every
+rank runs (a rank whose shard ran out feeds fully masked batches)."""
 
 from __future__ import annotations
 
@@ -128,10 +134,11 @@ class Pipeline:
     Train pipelines shuffle per epoch and drop the remainder; the default
     train transform is the keyed CIFAR augmentation. A custom
     ``transform(images_u8, rng) -> float32`` gets a per-batch Generator
-    keyed by (seed, epoch, 0, 1, batch) — the reference's keying on host
-    0, so a transform sees the same draws in both packages. ``prefetch``
-    > 0 runs the transform on a background thread. One host only: the
-    port has no multi-host training yet (ROADMAP A "Later", DDP)."""
+    keyed by (seed, epoch, host_id, 1, batch) — the reference's keying, so
+    a transform sees the same draws in both packages. ``prefetch`` > 0
+    runs the transform on a background thread. ``host_id`` /
+    ``num_hosts``: the rank's share of a data-parallel job (module
+    docstring)."""
 
     def __init__(
         self,
@@ -141,6 +148,8 @@ class Pipeline:
         train: bool = False,
         transform=None,
         seed: int = 0,
+        host_id: int = 0,
+        num_hosts: int = 1,
         prefetch: int = 0,
         device_normalize: bool = False,
     ):
@@ -159,17 +168,28 @@ class Pipeline:
                 transform = lambda images, rng: cifar_eval_transform(images)
         self.transform = transform
         self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.prefetch = prefetch
 
     def steps_per_epoch(self) -> int:
+        per_host = len(self.ds) // self.num_hosts
         if self.train:
-            return len(self.ds) // self.batch_size
-        return math.ceil(len(self.ds) / self.batch_size)
+            return per_host // self.batch_size
+        return math.ceil(per_host / self.batch_size)
+
+    def eval_steps(self) -> int:
+        """The eval batches EVERY rank runs: those of the largest shard."""
+        return math.ceil(math.ceil(len(self.ds) / self.num_hosts) / self.batch_size)
+
+    @property
+    def image_shape(self) -> Tuple[int, int, int]:
+        return tuple(self.ds.images.shape[1:])
 
     def _epoch_batches(self, epoch: int, start_step: int = 0):
         idx = host_shard_indices(
-            len(self.ds), epoch, seed=self.seed, shuffle=self.train,
-            drop_remainder_to=self.batch_size if self.train else None,
+            len(self.ds), epoch, seed=self.seed, shuffle=self.train, host_id=self.host_id,
+            num_hosts=self.num_hosts, drop_remainder_to=self.batch_size if self.train else None,
         )
         # every draw is keyed by (seed, epoch, sample or batch index), so
         # starting at batch ``start_step`` skips the earlier batches
@@ -180,7 +200,7 @@ class Pipeline:
                 keys = sample_augment_keys(self.seed, epoch, sel)
                 yield self._keyed(self.ds.images[sel], keys), self.ds.labels[sel]
                 continue
-            rng = np.random.default_rng((self.seed, epoch, 0, 1, bi))
+            rng = np.random.default_rng((self.seed, epoch, self.host_id, 1, bi))
             yield self.transform(self.ds.images[sel], rng), self.ds.labels[sel]
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -331,27 +351,40 @@ class ImageFolderPipeline:
 
     ``on_data_error(info)`` receives each substitution (``_load_one``) on
     the consumer's thread, after the batch that held it: the train loop
-    points it at the ``data_error`` event."""
+    points it at the ``data_error`` event. ``host_id`` / ``num_hosts``:
+    the rank's share of a data-parallel job (module docstring)."""
 
     def __init__(self, folder: ImageFolder, batch_size: int, *, train: bool = True,
-                 image_size: int = 224, seed: int = 0, num_threads: int = 8,
-                 device_normalize: bool = False):
+                 image_size: int = 224, seed: int = 0, host_id: int = 0, num_hosts: int = 1,
+                 num_threads: int = 8, device_normalize: bool = False):
         self.folder = folder
         self.batch_size = batch_size
         self.train = train
         self.image_size = image_size
         self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.num_threads = num_threads
         self.device_normalize = device_normalize
         self.on_data_error = None
 
     def steps_per_epoch(self) -> int:
+        per_host = len(self.folder) // self.num_hosts
         if self.train:
-            return len(self.folder) // self.batch_size
-        return math.ceil(len(self.folder) / self.batch_size)
+            return per_host // self.batch_size
+        return math.ceil(per_host / self.batch_size)
+
+    def eval_steps(self) -> int:
+        """The eval batches EVERY rank runs: those of the largest shard."""
+        return math.ceil(math.ceil(len(self.folder) / self.num_hosts) / self.batch_size)
+
+    @property
+    def image_shape(self) -> Tuple[int, int, int]:
+        return (self.image_size, self.image_size, 3)
 
     def _indices(self, epoch: int) -> np.ndarray:
         return host_shard_indices(len(self.folder), epoch, seed=self.seed, shuffle=self.train,
+                                  host_id=self.host_id, num_hosts=self.num_hosts,
                                   drop_remainder_to=self.batch_size if self.train else None)
 
     def _finish(self, images_u8: np.ndarray, labels: np.ndarray,
@@ -439,9 +472,11 @@ class MPImageFolderPipeline(ImageFolderPipeline):
     RESULT_TIMEOUT_S = 600.0
 
     def __init__(self, folder: ImageFolder, batch_size: int, *, train: bool = True,
-                 image_size: int = 224, seed: int = 0, num_workers: int = 8,
-                 prefetch_batches: Optional[int] = None, device_normalize: bool = False):
+                 image_size: int = 224, seed: int = 0, host_id: int = 0, num_hosts: int = 1,
+                 num_workers: int = 8, prefetch_batches: Optional[int] = None,
+                 device_normalize: bool = False):
         super().__init__(folder, batch_size, train=train, image_size=image_size, seed=seed,
+                         host_id=host_id, num_hosts=num_hosts,
                          device_normalize=device_normalize)
         self.num_workers = max(int(num_workers), 1)
         self.prefetch_batches = (prefetch_batches if prefetch_batches is not None

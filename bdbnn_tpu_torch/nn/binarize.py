@@ -67,17 +67,30 @@ class StepDraws:
     """The uniform draws of one train step under the stochastic family:
     each call returns ``torch.rand(x.shape)`` in [0, 1) on ``x``'s device
     from one generator per device seeded with :func:`step_seed`, so the
-    n-th binary conv of the forward gets the n-th draw."""
+    n-th binary conv of the forward gets the n-th draw.
 
-    def __init__(self, rng_seed: int, step: int):
+    ``shard=(rank, world)``: ``x`` holds rank ``rank``'s rows of a global
+    batch of ``world`` equal shards. The draw is taken over the global
+    batch and the rank keeps its rows ``[rank·B, (rank+1)·B)``, the layout
+    of the reference's global array assembled from process-local data, so
+    a data-parallel step samples the signs of one process fed the ranks'
+    batches in rank order."""
+
+    def __init__(self, rng_seed: int, step: int, shard: Tuple[int, int] = (0, 1)):
         self.seed = step_seed(rng_seed, step)
+        self.rank, self.world = shard
         self._gens: Dict[torch.device, torch.Generator] = {}
 
     def __call__(self, x: Tensor) -> Tensor:
         gen = self._gens.get(x.device)
         if gen is None:
             gen = self._gens[x.device] = torch.Generator(device=x.device).manual_seed(self.seed)
-        return torch.rand(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+        if self.world == 1:
+            return torch.rand(x.shape, generator=gen, dtype=x.dtype, device=x.device)
+        b = x.shape[0]
+        u = torch.rand((b * self.world, *x.shape[1:]), generator=gen, dtype=x.dtype,
+                       device=x.device)
+        return u[self.rank * b:(self.rank + 1) * b]
 
 
 # a draw source: the activation in, its uniform draw (shaped like it) out

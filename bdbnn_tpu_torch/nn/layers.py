@@ -35,7 +35,7 @@ to take the sampled sign, and K5 fuses the clipped-identity (ste)
 backward; without a source, and always in eval mode, it takes the hard
 sign (the reference's ``family_act``). BatchNorm trains with flax
 semantics (batch mean, the fast biased variance, running stats
-``0.9·ra + 0.1·batch``).
+``0.9·ra + 0.1·batch``), over the global batch in a data-parallel job.
 
 bf16 models (flax's mixed-precision recipe, as the reference runs
 ``--dtype bfloat16``): parameters and running statistics stay f32, and
@@ -57,6 +57,7 @@ import threading
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from bdbnn_tpu_torch.nn.binarize import DrawSource, get_active_family
@@ -108,6 +109,25 @@ def frozen_running_stats():
         _recompute.on = prev
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """SUM all-reduce over a group whose backward all-reduces the
+    cotangent: each rank's loss reads the global sums, so the cotangent of
+    a rank's local sums is the sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """flax ``BatchNorm`` over the last (channel) axis:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, the reference's
@@ -120,7 +140,19 @@ class BatchNorm(nn.Module):
     the biased variance, and updates the running statistics as
     ``0.9·ra + (1 − 0.9)·batch`` — torch's ``F.batch_norm`` stores the
     unbiased variance and is not a drop-in. A bf16 input is normalized in
-    f32 from f32 statistics and the output cast to bf16 once."""
+    f32 from f32 statistics and the output cast to bf16 once.
+
+    With a ``process_group`` (set on the student of a data-parallel job,
+    :func:`~bdbnn_tpu_torch.parallel.create_sharded_state`) the statistics
+    are the global batch's, as GSPMD makes flax's over a batch axis
+    sharded across devices: the local f32 ``[Σx, Σx²]`` are summed over
+    the ranks in one all-reduce of 2·C values (its backward all-reduces
+    the matching cotangents) and divided by the global count, then taken
+    through the same ``max(0, E[x²] − E[x]²)`` and running update. Every
+    rank then holds the same running statistics. Without a group the code
+    is the one-process path above."""
+
+    process_group = None
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -137,8 +169,16 @@ class BatchNorm(nn.Module):
             # and is added there to the normalize's (a no-op for f32)
             xs = x.to(torch.float32)
             dims = tuple(range(x.dim() - 1))
-            mean = xs.mean(dim=dims)
-            var = torch.clamp((xs * xs).mean(dim=dims) - mean * mean, min=0.0)
+            if self.process_group is None:
+                mean = xs.mean(dim=dims)
+                ex2 = (xs * xs).mean(dim=dims)
+            else:
+                sums = _AllReduceSum.apply(
+                    torch.stack([xs.sum(dim=dims), (xs * xs).sum(dim=dims)]), self.process_group
+                )
+                count = xs.numel() // xs.shape[-1] * dist.get_world_size(self.process_group)
+                mean, ex2 = sums[0] / count, sums[1] / count
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             if not getattr(_recompute, "on", False):
                 with torch.no_grad():
                     self.running_mean.copy_(

@@ -103,14 +103,17 @@ class RunManifest:
 
 
 def write_manifest(log_path: str, cfg: Any, extra: Optional[Dict[str, Any]] = None,
-                   device=None) -> Dict[str, Any]:
+                   device=None, write: bool = True) -> Dict[str, Any]:
     """Capture and atomically write ``<log_path>/manifest.json``; returns
     the written dict. ``extra`` carries restart ancestry
     (``resumed_from``, ``restart_lineage``, ``topology_from``,
-    ``topology_to``)."""
+    ``topology_to``). ``write=False`` (the ranks but 0 of a job) only
+    captures it."""
     man = RunManifest.capture(cfg, device).to_dict()
     if extra:
         man.update(extra)
+    if not write:
+        return man
     os.makedirs(log_path, exist_ok=True)
     path = os.path.join(log_path, MANIFEST_NAME)
     tmp = path + ".tmp"

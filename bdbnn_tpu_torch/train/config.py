@@ -14,9 +14,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 from bdbnn_tpu_torch.nn.binarize import resolve_family
+from bdbnn_tpu_torch.parallel.mesh import TENSOR_PARALLEL
 
 # ROADMAP A "Later" items, by number
-DDP = "item 6: DDP"
 OBS = "item 7: obs, scripts"
 
 # the reference's tf.data input engine (``TFDataImageFolderPipeline``,
@@ -29,8 +29,7 @@ TFDATA_UNPORTED = (
 
 # field -> ROADMAP item; asked for when the value differs from the default
 UNSUPPORTED = {
-    "model_parallel": DDP,
-    "distributed_init": DDP,
+    "model_parallel": TENSOR_PARALLEL,
     "profile_dir": OBS,
     "profile_at": OBS,
     "health_forensics_steps": OBS,
@@ -102,7 +101,8 @@ class RunConfig:
     temperature: float = 4.0
     beta: float = 200.0
     w_lambda_ce: float = 1.0
-    # parallelism
+    # parallelism: --distributed-init joins torchrun's process group (a
+    # data-parallel job); model_parallel > 1 is not ported
     model_parallel: int = 1
     distributed_init: bool = False
     # compute

@@ -42,10 +42,27 @@ statistics f32, so the losses and the kurtosis run on f32 logits and f32
 latent weights); ``--remat`` recomputes each residual block in the
 backward (``models/resnet.py``).
 
+A data-parallel job (``--distributed-init`` from torchrun's environment,
+or a process group already up when :func:`fit` starts) trains one global
+batch of ``batch_size`` over W ranks, each feeding ``batch_size // W`` rows
+of its shard (:mod:`bdbnn_tpu_torch.parallel`): global BatchNorm
+statistics, one averaged gradient, metrics and eval totals summed over
+the ranks once per drain, every rank running the same number of eval
+batches. The job writes one run dir (rank 0's timestamp): rank 0 writes
+``log.txt``, ``scalars.jsonl``, ``events.jsonl``, the manifest and the
+checkpoints, rank r > 0 its own ``log.p{r}.txt``, ``scalars.p{r}.jsonl``
+and ``events.p{r}.jsonl``. At every step boundary the ranks agree on
+(signal, cadence) with one MAX all-reduce, so a SIGTERM that reaches one
+rank makes every rank save the same step and exit; only rank 0's clock
+feeds ``--save-every-mins``. A checkpoint records its writer's topology
+and restores onto any number of ranks (the (epoch, step) cursor is
+global), with ``resharded`` in the ``restore`` event when the layout
+changed.
+
 Not in this slice (``RunConfig.validate`` raises for each option, naming
 its ROADMAP item): profiling windows and the ``memory`` event (item 7),
-DDP (item 6). The health monitor (item 7) is not ported: a run with
-``cfg.health`` on (the default) says so in one warning.
+tensor parallelism (item 9). The health monitor (item 7) is not ported: a
+run with ``cfg.health`` on (the default) says so in one warning.
 """
 
 from __future__ import annotations
@@ -92,6 +109,17 @@ from bdbnn_tpu_torch.obs.events import EventWriter
 from bdbnn_tpu_torch.obs.manifest import read_manifest, write_manifest
 from bdbnn_tpu_torch.obs.probes import NonFiniteLossError, drain_probe_report
 from bdbnn_tpu_torch.obs.timing import StepPhaseTimer
+from bdbnn_tpu_torch.parallel import (
+    Mesh,
+    broadcast_host_int,
+    coordinate_flags,
+    create_sharded_state,
+    initialize_distributed,
+    make_mesh,
+    resharded,
+    sum_host_values,
+    topology,
+)
 from bdbnn_tpu_torch.train.config import OBS, RunConfig
 from bdbnn_tpu_torch.train.ede import cpt_tk
 from bdbnn_tpu_torch.train.optim import make_optimizer
@@ -111,10 +139,6 @@ from bdbnn_tpu_torch.utils.logging_utils import ScalarWriter, make_log_dir, setu
 from bdbnn_tpu_torch.utils.meters import DeviceMetrics, Mean, ProgressLog, Throughput, format_eta
 
 logger = logging.getLogger("bdbnn_tpu_torch.train")
-
-# the writer topology a single-process port run records (the reference's
-# ``topology()`` keys; DDP is ROADMAP A "Later" item 6)
-TOPOLOGY = {"processes": 1, "devices": 1}
 
 
 def shape_tree(model: torch.nn.Module) -> dict:
@@ -144,22 +168,29 @@ def select_hooked_paths(params, cfg: RunConfig):
     return tuple(by_name[n] for n in selected)
 
 
-def build_datasets(cfg: RunConfig, *, val_only: bool = False):
+def build_datasets(cfg: RunConfig, *, val_only: bool = False, mesh: Mesh = Mesh()):
     """(train pipeline, val pipeline, image size), as the reference
     builds them: synthetic images from seeds 1 (train) and 2 (val), with
     ImageNet normalization for ``imagenet``; the CIFAR splits; or the
     image folders ``cfg.data/train`` and ``cfg.data/val`` under
     :meth:`RunConfig.input_engine`'s backend. A missing data dir raises
     ``FileNotFoundError``. ``val_only`` (``cli predict``) builds no train
-    split and returns None in its place."""
+    split and returns None in its place. On a ``mesh`` of W ranks each
+    pipeline is this rank's shard at ``batch_size // W`` a step (W must
+    divide the global batch)."""
+    if cfg.batch_size % mesh.data:
+        raise ValueError(f"-b {cfg.batch_size} is the global batch: {mesh.data} ranks must "
+                         "divide it")
     image_size = 224 if cfg.dataset == "imagenet" else 32
     seed = cfg.seed or 0
+    shard = dict(host_id=mesh.rank, num_hosts=mesh.data)
+    batch = cfg.batch_size // mesh.data
     if cfg.synthetic:
         transform = None
         if cfg.dataset == "imagenet":
             transform = lambda im, rng: normalize(im, IMAGENET_MEAN, IMAGENET_STD)
         mk = lambda ds, train: Pipeline(
-            ds, cfg.batch_size, train=train, transform=transform, seed=seed, prefetch=2
+            ds, batch, train=train, transform=transform, seed=seed, prefetch=2, **shard
         )
         val_ds = synthetic_dataset(cfg.synthetic_val_size, image_size, cfg.num_classes, seed=2)
         if val_only:
@@ -177,16 +208,16 @@ def build_datasets(cfg: RunConfig, *, val_only: bool = False):
                 "pass a valid --data dir, or --synthetic for a smoke run"
             ) from e
         mk = lambda ds, train: Pipeline(
-            ds, cfg.batch_size, train=train, seed=seed, prefetch=2,
-            device_normalize=cfg.device_normalize,
+            ds, batch, train=train, seed=seed, prefetch=2,
+            device_normalize=cfg.device_normalize, **shard,
         )
         return (None if val_only else mk(train_ds, True)), mk(val_ds, False), image_size
     backend, workers = cfg.input_engine()
     cls, extra = ((MPImageFolderPipeline, {"num_workers": workers}) if backend == "mp"
                   else (ImageFolderPipeline, {}))
     mk = lambda split, train: cls(
-        ImageFolder(os.path.join(cfg.data, split)), cfg.batch_size, train=train, seed=seed,
-        device_normalize=cfg.device_normalize, **extra,
+        ImageFolder(os.path.join(cfg.data, split)), batch, train=train, seed=seed,
+        device_normalize=cfg.device_normalize, **shard, **extra,
     )
     try:
         train_pipe = None if val_only else mk("train", True)
@@ -224,14 +255,35 @@ def _apply_nonfinite_policy(policy: str, events, msg: str, **fields) -> None:
 @dataclasses.dataclass
 class ObsHooks:
     """What the epoch loop reports into: the event channel, the scalar
-    writer, the step-phase timer, the probe sizes and the non-finite
-    policy."""
+    writer, the step-phase timer, the probe sizes, the non-finite policy,
+    and the mesh whose ranks' metrics are summed at each drain."""
 
     events: EventWriter
     writer: ScalarWriter
     timer: StepPhaseTimer
     probe_sizes: Dict[str, int]
     nonfinite_policy: str
+    mesh: Mesh = Mesh()
+
+
+# drained metric sums over the ranks: counts and example sums add up;
+# the per-rank loss means ("loss", "loss_*") average; the rest (the grad
+# norm, the binarization probes) are computed from replicated weights
+# and gradients, the same on every rank
+_SUMMED = ("loss_sum", "top1", "top5", "count", "nonfinite")
+
+
+def global_sums(sums: Dict[str, float], mesh: Mesh) -> Dict[str, float]:
+    """A drain's metric sums over every rank of ``mesh`` (one collective;
+    the sums as they are on a mesh of one)."""
+    if not mesh.collective:
+        return sums
+    keys = sorted(k for k in sums if k in _SUMMED or k.startswith("loss"))
+    total = sum_host_values([sums[k] for k in keys], mesh)
+    out = dict(sums)
+    for k, v in zip(keys, total.tolist()):
+        out[k] = v if k in _SUMMED else v / mesh.data
+    return out
 
 
 def _interval_observe(obs: ObsHooks, epoch, step_idx, interval_steps, sums, n, rate, probe_m):
@@ -296,7 +348,8 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
     def drain(step_idx):
         interval_steps = devmet.pending_steps
         t_mark = time.perf_counter()
-        sums = devmet.drain()  # the one host sync of the interval
+        # the one host sync of the interval, and one collective of a job
+        sums = global_sums(devmet.drain(), obs.mesh)
         timer.add("drain", time.perf_counter() - t_mark)
         n = max(sums["count"], 1.0)
         _add_component_means(comp_m, sums, interval_steps)
@@ -317,7 +370,9 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
     it = pipe.epoch(epoch, start_step)
     step_idx = start_step - 1
     try:
-        while True:
+        # every rank runs steps_per_epoch steps, though the first ranks'
+        # shards may hold one batch more
+        while step_idx + 1 < steps_per_epoch:
             t_mark = time.perf_counter()
             try:
                 x, y = next(it)
@@ -363,12 +418,22 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
     return state
 
 
-def _validate(eval_step, state, pipe, device, epoch, obs: ObsHooks) -> float:
+def _validate(eval_step, state, pipe, device, epoch, obs: ObsHooks,
+              fill_dtype=np.float32) -> float:
     """Top-1 over the val split: fixed-shape padded batches, sums on the
-    device, one fetch; the ``eval`` event and the Val scalars."""
+    device, one fetch (and one sum over the ranks of a job, each of which
+    runs ``pipe.eval_steps()`` batches: a rank whose shard ran out feeds
+    fully masked batches of ``fill_dtype``); the ``eval`` event, whose
+    ``count`` is the whole split, and the Val scalars."""
     bs = pipe.batch_size
     totals = None
-    for x, y in pipe.epoch(0):
+    it = pipe.epoch(0)
+    for _ in range(pipe.eval_steps()):
+        try:
+            x, y = next(it)
+        except StopIteration:
+            x = np.zeros((0, *pipe.image_shape), fill_dtype)
+            y = np.zeros((0,), np.int64)
         n = len(x)
         valid = np.zeros((bs,), np.float32)
         valid[:n] = 1.0
@@ -379,6 +444,8 @@ def _validate(eval_step, state, pipe, device, epoch, obs: ObsHooks) -> float:
                               to_device(valid, device)))
         totals = m if totals is None else {k: totals[k] + v for k, v in m.items()}
     got = {k: float(v) for k, v in totals.items()} if totals else {}
+    keys = sorted(got)
+    got = dict(zip(keys, sum_host_values([got[k] for k in keys], obs.mesh).tolist()))
     count = max(got.get("count", 0.0), 1.0)
     acc1 = 100.0 * got.get("top1", 0.0) / count
     acc5 = 100.0 * got.get("top5", 0.0) / count
@@ -538,7 +605,7 @@ def _unpack_host_rng(d: Dict) -> None:
                          int(d["has_gauss"]), float(d["cached_gaussian"])))
 
 
-def _resume_lineage(resume_path: str) -> Dict:
+def _resume_lineage(resume_path: str, mesh: Mesh) -> Dict:
     """Manifest extras of a resumed run: ``resumed_from``,
     ``restart_lineage`` (every earlier run dir of the chain, oldest first,
     carried from the earlier run's own manifest), and the topology the
@@ -565,7 +632,7 @@ def _resume_lineage(resume_path: str) -> Dict:
                      if os.path.isdir(c) and read_resume_state(c).get("topology")), None)
         if topo is not None:
             out["topology_from"] = topo
-            out["topology_to"] = dict(TOPOLOGY)
+            out["topology_to"] = topology(mesh)
     return out
 
 
@@ -586,44 +653,72 @@ def _fast_forward_adam(opt: torch.optim.Optimizer, step: int) -> None:
 
 @dataclasses.dataclass
 class _Resilience:
-    """fit()'s preemption and cadence bundle (the reference's, one
-    process: the local flags are the agreement). ``save(state, epoch,
-    step_in_epoch, reason)`` commits a checkpoint, emits its event and
-    resets the cadence."""
+    """fit()'s preemption and cadence bundle (the reference's).
+    ``save(state, epoch, step_in_epoch, reason)`` commits a checkpoint,
+    emits its event and resets the cadence.
+
+    On a ``mesh`` of more than one rank (``collective``) every step
+    boundary is a coordination step: each rank's (latched signal, cadence
+    due) goes through :func:`coordinate_flags`, so every rank acts on the
+    same agreed triggers at the same step and the checkpoint's barriers
+    align; only the ``clock_leader``'s (rank 0's) wallclock decides
+    ``--save-every-mins``. One process is its own agreement, with no
+    collective."""
 
     handler: PreemptionHandler
     policy: CheckpointPolicy
     save: Any
     events: EventWriter
+    mesh: Mesh = Mesh()
+
+    @property
+    def collective(self) -> bool:
+        return self.mesh.collective
+
+    @property
+    def clock_leader(self) -> bool:
+        return self.mesh.primary
+
+    def _agree(self, cadence_due: bool):
+        """(signum, cadence) agreed over the ranks: a collective on a
+        job, which every rank calls at the same point of its loop."""
+        local = (float(self.handler.signum or 0), 1.0 if cadence_due else 0.0)
+        if not self.collective:
+            return int(local[0]), bool(cadence_due)
+        agreed = coordinate_flags(local, self.mesh)
+        return int(agreed[0]), bool(agreed[1] >= 1.0)
 
     def preempt_exit(self, state, epoch: int, step_in_epoch: int,
-                     already_durable: bool = False) -> None:
+                     already_durable: bool = False, signum: Optional[int] = None) -> None:
         """Make the state durable (unless a checkpoint of exactly this
-        state just committed), emit ``preempt``, raise."""
-        signum = int(self.handler.signum or 0)
+        state just committed), emit ``preempt``, raise. On a job the
+        caller passes the agreed ``signum``: the signal may have reached
+        another rank only."""
+        signum = int(signum or self.handler.signum or 0)
         target_epoch = epoch if step_in_epoch else epoch + 1
         if not already_durable:
             self.save(state, epoch, step_in_epoch, "preempt")
         self.events.emit("preempt", signum=signum, epoch=target_epoch,
-                         step_in_epoch=step_in_epoch, saved=True, coordinated=False,
+                         step_in_epoch=step_in_epoch, saved=True, coordinated=self.collective,
                          coordination_step=step_in_epoch)
         raise PreemptedError(signum, target_epoch, step_in_epoch)
 
     def after_step(self, state, epoch: int, next_step: int) -> None:
-        """At a step boundary: preemption → checkpoint, event, raise;
-        cadence due → mid-epoch checkpoint and continue."""
-        cadence = False
+        """At a step boundary: agreed preemption → checkpoint, event,
+        raise; agreed cadence → mid-epoch checkpoint and continue."""
+        cadence_due = False
         if self.policy.active:
             self.policy.tick()
-            cadence = self.policy.due()
-        if self.handler.signum:
-            self.preempt_exit(state, epoch, next_step)
+            cadence_due = self.policy.due(clock_leader=self.clock_leader)
+        signum, cadence = self._agree(cadence_due)
+        if signum:
+            self.preempt_exit(state, epoch, next_step, signum=signum)
         if cadence:
             self.save(state, epoch, next_step, "interval")
 
     def poll_boundary(self) -> int:
-        """The latched signal number at an epoch boundary (0: none)."""
-        return int(self.handler.signum or 0)
+        """The agreed signal number at an epoch boundary (0: none)."""
+        return self._agree(False)[0]
 
 
 def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, float]:
@@ -637,15 +732,30 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
     try:
         return _fit(cfg, resources, on_step)
     finally:
-        # the scalar and event writers and the input worker pools close on
-        # every exit path
+        # the scalar and event writers, the input worker pools and a
+        # process group fit made close on every exit path
         for r in resources:
             r.close()
 
 
+class _ProcessGroup:
+    """The process group :func:`fit` made (``--distributed-init``), as a
+    resource: destroyed when fit exits."""
+
+    def close(self) -> None:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
 def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
     cfg = cfg.validate()
-    device = resolve_device(cfg.device or None)
+    if cfg.distributed_init and not torch.distributed.is_initialized():
+        device = initialize_distributed(device=cfg.device or None)
+        resources.append(_ProcessGroup())
+    else:
+        # a group already up (the caller made it) is the job's
+        device = resolve_device(cfg.device or None)
+    mesh = make_mesh(cfg.model_parallel)
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     if device.type == "cuda":
         # the stem conv and the classifier are plain torch: full f32
@@ -653,29 +763,44 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
 
-    log_path = make_log_dir(cfg.log_path, cfg.w_kurtosis_target)
-    setup_logger(log_path, name=logger.name)
-    writer = ScalarWriter(log_path)
+    # one run dir a job: rank 0's timestamp (in UTC: the ranks' clocks
+    # and zones may differ); rank r > 0 writes its own log, scalars and
+    # events beside rank 0's
+    stamp = None
+    if mesh.collective:
+        stamp = time.strftime("%Y-%m-%d_%H-%M-%S",
+                              time.gmtime(broadcast_host_int(int(time.time()), mesh)))
+    log_path = make_log_dir(cfg.log_path, cfg.w_kurtosis_target, stamp=stamp)
+    proc = "" if mesh.primary else f".p{mesh.rank}"
+    setup_logger(log_path, name=logger.name, filename=f"log{proc}.txt")
+    writer = ScalarWriter(log_path, name=f"scalars{proc}.jsonl", tensorboard=mesh.primary)
     resources.append(writer)
     logger.info("config: %s", cfg)
-    manifest = write_manifest(log_path, cfg, extra=_resume_lineage(cfg.resume), device=device)
-    events = EventWriter(log_path, max_bytes=int(cfg.events_max_mb * 2**20))
+    if mesh.collective:
+        logger.info("data-parallel job: rank %d of %d on %s, %d images a rank a step",
+                    mesh.rank, mesh.data, device, cfg.batch_size // mesh.data)
+    manifest = write_manifest(log_path, cfg, extra=_resume_lineage(cfg.resume, mesh),
+                              device=device, write=mesh.primary)
+    events = EventWriter(log_path, name=f"events{proc}.jsonl",
+                         max_bytes=int(cfg.events_max_mb * 2**20))
     resources.append(events)
     logger.info("telemetry: manifest.json + events.jsonl in %s (config %s)", log_path,
                 manifest["config_hash"])
 
-    if cfg.health:
+    if cfg.health and mesh.primary:
         logger.warning("the health monitor is not ported yet (ROADMAP A 'Later' %s): this run "
                        "has none; --no-health silences this warning", OBS)
 
     if cfg.seed is not None:
         np.random.seed(cfg.seed)
-    train_pipe, val_pipe, image_size = build_datasets(cfg)
+    train_pipe, val_pipe, image_size = build_datasets(cfg, mesh=mesh)
     resources.extend(p for p in (train_pipe, val_pipe) if hasattr(p, "close"))
     if hasattr(val_pipe, "on_data_error"):
         val_pipe.on_data_error = lambda info: events.emit("data_error", where="eval", **info)
     steps_per_epoch = max(train_pipe.steps_per_epoch(), 1)
     state, step_cfg = build_training(cfg, device, steps_per_epoch, image_size)
+    if mesh.collective:
+        step_cfg = dataclasses.replace(step_cfg, data_shard=(mesh.rank, mesh.data))
     if cfg.pretrained:
         # a float checkpoint initializes the student: conv weights land on
         # float_weight (OIHW -> HWIO), binary extras keep their init
@@ -764,10 +889,14 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
             if restored["fallback"]:
                 logger.warning("committed checkpoint unusable; restored the previous one "
                                "from %s", restored["source"])
-            topo_from = restored.get("topology")
-            resharded = None
-            if topo_from:
-                resharded = any(int(topo_from.get(k, -1)) != v for k, v in TOPOLOGY.items())
+            # elastic resume: the state is replicated and the (epoch, step)
+            # cursor global, so a checkpoint restores onto any number of
+            # ranks; the change of layout is recorded
+            topo_from, topo_to = restored.get("topology"), topology(mesh)
+            reshard = resharded(topo_from, topo_to)
+            if reshard:
+                logger.info("elastic resume: checkpoint written by %s restored onto %s",
+                            topo_from, topo_to)
             ede_t, ede_k, kurt_gate = _sched(start_epoch)
             events.emit(
                 "restore",
@@ -784,8 +913,8 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                 binarizer=cfg.binarizer,
                 sched=_sched_values(start_epoch),
                 topology_from=topo_from,
-                topology_to=dict(TOPOLOGY),
-                resharded=resharded,
+                topology_to=topo_to,
+                resharded=reshard,
                 restored=["params", "batch_stats", "opt_state", "lr_step", "epoch",
                           "best_acc1", "best_epoch", "step_in_epoch", "host_rng"]
                 if not cfg.reset_resume else ["params", "batch_stats"],
@@ -795,11 +924,13 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                 seconds=round(load_s, 3),
             )
         logger.info("resumed from %s at epoch %d step %d", cfg.resume, start_epoch, start_step)
+    state = create_sharded_state(mesh, state)
 
     obs = ObsHooks(events=events, writer=writer, timer=StepPhaseTimer(), probe_sizes=probe_sizes,
-                   nonfinite_policy=cfg.nonfinite_policy)
+                   nonfinite_policy=cfg.nonfinite_policy, mesh=mesh)
+    eval_fill = np.uint8 if cfg.device_normalize else np.float32
     if cfg.evaluate:
-        return {"acc1": _validate(eval_step, state, val_pipe, device, 0, obs)}
+        return {"acc1": _validate(eval_step, state, val_pipe, device, 0, obs, eval_fill)}
 
     # time to target counts from a run's start; a resumed process cannot
     # know the wall clock before it, so the metric is off
@@ -826,7 +957,7 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
         lr_step = int(st.step)
         path = save_checkpoint(
             log_path, st, epoch=epoch, arch=cfg.arch, best_acc1=best_acc1, is_best=is_best,
-            step_in_epoch=step_in_epoch,
+            step_in_epoch=step_in_epoch, mesh=mesh,
             resume_state={
                 "best_epoch": int(best_epoch),
                 "host_rng": _pack_host_rng(),
@@ -836,13 +967,13 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                 "kurt_gate": kurt_gate,
                 "binarizer": cfg.binarizer,
                 "sched": _sched_values(target_epoch),
-                "topology": dict(TOPOLOGY),
+                "topology": topology(mesh),
             },
         )
         events.emit(
             "checkpoint", reason=reason, epoch=target_epoch, step_in_epoch=step_in_epoch,
             lr_step=lr_step, ede_t=ede_t, ede_k=ede_k, kurt_gate=kurt_gate,
-            binarizer=cfg.binarizer, sched=_sched_values(target_epoch), coordinated=False,
+            binarizer=cfg.binarizer, sched=_sched_values(target_epoch), coordinated=mesh.collective,
             path=path, seconds=round(time.time() - t0, 3), bytes=checkpoint_bytes(path),
         )
         policy.note_saved()
@@ -853,7 +984,7 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                        start_epoch)
 
     handler = PreemptionHandler()
-    resil = _Resilience(handler, policy, _save_ckpt, events)
+    resil = _Resilience(handler, policy, _save_ckpt, events, mesh)
     with handler:
         for epoch in range(start_epoch, cfg.epochs):
             tk, kurt_gate = epoch_schedule(family, cfg, epoch)
@@ -870,9 +1001,10 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                                  resil=resil)
             # a signal during the epoch's last step: save now, before the
             # eval pass outlasts the grace period
-            if resil.poll_boundary():
-                resil.preempt_exit(state, epoch, 0)
-            acc1 = _validate(eval_step, state, val_pipe, device, epoch, obs)
+            signum = resil.poll_boundary()
+            if signum:
+                resil.preempt_exit(state, epoch, 0, signum=signum)
+            acc1 = _validate(eval_step, state, val_pipe, device, epoch, obs, eval_fill)
             if time_to_target is None and track_target and acc1 >= cfg.target_acc:
                 time_to_target = time.time() - t_fit
                 writer.add_scalar("Time to target (s)", time_to_target, epoch)
@@ -888,8 +1020,9 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
             _save_ckpt(state, epoch, 0, "epoch", is_best=is_best)
             # a signal during eval or the save: the epoch-end checkpoint
             # is already durable
-            if resil.poll_boundary():
-                resil.preempt_exit(state, epoch, 0, already_durable=True)
+            signum = resil.poll_boundary()
+            if signum:
+                resil.preempt_exit(state, epoch, 0, already_durable=True, signum=signum)
 
     events.emit("run_end", best_acc1=best_acc1, best_epoch=best_epoch,
                 wall_s=round(time.time() - t_fit, 1),
@@ -903,12 +1036,12 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
 
 __all__ = [
     "ObsHooks",
-    "TOPOLOGY",
     "build_datasets",
     "build_teacher",
     "build_training",
     "epoch_schedule",
     "fit",
+    "global_sums",
     "match_kd_pairs",
     "select_hooked_paths",
     "shape_tree",

@@ -16,9 +16,11 @@ checkpoint holds and how it commits is
   75 (``EX_TEMPFAIL``), which supervisors key a restart with
   ``--resume`` on.
 
-One process only: the reference's cross-host agreement of these flags
-(``coordinate_flags``) waits for DDP (ROADMAP A "Later" item 6); a
-single process is its own agreement.
+In a data-parallel job the train loop agrees on these flags across the
+ranks at every step boundary (``_Resilience._agree`` over
+:func:`~bdbnn_tpu_torch.parallel.coordinate_flags`), with rank 0's clock
+the only one that decides the wallclock cadence; a single process is its
+own agreement.
 """
 
 from __future__ import annotations

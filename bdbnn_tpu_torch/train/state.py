@@ -20,11 +20,15 @@ import torch
 
 @dataclasses.dataclass
 class TrainState:
-    """Model + optimizer + completed optimizer steps."""
+    """Model + optimizer + completed optimizer steps. ``ddp``: in a
+    data-parallel job, ``model`` wrapped in ``DistributedDataParallel``
+    (:func:`~bdbnn_tpu_torch.parallel.create_sharded_state`), which the
+    train step runs its forward through; None in one process."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    ddp: Optional[torch.nn.Module] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +73,9 @@ class StepConfig:
     # device-side input normalization: ((mean,...), (std,...)) in 0-1
     # scale; the step then takes raw uint8 NHWC batches
     input_norm: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
+    # the port's own: (rank, world) of a data-parallel job, whose step
+    # takes its rows of the global batch's stochastic draws
+    data_shard: Tuple[int, int] = (0, 1)
 
     def resolved(self) -> "StepConfig":
         """The reference's react-mode overrides (beta = 0, w_lambda_ce = 0

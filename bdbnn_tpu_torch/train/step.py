@@ -16,6 +16,13 @@ step)``), or the ``draws(step)`` source the caller passes to
 step: the frozen float teacher runs on the same prepared images in eval
 mode without autograd, and the loss is ``β·layerKL + α·logitKL +
 w_lambda_ce·CE + λ·kurt``, each weight pair in HWIO.
+
+In a data-parallel job (``state.ddp``) each rank's loss is the mean over
+its own rows and the forward runs through the DDP wrapper, whose average
+of the ranks' gradients is the gradient of the global batch's mean; the
+kurtosis and the weight KL see the replicated weights on every rank, and
+the teacher runs on each rank's rows. The stochastic draws are the global
+batch's, each rank taking its rows (``StepConfig.data_shard``).
 """
 
 from __future__ import annotations
@@ -121,7 +128,7 @@ def _make_step(model, optimizer, cfg: StepConfig, draws, loss_terms) -> Callable
     """A train step whose loss is the sum of ``loss_terms(images, labels,
     logits)`` (an ordered dict of named terms) and the regularizers."""
     if draws is None:
-        draws = functools.partial(StepDraws, cfg.rng_seed)
+        draws = functools.partial(StepDraws, cfg.rng_seed, shard=cfg.data_shard)
 
     def train_step(state: TrainState, batch, tk, kurt_gate: float):
         model, opt = state.model, state.optimizer
@@ -133,7 +140,10 @@ def _make_step(model, optimizer, cfg: StepConfig, draws, loss_terms) -> Callable
         sched = tuple(tk) if (cfg.ede or cfg.binarizer_schedule) else None
         # the stochastic family samples from the step's draws (the
         # reference's per-step ``binarize`` rng stream)
-        logits = model(images, sched, draws(state.step) if cfg.binarizer_stochastic else None)
+        # a data-parallel job runs the forward through its DDP wrapper,
+        # which averages the gradient over the ranks in the backward
+        net = model if state.ddp is None else state.ddp
+        logits = net(images, sched, draws(state.step) if cfg.binarizer_stochastic else None)
         losses = loss_terms(images, labels, logits)
         reg, terms = regularization_terms(model, cfg, kurt_gate)
         loss = sum(losses.values()) + reg

@@ -29,8 +29,11 @@ falls back to ``.old`` on a mismatch or an unreadable payload. I/O
 retries transient ``OSError`` (:func:`retry_io`); a save that still
 fails raises.
 
-Single process only: the reference's distributed save waits for DDP
-(ROADMAP A "Later" item 6).
+In a data-parallel job the state is replicated: every rank calls
+:func:`save_checkpoint`, rank 0 writes and commits, and barriers bracket
+the write and the commit as in the reference's collective save, so no
+rank runs on while a checkpoint of its step is still uncommitted. Every
+rank may restore any checkpoint, whatever layout wrote it.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+
+from bdbnn_tpu_torch.parallel import Mesh, barrier
 
 CKPT_NAME = "checkpoint"
 BEST_NAME = "model_best"
@@ -221,6 +226,7 @@ def save_checkpoint(
     is_best: bool,
     step_in_epoch: int = 0,
     resume_state: Optional[Dict[str, Any]] = None,
+    mesh=None,
 ) -> str:
     """Write ``checkpoint`` (and a committed copy to ``model_best`` when
     best); returns the committed checkpoint path.
@@ -228,7 +234,23 @@ def save_checkpoint(
     ``step_in_epoch`` > 0 marks a mid-epoch save: the payload records the
     current epoch (not ``epoch + 1``) so resume re-enters it, and the
     sidecar carries the step cursor. ``resume_state`` is merged into the
-    sidecar."""
+    sidecar. On a ``mesh`` of more than one rank every rank must call it
+    (it holds barriers) and rank 0 alone writes."""
+    mesh = mesh or Mesh()
+    barrier(mesh)
+    if mesh.primary:
+        _write_checkpoint(save_path, state, epoch=epoch, arch=arch, best_acc1=best_acc1,
+                          is_best=is_best, step_in_epoch=step_in_epoch,
+                          resume_state=resume_state)
+    barrier(mesh)
+    return os.path.join(save_path, CKPT_NAME)
+
+
+def _write_checkpoint(save_path: str, state, *, epoch: int, arch: str, best_acc1: float,
+                      is_best: bool, step_in_epoch: int,
+                      resume_state: Optional[Dict[str, Any]]) -> None:
+    """One process's save: the payload, sidecar and digest into
+    ``checkpoint.tmp``, then the commit (and ``model_best``)."""
     payload_epoch = epoch + 1 if step_in_epoch == 0 else epoch
     payload = {
         "epoch": payload_epoch,
@@ -272,7 +294,6 @@ def save_checkpoint(
             _commit(btmp, best)
 
         retry_io(_best_attempt)
-    return target
 
 
 # ---------------------------------------------------------------------------

@@ -165,10 +165,24 @@ Phases (any failure exits non-zero and prints no result line):
              and served in dense and packed/unpack at bucket 32 (bitwise
              across modes, within two bf16 ulps of the CPU engine on
              one-channel exact-stem images), packed/popcount refused;
-16. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
+16. train-ddp — data parallelism (phase_train_ddp): (a) two ranks on the
+             one card over gloo (NCCL refuses two ranks on one GPU), each
+             a spawned process with 128 images a step of the flagship
+             recipe at -b 256, through ``fit``: 3 steps, a checkpoint every
+             2 and the eval pass, exact launch counts on each rank, both
+             ranks' parameters, Adam state and BN running statistics
+             bitwise equal, the eval ``count`` the whole val split, each
+             rank's step and the gloo all-reduces' share of it; (b) (a)'s
+             first step against one process fed the ranks' batches
+             concatenated in rank order (loss, every gradient, the sign
+             crossings counted); (c) one rank over NCCL bitwise the run
+             without a process group, and what wrapping the student costs a
+             step; (d) (a)'s mid-epoch checkpoint resumed on one process,
+             ``resharded`` and bitwise;
+17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
-             serve, train, train-stoch, train-ts, train-resume, train-folder
-             and train-bf16, and for a bf16 mode train-bf16,
+             serve, train, train-stoch, train-ts, train-resume, train-folder,
+             train-bf16 and train-ddp, and for a bf16 mode train-bf16,
              train-bf16-remat, train-bf16-ts and serve-bf16), then as the
              last line ``{"ok": true, "device": {...}}``.
 
@@ -2769,7 +2783,8 @@ def bf16_kernels(tag: str, pk):
         rows["K2"] = _conv_row(name, b, count, cuda_ms(lambda: weight_binarize(w, dtype=bf), 50),
                                cuda_ms(lambda: weight_binarize_plain(w, dtype=bf), 20), None,
                                bound(nw * 4 + nw + o * 2, 3.0 * nw, pk["f32_tflops"], pk),
-                               float(a_err.max()), k2_ok)
+                               float(a_err.max()), k2_ok,
+                               graph_ms=graph_ms(lambda: weight_binarize(w, dtype=bf)))
         # K1, and cuDNN's bf16 conv on the same ±1 operands
         y, py = (binary_conv2d(x, sign, alpha, shift=shift, strides=st),
                  binary_conv2d_plain(x, sign, alpha, shift=shift, strides=st))
@@ -2979,6 +2994,655 @@ def serve_bf16(tag: str, run_dir: str):
     return counts, ok
 
 
+# ---------------------------------------------------------------------------
+# [train-ddp]: data parallelism across processes
+# ---------------------------------------------------------------------------
+
+# the ranks of (a), on the one card over gloo, and (a)'s steps: with
+# --save-every-steps 2 the run commits a mid-epoch checkpoint at step 2,
+# which the epoch-end save displaces to checkpoint.old for (d)
+DDP_WORLD = 2
+DDP_STEPS = 3
+# a rank's collectives, and a spawned job as a whole, fail past these
+DDP_TIMEOUT_S = 300.0
+DDP_JOB_TIMEOUT_S = 480.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: str, world: int, device: str, backend: str, kw: dict,
+                timeout_s: float = DDP_JOB_TIMEOUT_S) -> list:
+    """``DDP_JOBS[job](**kw)`` on ``world`` ranks, each a spawned process
+    that joins one process group over ``backend`` at a free localhost port
+    (torchrun's environment, set by hand) with every rank on ``device``;
+    returns each rank's result, in rank order. A rank that fails or
+    outlasts ``timeout_s`` stops every rank and raises."""
+    import multiprocessing
+    import shutil
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks-")
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, device, backend, job, kw, outs[r]))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break  # a rank failed: the others would wait for it in vain
+            time.sleep(0.1)
+        failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise RuntimeError(f"data-parallel job {job!r} on {world} ranks ({backend}, {device}): "
+                               f"ranks (rank, exit code) {failed} failed or outlasted "
+                               f"{timeout_s:.0f}s")
+        return [torch.load(o, map_location="cpu", weights_only=False) for o in outs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, port: int, device: str, backend: str, job: str, kw: dict,
+               out: str) -> None:
+    """A spawned rank of :func:`spawn_ranks`: join the group, run the job,
+    save its result to ``out``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+
+    from bdbnn_tpu_torch.parallel import initialize_distributed
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    initialize_distributed(backend=backend, device=device, timeout_s=DDP_TIMEOUT_S)
+    try:
+        torch.save(DDP_JOBS[job](**kw), out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+class SignTape:
+    """The sign each binary conv takes of its input in one forward,
+    ``x - shift >= 0`` (what K1 fuses), recorded by forward pre-hooks for
+    the model's first ``n`` binary conv calls, each as numpy ``packbits``
+    of its rows; :func:`sign_crossings` counts where two runs differ."""
+
+    def __init__(self, model):
+        from bdbnn_tpu_torch.nn.layers import _BinaryConvBase
+
+        mods = [m for m in model.modules() if isinstance(m, _BinaryConvBase)]
+        self.n = len(mods)
+        self.rows = []
+        self.handles = [m.register_forward_pre_hook(self._hook) for m in mods]
+
+    def _hook(self, mod, args):
+        import numpy as np
+
+        if len(self.rows) >= self.n:
+            return
+        x = args[0].detach()
+        v = x - mod.act_shift.detach().to(x.dtype) if mod.has_shift else x
+        self.rows.append(np.packbits((v >= 0).reshape(x.shape[0], -1).cpu().numpy(), axis=1))
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def sign_crossings(rank_rows: list, one_rows: list) -> list:
+    """Per binary conv, the signs where the ranks' rows (concatenated in
+    rank order) and one process's rows of the same global batch differ."""
+    import numpy as np
+
+    return [int(np.unpackbits(np.concatenate([r[i] for r in rank_rows]) ^ ref).sum())
+            for i, ref in enumerate(one_rows)]
+
+
+class ShardReplay:
+    """Draws recorded over the global batch (:class:`MarginDraws` in one
+    process), replayed in order, each cut to rank ``rank``'s rows
+    ``[rank·B, (rank+1)·B)`` of ``world``: the layout of ``StepDraws`` with
+    a ``shard``."""
+
+    def __init__(self, drawn, rank: int, world: int):
+        self.queue, self.rank, self.world = list(drawn), rank, world
+
+    def __call__(self, x):
+        import torch
+
+        u, b = self.queue.pop(0), x.shape[0]
+        if tuple(u.shape) != (b * self.world, *x.shape[1:]):
+            raise ValueError(f"replayed draw {u.shape} for rows {tuple(x.shape)} of {self.world}")
+        return torch.from_numpy(u[self.rank * b:(self.rank + 1) * b]).to(x.device)
+
+
+def ddp_steps(cfg_kw: dict, batches: list, device: str = "cpu", draws=None, signs: bool = False,
+              steps_per_epoch: int = 4, inputs=None) -> dict:
+    """Train steps of ``RunConfig(**cfg_kw)``'s model from its seeded
+    init, one per global batch of ``batches`` (numpy (x, y)), on this
+    process's rows of each: rank r of a job of W takes rows
+    ``[r·B, (r+1)·B)``, one process all of them. ``draws``: the stochastic
+    family's source (a callable), or the list of global draws a
+    :class:`MarginDraws` recorded, replayed to each rank
+    (:class:`ShardReplay`). Returns the per-step losses (this process's
+    mean), the first step's gradients, the state after the steps
+    (``state_payload``; the model's after the first step too, when there
+    are more) and, with ``signs``, the first forward's :class:`SignTape`
+    rows. ``inputs="record"``: the input of every binary conv and RPReLU
+    call of the first step (its forward, and remat's recompute), this
+    process's rows, as ``inputs``; a list of such inputs of the global
+    batch (the ranks' concatenated): the first step's binary convs and
+    RPReLUs take them in its place (:class:`InputReplay`), and
+    ``input_flips`` counts, by kind, the values this process's own inputs
+    would have put on the other side of their threshold."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
+    from bdbnn_tpu_torch.parallel import create_sharded_state, make_mesh
+    from bdbnn_tpu_torch.train.config import RunConfig
+    from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
+    from bdbnn_tpu_torch.utils.checkpoint import state_payload
+
+    cfg = RunConfig(**cfg_kw).validate()
+    mesh = make_mesh()
+    family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # as fit: the stem conv and the classifier in full f32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    state, step_cfg = build_training(cfg, dev, steps_per_epoch,
+                                     224 if cfg.dataset == "imagenet" else 32)
+    if mesh.collective:
+        step_cfg = dataclasses.replace(step_cfg, data_shard=(mesh.rank, mesh.data))
+    source = ShardReplay(draws, mesh.rank, mesh.data) if isinstance(draws, list) else draws
+    step = make_step(cfg, state, step_cfg, draws=None if source is None else (lambda _s: source))
+    create_sharded_state(mesh, state)
+    tape = SignTape(state.model) if signs else None
+    replay = None
+    if inputs is not None:
+        replay = InputReplay(("conv", "rprelu"))
+        if inputs != "record":
+            replay.recorded = [t.to(dev) for t in inputs]
+        handles = replay.hooks(state.model, "card" if inputs == "record" else "cpu")
+    tk, gate = epoch_schedule(family, cfg, 0)
+    out = {"losses": [], "rank": mesh.rank, "world": mesh.data}
+    for i, (x, y) in enumerate(batches):
+        b = len(x) // mesh.data
+        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        batch = tuple(torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev) for a in (x, y))
+        _, m = step(state, batch, tk, gate)
+        out["losses"].append(float(m["loss"]))
+        if i == 0:
+            out["grads"] = {n: p.grad.detach().cpu().clone()
+                            for n, p in state.model.named_parameters()}
+            if tape is not None:
+                tape.close()
+            if replay is not None:
+                for h in handles:
+                    h.remove()
+                if inputs == "record":
+                    out["inputs"] = replay.recorded
+                else:
+                    if replay.at != len(replay.recorded):
+                        raise ValueError(f"replayed {replay.at} of {len(replay.recorded)} inputs")
+                    out["input_flips"] = dict(replay.flips)
+            if len(batches) > 1:
+                out["first_state"] = state_payload(state)["model"]
+    out["state"] = state_payload(state)
+    out["signs"] = tape.rows if tape is not None else None
+    out["launches"] = read_counts()
+    return out
+
+
+def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
+            batch: int = TRAIN_BATCH, device: str = "cuda", deterministic: bool = False,
+            profile_steps: int = 0, time_wrapped: bool = False, **cfg_kw) -> dict:
+    """``fit`` on the flagship recipe (``cfg_kw`` over it) at global batch
+    ``batch`` for ``steps`` steps, an eval pass of ``batch`` images and a
+    checkpoint every 2 steps, under ``log_path``, in this process: a rank
+    of the job whose group is up, or one process. Returns its launch
+    counts (per step, and of the whole run, with the bf16 modes' apart),
+    losses, step times (CUDA events between steps, on the card), the first
+    step's gradients and loss and :class:`SignTape` rows, the final state
+    (``state_payload``) and the run dir. ``profile_steps``: that many more
+    steps of the state, timed and profiled (the share of the gloo
+    all-reduces); ``time_wrapped`` (one rank): a fresh state's step timed
+    plain and wrapped in ``DistributedDataParallel`` with global BN."""
+    import torch
+
+    from bdbnn_tpu_torch.train import loop
+    from bdbnn_tpu_torch.utils.checkpoint import state_payload
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = train_config(arch=arch, batch_size=batch, synthetic_train_size=steps * batch,
+                       synthetic_val_size=batch, device=device, save_every_steps=2,
+                       log_path=log_path, **cfg_kw)
+    held, per_step, losses, marks = {}, [], [], []
+    prev = {}
+    real_build, real_validate = loop.build_training, loop._validate
+
+    def build(*a, **k):
+        st, sc = real_build(*a, **k)
+        held.update(state=st, step_cfg=sc, tape=SignTape(st.model))
+        return st, sc
+
+    def on_step(epoch, step, m):
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        now = {**read_counts(), **read_bf16_counts()}
+        per_step.append({k: now[k] - prev.get(k, 0) for k in now})
+        prev.update(now)
+        losses.append(m["loss"])
+        if "grads" not in held:
+            held["grads"] = {n: p.grad.detach().cpu().clone()
+                             for n, p in held["state"].model.named_parameters()}
+            held["tape"].close()
+
+    def validate(*a, **kw):
+        acc1 = real_validate(*a, **kw)
+        prev.update({**read_counts(), **read_bf16_counts()})
+        return acc1
+
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic or prev_det
+    reset_counts()
+    loop.build_training, loop._validate = build, validate
+    t0 = time.perf_counter()
+    try:
+        loop.fit(cfg, on_step=on_step)
+    finally:
+        loop.build_training, loop._validate = real_build, real_validate
+        torch.backends.cudnn.deterministic = prev_det
+    wall = time.perf_counter() - t0
+    counts = {**read_counts(), **read_bf16_counts()}
+    if cuda:
+        torch.cuda.synchronize()
+    state = held["state"]
+    out = {"counts": counts, "per_step": per_step, "losses": [float(v) for v in losses],
+           "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])], "wall_s": wall,
+           "grads": held["grads"], "signs": held["tape"].rows, "state": state_payload(state),
+           "run_dir": run_dir_of(log_path)}
+    if profile_steps:
+        out["profile"] = _profile_ddp_steps(cfg, state, held["step_cfg"], profile_steps)
+    if time_wrapped:
+        out["wrapped"] = _time_wrapped_step(cfg)
+    return out
+
+
+def _rank_shard():
+    """(rank, world) of the process group that is up, (0, 1) without one."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _rank_batch(cfg, device):
+    """A seeded batch of this rank's rows on ``device``."""
+    import torch
+
+    b = cfg.batch_size // _rank_shard()[1]
+    g = torch.Generator().manual_seed(3)
+    return (torch.randn((b, 224, 224, 3), generator=g).to(device),
+            torch.randint(0, 1000, (b,), generator=g).to(device))
+
+
+def _profile_ddp_steps(cfg, state, step_cfg, steps: int) -> dict:
+    """``steps`` more train steps of ``state`` (DDP-wrapped in a job) on a
+    seeded batch on its device: the host wall per step (synchronized), and
+    under torch.profiler the host spans of the gloo all-reduces (enqueue to
+    completion, so they overlap the backward) and the device busy time."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdbnn_tpu_torch.nn.binarize import get_active_family
+    from bdbnn_tpu_torch.train.loop import epoch_schedule
+
+    dev = next(state.model.parameters()).device
+    step = make_step(cfg, state, dataclasses.replace(step_cfg, data_shard=_rank_shard()))
+    batch = _rank_batch(cfg, dev)
+    tk, gate = epoch_schedule(get_active_family(), cfg, 0)
+    step(state, batch, tk, gate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, batch, tk, gate)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch, tk, gate)
+        torch.cuda.synchronize()
+    comm_ms, busy_ms, keys = 0.0, 0.0, set()
+    for ev in prof.key_averages():
+        name = ev.key.lower()
+        if "gloo" in name and ("all_reduce" in name or "allreduce" in name):
+            comm_ms += ev.cpu_time_total / 1e3 / steps
+            keys.add(ev.key)
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_ms += us / 1e3 / steps
+    return {"wall_ms": wall_ms, "gloo_allreduce_ms": comm_ms, "busy_ms": busy_ms,
+            "keys": sorted(keys)}
+
+
+def _time_wrapped_step(cfg, iters: int = 3) -> dict:
+    """One rank's step at ``cfg``'s batch, plain and with the student
+    wrapped as a job of more ranks wraps it (``DistributedDataParallel``
+    over the group and BN's statistics all-reduced), on the same seeded
+    batch: CUDA-event ms of each, what the wrapper and its collectives
+    cost on one rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from bdbnn_tpu_torch.nn.binarize import get_active_family
+    from bdbnn_tpu_torch.nn.layers import BatchNorm
+    from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
+
+    dev = torch.device(cfg.device)
+    out = {}
+    for wrapped in (False, True):
+        state, step_cfg = build_training(cfg, dev, 10, 224)
+        step = make_step(cfg, state, step_cfg)
+        if wrapped:
+            for m in state.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.process_group = dist.group.WORLD
+            state.ddp = DistributedDataParallel(state.model, broadcast_buffers=False)
+        batch = _rank_batch(cfg, dev)
+        tk, gate = epoch_schedule(get_active_family(), cfg, 0)
+        out["ddp_ms" if wrapped else "plain_ms"] = cuda_ms(lambda: step(state, batch, tk, gate),
+                                                           iters, warmup=2)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+
+def compare_ddp_step(ranks: list, one: dict) -> dict:
+    """A job's first step (each rank's result of :func:`ddp_fit` or
+    :func:`ddp_steps`) against one process's on the ranks' batches
+    concatenated in rank order: the relative error of the global loss (the
+    mean of the ranks' means), each gradient's largest difference over its
+    tensor's largest |entry|, whether the ranks' gradients are bitwise
+    equal, and the sign crossings of each binary conv (where
+    :class:`SignTape` rows were taken)."""
+    import torch
+
+    loss = sum(r["losses"][0] for r in ranks) / len(ranks)
+    ref = one["losses"][0]
+    grad_err = {}
+    for name, g in one["grads"].items():
+        scale = max(float(g.abs().max()), 1e-30)
+        grad_err[name] = float((ranks[0]["grads"][name] - g).abs().max()) / scale
+    same = all(torch.equal(r["grads"][n], ranks[0]["grads"][n]) for r in ranks[1:]
+               for n in ranks[0]["grads"])
+    signs = [r.get("signs") for r in ranks]
+    crossings = (sign_crossings(signs, one["signs"])
+                 if one.get("signs") is not None and all(s is not None for s in signs) else None)
+    return {"loss": loss, "loss_one": ref, "loss_rel": abs(loss - ref) / abs(ref),
+            "grad_err": grad_err, "ranks_grads_equal": same, "crossings": crossings}
+
+
+def _held_ddp_step(tag: str, cmp: dict) -> bool:
+    worst = max(cmp["grad_err"].items(), key=lambda kv: kv[1])
+    ok = (cmp["loss_rel"] <= TRAIN_LOSS_RTOL and worst[1] <= GRAD_TOL
+          and cmp["ranks_grads_equal"])
+    cross = cmp["crossings"]
+    log(f"{tag} global loss {cmp['loss']!r} vs one process {cmp['loss_one']!r}: relative "
+        f"{cmp['loss_rel']:.3e} (tol {TRAIN_LOSS_RTOL}); worst gradient error {worst[1]:.3e} of "
+        f"its tensor's largest |entry| ({worst[0]}; tol {GRAD_TOL}, {len(cmp['grad_err'])} "
+        f"tensors); ranks' gradients bitwise equal: {cmp['ranks_grads_equal']}; sign crossings "
+        f"per binary conv {cross} (total {sum(cross) if cross is not None else 'not counted'}); "
+        f"ok={ok}")
+    log(f"{tag} largest gradient errors: " + ", ".join(
+        f"{n} {e:.3e}" for n, e in sorted(cmp["grad_err"].items(), key=lambda kv: -kv[1])[:6]))
+    return ok
+
+
+def phase_train_ddp(smi_line: str):
+    """[train-ddp]: data parallelism on the flagship recipe at -b 256.
+    (a) two ranks on the one card over gloo, each 128 images a step,
+    through ``fit``: 3 steps, a checkpoint every 2 and the eval pass;
+    exact launch counts on each rank, both ranks' final parameters, Adam
+    state and BN running statistics bitwise equal, the eval ``count`` the
+    whole val split, finite losses; each rank's step and the gloo
+    all-reduces' share of it (torch.profiler). (b) (a)'s first step against
+    one process fed the ranks' batches concatenated in rank order: the
+    loss to TRAIN_LOSS_RTOL, every gradient to GRAD_TOL of its tensor's
+    largest |entry|, the sign crossings counted; where crossings break
+    that gate at full width it is held at batch 8. (c) one rank over NCCL
+    (W = 1, the group a real job makes) bitwise the run without a group
+    (losses and final state, cuDNN deterministic), each step beside the
+    other's, and a step with the student wrapped as a job wraps it beside
+    the plain step. (d) (a)'s mid-epoch checkpoint (step 2,
+    ``checkpoint.old``) resumed on one process: ``restore`` with
+    ``resharded`` true and the schedule fields of the checkpoint's event,
+    the restored model, optimizer and step bitwise the saved ones.
+    Returns (the launch counts of (a), both ranks summed, ok)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.obs.events import read_events, read_jsonl
+    from bdbnn_tpu_torch.parallel import Mesh
+    from bdbnn_tpu_torch.train import loop
+    from bdbnn_tpu_torch.utils import checkpoint as ck
+
+    tag = "[train-ddp]"
+    card = f"({smi_line})"
+    oks = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (a)
+    root = fresh_log_root()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("fit", DDP_WORLD, "cuda:0", "gloo",
+                        dict(log_path=root, arch="resnet18", device="cuda:0", profile_steps=2))
+    log(f"{tag} (a) {DDP_WORLD} ranks over gloo on cuda:0, fit flagship -b {TRAIN_BATCH} "
+        f"({TRAIN_BATCH // DDP_WORLD} a rank), {DDP_STEPS} steps + eval, in "
+        f"{time.perf_counter() - t0:.1f}s (processes started, kernels loaded)")
+    fwd = N_BINARY_CONVS
+    want = {"K1": fwd, "K2": fwd, "K3": 0, "K4": 0, "K5": fwd, "K6": fwd, "K7": 2,
+            **{f"{k} bf16": 0 for k in BF16_KERNELS}}
+    run_dir = ranks[0]["run_dir"]
+    evals = [read_events(run_dir, "eval")] + [
+        [e for e in read_jsonl(os.path.join(run_dir, f"events.p{r}.jsonl")) if e["kind"] == "eval"]
+        for r in range(1, DDP_WORLD)]
+    diff = state_diff(ranks[0]["state"], ranks[1]["state"])
+    oks["(a) launches"] = all(len(r["per_step"]) == DDP_STEPS and all(c == want for c in r["per_step"])
+                              for r in ranks)
+    oks["(a) finite"] = all(len(r["losses"]) == DDP_STEPS and all(math.isfinite(v) for v in r["losses"])
+                            for r in ranks)
+    oks["(a) replicas equal"] = not diff
+    oks["(a) one run dir"] = all(r["run_dir"] == run_dir for r in ranks)
+    oks["(a) eval count"] = all(len(ev) == 1 and ev[0]["count"] == TRAIN_BATCH for ev in evals)
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    for r, res in enumerate(ranks):
+        prof = res["profile"]
+        log(f"{tag} (a) rank {r}: losses {res['losses']}; launches per step {res['per_step']} "
+            f"(expected {want} each); step ms (CUDA events, fit's loop) {res['step_ms']} {card}; "
+            f"alone after fit: {prof['wall_ms']:.2f} ms a step (host wall, synchronized), gloo "
+            f"all-reduce spans {prof['gloo_allreduce_ms']:.2f} ms a step = "
+            f"{prof['gloo_allreduce_ms'] / prof['wall_ms']:.3f} of it (torch.profiler host spans "
+            f"{prof['keys']}, enqueue to completion, overlapping the backward), device busy "
+            f"{prof['busy_ms']:.2f} ms {card}")
+    log(f"{tag} (a) eval events {[ev[0] if ev else None for ev in evals]}; replicas' differing "
+        f"tensors {diff[:5]}; whole run launches (both ranks) {counts}")
+    # (b)
+    cfg = train_config(arch="resnet18", batch_size=TRAIN_BATCH,
+                       synthetic_train_size=DDP_STEPS * TRAIN_BATCH,
+                       synthetic_val_size=TRAIN_BATCH, device="cuda").validate()
+    xs, ys = [], []
+    for r in range(DDP_WORLD):
+        pipe, _, _ = loop.build_datasets(cfg, mesh=Mesh(data=DDP_WORLD, rank=r))
+        pipe.prefetch = 0
+        x, y = next(iter(pipe.epoch(0)))
+        xs.append(x)
+        ys.append(y)
+    one = ddp_steps(dataclasses.asdict(cfg), [(np.concatenate(xs), np.concatenate(ys))],
+                    device="cuda:0", signs=True, steps_per_epoch=DDP_STEPS)
+    cmp = compare_ddp_step(ranks, one)
+    oks["(b) step"] = _held_ddp_step(f"{tag} (b) first step at -b {TRAIN_BATCH}", cmp)
+    del one
+    if not oks["(b) step"] and cmp["crossings"] and sum(cmp["crossings"]):
+        # as the card-vs-CPU gates do: at batch 8 the one process's binary
+        # convs take the job's inputs, so the crossings cannot move the rest
+        log(f"{tag} (b) sign crossings break the full-width gate: held at batch 8, the one "
+            "process's binary convs taking the job's inputs (InputReplay)")
+        small = dataclasses.asdict(dataclasses.replace(cfg, batch_size=8))
+        g = np.random.default_rng(11)
+        batch = (g.normal(size=(8, 224, 224, 3)).astype(np.float32),
+                 g.integers(0, 1000, size=(8,)).astype(np.int64))
+        r8 = spawn_ranks("steps", DDP_WORLD, "cuda:0", "gloo",
+                         dict(cfg_kw=small, batches=[batch], device="cuda:0", inputs="record"))
+        inputs = [torch.cat(per_rank) for per_rank in zip(*(r["inputs"] for r in r8))]
+        one8 = ddp_steps(small, [batch], device="cuda:0", inputs=inputs)
+        log(f"{tag} (b) batch 8: sign crossings the one process's own inputs would have made "
+            f"{one8['input_flips']}")
+        oks["(b) step"] = _held_ddp_step(f"{tag} (b) first step at batch 8", compare_ddp_step(r8, one8))
+    # (c)
+    (grp,) = spawn_ranks("fit", 1, "cuda:0", "nccl",
+                         dict(log_path=fresh_log_root(), arch="resnet18", device="cuda:0",
+                              deterministic=True, time_wrapped=True))
+    plain = ddp_fit(fresh_log_root(), arch="resnet18", device="cuda:0", deterministic=True)
+    cdiff = state_diff(grp["state"], plain["state"])
+    oks["(c) bitwise"] = grp["losses"] == plain["losses"] and not cdiff
+    w = grp["wrapped"]
+    log(f"{tag} (c) one rank over NCCL vs no group: losses {grp['losses']} vs {plain['losses']}, "
+        f"final state differs in {cdiff[:5]}; bitwise {oks['(c) bitwise']}; step ms with the group "
+        f"{grp['step_ms']} vs without {plain['step_ms']} {card}; a -b {TRAIN_BATCH} step on one "
+        f"rank plain {w['plain_ms']:.2f} ms, wrapped in DDP with global BN {w['ddp_ms']:.2f} ms "
+        f"(+{w['ddp_ms'] - w['plain_ms']:.2f} ms, CUDA events) {card}")
+    # (d)
+    old = os.path.join(run_dir, ck.CKPT_NAME + ".old")
+    saved = torch.load(os.path.join(old, ck.PAYLOAD_NAME), map_location="cpu",
+                       weights_only=True)["state"]
+    restored = {}
+    real_load = loop.load_checkpoint
+
+    def load(path, state, **kw):
+        res = real_load(path, state, **kw)
+        restored.update(ck.state_payload(state))
+        return res
+
+    loop.load_checkpoint = load
+    try:
+        d = ddp_fit(fresh_log_root(), arch="resnet18", device="cuda:0", resume=old)
+    finally:
+        loop.load_checkpoint = real_load
+    (restore,) = read_events(d["run_dir"], "restore")
+    (ck_ev,) = [e for e in read_events(run_dir, "checkpoint") if e["step_in_epoch"] == 2]
+    ddiff = state_diff(saved, restored)
+    topo2 = {"processes": DDP_WORLD, "devices": DDP_WORLD, "mesh": {"data": DDP_WORLD, "model": 1}}
+    oks["(d) resume"] = (
+        restore["resharded"] is True and restore["topology_from"] == topo2
+        and restore["topology_to"] == {"processes": 1, "devices": 1, "mesh": {"data": 1, "model": 1}}
+        and {k: restore[k] for k in SCHED_KEYS} == {k: ck_ev[k] for k in SCHED_KEYS}
+        and not ddiff and len(d["losses"]) == DDP_STEPS - 2
+        and all(math.isfinite(v) for v in d["losses"]))
+    log(f"{tag} (d) {old} resumed on one process: restore resharded={restore['resharded']} "
+        f"{restore['topology_from']} -> {restore['topology_to']}, schedule "
+        f"{ {k: restore[k] for k in SCHED_KEYS} } (checkpoint event "
+        f"{ {k: ck_ev[k] for k in SCHED_KEYS} }); restored state differs in {ddiff[:5]}; "
+        f"losses after it {d['losses']}")
+    ok = all(oks.values())
+    log(f"{tag} {oks} in {time.perf_counter() - t_phase:.1f}s; ok={ok}")
+    return counts, ok
+
+
+def ddp_batchnorm(x, g, scale, bias, mean, var) -> dict:
+    """A train-mode ``BatchNorm`` with these parameters and running
+    statistics on this process's rows of ``x`` (the global batch), its
+    statistics the ranks' global ones, and the backward of ``sum(y·g)``
+    over the rows: the output and input gradient of the rows, the
+    parameter gradients summed over the ranks (the full batch's) and the
+    running statistics after the update."""
+    import torch
+    import torch.distributed as dist
+
+    from bdbnn_tpu_torch.nn.layers import BatchNorm
+    from bdbnn_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    bn = BatchNorm(x.shape[-1]).train()
+    with torch.no_grad():
+        for t, v in ((bn.weight, scale), (bn.bias, bias), (bn.running_mean, mean),
+                     (bn.running_var, var)):
+            t.copy_(torch.from_numpy(v))
+    if mesh.collective:
+        bn.process_group = dist.group.WORLD
+    b = x.shape[0] // mesh.data
+    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    xt = torch.from_numpy(x[rows]).requires_grad_(True)
+    y = bn(xt)
+    (y * torch.from_numpy(g[rows])).sum().backward()
+    grads = torch.stack([bn.weight.grad, bn.bias.grad])
+    if mesh.collective:
+        dist.all_reduce(grads)
+    return {"y": y.detach(), "dx": xt.grad, "dscale": grads[0], "dbias": grads[1],
+            "mean": bn.running_mean.clone(), "var": bn.running_var.clone()}
+
+
+def ddp_primitives(flags: list, values: list, sums: list) -> dict:
+    """This rank's view of the mesh primitives on its own inputs
+    (``flags[rank]``, ``values[rank]``, ``sums[rank]``): its mesh's shape
+    and topology, ``coordinate_flags``, ``sum_host_values``,
+    ``broadcast_host_int`` and the train loop's ``global_sums``."""
+    from bdbnn_tpu_torch.parallel import (
+        broadcast_host_int,
+        coordinate_flags,
+        make_mesh,
+        sum_host_values,
+        topology,
+    )
+
+    from bdbnn_tpu_torch.train.loop import global_sums
+
+    mesh = make_mesh()
+    mine, value = flags[mesh.rank], values[mesh.rank]
+    return {"rank": mesh.rank, "shape": mesh.shape, "topology": topology(mesh),
+            "max": coordinate_flags(mine, mesh).tolist(),
+            "sum": sum_host_values(mine, mesh).tolist(),
+            "broadcast": broadcast_host_int(value, mesh),
+            "global_sums": global_sums(sums[mesh.rank], mesh)}
+
+
+def ddp_each(calls: list) -> list:
+    """``DDP_JOBS[job](**kw)`` of each (job, kw) of ``calls``, in order, in
+    one job (one process group for several cases)."""
+    return [DDP_JOBS[job](**kw) for job, kw in calls]
+
+
+DDP_JOBS = {"steps": ddp_steps, "fit": ddp_fit, "batchnorm": ddp_batchnorm,
+            "primitives": ddp_primitives, "each": ddp_each}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3044,6 +3708,7 @@ def main(argv=None) -> int:
     folder_counts, ok_tf = phase_train_folder(smi_line)
     bf16_counts, brecs, ok_tb = phase_train_bf16(pk, f32_prof)
     recs.update(brecs)
+    ddp_counts, ok_td = phase_train_ddp(smi_line)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -3070,27 +3735,30 @@ def main(argv=None) -> int:
     # K1-K4, training for K5-K7 (K1 and K2 run on both; both are listed),
     # on the stochastic family's training path, on the teacher-student
     # path, on the checkpoint/resume path's run A and on the image-folder
-    # path's mp run (K1, K2, K5-K7), and on the bf16 flagship's (K1, K2,
-    # K5-K7). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # path's mp run (K1, K2, K5-K7), on the bf16 flagship's (K1, K2,
+    # K5-K7), and on the data-parallel job's two ranks (K1, K2, K5-K7,
+    # both ranks' launches summed). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
     # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
                    "train-resume": resume_counts.get(k, 0),
                    "train-folder": folder_counts.get(k, 0),
-                   "train-bf16": bf16_counts["train-bf16"].get(k, 0)}
+                   "train-bf16": bf16_counts["train-bf16"].get(k, 0),
+                   "train-ddp": ddp_counts.get(k, 0)}
                for k in sources}
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
         names[f"{k} bf16"] = names[k].replace(" (", " bf16 mode (", 1)
         by_path[f"{k} bf16"] = {path: c.get(f"{k} bf16", 0) for path, c in bf16_counts.items()}
+        by_path[f"{k} bf16"]["train-ddp"] = ddp_counts.get(f"{k} bf16", 0)
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources
             if k in recs and not k.endswith("bf16")}
     used.update({f"{k} bf16": by_path[f"{k} bf16"]["train-bf16"] for k in BF16_KERNELS})
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
         for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder",
-                     "train-bf16"))
+                     "train-bf16", "train-ddp"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -3139,7 +3807,7 @@ def main(argv=None) -> int:
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
-           "train_folder": ok_tf, "train_bf16": ok_tb, "launched": ok_used}
+           "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         return 1

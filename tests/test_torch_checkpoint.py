@@ -9,10 +9,13 @@ seeds."""
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from bdbnn_tpu.parallel import make_mesh as jmake_mesh
+from bdbnn_tpu.parallel import topology as jtopology
 from bdbnn_tpu.utils import checkpoint as jck
 from bdbnn_tpu_torch.models import convert_torch_state_dict, create_model, overlay_state_dict
 from bdbnn_tpu_torch.obs.events import read_events
@@ -264,7 +267,12 @@ def test_reference_digest_and_sidecar_readers_agree_on_a_port_checkpoint(tmp_pat
     side = jck.read_resume_state(run_dir)
     assert REF_SIDECAR_KEYS <= set(side), REF_SIDECAR_KEYS - set(side)
     assert side == ck.read_resume_state(run_dir)
-    assert side["topology"] == {"processes": 1, "devices": 1} and side["binarizer"] == "ede"
+    # the writer's topology with the reference's keys, ``mesh`` included:
+    # its ``topology(mesh)`` of a mesh of one device
+    ref = jtopology(jmake_mesh(jax.devices()[:1]))
+    assert side["topology"] == {"processes": 1, "devices": 1, "mesh": {"data": 1, "model": 1}}
+    assert set(side["topology"]) == set(ref) and side["topology"]["mesh"] == ref["mesh"]
+    assert side["binarizer"] == "ede"
 
 
 @pytest.mark.parametrize("how", ["other policy", "groups swapped"])

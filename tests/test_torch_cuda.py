@@ -679,3 +679,33 @@ def test_k6_bf16_with_u_within_bound(cuda, case):
     bound = 8 * U * wterms + UB * (dw.abs() + pdw.abs()) + 1e-30
     assert bool(((dw - pdw).abs() <= bound).all())
     assert bool(((hard - pdw).abs() > 100 * bound).any())
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_step_as_one_process(cuda):
+    """A data-parallel train step of ``resnet20_react`` on ``cuda:0``: two
+    ranks over gloo (global BN statistics, DDP's gradient all-reduce on
+    card tensors) against one process on the card fed the concatenated
+    batch, whose binary convs and RPReLUs take the job's inputs (the
+    threshold crossings of BN's sums in another order replayed away): the
+    loss to rtol 1e-5,
+    every gradient within 1e-3 of its tensor's largest |entry|, the ranks'
+    gradients and final states bitwise equal, K1, K2, K5 and K6 launched
+    on each rank."""
+    import chip_smoke
+
+    cfg_kw = dict(dataset="cifar10", arch="resnet20_react", synthetic=True, seed=0, lr=0.05,
+                  epochs=2, w_kurtosis=True, device="cuda")
+    rng = np.random.default_rng(5)
+    batches = [(rng.normal(size=(8, 32, 32, 3)).astype(np.float32),
+                rng.integers(0, 10, size=(8,)).astype(np.int64)) for _ in range(2)]
+    ranks = chip_smoke.spawn_ranks(
+        "steps", 2, "cuda:0", "gloo",
+        dict(cfg_kw=cfg_kw, batches=batches, device="cuda:0", inputs="record"), timeout_s=300)
+    inputs = [torch.cat(per_rank) for per_rank in zip(*(r["inputs"] for r in ranks))]
+    one = chip_smoke.ddp_steps(cfg_kw, batches[:1], device="cuda", inputs=inputs)
+    cmp = chip_smoke.compare_ddp_step(ranks, one)
+    assert cmp["ranks_grads_equal"] and cmp["loss_rel"] <= 1e-5
+    assert max(cmp["grad_err"].values()) <= 1e-3, cmp["grad_err"]
+    assert not chip_smoke.state_diff(ranks[0]["state"], ranks[1]["state"])
+    assert all(r["launches"][k] > 0 for r in ranks for k in ("K1", "K2", "K5", "K6"))

@@ -66,8 +66,9 @@ def test_every_port_module_imports_without_jax():
 def test_training_slice_modules_are_scanned():
     """The scans above cover the training slice's modules and kernels,
     the teacher–student slice's (KD losses, teacher loading, the
-    bottleneck teacher), and the run dir's (checkpoints, resilience,
-    logging, meters, manifest, events, step-phase timing)."""
+    bottleneck teacher), the run dir's (checkpoints, resilience,
+    logging, meters, manifest, events, step-phase timing) and data
+    parallelism's (``parallel``)."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     for mod in ("train/loop.py", "train/step.py", "train/optim.py", "train/state.py",
                 "train/config.py", "train/ede.py", "losses/kurtosis.py", "losses/kd.py",
@@ -76,7 +77,8 @@ def test_training_slice_modules_are_scanned():
                 "models/registry.py", "utils/__init__.py", "utils/checkpoint.py",
                 "utils/logging_utils.py", "utils/meters.py", "train/resilience.py",
                 "obs/manifest.py", "obs/events.py", "obs/timing.py", "serve/export.py",
-                "data/pipeline.py", "data/datasets.py"):
+                "data/pipeline.py", "data/datasets.py", "parallel/__init__.py",
+                "parallel/mesh.py"):
         assert os.path.join("bdbnn_tpu_torch", mod) in rel
     for src in ("binary_conv_dgrad.cu", "binary_conv_wgrad.cu", "kurtosis.cu"):
         assert os.path.isfile(os.path.join(REPO, "bdbnn_tpu_torch", "csrc", src))

@@ -403,8 +403,12 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
         cli.main(args)
     with pytest.raises(RuntimeError, match="TensorFlow input pipeline"):
         cli.main(args + ["--input-backend", "tfdata", "--device", "cpu"])
-    for extra, item in [(["--distributed-init"], "DDP"),
-                        (["--model-parallel", "2"], "DDP"), (["--profile-dir", "p"], "obs"),
+    # --distributed-init runs a data-parallel job, and outside torchrun's
+    # environment it refuses to start rather than train as one process
+    with pytest.raises(RuntimeError, match="torchrun"):
+        cli.main(args + ["--distributed-init", "--device", "cpu"])
+    for extra, item in [(["--model-parallel", "2"], "tensor parallelism"),
+                        (["--profile-dir", "p"], "obs"),
                         (["--health-threshold", "grad_norm=1"], "obs")]:
         with pytest.raises(NotImplementedError, match=item):
             cli.main(args + extra + ["--device", "cpu"])
