@@ -36,8 +36,16 @@ backend and ``-j``. It is normalized on the host even when the run
 normalized on the card (``--device-normalize``): the engine takes
 normalized float32 images.
 
-Training and ``predict`` run on the CUDA card unless ``--device cpu`` is
-given, and raise without a card; ``export`` is host work.
+``serve-bench ARTIFACT`` is the SLO benchmark of the reference's
+``serve-bench``, with its flags: the engine behind the micro-batcher
+(or a replica pool), driven closed- or open-loop, the strict-JSON
+verdict printed on stdout and written into a run dir under
+``--log-path``. SIGTERM drains and reports (exit 0); engine failures
+exit 1.
+
+Training, ``predict`` and ``serve-bench`` run on the CUDA card unless
+``--device cpu`` is given, and raise without a card; ``export`` is host
+work.
 """
 
 from __future__ import annotations
@@ -343,7 +351,114 @@ def export_main(argv) -> int:
     return 0
 
 
-COMMANDS = {"predict": predict_main, "export": export_main}
+def serve_bench_main(argv) -> int:
+    """``serve-bench ARTIFACT [flags]`` — the SLO benchmark: the warmed
+    bucketed engine behind the bounded micro-batcher (or a replica pool
+    of engines, ``--replicas``), driven closed- or open-loop (Poisson);
+    emits ``serve`` events into a run dir and prints the strict-JSON
+    verdict. SIGTERM drains (every accepted request answered) before
+    the verdict is written, and the exit code stays 0; requests that
+    failed with an engine error exit 1."""
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli serve-bench",
+        description="Benchmark an export artifact against an SLO: "
+        "p50/p95/p99 latency, throughput, batch occupancy, shed rate.",
+    )
+    ap.add_argument("artifact", help="export artifact dir")
+    ap.add_argument("--log-path", default="serve_log")
+    ap.add_argument("--mode", default="open", choices=["open", "closed"])
+    ap.add_argument("--rate", type=float, default=100.0,
+                    help="open-loop Poisson arrival rate, req/s (default 100)")
+    ap.add_argument("--requests", type=int, default=200)
+    ap.add_argument("--concurrency", type=int, default=4,
+                    help="closed-loop in-flight requests (default 4)")
+    ap.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32],
+                    help="batch-size buckets, each warmed at startup")
+    ap.add_argument("--queue-depth", type=int, default=128,
+                    help="bounded request queue; beyond it requests are SHED")
+    ap.add_argument("--max-delay-ms", type=float, default=5.0,
+                    help="micro-batch coalescing deadline (default 5ms)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="", help="also write the SLO verdict JSON here")
+    ap.add_argument("--events-max-mb", type=float, default=256.0,
+                    help="rotate the run's events.jsonl past this size in MiB "
+                    "(default 256; 0 = unbounded)")
+    ap.add_argument("--replicas", type=int, nargs="+", default=[1],
+                    help="replica-pool size(s): one warmed engine per card behind the "
+                    "front batcher. More than one value runs a SCALING SWEEP (one pass "
+                    "per N; the verdict gains the scaling block)")
+    ap.add_argument("--pace-ms", type=float, default=0.0,
+                    help="fabric mode: replace each replica's engine with a fixed sleep "
+                    "per batch — measures the pool's dispatch concurrency without a "
+                    "card per replica (0 = real engines)")
+    ap.add_argument("--replica-queue-batches", type=int, default=8,
+                    help="per-replica bounded queue, in batches (default 8)")
+    ap.add_argument("--wedge-timeout-s", type=float, default=30.0,
+                    help="a replica busy on one batch longer than this is marked "
+                    "unhealthy, routed around and restarted (default 30)")
+    ap.add_argument("--packed-weights", default="off", choices=["off", "on", "ab"],
+                    help="weight residency: 'on' keeps binary convs 1-bit resident on "
+                    "the card (each forward decodes them, K3; logits bitwise-equal to "
+                    "dense); 'ab' runs the SAME load dense-then-packed and records the "
+                    "memory squeeze and step-time delta in the verdict's packed block "
+                    "(single engine only)")
+    ap.add_argument("--packed-impl", default="unpack", choices=["unpack", "popcount"],
+                    help="packed forward: decode -> K2 -> K1 (default) or the "
+                    "XNOR-popcount conv, K4 (f32 artifacts only)")
+    ap.add_argument("--no-rtrace", dest="rtrace", action="store_false",
+                    help="disable request-path tracing (obs/rtrace.py): the verdict's "
+                    "attribution block lands null")
+    ap.add_argument("--rtrace-sample-every", type=int, default=16,
+                    help="emit every Nth request's full waterfall as an rtrace event "
+                    "(deterministic seeded sampling; the slowest-K tail is kept "
+                    "regardless; default 16)")
+    ap.add_argument("--rtrace-tail-k", type=int, default=5,
+                    help="slowest requests per priority kept as tail exemplars in the "
+                    "verdict's attribution block (default 5)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; there is no fallback to the CPU)")
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.serve.config import ServeBenchConfig
+    from bdbnn_tpu_torch.serve.loadgen import run_serve_bench
+
+    cfg = ServeBenchConfig(
+        artifact=args.artifact,
+        log_path=args.log_path,
+        mode=args.mode,
+        rate=args.rate,
+        requests=args.requests,
+        concurrency=args.concurrency,
+        buckets=tuple(args.buckets),
+        queue_depth=args.queue_depth,
+        max_delay_ms=args.max_delay_ms,
+        seed=args.seed,
+        out=args.out,
+        events_max_mb=args.events_max_mb,
+        replicas=tuple(args.replicas),
+        pace_ms=args.pace_ms,
+        replica_queue_batches=args.replica_queue_batches,
+        wedge_timeout_s=args.wedge_timeout_s,
+        packed_weights=args.packed_weights,
+        packed_impl=args.packed_impl,
+        rtrace=args.rtrace,
+        rtrace_sample_every=args.rtrace_sample_every,
+        rtrace_tail_k=args.rtrace_tail_k,
+        device=args.device,
+    )
+    result = run_serve_bench(cfg)
+    print(json.dumps(result["verdict"], indent=2, sort_keys=True), flush=True)
+    print(f"[serve-bench] run dir: {result['run_dir']}", file=sys.stderr)
+    failed = result["verdict"].get("requests_failed") or 0
+    if failed:
+        # engine failures are not load shedding and must not exit 0
+        print(f"[serve-bench] {failed} request(s) FAILED with engine errors (not shed); "
+              "see the run dir's events", file=sys.stderr)
+        return 1
+    return 0
+
+
+COMMANDS = {"predict": predict_main, "export": export_main, "serve-bench": serve_bench_main}
 
 
 def main(argv=None) -> int:

@@ -203,6 +203,20 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, bf16: bool = False) -> None:
+    """Add one to the wrapper ``fn``'s ``launches`` (and to its
+    ``launches_bf16`` for a launch of the bf16 mode), under a lock: the
+    serving stack launches from several worker threads at once, and an
+    unlocked ``+=`` can lose a count."""
+    with _count_lock:
+        fn.launches += 1
+        if bf16:
+            fn.launches_bf16 += 1
+
+
 def stream_ptr(device) -> int:
     """The current PyTorch stream of ``device`` as an int for ctypes."""
     import torch

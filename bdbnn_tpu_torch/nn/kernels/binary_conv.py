@@ -270,8 +270,7 @@ def binary_conv2d(
         n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, int(bf16), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d")
-    binary_conv2d.launches += 1
-    binary_conv2d.launches_bf16 += bf16
+    _build.count_launch(binary_conv2d, bf16)
     return y
 
 
@@ -462,8 +461,7 @@ def binary_conv2d_dgrad(
         int(bf16), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_dgrad")
-    binary_conv2d_dgrad.launches += 1
-    binary_conv2d_dgrad.launches_bf16 += bf16
+    _build.count_launch(binary_conv2d_dgrad, bf16)
     return dx
 
 
@@ -614,8 +612,7 @@ def binary_conv2d_wgrad(
         int(bf16), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_wgrad")
-    binary_conv2d_wgrad.launches += 1
-    binary_conv2d_wgrad.launches_bf16 += bf16
+    _build.count_launch(binary_conv2d_wgrad, bf16)
     return dw
 
 

@@ -224,7 +224,7 @@ def kurtosis_grouped(
         out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(lib, err, "kurtosis_grouped")
-    kurtosis_grouped.launches += 1
+    _build.count_launch(kurtosis_grouped)
     grads = None
     if with_grad:
         grads = [out.as_strided(sh, st, off) for sh, st, off in plan.grads]

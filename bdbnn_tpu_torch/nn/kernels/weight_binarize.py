@@ -125,9 +125,7 @@ def weight_binarize(
         int(dtype == torch.bfloat16), _build.stream_ptr(w.device),
     )
     _build.check(lib, err, "weight_binarize")
-    weight_binarize.launches += 1
-    if dtype == torch.bfloat16:
-        weight_binarize.launches_bf16 += 1
+    _build.count_launch(weight_binarize, dtype == torch.bfloat16)
     return sign, alpha
 
 

@@ -243,6 +243,10 @@ class _BinaryConvBase(nn.Module):
         self.strides = tuple(strides)
         self.padding = padding
         self.packed = packed
+        # the packed impl this conv runs ("unpack" | "popcount"), bound
+        # by whoever builds a serving model (InferenceEngine); None reads
+        # the process-wide setting of nn/packed.py
+        self.packed_impl: Optional[str] = None
         shape = self.weight_shape
         if packed:
             n = shape[0] * shape[1] * shape[2] * shape[3]
@@ -321,7 +325,8 @@ class _BinaryConvBase(nn.Module):
         wsign, alpha = weight_binarize(w, lab=lab, dtype=x.dtype)
         x = x.contiguous()
         shift = shift.detach() if shift is not None else None
-        if self.packed and get_packed_impl() == "popcount":
+        impl = self.packed_impl if self.packed_impl is not None else get_packed_impl()
+        if self.packed and impl == "popcount":
             return popcount_binary_conv(
                 x, wsign, alpha, shift=shift, strides=self.strides, padding=self.padding
             )

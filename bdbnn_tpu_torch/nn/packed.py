@@ -18,8 +18,11 @@ transiently inside each forward:
   prep pass. Its integer dot equals K1's exactly, so the result is
   bitwise K1's. f32 only (bf16 is refused, as in the reference).
 
-The impl switch (``unpack`` | ``popcount``) is the reference's
-process-global pattern; the engine binds it around each forward.
+The impl switch (``unpack`` | ``popcount``) is bound per binary conv
+(``packed_impl``), as the reference binds it into each compiled bucket:
+the engine sets it on its model's convs once, at build, so engines of
+two impls serve side by side on two threads. A conv left unbound reads
+the process-wide setting (:func:`set_packed_impl`, :func:`packed_impl`).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses
 its plain PyTorch version (``*_plain``) only for tensors on the CPU.
@@ -167,7 +170,7 @@ def packed_dense_weight(packed: Tensor, alpha: Tensor, shape) -> Tensor:
         _build.stream_ptr(packed.device),
     )
     _build.check(lib, err, "packed_dense_weight")
-    packed_dense_weight.launches += 1
+    _build.count_launch(packed_dense_weight)
     return out
 
 
@@ -323,7 +326,7 @@ def popcount_binary_conv(
         _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "popcount_binary_conv")
-    popcount_binary_conv.launches += 1
+    _build.count_launch(popcount_binary_conv)
     return y
 
 

@@ -31,6 +31,30 @@ names and field names, so the reference's ``summarize``, ``watch`` and
 - ``export``      — a checkpoint was frozen into a serving artifact
   (serve/export.py), appended to the source run's timeline
 
+A ``serve-bench`` run dir (serve/loadgen.py) adds four more:
+
+- ``serve``       — by ``phase``: ``start`` (artifact, arch, buckets,
+  load mode, rate, requests, queue bound, coalescing deadline, weights
+  mode; ``replicas``/``pace_ms`` on the pooled path), ``stats`` (every
+  Nth batch: batch size, occupancy, queue depth, rolling p99 of the
+  batch's oldest wait + run, completed, shed), ``pass`` (a single-engine
+  pass ended: weights mode, packed impl, the engine's ``forwards``),
+  ``scaling`` (one pooled pass of a ``--replicas`` sweep: throughput,
+  completed, shed, wall seconds) and ``verdict`` (the SLO verdict's
+  fields, last)
+- ``rtrace``      — request-path tracing (obs/rtrace.py): ``request`` (a
+  sampled request's waterfall: seq, priority, total_ms, stages) and
+  ``stats`` (per-stage p99 over the rolling windows, end-to-end p99 by
+  priority, the queue share, request / aborted / sampled counts)
+- ``replica``     — the replica pool (serve/pool.py): ``start`` (replica
+  id, device, version), ``unhealthy`` (reason, seconds stuck),
+  ``restart`` (requeued and shed batches, restarts), ``monitor_error``,
+  ``stats`` (the per-replica heartbeat table), ``model_load`` /
+  ``model_evict`` (the resident-model cache)
+- ``memory``      — phase ``serve_resident``: the bytes a weights mode
+  keeps resident on its device (``resident_bytes``) against the dense
+  and packed equivalents and their ``ratio``
+
 :meth:`EventWriter.emit` refuses a kind not in :data:`KNOWN_KINDS`
 (``ValueError``) and writes no non-finite number: :func:`jsonsafe` puts
 ``null`` in its place (a bare ``NaN`` token is not JSON; the
@@ -66,6 +90,10 @@ KNOWN_KINDS = frozenset(
         "data_error",
         "run_end",
         "export",
+        "serve",
+        "rtrace",
+        "replica",
+        "memory",
     }
 )
 

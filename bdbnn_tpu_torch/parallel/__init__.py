@@ -14,6 +14,7 @@ from bdbnn_tpu_torch.parallel.mesh import (
     create_sharded_state,
     initialize_distributed,
     make_mesh,
+    replica_devices,
     resharded,
     sum_host_values,
     topology,
@@ -32,6 +33,7 @@ __all__ = [
     "create_sharded_state",
     "initialize_distributed",
     "make_mesh",
+    "replica_devices",
     "resharded",
     "sum_host_values",
     "topology",

@@ -22,9 +22,10 @@ one and nothing here issues a collective: the single-process path is the
 one it always was, as the reference's single-process runs skip the
 all-reduce entirely.
 
-Tensor parallelism over the ``model`` axis (``param_spec``,
-``params_shardings``) is ROADMAP A "Later" item 9, and the serving
-pool's ``replica_devices`` goes with item 5.
+:func:`replica_devices` names the cards a serving replica pool places
+its engines on, one engine per card. Tensor parallelism over the
+``model`` axis (``param_spec``, ``params_shardings``) is ROADMAP A
+"Later" item 9.
 """
 
 from __future__ import annotations
@@ -225,6 +226,32 @@ def create_sharded_state(mesh: Mesh, state):
     return state
 
 
+def replica_devices(n: int, device: Optional[Any] = None) -> Sequence[torch.device]:
+    """The ``n`` devices a serving replica pool places its engines on,
+    one engine per device (the counterpart of the reference's
+    ``replica_devices`` over ``jax.devices()``): the CUDA cards in index
+    order, or the one CPU device when ``device`` is the CPU. ``n``
+    beyond the device count raises: two replicas contending for one
+    card is a silent perf lie, not a bigger pool. Like every entry
+    point, it asks for the card unless ``device`` says otherwise, and
+    raises without one."""
+    from bdbnn_tpu_torch import resolve_device
+
+    if n <= 0:
+        raise ValueError(f"need n >= 1 replicas, got {n}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        flat = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        flat = [dev]
+    if n > len(flat):
+        raise ValueError(
+            f"{n} replicas over {len(flat)} devices: one engine per "
+            "device is the contract (shrink --replicas or grow the mesh)"
+        )
+    return flat[:n]
+
+
 __all__ = [
     "DATA_AXIS",
     "DEFAULT_TIMEOUT_S",
@@ -237,6 +264,7 @@ __all__ = [
     "create_sharded_state",
     "initialize_distributed",
     "make_mesh",
+    "replica_devices",
     "resharded",
     "sum_host_values",
     "topology",

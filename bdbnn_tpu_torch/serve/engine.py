@@ -18,6 +18,10 @@ one device. Two residency modes for the binary convs:
   (K3). ``packed_impl="popcount"`` runs the XNOR-popcount conv (K4)
   instead of K1.
 
+The packed impl is bound to the model's binary convs once, when the
+engine is built (the reference binds it into each compiled bucket), so
+two engines of two impls serve side by side on two threads.
+
 The three modes give bitwise-equal logits: the decode is exact, and K1
 and K4 compute the same exact integer dots with the same epilogue. An
 artifact that records ``dtype=bfloat16`` builds a bf16 model (the bf16
@@ -26,6 +30,14 @@ packed/popcount refuses it, as the reference does.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (the plain PyTorch versions); there is no fallback.
+Every forward runs under ``torch.cuda.device(engine.device)``: a
+serving pool calls an engine from a worker thread, and a thread's
+current CUDA device (where the kernels launch) is its own.
+
+:meth:`InferenceEngine.residency` reports the bytes the engine keeps
+resident on its device against the other weight mode's, and the
+per-bucket activation working set of every conv (the reference's layer
+names and dtype); ``forwards`` counts the engine's forwards.
 TF32 is turned off where the engine is built: the stem conv and the
 classifier are full f32 in the reference, and a TF32 stem would flip
 signs in the first binary conv's input.
@@ -33,6 +45,7 @@ signs in the first binary conv's input.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -47,7 +60,9 @@ DEFAULT_BUCKETS: Tuple[int, ...] = (1, 8, 32)
 
 def percentile(sorted_vals: Sequence[float], q: float) -> Optional[float]:
     """Nearest-rank percentile over an ascending sequence; None when
-    empty (copy of the reference's ``serve.loadgen.percentile``)."""
+    empty (copy of the reference's ``serve.loadgen.percentile``; the
+    port's one definition, which its load generator, SLO verdict and
+    request tracer use)."""
     import math
 
     if not 0.0 <= q <= 100.0:
@@ -92,6 +107,10 @@ class InferenceEngine:
                 f"packed_impl must be one of {PACKED_IMPLS}, got {packed_impl!r}"
             )
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # pinned to a card by index: a serving worker thread's current
+            # device is its own, and the forward binds this one
+            self.device = torch.device("cuda", torch.cuda.current_device())
         # full f32 for the stem conv and the classifier, as the reference
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -127,9 +146,20 @@ class InferenceEngine:
             host_vars, self._packed_spec = load_artifact_variables(artifact_dir), None
         self._model.load_state_dict(flax_to_state_dict(host_vars), strict=True)
         self._model.to(self.device).eval().requires_grad_(False)
+        from bdbnn_tpu_torch.nn.layers import _BinaryConvBase
+
+        for mod in self._model.modules():
+            if isinstance(mod, _BinaryConvBase):
+                mod.packed_impl = packed_impl
+        self._act_bpe = 2 if model_dtype == "bfloat16" else 4
+        # per image: {layer name: (input elements, output elements)},
+        # read off the first warmup forward (see _record_activations)
+        self._act_per_image: Optional[Dict[str, Tuple[int, int]]] = None
         self._warm: set = set()
         self.compile_seconds: Dict[int, float] = {}
         self._step_ms_window: Any = deque(maxlen=512)
+        self._forwards_lock = threading.Lock()
+        self.forwards = 0  # guarded-by: _forwards_lock
         if warm:
             self.warmup()
 
@@ -145,10 +175,13 @@ class InferenceEngine:
             torch.cuda.synchronize(self.device)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        from bdbnn_tpu_torch.nn.packed import packed_impl as _packed_impl_ctx
-
-        with torch.inference_mode(), _packed_impl_ctx(self.packed_impl):
-            return self._model(x)
+        with self._forwards_lock:
+            self.forwards += 1
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                return self._model(x)
+            with torch.cuda.device(self.device):
+                return self._model(x)
 
     def _zeros(self, b: int) -> torch.Tensor:
         return torch.zeros(
@@ -162,11 +195,103 @@ class InferenceEngine:
             if b in self._warm:
                 continue
             t0 = time.perf_counter()
-            self._forward(self._zeros(b))
+            if self._act_per_image is None:
+                self._act_per_image = self._record_activations(self._zeros(b))
+            else:
+                self._forward(self._zeros(b))
             self._sync()
             self.compile_seconds[b] = round(time.perf_counter() - t0, 3)
             self._warm.add(b)
         return dict(self.compile_seconds)
+
+    # -- residency accounting --------------------------------------------
+
+    def _record_activations(self, x: torch.Tensor) -> Dict[str, Tuple[int, int]]:
+        """One forward of ``x`` with hooks on every conv: each conv's
+        input and output elements per image, by the reference's layer
+        name (the module path). The classifier is not called as a
+        module in bf16, so its row comes from its width."""
+        from bdbnn_tpu_torch.nn.layers import FloatConv, _BinaryConvBase
+
+        n = int(x.shape[0])
+        rows: Dict[str, Tuple[int, int]] = {}
+        hooks = []
+
+        def hook(name):
+            def record(mod, args, out):
+                rows.setdefault(name, (args[0].numel() // n, out.numel() // n))
+
+            return record
+
+        for name, mod in self._model.named_modules():
+            if isinstance(mod, (FloatConv, _BinaryConvBase)):
+                hooks.append(mod.register_forward_hook(hook(name)))
+        try:
+            self._forward(x)
+        finally:
+            for h in hooks:
+                h.remove()
+        for name, mod in self._model.named_modules():
+            if isinstance(mod, torch.nn.Linear):
+                rows[name] = (mod.in_features, mod.out_features)
+        return rows
+
+    def _activation_working_set(self) -> Dict[str, Any]:
+        """Per-bucket activation working set: the bytes in and out of
+        every conv and the classifier at each bucket's batch size, in
+        the artifact's dtype (the reference's ``model_layer_table``
+        rows, measured here on the first warmup forward)."""
+        out: Dict[str, Any] = {}
+        for b in self.buckets:
+            per_conv = {
+                name: {"in": i * b * self._act_bpe, "out": o * b * self._act_bpe}
+                for name, (i, o) in self._act_per_image.items()
+            }
+            out[str(b)] = {
+                "bytes_in": sum(v["in"] for v in per_conv.values()),
+                "bytes_out": sum(v["out"] for v in per_conv.values()),
+                "per_conv": per_conv,
+            }
+        return out
+
+    def residency(self) -> Dict[str, Any]:
+        """Resident weight memory: the bytes of every parameter and
+        buffer the engine's model keeps on its device, the bytes the
+        other weight mode would keep for the same artifact, their ratio,
+        and the per-bucket activation working set (``activations``). A
+        cold engine is warmed first (the activations are measured on
+        its first forward)."""
+        from bdbnn_tpu_torch.nn.packed import dense_weight_bytes, packed_weight_bytes
+
+        if self._act_per_image is None:
+            self.warmup()
+        tensors = [*self._model.parameters(), *self._model.buffers()]
+        resident = int(sum(t.numel() * t.element_size() for t in tensors))
+        activations = self._activation_working_set()
+        if self.packed:
+            dense_equiv = int(self._packed_spec["dense_equiv_bytes"])
+            return {
+                "packed": True,
+                "resident_bytes": resident,
+                "dense_equiv_bytes": dense_equiv,
+                "packed_equiv_bytes": resident,
+                "ratio": round(dense_equiv / max(resident, 1), 3),
+                "activations": activations,
+            }
+        # what the packed mode would keep: each binary conv's dense f32
+        # tensor swapped for packbits sign + alpha
+        packed_equiv = resident
+        for t in self.artifact.get("tensors", []):
+            if t["kind"] == "binary":
+                packed_equiv += packed_weight_bytes(t["shape"]) - dense_weight_bytes(t["shape"])
+        return {
+            "packed": False,
+            "resident_bytes": resident,
+            "dense_equiv_bytes": resident,
+            "packed_equiv_bytes": packed_equiv,
+            "ratio": round(resident / max(packed_equiv, 1), 3),
+            "activations": activations,
+        }
 
     def time_step(self, bucket: Optional[int] = None, iters: int = 10) -> float:
         """Mean ms per forward on ``bucket`` (default: the largest): CUDA
@@ -280,4 +405,5 @@ __all__ = [
     "InferenceEngine",
     "evaluate_split",
     "max_abs_logit_drift",
+    "percentile",
 ]

@@ -35,6 +35,32 @@ Phases (any failure exits non-zero and prints no result line):
              ``python -m bdbnn_tpu_torch.cli predict`` must exit 0;
              ``time_step`` is printed per bucket and mode, and a
              torch.profiler breakdown of one bucket-32 forward in each mode;
+4b. serve-bench — the serving stack under load on the same artifact
+             (phase_serve_bench), each run's launches of K1-K4 (and the
+             bf16 modes of K1, K2) exactly 19 × its engines' forwards: (a)
+             ``python -m bdbnn_tpu_torch.cli serve-bench`` as a subprocess,
+             closed loop, concurrency 32, 2,048 requests, buckets 1 8 32,
+             ``--packed-weights ab`` (dense, then packed/unpack): exit 0,
+             every request completed or shed, none failed, drained clean,
+             the queue bound held, the packed block's resident bytes and
+             ratio those worked out from the artifact's tensors, the
+             request tracer's attribution; then closed loops at bucket 1
+             and bucket 8 alone; (b) open loop (Poisson) at 0.5× and 1.2×
+             (a)'s throughput, packed: none shed at 0.5×, only explicit
+             shedding at 1.2×; (c) packed/popcount, closed loop (K4); (d) a
+             replica pool of one real engine on cuda:0 behind the batcher's
+             async dispatch, every answer bitwise the single engine's on the
+             same batch; the paced sweep ``--replicas 1 2 4 --pace-ms 10``
+             monotone; ``--replicas 2`` refused by ``replica_devices`` on one
+             card (served on two or more); (e) SIGTERM to a serve-bench
+             subprocess 1 s after its warmup: exit 0, preempted, drained,
+             every accepted request answered; (f) 256 exact-stem answers
+             through the batcher and the load generator against
+             ``predict_logits`` of each image alone, within CPU_LOGIT_TOL
+             (bitwise rows counted); (g) the bf16 flagship artifact, closed
+             loop, 512 requests. Prints p50/p95/p99, throughput, occupancy,
+             shed rates, resident bytes, step_ms and the per-stage
+             attribution, and one ``[serve-bench] summary`` JSON line;
 5. train_kernels — holds K5 (binary conv dgrad with the sign
              estimator's slope), K6 (binary conv wgrad with the STE mask)
              and K7 (grouped kurtosis regularizer and gradient) against
@@ -181,14 +207,16 @@ Phases (any failure exits non-zero and prints no result line):
              ``resharded`` and bitwise;
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
-             serve, train, train-stoch, train-ts, train-resume, train-folder,
-             train-bf16 and train-ddp, and for a bf16 mode train-bf16,
-             train-bf16-remat, train-bf16-ts and serve-bf16), then as the
-             last line ``{"ok": true, "device": {...}}``.
+             serve, serve-bench, train, train-stoch, train-ts, train-resume,
+             train-folder, train-bf16 and train-ddp, and for a bf16 mode
+             train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
+             train-ddp and serve-bench), then as the last line
+             ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
-turns, it compares their weight kernels on one card.
+turns, it compares their weight kernels on one card. ``python3
+chip_smoke.py --serve-bench`` runs the build and phase 4b alone.
 """
 
 from __future__ import annotations
@@ -532,13 +560,15 @@ def log_mma_instructions() -> None:
         log(f"[build] {name}: tensor-core instructions in its SASS {dict(ops)}")
 
 
-def make_flagship_artifact(out_dir: str):
+def make_flagship_artifact(out_dir: str, dtype: str = "float32"):
     """Full-width ImageNet resnet18 (react) from a seeded generator, with
     non-trivial BN statistics, act_shifts and RPReLU vectors. The stem
     conv's weights are rounded to multiples of 2^-10: on images with
     entries in {-1, 0, 1} its sums are then exact in float32 in any
     order, so the card and the CPU feed the first sign bit-identical
-    values (see phase_main)."""
+    values (see phase_main). ``dtype="bfloat16"`` records a bf16 model in
+    the artifact (the same f32 weights; the engine builds the bf16
+    forward)."""
     import torch
 
     from bdbnn_tpu_torch.models import create_model
@@ -563,7 +593,7 @@ def make_flagship_artifact(out_dir: str):
                 mod.gamma.copy_(0.1 * torch.randn(n, generator=g))
                 mod.zeta.copy_(0.1 * torch.randn(n, generator=g))
                 mod.slope.copy_(0.1 + 0.3 * torch.rand(n, generator=g))
-    write_artifact(model.to_flax(), out_dir, arch="resnet18", dataset="imagenet")
+    write_artifact(model.to_flax(), out_dir, arch="resnet18", dataset="imagenet", dtype=dtype)
 
 
 def torchvision_state_dict(state_dict, prefix: str = "module."):
@@ -850,6 +880,473 @@ def phase_cli(art: str) -> bool:
     res = json.loads(r.stdout)
     log(f"[cli] top1={res['top1']} count={res['count']} device={res['device']}")
     return res["count"] == 64 and res["device"].startswith("cuda")
+
+
+# ---------------------------------------------------------------------------
+# [serve-bench]: the serving stack under load
+# ---------------------------------------------------------------------------
+
+SB_BUCKETS = (1, 8, 32)
+SB_REQUESTS = 2048
+SB_CONCURRENCY = 32
+# the kernels a forward of each weights mode launches, 19 times each
+SB_MODE_KERNELS = {"dense": ("K1", "K2"), "unpack": ("K1", "K2", "K3"),
+                   "popcount": ("K2", "K3", "K4")}
+SB_COUNTED = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K1 bf16", "K2 bf16", "K5 bf16",
+              "K6 bf16")
+# a subprocess's launch counters are its own: the CLI child writes them
+# into the file this variable names when it exits
+COUNTS_ENV = "CHIP_SMOKE_COUNTS"
+COUNTED_CLI = "import sys, chip_smoke; sys.exit(chip_smoke.counted_cli())"
+
+
+def counted_cli() -> int:
+    """``python -m bdbnn_tpu_torch.cli`` with this process's arguments;
+    then the run's kernel launch counts as JSON into ``$CHIP_SMOKE_COUNTS``."""
+    import runpy
+
+    code = 1
+    try:
+        runpy.run_module("bdbnn_tpu_torch.cli", run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    finally:
+        with open(os.environ[COUNTS_ENV], "w") as f:
+            json.dump({**read_counts(), **read_bf16_counts()}, f)
+    return code
+
+
+def sb_passes(run_dir: str, bf16: bool = False) -> list:
+    """(weights mode, engine forwards, bf16) of each single-engine pass of a
+    serve-bench run dir (its ``serve`` ``pass`` events)."""
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    return [("dense" if e["weights_mode"] == "dense" else e["packed_impl"], e["forwards"], bf16)
+            for e in read_events(run_dir, "serve") if e.get("phase") == "pass"]
+
+
+def sb_launch_gate(tag: str, counts: dict, passes: list) -> bool:
+    """Each kernel's launches in a run == 19 × the forwards of the engines
+    whose mode runs it (K5-K7 none); at least one forward."""
+    want = {k: 0 for k in SB_COUNTED}
+    for mode, forwards, bf16 in passes:
+        for k in SB_MODE_KERNELS[mode]:
+            want[k] += N_BINARY_CONVS * forwards
+            if bf16 and k in ("K1", "K2"):
+                want[f"{k} bf16"] += N_BINARY_CONVS * forwards
+    got = {k: counts.get(k, 0) for k in SB_COUNTED}
+    ok = got == want and sum(p[1] for p in passes) > 0
+    log(f"[serve-bench] {tag} launches {got}; engine forwards "
+        f"{[(m, f) for m, f, _ in passes]} require {want}: ok={ok}")
+    return ok
+
+
+def sb_line(v: dict) -> str:
+    return (f"p50/p95/p99 {v['p50_ms']}/{v['p95_ms']}/{v['p99_ms']} ms, "
+            f"{v['throughput_rps']} req/s, occupancy {v['mean_batch_occupancy']} over "
+            f"{v['batches']} batches; submitted {v['requests_submitted']} completed "
+            f"{v['requests_completed']} shed {v['requests_shed']} (rate {v['shed_rate']}) "
+            f"failed {v['requests_failed']}; queue peak {v['max_queue_depth_seen']} of "
+            f"{v['max_queue']}; wall {v['wall_s']} s; drained_clean {v['drained_clean']}")
+
+
+def sb_accounted(v: dict) -> bool:
+    """Every request answered or explicitly shed, none failed, the queue
+    bound held, the drain clean."""
+    return (v["requests_completed"] + v["requests_shed"] == v["requests_submitted"]
+            and v["requests_failed"] == 0 and v["drained_clean"]
+            and v["max_queue_depth_seen"] <= v["max_queue"])
+
+
+def sb_attribution(att: dict) -> dict:
+    """The rtrace attribution's per-stage p50/p99/mean ms, the queue share
+    and the reconciliation, compactly."""
+    stages = {s: [b["p50_ms"], b["p99_ms"], b["mean_ms"]]
+              for s, b in att["stages"].items() if b is not None}
+    rec = att["reconciliation"]
+    return {"stages_p50_p99_mean_ms": stages, "queue_share": att["queue_share"],
+            "reconciliation_ok": rec["ok"], "mean_abs_err_pct": rec["mean_abs_err_pct"],
+            "device": att.get("device")}
+
+
+def artifact_resident_bytes(art: str) -> tuple:
+    """(dense, packed) bytes the two weight modes keep resident, worked out
+    from the artifact's tensor list: every tensor at its dtype, a binary
+    conv as f32 (dense) or as its packbits sign + f32 alpha (packed), plus
+    the identity statistics (mean, var: 2 × 4 bytes a channel) the loader
+    gives each folded BN."""
+    import numpy as np
+
+    from bdbnn_tpu_torch.nn.packed import dense_weight_bytes, packed_weight_bytes
+    from bdbnn_tpu_torch.serve.export import read_artifact
+
+    a = read_artifact(art)
+    dense = packed = 0
+    shapes = {}
+    for t in a["tensors"]:
+        shapes[t["path"]] = t["shape"]
+        if t["kind"] == "binary":
+            dense += dense_weight_bytes(t["shape"])
+            packed += packed_weight_bytes(t["shape"])
+        else:
+            n = int(np.prod(t["shape"])) * np.dtype(t["dtype"]).itemsize
+            dense += n
+            packed += n
+    stats = sum(2 * 4 * int(shapes[f"{bn}/scale"][0]) for bn in a["bn_folded"])
+    return dense + stats, packed + stats
+
+
+def sb_run(root: str, art: str, **kw):
+    """One in-process ``run_serve_bench`` on the card; returns (verdict, run
+    dir, launch counts of the run, seconds)."""
+    from bdbnn_tpu_torch.serve.config import ServeBenchConfig
+    from bdbnn_tpu_torch.serve.loadgen import run_serve_bench
+
+    cfg = ServeBenchConfig(**{"artifact": art, "log_path": tempfile.mkdtemp(dir=root),
+                              "buckets": SB_BUCKETS, "device": "cuda", **kw})
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_serve_bench(cfg)
+    counts = {**read_counts(), **read_bf16_counts()}
+    return res["verdict"], res["run_dir"], counts, time.perf_counter() - t0
+
+
+def sb_cli(root: str, art: str, args: list, sigterm_after_s=None):
+    """``serve-bench ART args`` as a subprocess (the CLI through
+    :func:`counted_cli`); with ``sigterm_after_s``, SIGTERM that long after
+    the run's ``serve`` ``start`` event (warmup done). Returns (exit code,
+    verdict or None, run dir, launch counts, stderr tail, seconds)."""
+    import glob
+    import signal
+
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    log_path = tempfile.mkdtemp(dir=root)
+    counts_file = os.path.join(log_path, "counts.json")
+    cmd = [sys.executable, "-c", COUNTED_CLI, "serve-bench", art, "--log-path", log_path,
+           "--buckets", *map(str, SB_BUCKETS), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, COUNTS_ENV: counts_file})
+    if sigterm_after_s is not None:
+        deadline = time.monotonic() + 300
+        while proc.poll() is None and time.monotonic() < deadline:
+            dirs = glob.glob(os.path.join(log_path, "*", "events.jsonl"))
+            if dirs and any(e.get("phase") == "start"
+                            for e in read_events(os.path.dirname(dirs[0]), "serve")):
+                time.sleep(sigterm_after_s)
+                proc.send_signal(signal.SIGTERM)
+                break
+            time.sleep(0.05)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    verdict = json.loads(out) if proc.returncode == 0 else None
+    (run_dir,) = [os.path.dirname(p) for p in glob.glob(os.path.join(log_path, "*", "events.jsonl"))] or [None]
+    counts = {}
+    if os.path.exists(counts_file):
+        with open(counts_file) as f:
+            counts = json.load(f)
+    return proc.returncode, verdict, run_dir, counts, err[-3000:], seconds
+
+
+def sb_busy_share(art: str, requests: int = 1024) -> tuple:
+    """The device's busy share under load: a packed/unpack engine behind
+    the batcher, a closed loop of ``requests`` at concurrency 32 over the
+    bench's 32 seeded images, with torch.profiler (CUPTI) around the load
+    alone; busy = the kernels' device time over the load's wall. Returns
+    (busy ms, wall ms, completed, launch counts, forwards)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdbnn_tpu_torch.serve.batching import MicroBatcher
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.loadgen import LoadGenerator
+
+    engine = InferenceEngine(art, buckets=SB_BUCKETS, device="cuda", packed=True)
+    images = np.random.default_rng(0).standard_normal((32, 224, 224, 3)).astype(np.float32)
+    b = MicroBatcher(lambda xs: engine.predict_logits(np.stack(xs)), max_batch=SB_BUCKETS[-1],
+                     max_queue=128, max_delay_ms=5.0)
+    reset_counts()
+    fw0 = engine.forwards
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        raw = LoadGenerator(b.submit, lambda i: images[i % 32], mode="closed", requests=requests,
+                            concurrency=SB_CONCURRENCY).run()
+        b.drain(60)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {**read_counts(), **read_bf16_counts()}
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, wall_ms, raw["completed"], counts, engine.forwards - fw0
+
+
+def phase_serve_bench(art: str, smi_line: str):
+    """[serve-bench]: the flagship served under load through
+    ``serve-bench`` (batcher, load generator, replica pool, request
+    tracer, residency), every run's launches held to 19 × its engines'
+    forwards. Returns (launch counts summed over the runs, ok)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.parallel.mesh import replica_devices
+    from bdbnn_tpu_torch.serve.batching import MicroBatcher
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.loadgen import LoadGenerator
+    from bdbnn_tpu_torch.serve.pool import ReplicaPool, make_engine_runner_factory
+
+    t_phase = time.perf_counter()
+    log(f"[serve-bench] {smi_line}")
+    oks = {}
+    total = {k: 0 for k in SB_COUNTED}
+
+    def add(counts):
+        for k in SB_COUNTED:
+            total[k] += counts.get(k, 0)
+
+    summary = {"device": smi_line}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the CLI, closed loop, dense then packed
+        rc, v, run_dir, counts, err, secs = sb_cli(
+            root, art, ["--mode", "closed", "--concurrency", str(SB_CONCURRENCY), "--requests",
+                        str(SB_REQUESTS), "--packed-weights", "ab"])
+        if rc != 0 or v is None:
+            log(f"[serve-bench] (a) FAIL: exit {rc}\n{err}")
+            return total, False
+        add(counts)
+        want_d, want_p = artifact_resident_bytes(art)
+        pk = v["packed"]
+        ratio = round(want_d / max(want_p, 1), 3)
+        oks["a"] = (sb_accounted(v) and v["attribution"] is not None
+                    and pk["resident_ratio"] == ratio
+                    and pk["dense"]["resident_bytes"] == want_d
+                    and pk["packed"]["resident_bytes"] == want_p
+                    and sb_launch_gate("(a)", counts, sb_passes(run_dir)))
+        log(f"[serve-bench] (a) cli closed loop, concurrency {SB_CONCURRENCY}, {SB_REQUESTS} "
+            f"requests, buckets {SB_BUCKETS}, packed (primary pass): {sb_line(v)}; exit {rc} in "
+            f"{secs:.1f}s")
+        log(f"[serve-bench] (a) resident bytes dense {pk['dense']['resident_bytes']} packed "
+            f"{pk['packed']['resident_bytes']} ratio {pk['resident_ratio']} (from the "
+            f"artifact's tensors: {want_d} / {want_p} = {ratio}); step_ms (bucket 32, CUDA "
+            f"events) dense {pk['dense']['step_ms']} packed {pk['packed']['step_ms']} "
+            f"(delta {pk['step_ms_delta_pct']}%); dense pass {pk['dense']['throughput_rps']} "
+            f"req/s p99 {pk['dense']['p99_ms']} ms")
+        log(f"[serve-bench] (a) attribution {json.dumps(sb_attribution(v['attribution']))}")
+        log(f"[serve-bench] (a) ok={oks['a']}")
+        summary["a"] = {"verdict": {k: v[k] for k in (
+            "p50_ms", "p95_ms", "p99_ms", "throughput_rps", "mean_batch_occupancy", "batches",
+            "requests_shed", "warmup_compile_s")}, "packed": pk,
+            "attribution": sb_attribution(v["attribution"])}
+        thr = v["throughput_rps"]
+
+        busy, wall, done, counts, fw = sb_busy_share(art)
+        add(counts)
+        oks["a_busy"] = done == 1024 and sb_launch_gate(
+            "(a) profiled", counts, [("unpack", fw, False)])
+        share = (f"busy share {busy / wall:.4f}, idle {1 - busy / wall:.4f}" if busy > 0
+                 else "the profiler saw no device time (busy share not measured)")
+        log(f"[serve-bench] (a) device busy under load (packed/unpack, closed loop of 1024 at "
+            f"concurrency {SB_CONCURRENCY}, torch.profiler on): {busy:.3f} ms of kernels in "
+            f"{wall:.3f} ms wall: {share} ({1024 / wall * 1e3:.1f} req/s under the profiler); "
+            f"ok={oks['a_busy']}")
+        summary["a"]["busy_ms"], summary["a"]["busy_wall_ms"] = busy, wall
+
+        # closed loop with one bucket each: 1 and 8 (32 is (a)'s largest)
+        for b, n in ((1, 512), (8, 1024)):
+            vb, rd, counts, secs = sb_run(root, art, mode="closed", concurrency=SB_CONCURRENCY,
+                                          requests=n, buckets=(b,))
+            add(counts)
+            oks[f"bucket{b}"] = sb_accounted(vb) and sb_launch_gate(
+                f"(a) bucket {b}", counts, sb_passes(rd))
+            log(f"[serve-bench] (a) closed loop, dense, bucket {b} alone, {n} requests: "
+                f"{sb_line(vb)} ({secs:.1f}s)")
+            summary[f"bucket{b}"] = {k: vb[k] for k in (
+                "p50_ms", "p95_ms", "p99_ms", "throughput_rps", "mean_batch_occupancy")}
+            summary[f"bucket{b}"]["attribution"] = sb_attribution(vb["attribution"])
+
+        # (b) open loop (Poisson) at 0.5x and 1.2x (a)'s throughput, packed
+        # as (a)'s primary pass; about 2 s of offered load each
+        summary["b"] = {}
+        for factor in (0.5, 1.2):
+            rate = round(factor * thr, 3)
+            n = int(min(max(2.0 * rate, 256), 4096))
+            vo, rd, counts, secs = sb_run(root, art, mode="open", rate=rate, requests=n,
+                                          packed_weights="on")
+            add(counts)
+            ok = sb_accounted(vo) and sb_launch_gate(f"(b) {factor}x", counts, sb_passes(rd))
+            if factor < 1.0:
+                ok = ok and vo["requests_shed"] == 0
+            oks[f"b{factor}"] = ok
+            log(f"[serve-bench] (b) open loop at {factor}x = {rate} req/s, {n} requests: "
+                f"{sb_line(vo)} ({secs:.1f}s) ok={ok}")
+            summary["b"][str(factor)] = {k: vo[k] for k in (
+                "rate_rps", "requests_submitted", "requests_shed", "shed_rate", "p50_ms",
+                "p99_ms", "throughput_rps", "max_queue_depth_seen")}
+
+        # (c) packed/popcount, closed loop: K4
+        vc, rd, counts, secs = sb_run(root, art, mode="closed", concurrency=SB_CONCURRENCY,
+                                      requests=1024, packed_weights="on", packed_impl="popcount")
+        add(counts)
+        oks["c"] = sb_accounted(vc) and counts["K4"] > 0 and sb_launch_gate(
+            "(c)", counts, sb_passes(rd))
+        log(f"[serve-bench] (c) packed/popcount closed loop, 1024 requests: {sb_line(vc)}; "
+            f"step_ms {vc['packed']['packed']['step_ms']} ({secs:.1f}s) ok={oks['c']}")
+        summary["c"] = {k: vc[k] for k in ("p50_ms", "p99_ms", "throughput_rps")}
+        summary["c"]["step_ms"] = vc["packed"]["packed"]["step_ms"]
+
+        # (d) the pool: one real engine on cuda:0 behind the batcher's async
+        # dispatch, every answer bitwise the single engine's on the same batch
+        engines, batches = [], []
+        real = make_engine_runner_factory(SB_BUCKETS, on_engine=lambda e, d: engines.append(e))
+
+        def factory(ref, device):
+            inner = real(ref, device)
+
+            def runner(payloads):
+                out = inner(payloads)
+                batches.append((list(payloads), out))
+                return out
+
+            return runner
+
+        rng = np.random.default_rng(12)
+        images = [rng.normal(size=(224, 224, 3)).astype(np.float32) for _ in range(96)]
+        reset_counts()
+        pool = ReplicaPool(factory, replica_devices(1), artifact_ref=art)
+        batcher = MicroBatcher(pool.submit, max_batch=SB_BUCKETS[-1], max_queue=128,
+                               max_delay_ms=5.0, max_pending_batches=2)
+        futs = {}
+
+        def submit(i):
+            futs[i] = batcher.submit(images[i])
+            return futs[i]
+
+        raw = LoadGenerator(submit, lambda i: i, mode="closed", requests=len(images),
+                            concurrency=SB_CONCURRENCY).run()
+        drained = batcher.drain(60) and pool.drain(60)
+        counts = {**read_counts(), **read_bf16_counts()}
+        add(counts)
+        single = InferenceEngine(art, buckets=SB_BUCKETS, device="cuda")
+        index = {id(img): i for i, img in enumerate(images)}
+        same = len(batches) > 0
+        for payloads, out in batches:
+            ids = [index[id(p)] for p in payloads]
+            want = single.predict_logits(np.stack(payloads))
+            same = same and np.array_equal(out.view(np.uint32), want.view(np.uint32))
+            same = same and all(np.array_equal(futs[i].result().view(np.uint32),
+                                               want[r].view(np.uint32)) for r, i in enumerate(ids))
+        stats = pool.stats()
+        oks["d_pool"] = (drained and same and raw["completed"] == len(images)
+                         and stats["replicas"][0]["device"] == "cuda:0"
+                         and sb_launch_gate("(d) pool", counts, [("dense", engines[0].forwards, False)]))
+        log(f"[serve-bench] (d) pool of 1 real engine on {stats['replicas'][0]['device']}: "
+            f"{raw['completed']} answers in {len(batches)} batches, each bitwise the single "
+            f"engine's on the same batch {same}, drained {drained}; ok={oks['d_pool']}")
+        del pool, batcher, engines[:], single
+
+        # (d) the paced fabric sweep
+        vp, _, counts, secs = sb_run(root, art, mode="closed", concurrency=64, requests=512,
+                                     buckets=(4,), queue_depth=512, max_delay_ms=8.0,
+                                     replicas=(1, 2, 4), pace_ms=10.0)
+        sc = vp["scaling"]
+        oks["d_paced"] = (sb_accounted(vp) and sc["monotone"] is True
+                          and all(counts.get(k, 0) == 0 for k in SB_COUNTED))
+        log(f"[serve-bench] (d) paced sweep --replicas 1 2 4 --pace-ms 10: throughput "
+            f"{sc['throughput_rps']} monotone {sc['monotone']} efficiency {sc['efficiency']} "
+            f"({secs:.1f}s) ok={oks['d_paced']}")
+        summary["d_paced"] = sc
+
+        # (d) --replicas 2: one engine per card is the contract
+        from bdbnn_tpu_torch import cli
+
+        n_cards = torch.cuda.device_count()
+        argv = ["serve-bench", art, "--mode", "closed", "--requests", "64", "--replicas", "2",
+                "--log-path", tempfile.mkdtemp(dir=root)]
+        reset_counts()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                rc = cli.main(argv)
+            msg = f"exit {rc}, replicas {json.loads(out.getvalue())['replicas']['n']}"
+            oks["d_two"] = n_cards >= 2 and rc == 0
+        except ValueError as e:
+            msg = f"ValueError: {e}"
+            oks["d_two"] = n_cards < 2 and "one engine per device is the contract" in str(e)
+        add({**read_counts(), **read_bf16_counts()})
+        log(f"[serve-bench] (d) --replicas 2 with {n_cards} card(s): {msg}; ok={oks['d_two']}")
+
+        # (e) SIGTERM after the warmup: drained, every accepted request answered
+        rc, ve, run_dir, counts, err, secs = sb_cli(
+            root, art, ["--mode", "open", "--rate", str(round(0.5 * thr, 3)), "--requests",
+                        "1000000"], sigterm_after_s=1.0)
+        add(counts)
+        oks["e"] = (rc == 0 and ve is not None and ve["preempted"] is True
+                    and sb_accounted(ve) and ve["requests_submitted"] < 1000000
+                    and sb_launch_gate("(e)", counts, sb_passes(run_dir)))
+        log(f"[serve-bench] (e) SIGTERM 1 s into an open loop at {round(0.5 * thr, 3)} req/s: "
+            f"exit {rc}, " + (f"preempted {ve['preempted']}, {sb_line(ve)}" if ve else err)
+            + f" ({secs:.1f}s) ok={oks['e']}")
+
+        # (f) answers through the batcher and the load generator against
+        # predict_logits of each image alone, exact-stem images
+        engine = InferenceEngine(art, buckets=SB_BUCKETS, device="cuda")
+        tern = rng.integers(-1, 2, size=(256, 224, 224, 3)).astype(np.float32)
+        reset_counts()
+        fw0 = engine.forwards
+        b = MicroBatcher(lambda ids: engine.predict_logits(tern[ids]), max_batch=SB_BUCKETS[-1],
+                         max_queue=256, max_delay_ms=5.0)
+        ffuts = {}
+
+        def fsubmit(i):
+            ffuts[i] = b.submit(i)
+            return ffuts[i]
+
+        raw = LoadGenerator(fsubmit, lambda i: i, mode="closed", requests=len(tern),
+                            concurrency=SB_CONCURRENCY).run()
+        drained = b.drain(60)
+        got = np.stack([ffuts[i].result() for i in range(len(tern))])
+        alone = np.concatenate([engine.predict_logits(tern[i:i + 1]) for i in range(len(tern))])
+        counts = {**read_counts(), **read_bf16_counts()}
+        add(counts)
+        rel = float(np.max(np.abs(got - alone))) / max(float(np.max(np.abs(alone))), 1e-30)
+        bitwise = int(np.sum(np.all(got.view(np.uint32) == alone.view(np.uint32), axis=-1)))
+        top1 = int(np.sum(got.argmax(-1) == alone.argmax(-1)))
+        oks["f"] = (drained and raw["completed"] == len(tern) and np.all(np.isfinite(got))
+                    and rel <= CPU_LOGIT_TOL
+                    and sb_launch_gate("(f)", counts, [("dense", engine.forwards - fw0, False)]))
+        log(f"[serve-bench] (f) {len(tern)} exact-stem answers through the batcher and the load "
+            f"generator vs predict_logits of each image alone: relative {rel} (tol "
+            f"{CPU_LOGIT_TOL}), {bitwise} of {len(tern)} rows bitwise, top-1 equal on {top1}; "
+            f"ok={oks['f']}")
+        summary["f"] = {"relative": rel, "bitwise_rows": bitwise, "rows": len(tern)}
+        del engine, tern, alone, got
+
+        # (g) the bf16 flagship artifact, closed loop: the bf16 modes of K1, K2
+        bf16 = os.path.join(root, "resnet18_react_bf16")
+        make_flagship_artifact(bf16, dtype="bfloat16")
+        vg, rd, counts, secs = sb_run(root, bf16, mode="closed", concurrency=SB_CONCURRENCY,
+                                      requests=512)
+        add(counts)
+        oks["g"] = sb_accounted(vg) and counts["K1 bf16"] > 0 and sb_launch_gate(
+            "(g) bf16", counts, sb_passes(rd, bf16=True))
+        log(f"[serve-bench] (g) bf16 artifact closed loop, 512 requests: {sb_line(vg)} "
+            f"({secs:.1f}s) ok={oks['g']}")
+        summary["g"] = {k: vg[k] for k in ("p50_ms", "p99_ms", "throughput_rps")}
+
+    ok = all(oks.values())
+    summary["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[serve-bench] summary {json.dumps(summary)}")
+    log(f"[serve-bench] gates {oks}; launches over the runs {total}; "
+        f"{summary['seconds']}s: ok={ok}")
+    return total, ok
 
 
 def dgrad_exact(gy, x, wsign, alpha, s, pad):
@@ -3653,6 +4150,9 @@ def main(argv=None) -> int:
                     help="only build the kernels and hold and time K2, K3 and K7 (phases 1-3 "
                          "for them), then print their records as one JSON line; for comparing "
                          "two trees' weight kernels in one run")
+    ap.add_argument("--serve-bench", action="store_true",
+                    help="only build the kernels, write the flagship artifact and run the "
+                         "[serve-bench] phase (about 90 s); exits 0 when its gates pass")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3678,6 +4178,12 @@ def main(argv=None) -> int:
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     log_mma_instructions()
 
+    if args.serve_bench:
+        with tempfile.TemporaryDirectory() as tmp:
+            art = os.path.join(tmp, "resnet18_react")
+            make_flagship_artifact(art)
+            _, ok_sb = phase_serve_bench(art, smi_line)
+        return 0 if ok_sb else 1
     if args.weight_kernels:
         wrecs, ok_w = phase_weight_kernels(pk)
         wrecs["K7"], ok_k7 = phase_k7(pk)
@@ -3696,6 +4202,7 @@ def main(argv=None) -> int:
         log(f"[main] wrote flagship artifact in {time.perf_counter() - t0:.1f}s")
         counts, ok_m = phase_main(art)
         ok_c = phase_cli(art)
+        sb_counts, ok_sb = phase_serve_bench(art, smi_line)
     train_counts, _, ok_t = phase_train()
     time_host_input()
     ok_tp = phase_train_parity()
@@ -3737,10 +4244,12 @@ def main(argv=None) -> int:
     # path, on the checkpoint/resume path's run A and on the image-folder
     # path's mp run (K1, K2, K5-K7), on the bf16 flagship's (K1, K2,
     # K5-K7), and on the data-parallel job's two ranks (K1, K2, K5-K7,
-    # both ranks' launches summed). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # both ranks' launches summed), and on the serve-bench runs (K1-K4; the
+    # sum over its runs). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
     # BASELINE config 4 run and the bf16 artifact's serving
-    by_path = {k: {"serve": counts.get(k, 0), "train": train_counts.get(k, 0),
+    by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
+                   "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
                    "train-resume": resume_counts.get(k, 0),
                    "train-folder": folder_counts.get(k, 0),
@@ -3752,13 +4261,15 @@ def main(argv=None) -> int:
         names[f"{k} bf16"] = names[k].replace(" (", " bf16 mode (", 1)
         by_path[f"{k} bf16"] = {path: c.get(f"{k} bf16", 0) for path, c in bf16_counts.items()}
         by_path[f"{k} bf16"]["train-ddp"] = ddp_counts.get(f"{k} bf16", 0)
+        by_path[f"{k} bf16"]["serve-bench"] = sb_counts.get(f"{k} bf16", 0)
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources
             if k in recs and not k.endswith("bf16")}
     used.update({f"{k} bf16": by_path[f"{k} bf16"]["train-bf16"] for k in BF16_KERNELS})
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
         for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder",
-                     "train-bf16", "train-ddp"))
+                     "train-bf16", "train-ddp")) and all(
+        by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -3805,6 +4316,7 @@ def main(argv=None) -> int:
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
+           "serve_bench": ok_sb,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td, "launched": ok_used}

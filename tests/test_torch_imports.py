@@ -84,6 +84,16 @@ def test_training_slice_modules_are_scanned():
         assert os.path.isfile(os.path.join(REPO, "bdbnn_tpu_torch", "csrc", src))
 
 
+def test_serving_stack_modules_are_scanned():
+    """The scans above cover the serve-bench slice's modules: the
+    micro-batcher, the replica pool, the load generator and its config,
+    the request tracer, and the engine and mesh they extend."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("serve/batching.py", "serve/pool.py", "serve/loadgen.py", "serve/config.py",
+                "serve/engine.py", "serve/__init__.py", "obs/rtrace.py", "parallel/mesh.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
 def test_a_spawned_decode_worker_imports_no_jax_and_no_torch(tmp_path):
     """A worker of ``MPImageFolderPipeline`` after it built a batch: the
     modules it holds include the port's pipeline and PIL, and nothing of
