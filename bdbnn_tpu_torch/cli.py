@@ -43,9 +43,25 @@ verdict printed on stdout and written into a run dir under
 ``--log-path``. SIGTERM drains and reports (exit 0); engine failures
 exit 1.
 
-Training, ``predict`` and ``serve-bench`` run on the CUDA card unless
-``--device cpu`` is given, and raise without a card; ``export`` is host
-work.
+``serve-http ARTIFACT`` is the reference's network front end, with its
+flags: an asyncio HTTP/1.1 server over the engine and the
+priority-aware micro-batcher, per-tenant quotas, ``/healthz``,
+``/readyz``, ``/statsz`` and ``POST /v1/predict``. Without
+``--scenario`` it serves until SIGTERM, then drains and prints the
+verdict (exit 0); with ``--scenario`` a socket load generator in the
+same process drives it and the verdict gains the client's ledger. It
+exits 1 when a request failed or got no response and 3 when
+``--slo-p99-ms`` was missed. The rollout flags (``--swap-to``,
+``--swap-at``, ``--canary-*``, ``--shadow-every``) are parsed and raise
+``NotImplementedError`` naming their ROADMAP item.
+
+``registry {publish,list,resolve,pull} -r ROOT`` manages a versioned
+artifact registry in the reference's layout (a registry either package
+publishes resolves in the other).
+
+Training, ``predict``, ``serve-bench`` and ``serve-http`` run on the CUDA
+card unless ``--device cpu`` is given, and raise without a card;
+``export`` and ``registry`` are host work.
 """
 
 from __future__ import annotations
@@ -458,7 +474,199 @@ def serve_bench_main(argv) -> int:
     return 0
 
 
-COMMANDS = {"predict": predict_main, "export": export_main, "serve-bench": serve_bench_main}
+def serve_http_main(argv) -> int:
+    """``serve-http ARTIFACT [flags]`` — the network front end
+    (serve/http.py) over the bucketed engine and the priority-aware
+    micro-batcher, with per-tenant token-bucket admission (429
+    over-quota vs 503 draining/overload), ``/healthz`` and ``/readyz``
+    wired to the warmup state and the drain latch, and the drain
+    contract over sockets: SIGTERM flips readyz, accepted requests all
+    finish, the per-priority SLO verdict lands last. With ``--scenario``
+    the traffic-shaped socket load generator drives the server in
+    process and the verdict gains the client's zero-dropped
+    cross-check."""
+    from bdbnn_tpu_torch.serve.config import ServeHttpConfig
+
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli serve-http",
+        description="Serve an export artifact over HTTP with priority classes, tenant quotas "
+        "and health/readiness endpoints; optionally drive it with a traffic-shaped load "
+        "scenario.",
+    )
+    ap.add_argument("artifact", help="export artifact dir (or a registry version with --registry)")
+    ap.add_argument("--log-path", default="serve_http_log")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="bind port (default 0 = kernel-assigned; in the http start event)")
+    ap.add_argument("--priorities", type=int, default=3,
+                    help="priority classes (x-priority header, 0 = most important)")
+    ap.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32],
+                    help="batch-size buckets, each warmed at startup")
+    ap.add_argument("--queue-depth", type=int, default=64,
+                    help="bounded request queue PER priority class")
+    ap.add_argument("--max-delay-ms", type=float, default=5.0)
+    ap.add_argument("--default-quota", default="100:200", metavar="RATE[:BURST]",
+                    help="token-bucket quota every tenant gets unless overridden "
+                    "(requests/s, default 100:200)")
+    ap.add_argument("--tenant-quota", action="append", default=[],
+                    metavar="TENANT=RATE[:BURST]", dest="tenant_quotas",
+                    help="per-tenant quota override (repeatable)")
+    ap.add_argument("--scenario", default="",
+                    choices=["", "poisson", "diurnal", "flash_crowd", "heavy_tail",
+                             "slow_client"],
+                    help="bench mode: drive this arrival process over real sockets against "
+                    "the server, then drain and report (default: serve until SIGTERM)")
+    ap.add_argument("--rate", type=float, default=100.0)
+    ap.add_argument("--requests", type=int, default=200)
+    ap.add_argument("--concurrency", type=int, default=16,
+                    help="client connections for the socket load generator")
+    ap.add_argument("--flash-factor", type=float, default=8.0)
+    ap.add_argument("--diurnal-amp", type=float, default=0.8)
+    ap.add_argument("--heavy-sigma", type=float, default=1.5)
+    ap.add_argument("--slow-fraction", type=float, default=0.2)
+    ap.add_argument("--priority-weights", type=float, nargs="+", default=[],
+                    help="request mix per priority class (default 0.1 0.3 0.6)")
+    ap.add_argument("--tenants", nargs="+", default=["tenant-a", "tenant-b"],
+                    help="tenant names the scenario draws from")
+    ap.add_argument("--tenant-weights", type=float, nargs="+", default=[],
+                    help="request mix per tenant (default uniform)")
+    ap.add_argument("--slo-p99-ms", type=float, default=0.0,
+                    help="priority-0 p99 target judged in the verdict (0 = off); also arms "
+                    "the capacity plane's latency burn-rate detectors")
+    ap.add_argument("--slo-shed-rate", type=float, default=0.0,
+                    help="budgeted shed fraction per priority class for the capacity "
+                    "plane's burn-rate detectors (0 = off)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="", help="also write the SLO verdict JSON here")
+    ap.add_argument("--events-max-mb", type=float, default=256.0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica-pool size: N engines, one per card, behind the front "
+                    "batcher (default 1 = single engine)")
+    ap.add_argument("--registry", default="",
+                    help="artifact registry root: lets ARTIFACT and x-model name published "
+                    "versions (vNNNN), digest-verified")
+    ap.add_argument("--swap-to", default="", help="not ported (rollouts)")
+    ap.add_argument("--swap-at", type=float, default=0.0, help="not ported (rollouts)")
+    ap.add_argument("--canary-fraction", type=float, default=0.0,
+                    help="not ported (rollouts)")
+    ap.add_argument("--canary-replicas", type=int, default=1, help="not ported (rollouts)")
+    ap.add_argument("--shadow-every", type=int, default=8, help="not ported (rollouts)")
+    ap.add_argument("--canary-threshold", action="append", default=[], metavar="NAME=VALUE",
+                    dest="canary_thresholds", help="not ported (rollouts)")
+    ap.add_argument("--replica-queue-batches", type=int, default=8)
+    ap.add_argument("--wedge-timeout-s", type=float, default=30.0,
+                    help="a replica busy on one batch longer than this is marked unhealthy, "
+                    "routed around and restarted (default 30)")
+    ap.add_argument("--packed-weights", action="store_true",
+                    help="keep binary convs 1-bit resident on the card; each forward decodes "
+                    "them (K3), logits bitwise-equal to dense")
+    ap.add_argument("--packed-impl", default="unpack", choices=["unpack", "popcount"],
+                    help="packed forward: decode -> K2 -> K1 (default) or the XNOR-popcount "
+                    "conv, K4 (f32 artifacts only)")
+    ap.add_argument("--resident-models", type=int, default=1,
+                    help="co-resident models per replica (LRU cache): requests route by the "
+                    "x-model header to digest-verified registry versions without a reload "
+                    "(needs --registry; default 1 = x-model rejected)")
+    ap.add_argument("--models", nargs="+", default=[],
+                    help="with --scenario: registry versions (vNNNN) the load generator "
+                    "draws x-model from per request")
+    ap.add_argument("--model-weights", type=float, nargs="+", default=[],
+                    help="request mix per --models entry (default uniform)")
+    ap.add_argument("--no-rtrace", dest="rtrace", action="store_false",
+                    help="disable request-path tracing (obs/rtrace.py): no stage histograms "
+                    "on /statsz, attribution lands null in the verdict")
+    ap.add_argument("--rtrace-sample-every", type=int, default=16,
+                    help="emit every Nth request's full waterfall as an rtrace event "
+                    "(default 16)")
+    ap.add_argument("--rtrace-tail-k", type=int, default=5,
+                    help="slowest requests per priority kept as tail exemplars (default 5)")
+    ap.add_argument("--server-id", default="",
+                    help="stable host id advertised on /healthz and /statsz and stamped "
+                    "into 200 responses (served_by)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; there is no fallback to the CPU)")
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.serve.http import run_serve_http
+
+    kw = {k: v for k, v in vars(args).items() if k in ServeHttpConfig.__dataclass_fields__}
+    for k, v in kw.items():
+        if isinstance(v, list):
+            kw[k] = tuple(v)
+    result = run_serve_http(ServeHttpConfig(**kw))
+    v = result["verdict"]
+    print(json.dumps(v, indent=2, sort_keys=True), flush=True)
+    print(f"[serve-http] run dir: {result['run_dir']} "
+          f"(listened on {result['host']}:{result['port']})", file=sys.stderr)
+    failed = v.get("requests_failed") or 0
+    if failed:
+        print(f"[serve-http] {failed} request(s) FAILED with engine errors (not shed); "
+              "see the run dir's events", file=sys.stderr)
+        return 1
+    dropped = (v.get("client") or {}).get("dropped") or 0
+    if dropped:
+        # the drain contract's cross-check: a request that got NO
+        # response is a dropped connection, never acceptable
+        print(f"[serve-http] {dropped} request(s) got NO response (dropped) — the drain "
+              "contract was violated", file=sys.stderr)
+        return 1
+    slo = v.get("slo")
+    if slo is not None and not slo.get("met"):
+        print(f"[serve-http] SLO MISSED: priority-0 p99 {slo.get('p99_ms_priority0')}ms > "
+              f"target {slo.get('p99_ms_target_priority0')}ms", file=sys.stderr)
+        return 3
+    return 0
+
+
+def registry_main(argv) -> int:
+    """``registry {publish,list,resolve,pull} -r ROOT`` — a versioned
+    artifact registry (serve/registry.py): ``publish`` copies an export
+    artifact in as the next immutable version (its digest chain verified
+    first); ``list`` prints the index; ``resolve`` digest-verifies one
+    version and prints its path; ``pull --from REMOTE [VERSION]``
+    replicates versions from another registry, the digest chain verified
+    twice. Reads and writes files only; never touches a device."""
+    from bdbnn_tpu_torch.serve.registry import ArtifactRegistry, parse_version
+
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli registry",
+        description="Versioned artifact registry for serving.",
+    )
+    ap.add_argument("action", choices=["publish", "list", "resolve", "pull"])
+    ap.add_argument("target", nargs="?", default="",
+                    help="publish: the artifact dir; resolve: the version (vNNNN or integer); "
+                    "pull: an optional version (default: every version absent locally)")
+    ap.add_argument("-r", "--registry", required=True, help="registry root dir")
+    ap.add_argument("--from", dest="pull_from", default="",
+                    help="pull: the REMOTE registry root to replicate from")
+    args = ap.parse_args(argv)
+
+    reg = ArtifactRegistry(args.registry)
+    version = None
+    if args.target and args.action in ("resolve", "pull"):
+        try:
+            version = parse_version(args.target)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.action == "pull":
+        if not args.pull_from:
+            ap.error("pull needs --from REMOTE_REGISTRY_DIR")
+        print(json.dumps(reg.pull(args.pull_from, version), indent=2, sort_keys=True))
+    elif args.action == "publish":
+        if not args.target:
+            ap.error("publish needs the artifact dir to publish")
+        print(json.dumps(reg.publish(args.target), indent=2, sort_keys=True))
+    elif args.action == "list":
+        print(json.dumps(reg.entries(), indent=2, sort_keys=True))
+    else:
+        if version is None:
+            ap.error("resolve needs a version (vNNNN or integer)")
+        print(reg.resolve(version))
+    return 0
+
+
+COMMANDS = {"predict": predict_main, "export": export_main, "serve-bench": serve_bench_main,
+            "serve-http": serve_http_main, "registry": registry_main}
 
 
 def main(argv=None) -> int:

@@ -55,6 +55,30 @@ A ``serve-bench`` run dir (serve/loadgen.py) adds four more:
   keeps resident on its device (``resident_bytes``) against the dense
   and packed equivalents and their ``ratio``
 
+A ``serve-http`` run dir (serve/http.py) adds three more, and its
+``serve`` stats events carry ``queue_depth_by_priority``:
+
+- ``http``        — the network front end's lifecycle, by ``phase``:
+  ``start`` (bind host/port, priority classes, per-class queue bound,
+  scenario), ``ready`` (warmup finished — /readyz flipped 200; per-bucket
+  first-run seconds), ``stats`` (periodic live state: readiness,
+  in-flight count, per-priority queue depths / completed / shed counts,
+  per-tenant admission counters), ``drain`` (the SIGTERM latch fired:
+  signum, preempted flag) and ``stop`` (the listener closed after the
+  verdict)
+- ``admission``   — per-tenant admission control (serve/admission.py):
+  ``config`` (the default token-bucket quota and every per-tenant
+  override) and ``summary`` (final per-tenant admitted / over-quota /
+  queue-shed / completed counters at drain)
+- ``capacity``    — the capacity & demand plane (obs/capacity.py), by
+  ``phase``: ``stats`` (one periodic tick: windowed offered rps,
+  in-flight decisions, the max per-key shed ratio, the saturation
+  headroom estimate, the last utilization gauges and the per-detector
+  burn-rate table), ``breach`` (a per-(priority, objective) error-budget
+  detector fired with both burn windows over threshold) and
+  ``recovered`` (the latched detector's fast window fell back under
+  budget; the episode lands in the verdict's ``capacity`` block)
+
 :meth:`EventWriter.emit` refuses a kind not in :data:`KNOWN_KINDS`
 (``ValueError``) and writes no non-finite number: :func:`jsonsafe` puts
 ``null`` in its place (a bare ``NaN`` token is not JSON; the
@@ -94,6 +118,9 @@ KNOWN_KINDS = frozenset(
         "rtrace",
         "replica",
         "memory",
+        "http",
+        "admission",
+        "capacity",
     }
 )
 

@@ -43,15 +43,21 @@ reconciliation identity (per-request stage sum == server-side
 end-to-end latency, within tolerance) is checked on the server clock
 only.
 
-The HTTP wire formats (``x-rtrace`` context and stage headers), the
+The HTTP front end (serve/http.py) speaks the reference's two wire
+formats: it adopts an inbound ``x-rtrace`` trace context (its local
+waterfall carries the caller's trace id) and answers a traced request
+with its stage decomposition in the ``x-rtrace-stages`` response header.
+Both parsers are hardened: a malformed, oversized or duplicated header
+parses to ``None`` (a fresh local trace), never to an error. The
 cross-host ``FleetTrace``/``FleetTracer`` and ``HostStatsWindows`` wait
-for the port's HTTP front end and fleet router (ROADMAP A, Later 10 and
-11).
+for the port's fleet router (ROADMAP A, Later 11).
 """
 
 from __future__ import annotations
 
 import heapq
+import math
+import re
 import threading
 import time
 from collections import deque
@@ -63,6 +69,18 @@ STAGES = (
     "read", "admit", "queue", "coalesce", "dispatch", "compute",
     "respond",
 )
+
+# trace-context wire format: one request header, one response header,
+# both ``k=v`` pairs joined by ``;`` — parseable without a JSON
+# dependency in the byte-level proxy path, and bounded so a hostile
+# client cannot make the parser do unbounded work
+TRACE_HEADER = "x-rtrace"
+STAGE_HEADER = "x-rtrace-stages"
+TRACE_CTX_MAX_LEN = 256
+STAGE_HEADER_MAX_LEN = 1024
+
+_TRACE_ID_RE = re.compile(r"^[0-9a-f]{16}$")
+_TENANT_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
 
 # reconciliation tolerance: stage sum within this fraction of the
 # measured end-to-end latency (the acceptance gate), with an absolute
@@ -90,6 +108,120 @@ def mint_trace_id(seed: int, seq: int) -> str:
     function of (seed, seq), same splitmix64 construction as the
     sampling decision, so a run's ids are reproducible."""
     return "%016x" % _splitmix64(_splitmix64(int(seed)) ^ int(seq))
+
+
+def encode_trace_context(
+    trace_id: str, seq: int, priority: int,
+    tenant: Optional[str] = None,
+) -> str:
+    """The ``x-rtrace`` request-header value the router sends with a
+    proxied request. Tenants that are not header-token-safe are
+    simply omitted — the context is correlation metadata, never the
+    routing source of truth (x-priority/x-tenant stay authoritative)."""
+    out = f"v=1;id={trace_id};seq={int(seq)};p={int(priority)}"
+    if tenant is not None and _TENANT_RE.match(str(tenant)):
+        out += f";tn={tenant}"
+    return out
+
+
+def parse_trace_context(value: Any) -> Optional[Dict[str, Any]]:
+    """Parse an inbound ``x-rtrace`` header; ``None`` on ANY
+    malformation (wrong version, bad id, oversized, junk) — a garbage
+    header from a non-fleet client must degrade to a fresh local
+    trace, never to a 500."""
+    if not isinstance(value, str) or not value:
+        return None
+    if len(value) > TRACE_CTX_MAX_LEN:
+        return None
+    fields: Dict[str, str] = {}
+    for part in value.split(";"):
+        key, sep, val = part.partition("=")
+        if not sep or not key or key in fields:
+            return None
+        fields[key] = val
+    if fields.get("v") != "1":
+        return None
+    trace_id = fields.get("id", "")
+    if not _TRACE_ID_RE.match(trace_id):
+        return None
+    try:
+        seq = int(fields.get("seq", ""))
+        priority = int(fields.get("p", ""))
+    except ValueError:
+        return None
+    if seq < 0 or not 0 <= priority < 64:
+        return None
+    tenant = fields.get("tn")
+    if tenant is not None and not _TENANT_RE.match(tenant):
+        return None
+    return {
+        "id": trace_id, "seq": seq, "priority": priority,
+        "tenant": tenant,
+    }
+
+
+def encode_stage_header(
+    trace_id: str, total_ms: float, stages: Dict[str, float]
+) -> str:
+    """The ``x-rtrace-stages`` response-header value a backend returns
+    on a traced request: its self-reported span (``total``) and stage
+    decomposition, all DURATIONS in ms — the only numbers that may
+    legally cross the clock boundary back to the router."""
+    parts = [f"v=1;id={trace_id};total={max(float(total_ms), 0.0):.3f}"]
+    for stage in STAGES:
+        ms = stages.get(stage)
+        if ms is not None and math.isfinite(ms) and ms >= 0:
+            parts.append(f"{stage}={float(ms):.3f}")
+    return ";".join(parts)
+
+
+def parse_stage_header(value: Any) -> Optional[Dict[str, Any]]:
+    """Parse a backend's ``x-rtrace-stages`` header into
+    ``{"id", "total_ms", "stages"}``; ``None`` on any malformation
+    (the router then falls back to charging the whole exchange to
+    ``network`` and counts the request unstitched)."""
+    if not isinstance(value, str) or not value:
+        return None
+    if len(value) > STAGE_HEADER_MAX_LEN:
+        return None
+    fields: Dict[str, str] = {}
+    for part in value.split(";"):
+        key, sep, val = part.partition("=")
+        if not sep or not key or key in fields:
+            return None
+        fields[key] = val
+    if fields.get("v") != "1":
+        return None
+    trace_id = fields.get("id", "")
+    if not _TRACE_ID_RE.match(trace_id):
+        return None
+    try:
+        total_ms = float(fields.get("total", ""))
+    except ValueError:
+        return None
+    if not math.isfinite(total_ms) or total_ms < 0:
+        return None
+    # the key set is CLOSED: v, id, total and the stage taxonomy —
+    # an unknown key means a peer speaking some other dialect, and
+    # half-understanding it is worse than the unstitched fallback
+    if any(
+        k not in ("v", "id", "total") and k not in STAGES
+        for k in fields
+    ):
+        return None
+    stages: Dict[str, float] = {}
+    for stage in STAGES:
+        raw = fields.get(stage)
+        if raw is None:
+            continue
+        try:
+            ms = float(raw)
+        except ValueError:
+            return None
+        if not math.isfinite(ms) or ms < 0:
+            return None
+        stages[stage] = ms
+    return {"id": trace_id, "total_ms": total_ms, "stages": stages}
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +289,7 @@ class RequestTrace:
     gap). All stamps are on one ``perf_counter`` clock."""
 
     __slots__ = (
-        "seq", "priority", "tenant", "t0", "_last", "stages",
+        "seq", "priority", "tenant", "t0", "_last", "stages", "ctx",
     )
 
     def __init__(
@@ -170,6 +302,10 @@ class RequestTrace:
         self.t0 = t0
         self._last = t0
         self.stages: Dict[str, float] = {}
+        # adopted trace context (parse_trace_context result) — set by
+        # the HTTP front end when a well-formed x-rtrace header arrives;
+        # None for direct clients
+        self.ctx: Optional[Dict[str, Any]] = None
 
     def stamp(self, stage: str) -> None:
         now = time.perf_counter()
@@ -192,7 +328,7 @@ class RequestTrace:
     def waterfall(self) -> Dict[str, Any]:
         """The exemplar payload shape ``rtrace`` events and the
         verdict's tail table carry (strict-JSON-safe after jsonsafe)."""
-        return {
+        out = {
             "seq": self.seq,
             "priority": self.priority,
             "tenant": self.tenant,
@@ -202,6 +338,9 @@ class RequestTrace:
                 for s in STAGES if s in self.stages
             },
         }
+        if self.ctx is not None:
+            out["trace"] = self.ctx["id"]
+        return out
 
 
 class RequestTracer:
@@ -571,9 +710,17 @@ __all__ = [
     "RECON_FLOOR_MS",
     "RECON_TOL_PCT",
     "STAGES",
+    "STAGE_HEADER",
+    "STAGE_HEADER_MAX_LEN",
+    "TRACE_CTX_MAX_LEN",
+    "TRACE_HEADER",
     "RequestTrace",
     "RequestTracer",
+    "encode_stage_header",
+    "encode_trace_context",
     "mint_trace_id",
+    "parse_stage_header",
+    "parse_trace_context",
     "pop_future_answered_by",
     "pop_future_timing",
     "set_future_answered_by",

@@ -1,9 +1,16 @@
-"""Serving: export artifacts, the bucketed inference engine, and the
+"""Serving: export artifacts, the bucketed inference engine, the
 ``serve-bench`` stack — micro-batcher, replica pool, load generator and
-SLO verdict."""
+SLO verdict — and the ``serve-http`` front end with its admission
+control, artifact registry and scenario load generator."""
 
+from bdbnn_tpu_torch.serve.admission import (
+    AdmissionController,
+    TokenBucket,
+    parse_quota,
+    parse_tenant_quotas,
+)
 from bdbnn_tpu_torch.serve.batching import LoadShedError, MicroBatcher
-from bdbnn_tpu_torch.serve.config import ServeBenchConfig
+from bdbnn_tpu_torch.serve.config import ServeBenchConfig, ServeHttpConfig
 from bdbnn_tpu_torch.serve.engine import (
     DEFAULT_BUCKETS,
     InferenceEngine,
@@ -17,16 +24,24 @@ from bdbnn_tpu_torch.serve.export import (
     read_artifact,
     write_artifact,
 )
+from bdbnn_tpu_torch.serve.http import PREDICT_PATH, HttpFrontEnd, run_serve_http
 from bdbnn_tpu_torch.serve.loadgen import (
+    SCENARIOS,
     VERDICT_NAME,
     VERDICT_SCHEMA_VERSION,
+    Arrival,
+    HttpLoadGenerator,
     LoadGenerator,
+    build_schedule,
+    fairness_ratio,
+    http_slo_verdict,
     run_serve_bench,
     slo_verdict,
     write_verdict_files,
 )
 from bdbnn_tpu_torch.serve.pool import (
     DEFAULT_MODEL,
+    PoolAdmin,
     Replica,
     ReplicaPool,
     ResidentModelCache,
@@ -34,29 +49,52 @@ from bdbnn_tpu_torch.serve.pool import (
     resident_block,
     single_engine_resident_block,
 )
+from bdbnn_tpu_torch.serve.registry import (
+    ArtifactRegistry,
+    looks_like_version,
+    parse_version,
+)
 
 __all__ = [
     "DEFAULT_BUCKETS",
     "DEFAULT_MODEL",
+    "PREDICT_PATH",
+    "SCENARIOS",
     "VERDICT_NAME",
     "VERDICT_SCHEMA_VERSION",
+    "AdmissionController",
+    "ArtifactRegistry",
+    "Arrival",
+    "HttpFrontEnd",
+    "HttpLoadGenerator",
     "InferenceEngine",
     "LoadGenerator",
     "LoadShedError",
     "MicroBatcher",
+    "PoolAdmin",
     "Replica",
     "ReplicaPool",
     "ResidentModelCache",
     "ServeBenchConfig",
+    "ServeHttpConfig",
+    "TokenBucket",
+    "build_schedule",
     "evaluate_split",
+    "fairness_ratio",
+    "http_slo_verdict",
     "load_artifact_packed",
     "load_artifact_variables",
+    "looks_like_version",
     "make_engine_runner_factory",
     "max_abs_logit_drift",
+    "parse_quota",
+    "parse_tenant_quotas",
+    "parse_version",
     "percentile",
     "read_artifact",
     "resident_block",
     "run_serve_bench",
+    "run_serve_http",
     "single_engine_resident_block",
     "slo_verdict",
     "write_artifact",

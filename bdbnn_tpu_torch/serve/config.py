@@ -1,7 +1,8 @@
-"""Typed configuration of the ``serve-bench`` CLI — the port's copy of
-``ServeBenchConfig`` in ``bdbnn_tpu/configs/config.py``: the reference's
-fields, defaults and ``validate()``, plus ``device`` (the card unless
-the caller asks for the CPU; there is no fallback)."""
+"""Typed configuration of the ``serve-bench`` and ``serve-http`` CLIs —
+the port's copies of ``ServeBenchConfig`` and ``ServeHttpConfig`` in
+``bdbnn_tpu/configs/config.py``: the reference's fields, defaults and
+``validate()``, plus ``device`` (the card unless the caller asks for the
+CPU; there is no fallback)."""
 
 from __future__ import annotations
 
@@ -145,6 +146,387 @@ class ServeBenchConfig:
         return self
 
 
+# where the refused rollout options stand in the ROADMAP
+ROLLOUTS_ITEM = "ROADMAP A 'Later' 12 (rollouts)"
 
 
-__all__ = ["ServeBenchConfig"]
+@dataclasses.dataclass(frozen=True)
+class ServeHttpConfig:
+    """Typed configuration of the ``serve-http`` CLI (serve/http.py).
+
+    Same resolve-once contract as ServeBenchConfig: every knob of the
+    network front end — bind address, priority classes, per-class
+    queue bound, tenant quotas, and (in bench mode) the traffic
+    scenario — is validated before any socket or device exists.
+
+    The rollout knobs (``swap_to``, ``swap_at``, ``canary_fraction``,
+    ``canary_replicas``, ``shadow_every``, ``canary_thresholds``) keep
+    the reference's names, defaults and range checks, and a value other
+    than the default raises ``NotImplementedError`` naming their ROADMAP
+    item: blue/green swap and canary rollouts are not ported.
+    """
+
+    artifact: str  # export artifact dir (serve/export.py)
+    log_path: str = "serve_http_log"
+    host: str = "127.0.0.1"
+    port: int = 0  # 0 = kernel-assigned ephemeral port
+    # priority classes (0 = most important). Each class gets its OWN
+    # bounded queue of queue_depth slots; the batcher dequeues strict-
+    # priority (serve/batching.py)
+    priorities: int = 3
+    buckets: Tuple[int, ...] = (1, 8, 32)
+    queue_depth: int = 64  # per priority class
+    max_delay_ms: float = 5.0
+    # admission control (serve/admission.py): token-bucket quota every
+    # tenant gets unless overridden — "RATE[:BURST]" in requests/s
+    default_quota: str = "100:200"
+    tenant_quotas: Tuple[str, ...] = ()  # "TENANT=RATE[:BURST]" each
+    # bench mode: "" = serve until SIGTERM; otherwise one of the
+    # loadgen scenarios (poisson | diurnal | flash_crowd | heavy_tail |
+    # slow_client) driven over real sockets against this server
+    scenario: str = ""
+    rate: float = 100.0  # scenario base arrival rate, req/s
+    requests: int = 200
+    concurrency: int = 16  # client connections (socket loadgen)
+    # scenario shape knobs (see loadgen.build_schedule)
+    flash_factor: float = 8.0
+    diurnal_amp: float = 0.8
+    heavy_sigma: float = 1.5
+    slow_fraction: float = 0.2
+    slow_chunks: int = 4
+    slow_gap_ms: float = 20.0
+    # request mix: weight per priority class / per tenant; empty = the
+    # loadgen defaults (thin priority-0, uniform tenants)
+    priority_weights: Tuple[float, ...] = ()
+    tenants: Tuple[str, ...] = ("tenant-a", "tenant-b")
+    tenant_weights: Tuple[float, ...] = ()
+    # SLO judged at verdict time: priority-0 p99 target in ms (0 = off)
+    slo_p99_ms: float = 0.0
+    # shed-fraction SLO objective for the capacity plane's burn-rate
+    # detectors (obs/capacity.py): budgeted shed fraction per priority
+    # class (0 = off). Also arms the latency burn-rate detectors when
+    # --slo-p99-ms is set.
+    slo_shed_rate: float = 0.0
+    seed: int = 0
+    out: str = ""  # also write the SLO verdict JSON here
+    stats_interval_s: float = 1.0  # cadence of live `http` stats events
+    max_body_mb: float = 16.0
+    events_max_mb: float = 256.0
+    # replica pool (serve/pool.py): N data-parallel engine replicas,
+    # one per mesh device, behind the front batcher. 1 = the classic
+    # single-engine path (a pool is still built when swap flags or a
+    # registry ask for one).
+    replicas: int = 1
+    # artifact registry root (serve/registry.py): enables
+    # POST /admin/swap {"version": N} and --swap-to vN resolution with
+    # digest verification. Empty = swap targets are artifact dirs.
+    registry: str = ""
+    # swap orchestration: the version (vNNNN / integer, with
+    # --registry) or artifact dir to hot-swap to. With --scenario,
+    # --swap-at FRAC fires the swap after that fraction of the
+    # schedule has been offered — the swap-under-load bench; without a
+    # scenario the swap can be driven externally via POST /admin/swap.
+    swap_to: str = ""
+    swap_at: float = 0.0
+    # canary stage (serve/canary.py): > 0 turns every triggered
+    # rollout (--swap-at scheduled or POST /admin/swap) into a canary
+    # rollout — this traffic fraction routes (deterministic seeded
+    # assignment) to vN+1 on `canary_replicas` replicas while the
+    # CanaryMonitor compares live per-priority p99 / shed / fairness /
+    # queue-share / logit-drift windows against the incumbent's and
+    # auto-promotes or auto-rolls-back. 0 = the classic unconditional
+    # blue/green shift.
+    canary_fraction: float = 0.0
+    canary_replicas: int = 1
+    # shadow mirroring: every Nth incumbent-assigned batch is ALSO
+    # executed on the canary and the logits diffed off the hot path —
+    # exact, because packed inference is deterministic. 0 = off.
+    shadow_every: int = 8
+    # "NAME=VALUE" overrides of serve/canary.py CanaryConfig fields
+    # (thresholds + observation-loop knobs), validated at config time
+    canary_thresholds: Tuple[str, ...] = ()
+    replica_queue_batches: int = 8
+    wedge_timeout_s: float = 30.0
+    # weight residency (nn/packed.py): keep binary convs 1-bit in
+    # device memory; the jitted forward unpacks transiently per step.
+    # Logits are bitwise-equal to the dense path — the squeeze is what
+    # makes --resident-models > 1 affordable.
+    packed_weights: bool = False
+    packed_impl: str = "unpack"  # unpack | popcount
+    # multi-model residency (serve/pool.py ResidentModelCache): each
+    # replica keeps up to N models resident (LRU) and requests route
+    # by the x-model header to co-resident versions WITHOUT a reload
+    # in the request path. Model keys are registry versions (vNNNN) —
+    # needs --registry. 1 = single-model serving (x-model rejected).
+    resident_models: int = 1
+    # scenario request mix over co-resident models: registry versions
+    # drawn per request (x-model header); empty = every request hits
+    # the default model
+    models: Tuple[str, ...] = ()
+    model_weights: Tuple[float, ...] = ()
+    # request-path tracing (obs/rtrace.py): socket-to-socket lifecycle
+    # spans (read/admit/queue/coalesce/dispatch/compute/respond) in
+    # the v4 verdict's attribution block, live stage histograms on
+    # /statsz and the rtrace event heartbeat `watch` renders. Same
+    # knob semantics as ServeBenchConfig.
+    rtrace: bool = True
+    rtrace_sample_every: int = 16
+    rtrace_tail_k: int = 5
+    # fleet identity (serve/fleet.py): a stable host id this server
+    # advertises on /healthz//statsz and stamps into its 200 responses
+    # (``served_by``), so a fronting router's per-host ledger can be
+    # cross-checked against the host's own claim. "" = single-host
+    # serving, responses unchanged.
+    server_id: str = ""
+    # torch device of the engines: None = the CUDA card (raises without
+    # one); "cpu" runs the kernels' plain versions
+    device: Optional[str] = None
+
+    @property
+    def pooled(self) -> bool:
+        """True when the serving path runs through a ReplicaPool: more
+        than one replica, a registry to swap from, a swap target, or
+        multi-model residency (the per-replica model cache lives in
+        the pool's runner factory)."""
+        return bool(
+            self.replicas > 1 or self.registry or self.swap_to
+            or self.resident_models > 1
+        )
+
+    def validate(self) -> "ServeHttpConfig":
+        from bdbnn_tpu_torch.serve.loadgen import SCENARIOS
+
+        if not self.artifact:
+            raise ValueError("serve-http needs an export artifact dir")
+        if self.priorities < 1:
+            raise ValueError("--priorities must be >= 1")
+        if not self.buckets or any(b <= 0 for b in self.buckets):
+            raise ValueError(
+                f"--buckets must be positive ints, got {self.buckets!r}"
+            )
+        if self.queue_depth <= 0:
+            raise ValueError(
+                "--queue-depth must be >= 1 (the per-class bound IS the "
+                "shedding point)"
+            )
+        if self.max_delay_ms < 0:
+            raise ValueError("--max-delay-ms must be >= 0")
+        if self.scenario and self.scenario not in SCENARIOS:
+            raise ValueError(
+                f"unknown --scenario {self.scenario!r} "
+                f"(want one of {SCENARIOS}, or omit to serve until "
+                "SIGTERM)"
+            )
+        if self.scenario:
+            if self.requests <= 0 or self.rate <= 0:
+                raise ValueError(
+                    "--scenario needs --requests > 0 and --rate > 0"
+                )
+            if self.concurrency <= 0:
+                raise ValueError("--concurrency must be >= 1")
+        if self.priority_weights and (
+            len(self.priority_weights) != self.priorities
+            or any(w < 0 for w in self.priority_weights)
+            or sum(self.priority_weights) <= 0
+        ):
+            raise ValueError(
+                "--priority-weights needs one nonnegative weight per "
+                f"priority class ({self.priorities}), summing > 0"
+            )
+        if not self.tenants:
+            raise ValueError("need at least one tenant name")
+        if self.tenant_weights and (
+            len(self.tenant_weights) != len(self.tenants)
+            or any(w < 0 for w in self.tenant_weights)
+            or sum(self.tenant_weights) <= 0
+        ):
+            raise ValueError(
+                "--tenant-weights needs one nonnegative weight per "
+                f"tenant ({len(self.tenants)}), summing > 0"
+            )
+        if not 0.0 <= self.slow_fraction <= 1.0:
+            raise ValueError("--slow-fraction must be in [0, 1]")
+        if self.slo_p99_ms < 0:
+            raise ValueError("--slo-p99-ms must be >= 0 (0 disables)")
+        if not 0.0 <= self.slo_shed_rate <= 1.0:
+            raise ValueError(
+                "--slo-shed-rate must be in [0, 1] (0 disables)"
+            )
+        if self.stats_interval_s <= 0:
+            raise ValueError("--stats-interval-s must be > 0")
+        if self.max_body_mb <= 0:
+            raise ValueError("--max-body-mb must be > 0")
+        if self.events_max_mb < 0:
+            raise ValueError("--events-max-mb must be >= 0")
+        # quota specs fail here, not at the first request
+        from bdbnn_tpu_torch.serve.admission import (
+            parse_quota,
+            parse_tenant_quotas,
+        )
+
+        rate, burst = parse_quota(self.default_quota)
+        if rate < 0 or burst <= 0:
+            raise ValueError(
+                f"--default-quota needs RATE >= 0 and BURST > 0, got "
+                f"{self.default_quota!r}"
+            )
+        for tenant, (t_rate, t_burst) in parse_tenant_quotas(
+            self.tenant_quotas
+        ).items():
+            if t_rate < 0 or t_burst <= 0:
+                raise ValueError(
+                    f"--tenant-quota {tenant}: needs RATE >= 0 and "
+                    f"BURST > 0, got {t_rate}:{t_burst}"
+                )
+        if self.replicas < 1:
+            raise ValueError("--replicas must be >= 1")
+        if not 0.0 <= self.swap_at < 1.0:
+            raise ValueError(
+                "--swap-at is a fraction of the scenario's offered "
+                f"requests in [0, 1), got {self.swap_at!r}"
+            )
+        if self.swap_at > 0 and not self.swap_to:
+            raise ValueError("--swap-at needs --swap-to (what to swap to)")
+        if self.swap_at > 0 and not self.scenario:
+            raise ValueError(
+                "--swap-at schedules a swap against a --scenario's "
+                "offered load; without one, drive POST /admin/swap "
+                "instead"
+            )
+        if self.scenario and self.swap_to and self.swap_at <= 0:
+            raise ValueError(
+                "--swap-to under a --scenario needs --swap-at FRAC "
+                "(when to fire it): a bench that silently never fires "
+                "the requested swap would exit 0 and read as a met "
+                "rollout contract"
+            )
+        if self.swap_at > 0 and self.replicas < 2:
+            raise ValueError(
+                "swap-under-load needs --replicas >= 2: the blue/green "
+                "shift takes the shifting replica out of the dispatch "
+                "set while peers absorb its load — with one replica "
+                "every batch assembled during the shift would shed, "
+                "failing the zero-shed gate by construction"
+            )
+        if not 0.0 <= self.canary_fraction < 1.0:
+            raise ValueError(
+                "--canary-fraction is the traffic fraction routed to "
+                f"the canary, in [0, 1), got {self.canary_fraction!r}"
+            )
+        if self.canary_fraction > 0:
+            if self.replicas < 2:
+                raise ValueError(
+                    "--canary-fraction needs --replicas >= 2: the "
+                    "canary subset serves vN+1 while at least one "
+                    "incumbent replica keeps serving vN — with one "
+                    "replica there is no incumbent cohort to compare "
+                    "against (or to roll back to under load)"
+                )
+            if not 1 <= self.canary_replicas <= self.replicas - 1:
+                raise ValueError(
+                    f"--canary-replicas must be in [1, replicas-1] = "
+                    f"[1, {self.replicas - 1}], got "
+                    f"{self.canary_replicas!r}: the canary subset must "
+                    "leave at least one incumbent replica serving vN"
+                )
+        if self.shadow_every < 0:
+            raise ValueError(
+                "--shadow-every must be >= 0 (0 disables the "
+                "logit-drift probe)"
+            )
+        # the rollout options, set away from their defaults
+        for flag, value, default in (
+            ("--swap-to", self.swap_to, ""),
+            ("--swap-at", self.swap_at, 0.0),
+            ("--canary-fraction", self.canary_fraction, 0.0),
+            ("--canary-replicas", self.canary_replicas, 1),
+            ("--shadow-every", self.shadow_every, 8),
+            ("--canary-threshold", self.canary_thresholds, ()),
+        ):
+            if value != default:
+                raise NotImplementedError(
+                    f"option {flag!r} is not ported yet: {ROLLOUTS_ITEM}"
+                )
+        if self.replica_queue_batches <= 0:
+            raise ValueError("--replica-queue-batches must be >= 1")
+        if self.wedge_timeout_s <= 0:
+            raise ValueError("--wedge-timeout-s must be > 0")
+        if self.packed_impl not in ("unpack", "popcount"):
+            raise ValueError(
+                f"--packed-impl must be unpack|popcount, got "
+                f"{self.packed_impl!r}"
+            )
+        if self.resident_models < 1:
+            raise ValueError("--resident-models must be >= 1")
+        if self.resident_models > 1 and not self.registry:
+            raise ValueError(
+                "--resident-models > 1 needs --registry: co-resident "
+                "models are routed by x-model naming digest-verified "
+                "registry versions, never arbitrary paths a client "
+                "could choose"
+            )
+        if self.models:
+            if not self.scenario:
+                raise ValueError(
+                    "--models draws x-model per scheduled request; it "
+                    "needs a --scenario (in serve mode clients set "
+                    "x-model themselves)"
+                )
+            if self.resident_models < 2:
+                raise ValueError(
+                    "--models needs --resident-models >= 2: a model "
+                    "mix over a single-model cache would thrash "
+                    "reloads on every batch"
+                )
+            # the steady-state cache-resident set is the DISTINCT
+            # non-default mix entries PLUS the default engine's own
+            # slot (it warms eagerly under the cache's default key); a
+            # mix that cannot co-reside evicts/rebuilds an engine
+            # (seconds of AOT compile) on every batch group — the same
+            # thrash the check above rejects, one notch up
+            from bdbnn_tpu_torch.serve.registry import looks_like_version
+            from bdbnn_tpu_torch.serve.registry import parse_version as _pv
+
+            bad = [m for m in self.models if not looks_like_version(m)]
+            if bad:
+                raise ValueError(
+                    f"--models entries must be registry versions "
+                    f"(vNNNN or an integer), got {bad!r} — the mix is "
+                    "routed by x-model through digest-verified "
+                    "registry versions, never paths (and a non-version "
+                    "entry would otherwise crash the warm loop after "
+                    "the server has already bound)"
+                )
+            cached = {_pv(m) for m in self.models}
+            if looks_like_version(self.artifact):
+                cached.discard(_pv(self.artifact))
+            if len(cached) + 1 > self.resident_models:
+                raise ValueError(
+                    f"--models draws {len(cached)} distinct "
+                    "non-default versions, which plus the default "
+                    f"engine's slot exceeds --resident-models "
+                    f"{self.resident_models}: the overflow would "
+                    "evict and rebuild an engine (seconds of AOT "
+                    "compile) in the request path on every batch — "
+                    "raise --resident-models or trim the mix"
+                )
+        if self.model_weights and (
+            len(self.model_weights) != len(self.models)
+            or any(w < 0 for w in self.model_weights)
+            or sum(self.model_weights) <= 0
+        ):
+            raise ValueError(
+                "--model-weights needs one nonnegative weight per "
+                f"model ({len(self.models)}), summing > 0"
+            )
+        if self.rtrace_sample_every < 1:
+            raise ValueError(
+                "--rtrace-sample-every must be >= 1 (1 = every "
+                "request; use --no-rtrace to disable tracing)"
+            )
+        if self.rtrace_tail_k < 0:
+            raise ValueError("--rtrace-tail-k must be >= 0")
+        return self
+
+
+__all__ = ["ROLLOUTS_ITEM", "ServeBenchConfig", "ServeHttpConfig"]

@@ -24,22 +24,38 @@ half of ``bdbnn_tpu/serve/loadgen.py``.
   offering load, the batcher drains, and every accepted request is
   answered before the verdict is written.
 
+The HTTP front end's half (serve/http.py) lives here too, as in the
+reference:
+
+- :func:`build_schedule` draws a traffic-shaped arrival schedule up
+  front from ``random.Random(seed)`` — ``poisson``, ``diurnal``,
+  ``flash_crowd``, ``heavy_tail`` and ``slow_client`` (:data:`SCENARIOS`),
+  each arrival with a priority class, a tenant and optionally a model —
+  so the offered load is deterministic per seed.
+- :class:`HttpLoadGenerator` replays a schedule against a live server
+  over real sockets: persistent keep-alive connections, latency charged
+  from the scheduled arrival, dribbled bodies for slow clients, and a
+  ledger that counts every request that got no response (``dropped``).
+- :func:`http_slo_verdict` builds the verdict from the front end's
+  request ledger, the batcher's stats and the admission counters (the
+  per-priority and per-tenant blocks and :func:`fairness_ratio`).
+
 The engines run on the CUDA card unless the config names the CPU
-(``device``); there is no fallback. The traffic-shaped schedules,
-``HttpLoadGenerator``, ``http_slo_verdict`` and ``fairness_ratio`` serve
-the HTTP front end and wait for it (ROADMAP A, Later 10).
+(``device``); there is no fallback.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import random
+import socket
 import threading
 import time
 from collections import namedtuple
 from concurrent.futures import Future
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from bdbnn_tpu_torch.serve.batching import LoadShedError, MicroBatcher
 from bdbnn_tpu_torch.serve.engine import _pct, percentile
@@ -229,10 +245,392 @@ class LoadGenerator:
 # ---------------------------------------------------------------------------
 
 
+# one scheduled request of a scenario: seconds-from-start, priority
+# class, tenant, whether the CLIENT dribbles the body (slow-client
+# scenario — the server must tolerate slow writers without stalling
+# everyone else), and which co-resident model the request targets
+# (x-model header; None = the server's default model)
+Arrival = namedtuple(
+    "Arrival", ("t", "priority", "tenant", "slow", "model"),
+    defaults=(None,),
+)
+
 # the provenance scalars the verdict needs from an engine — held
 # instead of the engine itself so dropping the engine actually frees
 # its device weights (the A/B bench relies on this)
 _EngineMeta = namedtuple("_EngineMeta", ("arch", "dataset"))
+
+
+SCENARIOS = (
+    "poisson", "diurnal", "flash_crowd", "heavy_tail", "slow_client",
+)
+
+
+def _weighted_pick(rng: random.Random, options: Sequence, weights) -> Any:
+    """Deterministic weighted draw from a seeded Random (no
+    random.choices: one rng.random() per draw keeps the consumption
+    schedule obvious and stable)."""
+    total = float(sum(weights))
+    x = rng.random() * total
+    acc = 0.0
+    for opt, w in zip(options, weights):
+        acc += float(w)
+        if x < acc:
+            return opt
+    return options[-1]
+
+
+def build_schedule(
+    scenario: str,
+    *,
+    requests: int,
+    rate: float,
+    seed: int,
+    priorities: int = 3,
+    priority_weights: Optional[Sequence[float]] = None,
+    tenants: Sequence[str] = ("tenant-a", "tenant-b"),
+    tenant_weights: Optional[Sequence[float]] = None,
+    flash_factor: float = 8.0,
+    diurnal_amp: float = 0.8,
+    heavy_sigma: float = 1.5,
+    slow_fraction: float = 0.2,
+    models: Optional[Sequence[str]] = None,
+    model_weights: Optional[Sequence[float]] = None,
+) -> List[Arrival]:
+    """A deterministic arrival schedule for one scenario — drawn up
+    front from ``random.Random(seed)``, so the OFFERED load is
+    seed-reproducible regardless of how the server responds.
+
+    - ``poisson``      constant-rate memoryless arrivals (the open
+      loop's, with priorities/tenants attached)
+    - ``diurnal``      a full sinusoidal day compressed into the run:
+      rate(t) = rate·(1 + amp·sin(2πt/T)), T = the nominal run length
+      — exercises sustained swing between underload and overload
+    - ``flash_crowd``  baseline Poisson with a ``flash_factor``×
+      burst over the middle sixth of the run — the thundering herd
+      that must shed LOW classes while priority 0 keeps its p99
+    - ``heavy_tail``   lognormal inter-arrivals (σ = ``heavy_sigma``)
+      with the mean matched to 1/rate: long quiet stretches punctuated
+      by dense clumps, the realistic non-Poisson mix
+    - ``slow_client``  Poisson arrivals where a seeded
+      ``slow_fraction`` of requests dribble their body bytes — the
+      server must not let a slow writer stall fast ones
+
+    Priorities and tenants are drawn per request from the seeded RNG
+    (defaults: 10%% priority-0, 30%% priority-1, 60%% priority-2;
+    uniform tenants) — pass explicit weights to skew."""
+    if scenario not in SCENARIOS:
+        raise ValueError(
+            f"unknown scenario {scenario!r} (want one of {SCENARIOS})"
+        )
+    if requests <= 0 or rate <= 0:
+        raise ValueError("need requests > 0 and rate > 0")
+    if priority_weights is None:
+        # default mix: a thin premium class over a broad best-effort
+        # base, truncated/padded to the configured class count
+        base = [0.1, 0.3, 0.6]
+        priority_weights = (
+            base[:priorities]
+            if priorities <= 3
+            else base + [0.6] * (priorities - 3)
+        )
+    if len(priority_weights) != priorities:
+        raise ValueError(
+            f"priority_weights must have {priorities} entries, got "
+            f"{len(priority_weights)}"
+        )
+    if tenant_weights is None:
+        tenant_weights = [1.0] * len(tenants)
+    if len(tenant_weights) != len(tenants):
+        raise ValueError(
+            f"tenant_weights must have {len(tenants)} entries, got "
+            f"{len(tenant_weights)}"
+        )
+    if models and model_weights is None:
+        model_weights = [1.0] * len(models)
+    if models and len(model_weights) != len(models):
+        raise ValueError(
+            f"model_weights must have {len(models)} entries, got "
+            f"{len(model_weights)}"
+        )
+    rng = random.Random(seed)
+    duration = requests / rate  # nominal run length at the base rate
+    flash_t0, flash_t1 = duration / 3.0, duration / 3.0 + duration / 6.0
+    mu = math.log(1.0 / rate) - heavy_sigma**2 / 2.0
+
+    out: List[Arrival] = []
+    t = 0.0
+    for _ in range(int(requests)):
+        if scenario == "heavy_tail":
+            gap = rng.lognormvariate(mu, heavy_sigma)
+        else:
+            r = rate
+            if scenario == "diurnal":
+                r = max(
+                    rate * (1.0 + diurnal_amp
+                            * math.sin(2.0 * math.pi * t / duration)),
+                    rate * 0.05,
+                )
+            elif scenario == "flash_crowd" and flash_t0 <= t < flash_t1:
+                r = rate * flash_factor
+            gap = rng.expovariate(r)
+        t += gap
+        slow = scenario == "slow_client" and rng.random() < slow_fraction
+        out.append(Arrival(
+            t=t,
+            priority=_weighted_pick(
+                rng, list(range(priorities)), priority_weights
+            ),
+            tenant=_weighted_pick(rng, list(tenants), tenant_weights),
+            slow=slow,
+            model=(
+                _weighted_pick(rng, list(models), model_weights)
+                if models else None
+            ),
+        ))
+    return out
+
+
+def recv_response(rfile) -> Tuple[int, Dict[str, str], bytes]:
+    """Minimal HTTP/1.1 response parse off a socket makefile('rb') —
+    the socket load generator's, and any client's that speaks to the
+    front end (serve/http.py) in the same wire dialect."""
+    line = rfile.readline()
+    if not line:
+        raise ConnectionError("server closed the connection")
+    parts = line.decode("latin-1").split(None, 2)
+    status = int(parts[1])
+    headers: Dict[str, str] = {}
+    while True:
+        h = rfile.readline()
+        if h in (b"\r\n", b"\n", b""):
+            break
+        name, _, value = h.decode("latin-1").partition(":")
+        headers[name.strip().lower()] = value.strip()
+    n = int(headers.get("content-length", 0) or 0)
+    body = rfile.read(n) if n else b""
+    return status, headers, body
+
+
+class HttpLoadGenerator:
+    """Offer a prebuilt :func:`build_schedule` schedule to a live
+    server over REAL sockets (raw stdlib sockets — slow-client body
+    dribble needs byte-level control no high-level client gives).
+
+    A dispatcher walks the schedule by wall clock and hands each
+    arrival to a worker pool (``concurrency`` persistent keep-alive
+    connections); latency is measured from the SCHEDULED arrival, so a
+    backlogged pool charges the delay to the requests that suffered it
+    (no coordinated omission). ``stop_fn`` is polled between arrivals
+    — the SIGTERM latch.
+
+    The ledger separates the outcomes that matter for the drain
+    contract: every request must get SOME response (2xx/4xx/5xx);
+    ``dropped`` counts requests that got none — the number the
+    zero-dropped acceptance test pins at 0."""
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        schedule: Sequence[Arrival],
+        *,
+        body_fn: Callable[[int], bytes],
+        content_type: str = "application/octet-stream",
+        path: str = "/v1/predict",
+        concurrency: int = 16,
+        stop_fn: Callable[[], bool] = lambda: False,
+        slow_chunks: int = 4,
+        slow_gap_s: float = 0.02,
+        timeout_s: float = 60.0,
+        on_arrival: Optional[Callable[[int], None]] = None,
+    ):
+        self.host = host
+        self.port = int(port)
+        self.schedule = list(schedule)
+        self.body_fn = body_fn
+        self.content_type = content_type
+        self.path = path
+        self.concurrency = max(int(concurrency), 1)
+        self.stop_fn = stop_fn
+        self.slow_chunks = max(int(slow_chunks), 1)
+        self.slow_gap_s = float(slow_gap_s)
+        self.timeout_s = float(timeout_s)
+        # fires with the schedule index after each arrival is offered —
+        # the swap-under-load orchestration keys its trigger off it
+        self.on_arrival = on_arrival
+        self._lock = threading.Lock()
+        self.by_status: Dict[int, int] = {}
+        self.dropped = 0
+        self.submitted = 0
+        self.lat_by_priority: Dict[int, List[float]] = {}
+
+    # -- one request over one (reused) connection ----------------------
+
+    def _connect(self):
+        sock = socket.create_connection(
+            (self.host, self.port), timeout=self.timeout_s
+        )
+        return sock, sock.makefile("rb")
+
+    def _send(self, sock, i: int, arr: Arrival) -> None:
+        body = self.body_fn(i)
+        model = (
+            f"x-model: {arr.model}\r\n"
+            if getattr(arr, "model", None) else ""
+        )
+        head = (
+            f"POST {self.path} HTTP/1.1\r\n"
+            f"host: {self.host}:{self.port}\r\n"
+            f"x-priority: {arr.priority}\r\n"
+            f"x-tenant: {arr.tenant}\r\n"
+            + model
+            + f"content-type: {self.content_type}\r\n"
+            f"content-length: {len(body)}\r\n\r\n"
+        ).encode("latin-1")
+        if not arr.slow:
+            sock.sendall(head + body)
+            return
+        # slow client: headers at once, then the body in dribbled
+        # chunks — the server's reader must wait it out without
+        # blocking anyone else's requests
+        sock.sendall(head)
+        step = max(len(body) // self.slow_chunks, 1)
+        for off in range(0, len(body), step):
+            sock.sendall(body[off:off + step])
+            time.sleep(self.slow_gap_s)
+
+    def _one(self, conn, i: int, arr: Arrival, t_sched: float):
+        """Returns (conn, status|None); reconnects once on a torn
+        keep-alive connection before counting the request dropped."""
+        for attempt in (0, 1):
+            if conn is None:
+                try:
+                    conn = self._connect()
+                except OSError:
+                    conn = None
+                    continue
+            sock, rfile = conn
+            try:
+                self._send(sock, i, arr)
+                status, headers, _body = recv_response(rfile)
+            except (OSError, ValueError, ConnectionError):
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                conn = None
+                continue
+            lat_ms = (time.perf_counter() - t_sched) * 1000.0
+            with self._lock:
+                self.by_status[status] = self.by_status.get(status, 0) + 1
+                if status == 200:
+                    self.lat_by_priority.setdefault(
+                        arr.priority, []
+                    ).append(lat_ms)
+            if headers.get("connection", "").lower() == "close":
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                conn = None
+            return conn, status
+        with self._lock:
+            self.dropped += 1
+        return conn, None
+
+    def run(self) -> Dict[str, Any]:
+        import queue as _queue
+
+        work: "_queue.Queue" = _queue.Queue()
+
+        def worker():
+            conn = None
+            while True:
+                item = work.get()
+                if item is None:
+                    break
+                i, arr, t_sched = item
+                conn, _status = self._one(conn, i, arr, t_sched)
+            if conn is not None:
+                try:
+                    conn[0].close()
+                except OSError:
+                    pass
+
+        workers = [
+            threading.Thread(target=worker, daemon=True)
+            for _ in range(self.concurrency)
+        ]
+        for w in workers:
+            w.start()
+        t0 = time.perf_counter()
+        for i, arr in enumerate(self.schedule):
+            delay = (t0 + arr.t) - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            if self.stop_fn():
+                break
+            with self._lock:
+                self.submitted += 1
+            # latency clock starts at the SCHEDULED arrival
+            work.put((i, arr, t0 + arr.t))
+            if self.on_arrival is not None:
+                try:
+                    self.on_arrival(i)
+                except Exception:
+                    pass  # an orchestration hook must not stop the load
+        for _ in workers:
+            work.put(None)
+        for w in workers:
+            w.join(self.timeout_s)
+        wall_s = time.perf_counter() - t0
+        with self._lock:
+            responses = sum(self.by_status.values())
+            # a worker outliving its join (server wedged past
+            # timeout_s) holds requests that are in `submitted` but in
+            # neither `responses` nor `dropped` — they got NO answer
+            # within the measurement, which is exactly what `dropped`
+            # exists to count; the zero-dropped gate must not pass them
+            missing = self.submitted - responses - self.dropped
+            if missing > 0:
+                self.dropped += missing
+            return {
+                "submitted": self.submitted,
+                "responses": responses,
+                "dropped": self.dropped,
+                "by_status": {
+                    str(k): v for k, v in sorted(self.by_status.items())
+                },
+                "wall_s": round(wall_s, 3),
+                "p99_ms_by_priority": {
+                    str(p): _pct(sorted(v), 99.0)
+                    for p, v in sorted(self.lat_by_priority.items())
+                },
+            }
+
+
+def fairness_ratio(
+    per_tenant: Dict[str, Dict[str, Any]],
+) -> Optional[float]:
+    """Max/min ratio of per-tenant SERVICE rates (completed/submitted)
+    over tenants that offered load: 1.0 = perfectly even service, large
+    = somebody is starving. None when fewer than two tenants offered
+    load, or when a tenant got NOTHING through (an infinite ratio is
+    not a number a tolerance can judge — the per-tenant table carries
+    the zero explicitly)."""
+    rates = []
+    for t in per_tenant.values():
+        submitted = t.get("submitted") or 0
+        if submitted > 0:
+            rates.append((t.get("completed") or 0) / submitted)
+    if len(rates) < 2:
+        return None
+    lo = min(rates)
+    if lo <= 0.0:
+        return None
+    return round(max(rates) / lo, 4)
+
 
 
 def slo_verdict(
@@ -331,6 +729,122 @@ def slo_verdict(
 
     return jsonsafe(verdict)
 
+
+def http_slo_verdict(
+    accounting: Dict[str, Any],
+    batcher_stats: Dict[str, Any],
+    admission_stats: Dict[str, Any],
+    *,
+    scenario: str,
+    rate: float,
+    seed: int,
+    provenance: Optional[Dict[str, Any]] = None,
+    warmup_s: Optional[Dict[str, float]] = None,
+    preempted: bool = False,
+    drained_clean: bool = True,
+    client: Optional[Dict[str, Any]] = None,
+    slo_p99_ms: float = 0.0,
+    replicas: Optional[Dict[str, Any]] = None,
+    swap: Optional[Dict[str, Any]] = None,
+    resident: Optional[Dict[str, Any]] = None,
+    packed: Optional[Dict[str, Any]] = None,
+    attribution: Optional[Dict[str, Any]] = None,
+    canary: Optional[Dict[str, Any]] = None,
+    capacity: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Build the v2 verdict from the HTTP front end's request ledger
+    (:meth:`serve.http.HttpFrontEnd.accounting`), the batcher's
+    per-priority occupancy and the admission controller's per-tenant
+    counters — the three sources of truth, joined exactly once."""
+    lat_p = accounting["latencies_ms_by_priority"]
+    counts_p = accounting["counts_by_priority"]
+    per_priority: Dict[str, Dict[str, Any]] = {}
+    all_lats: List[float] = []
+    for p, (lats, counts) in enumerate(zip(lat_p, counts_p)):
+        all_lats += lats
+        shed = (
+            counts["shed_draining"] + counts["shed_over_quota"]
+            + counts["shed_queue_full"]
+            + counts.get("shed_unavailable", 0)
+        )
+        per_priority[str(p)] = {
+            "submitted": counts["submitted"],
+            "completed": counts["completed"],
+            "failed": counts["failed"],
+            "rejected": counts.get("rejected", 0),
+            "shed": shed,
+            "shed_draining": counts["shed_draining"],
+            "shed_over_quota": counts["shed_over_quota"],
+            "shed_queue_full": counts["shed_queue_full"],
+            "shed_unavailable": counts.get("shed_unavailable", 0),
+            "shed_rate": round(
+                shed / max(counts["submitted"], 1), 6
+            ),
+            "p50_ms": _pct(lats, 50.0),
+            "p95_ms": _pct(lats, 95.0),
+            "p99_ms": _pct(lats, 99.0),
+        }
+    per_tenant: Dict[str, Dict[str, Any]] = {}
+    for tenant, c in (admission_stats.get("tenants") or {}).items():
+        submitted = c["admitted"] + c["over_quota"]
+        per_tenant[tenant] = {
+            "submitted": submitted,
+            "admitted": c["admitted"],
+            "completed": c["completed"],
+            "failed": c["failed"],
+            "rejected": c.get("rejected", 0),
+            "over_quota": c["over_quota"],
+            "shed_queue": c["shed"],
+            "shed_rate": c["shed_rate"],
+            "quota_rate": c["quota_rate"],
+            "quota_burst": c["quota_burst"],
+        }
+    submitted = sum(c["submitted"] for c in counts_p)
+    completed = sum(c["completed"] for c in counts_p)
+    failed = sum(c["failed"] for c in counts_p)
+    rejected = sum(c.get("rejected", 0) for c in counts_p)
+    shed = sum(v["shed"] for v in per_priority.values())
+    all_lats.sort()
+    slo = None
+    if slo_p99_ms > 0:
+        p0_p99 = per_priority.get("0", {}).get("p99_ms")
+        slo = {
+            "p99_ms_target_priority0": slo_p99_ms,
+            "p99_ms_priority0": p0_p99,
+            "met": bool(p0_p99 is not None and p0_p99 <= slo_p99_ms),
+        }
+    return slo_verdict(
+        {
+            "submitted": submitted,
+            "completed": completed,
+            "shed": shed,
+            "failed": failed,
+            "rejected": rejected,
+            "wall_s": accounting["wall_s"],
+            "latencies_ms": all_lats,
+        },
+        batcher_stats,
+        mode="http",
+        rate=rate,
+        seed=seed,
+        provenance=provenance,
+        warmup_s=warmup_s,
+        preempted=preempted,
+        drained_clean=drained_clean,
+        scenario=scenario,
+        per_priority=per_priority,
+        per_tenant=per_tenant,
+        fairness=fairness_ratio(per_tenant),
+        client=client,
+        slo=slo,
+        replicas=replicas,
+        swap=swap,
+        resident=resident,
+        packed=packed,
+        attribution=attribution,
+        canary=canary,
+        capacity=capacity,
+    )
 
 
 def run_serve_bench(cfg) -> Dict[str, Any]:
@@ -445,7 +959,7 @@ def _pool_replicas_block(
     pool_stats: Optional[Dict[str, Any]],
 ) -> Optional[Dict[str, Any]]:
     """The verdict's v3 ``replicas`` block from one pool's final
-    :meth:`~bdbnn_tpu.serve.pool.ReplicaPool.stats` snapshot: the
+    :meth:`~bdbnn_tpu_torch.serve.pool.ReplicaPool.stats` snapshot: the
     per-replica table (device, version, batches, completed requests,
     occupancy share, restarts) and the completed-by-version ledger the
     swap acceptance test pins."""
@@ -1076,10 +1590,17 @@ def _serve_bench_single(cfg, handler) -> Dict[str, Any]:
 
 
 __all__ = [
+    "SCENARIOS",
     "VERDICT_NAME",
     "VERDICT_SCHEMA_VERSION",
+    "Arrival",
+    "HttpLoadGenerator",
     "LoadGenerator",
+    "build_schedule",
+    "fairness_ratio",
+    "http_slo_verdict",
     "percentile",
+    "recv_response",
     "run_serve_bench",
     "slo_verdict",
     "write_verdict_files",

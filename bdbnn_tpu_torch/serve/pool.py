@@ -33,9 +33,12 @@ the dispatcher and health machinery — and their tests — need no card.
 Telemetry flows through an injected ``on_event`` hook (``replica``
 events, obs/events.py).
 
-The reference pool's blue/green ``swap``, ``canary_swap``, shadow
-comparator, ``PoolAdmin`` and fault-injection hook serve the HTTP front
-end and wait for it (ROADMAP A, Later 10).
+:class:`PoolAdmin` is the read half of the reference's operator surface:
+the HTTP front end's ``GET /admin/replicas`` and ``GET /admin/swap``
+answer from it as the reference's do before any swap. The reference
+pool's blue/green ``swap``, ``canary_swap``, shadow comparator, the
+write half of ``PoolAdmin`` (``start_swap``) and the fault-injection
+hook wait for the rollouts (ROADMAP A, Later 12).
 """
 
 from __future__ import annotations
@@ -495,8 +498,31 @@ class ReplicaPool:
             "completed": sum(r["completed"] for r in reps),
             "restarts": sum(r["restarts"] for r in reps),
             "completed_by_version": by_version,
-            "swap": {"state": SWAP_IDLE},
+            "swap": self.swap_status(),
         }
+
+    def swap_status(self) -> Dict[str, Any]:
+        """The swap state machine's status, in the reference's shape: a
+        pool without blue/green swap is always idle."""
+        return {"state": SWAP_IDLE}
+
+
+class PoolAdmin:
+    """The read half of the operator surface the HTTP front end's
+    ``/admin/*`` routes call into: the per-replica table
+    (``GET /admin/replicas``) and the swap status (``GET /admin/swap``),
+    answered as the reference's ``PoolAdmin`` answers them before any
+    swap. Starting a swap (``POST /admin/swap``) waits for the rollouts
+    (ROADMAP A, Later 12); the front end answers it 501."""
+
+    def __init__(self, pool: ReplicaPool):
+        self.pool = pool
+
+    def replicas(self) -> Dict[str, Any]:
+        return self.pool.stats()
+
+    def swap_status(self) -> Dict[str, Any]:
+        return {"current": self.pool.swap_status(), "last": None}
 
 
 def replica_stats_fields(ps: Dict[str, Any]) -> Dict[str, Any]:
@@ -573,6 +599,8 @@ class ResidentModelCache:
         self.load_seconds: Dict[str, float] = {}
         self.resident_bytes: Dict[str, int] = {}
         self.dense_equiv_bytes: Dict[str, int] = {}
+        # forwards of the engines evicted so far (guarded-by: _lock)
+        self._evicted_forwards = 0
 
     def get(self, key: str):
         """The resident engine for ``key`` — loading it (and evicting
@@ -597,7 +625,8 @@ class ResidentModelCache:
             if key not in self._engines:
                 while len(self._engines) >= self.capacity:
                     old_key = next(iter(self._engines))
-                    self._engines.pop(old_key)
+                    evicted = self._engines.pop(old_key)
+                    self._evicted_forwards += int(getattr(evicted, "forwards", 0))
                     self.evictions += 1
                     # the byte accounting tracks what is resident NOW
                     # — an evicted model's row must leave with its
@@ -644,6 +673,15 @@ class ResidentModelCache:
                 self.on_event(kind, **fields)
             except Exception:
                 pass  # telemetry must never break the request path
+
+    def forwards(self) -> int:
+        """Forwards of every engine this cache built — the resident ones
+        and the evicted ones (what a kernel launch count is held
+        against)."""
+        with self._lock:
+            return self._evicted_forwards + sum(
+                int(getattr(e, "forwards", 0)) for e in self._engines.values()
+            )
 
     def resident_keys(self) -> List[str]:
         with self._lock:
@@ -878,6 +916,7 @@ def make_engine_runner_factory(
 
 __all__ = [
     "DEFAULT_MODEL",
+    "PoolAdmin",
     "READY",
     "STOPPED",
     "SWAP_IDLE",

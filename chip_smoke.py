@@ -61,6 +61,38 @@ Phases (any failure exits non-zero and prints no result line):
              loop, 512 requests. Prints p50/p95/p99, throughput, occupancy,
              shed rates, resident bytes, step_ms and the per-stage
              attribution, and one ``[serve-bench] summary`` JSON line;
+4c. serve-http — the network front end on the same artifact over
+             loopback sockets (phase_serve_http), each run's launches of
+             K1-K3 exactly 19 × its engines' forwards (the ``http``
+             ``stop`` event's ``forwards``): (a) ``python -m
+             bdbnn_tpu_torch.cli serve-http ART --port 0 --packed-weights``
+             as a subprocess in serve mode, the client here: /readyz 503
+             ``warming`` then
+             200, /healthz 200 throughout, 64 exact-stem images (16 one at
+             a time, 48 from 8 threads; raw float32 and JSON, several
+             priorities and tenants) all 200 and within SH_WIRE_ATOL +
+             CPU_LOGIT_TOL·max|logit| of ``predict_logits`` of each image
+             alone (rows bitwise the rounded logits counted), /statsz with
+             the batcher, admission and capacity blocks, SIGTERM → exit 0,
+             preempted, drained, the ledger identity; the wire time per
+             request; then (b)'s saturating calibration schedule offered
+             from this process (the in-process client's cost); (b) bench mode, poisson, ``--packed-weights``, 1,024
+             requests at R = 0.5 × a calibration run's throughput (capped
+             at 0.5 × serve-bench's closed loop): nothing dropped or
+             failed, the attribution's read/admit/respond stages, the
+             capacity block, p50/p95/p99 per priority; the device's busy
+             share under the profiler for 256 requests over loopback, in
+             process; (c) flash crowd ×8 at R, 10,000 requests with SIGTERM
+             3 s after ready, then 3,000 run to their end through the
+             burst from 64 connections against 8-deep class queues: exit 0, drained, nothing dropped, every shed an
+             explicit 429 or 503, priority 0's shed rate at most priority
+             2's, fairness ratio and shed rates by class printed; (d)
+             quotas 20:20 with tenant-a unlimited: tenant-b gets 429
+             ``over_quota`` with ``retry-after``, tenant-a none; (e) two
+             flagship versions published with the port's ``registry``,
+             served with ``--resident-models 2``: each answer its own
+             version's, the versions' answers differ, an unknown
+             ``x-model`` is 404 and runs no engine;
 5. train_kernels — holds K5 (binary conv dgrad with the sign
              estimator's slope), K6 (binary conv wgrad with the STE mask)
              and K7 (grouped kurtosis regularizer and gradient) against
@@ -207,7 +239,7 @@ Phases (any failure exits non-zero and prints no result line):
              ``resharded`` and bitwise;
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
-             serve, serve-bench, train, train-stoch, train-ts, train-resume,
+             serve, serve-bench, serve-http, train, train-stoch, train-ts, train-resume,
              train-folder, train-bf16 and train-ddp, and for a bf16 mode
              train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
              train-ddp and serve-bench), then as the last line
@@ -216,7 +248,8 @@ Phases (any failure exits non-zero and prints no result line):
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
 K7 alone and prints their records as one JSON line: run from two trees in
 turns, it compares their weight kernels on one card. ``python3
-chip_smoke.py --serve-bench`` runs the build and phase 4b alone.
+chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
+``python3 chip_smoke.py --serve-http`` the build and phase 4c alone.
 """
 
 from __future__ import annotations
@@ -560,7 +593,7 @@ def log_mma_instructions() -> None:
         log(f"[build] {name}: tensor-core instructions in its SASS {dict(ops)}")
 
 
-def make_flagship_artifact(out_dir: str, dtype: str = "float32"):
+def make_flagship_artifact(out_dir: str, dtype: str = "float32", seed: int = 0):
     """Full-width ImageNet resnet18 (react) from a seeded generator, with
     non-trivial BN statistics, act_shifts and RPReLU vectors. The stem
     conv's weights are rounded to multiples of 2^-10: on images with
@@ -568,14 +601,14 @@ def make_flagship_artifact(out_dir: str, dtype: str = "float32"):
     order, so the card and the CPU feed the first sign bit-identical
     values (see phase_main). ``dtype="bfloat16"`` records a bf16 model in
     the artifact (the same f32 weights; the engine builds the bf16
-    forward)."""
+    forward); ``seed`` seeds the generator (another seed, another model)."""
     import torch
 
     from bdbnn_tpu_torch.models import create_model
     from bdbnn_tpu_torch.nn.layers import BatchNorm, BinaryConvReact, RPReLU
     from bdbnn_tpu_torch.serve.export import write_artifact
 
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(seed)
     model = create_model("resnet18", "imagenet", generator=g)
     with torch.no_grad():
         model.conv1.weight.copy_(torch.round(model.conv1.weight * 1024.0) / 1024.0)
@@ -926,7 +959,7 @@ def sb_passes(run_dir: str, bf16: bool = False) -> list:
             for e in read_events(run_dir, "serve") if e.get("phase") == "pass"]
 
 
-def sb_launch_gate(tag: str, counts: dict, passes: list) -> bool:
+def sb_launch_gate(tag: str, counts: dict, passes: list, phase: str = "[serve-bench]") -> bool:
     """Each kernel's launches in a run == 19 × the forwards of the engines
     whose mode runs it (K5-K7 none); at least one forward."""
     want = {k: 0 for k in SB_COUNTED}
@@ -937,7 +970,7 @@ def sb_launch_gate(tag: str, counts: dict, passes: list) -> bool:
                 want[f"{k} bf16"] += N_BINARY_CONVS * forwards
     got = {k: counts.get(k, 0) for k in SB_COUNTED}
     ok = got == want and sum(p[1] for p in passes) > 0
-    log(f"[serve-bench] {tag} launches {got}; engine forwards "
+    log(f"{phase} {tag} launches {got}; engine forwards "
         f"{[(m, f) for m, f, _ in passes]} require {want}: ok={ok}")
     return ok
 
@@ -1091,7 +1124,8 @@ def phase_serve_bench(art: str, smi_line: str):
     """[serve-bench]: the flagship served under load through
     ``serve-bench`` (batcher, load generator, replica pool, request
     tracer, residency), every run's launches held to 19 × its engines'
-    forwards. Returns (launch counts summed over the runs, ok)."""
+    forwards. Returns (launch counts summed over the runs, ok, the closed
+    loop's throughput)."""
     import contextlib
     import io
 
@@ -1121,7 +1155,7 @@ def phase_serve_bench(art: str, smi_line: str):
                         str(SB_REQUESTS), "--packed-weights", "ab"])
         if rc != 0 or v is None:
             log(f"[serve-bench] (a) FAIL: exit {rc}\n{err}")
-            return total, False
+            return total, False, None
         add(counts)
         want_d, want_p = artifact_resident_bytes(art)
         pk = v["packed"]
@@ -1346,6 +1380,532 @@ def phase_serve_bench(art: str, smi_line: str):
     log(f"[serve-bench] summary {json.dumps(summary)}")
     log(f"[serve-bench] gates {oks}; launches over the runs {total}; "
         f"{summary['seconds']}s: ok={ok}")
+    return total, ok, thr
+
+
+# ---------------------------------------------------------------------------
+# [serve-http]: the network front end over loopback sockets
+# ---------------------------------------------------------------------------
+
+SH_BUCKETS = (1, 8, 32)
+SH_QUOTA = "100000:100000"
+# an answer over the wire against predict_logits of its image alone: the
+# 4-place rounding of the wire format (half a unit of the 4th place, with
+# room for the float's own rounding) plus the bucket-against-bucket
+# tolerance [serve-bench] (f) holds batched answers to
+SH_WIRE_ATOL = 5e-5
+# the saturating schedule (b)'s calibration offers from inside the server's
+# process and (a) from outside it
+SH_SAT_RATE = 4000.0
+SH_SAT_REQUESTS = 512
+
+
+def sh_request(host: str, port: int, method: str, path: str, body: bytes = b"",
+               headers=None, timeout: float = 120.0):
+    """One HTTP/1.1 exchange on a fresh connection: (status, headers, parsed
+    JSON body or None)."""
+    import socket
+
+    from bdbnn_tpu_torch.serve.loadgen import recv_response
+
+    with socket.create_connection((host, port), timeout=timeout) as s:
+        head = f"{method} {path} HTTP/1.1\r\nhost: {host}\r\ncontent-length: {len(body)}\r\n"
+        for k, v in (headers or {}).items():
+            head += f"{k}: {v}\r\n"
+        s.sendall((head + "connection: close\r\n\r\n").encode("latin-1") + body)
+        status, resp_headers, raw = recv_response(s.makefile("rb"))
+    return status, resp_headers, json.loads(raw) if raw else None
+
+
+def sh_predict(host: str, port: int, image, *, raw: bool = True, priority: int = 0,
+               tenant: str = "tenant-a", model=None):
+    """POST one image to /v1/predict, as raw float32 or as JSON; returns
+    (status, headers, body, seconds on the wire)."""
+    headers = {"x-priority": str(priority), "x-tenant": tenant}
+    if model is not None:
+        headers["x-model"] = model
+    if raw:
+        headers["content-type"] = "application/octet-stream"
+        body = image.astype("<f4").tobytes()
+    else:
+        headers["content-type"] = "application/json"
+        body = json.dumps(image.tolist()).encode()
+    t0 = time.perf_counter()
+    status, h, payload = sh_request(host, port, "POST", "/v1/predict", body, headers)
+    return status, h, payload, time.perf_counter() - t0
+
+
+def _http_events(log_path: str, phase: str):
+    import glob
+
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    for ev in glob.glob(os.path.join(log_path, "*", "events.jsonl")):
+        for e in read_events(os.path.dirname(ev), "http"):
+            if e.get("phase") == phase:
+                return e, os.path.dirname(ev)
+    return None, None
+
+
+def sh_cli(root: str, art: str, args: list, client=None, sigterm_after_ready_s=None):
+    """``serve-http ART args`` as a subprocess (the CLI through
+    :func:`counted_cli`), on port 0. With ``client``, once the run's ``http``
+    ``start`` event names the port, ``client(host, port)`` runs here and
+    its return value is kept; with ``sigterm_after_ready_s``, SIGTERM that
+    long after the ``ready`` event; a serve-mode run gets SIGTERM after
+    ``client``. The server is killed in a ``finally`` if it still runs.
+    Returns a dict: rc, verdict (or None), run_dir, counts, forwards (the
+    ``http`` ``stop`` event's), client (its result), err (stderr tail),
+    seconds."""
+    import signal
+
+    log_path = tempfile.mkdtemp(dir=root)
+    counts_file = os.path.join(log_path, "counts.json")
+    cmd = [sys.executable, "-c", COUNTED_CLI, "serve-http", art, "--port", "0", "--log-path",
+           log_path, "--buckets", *map(str, SH_BUCKETS), *args]
+    out = {"client": None, "verdict": None, "run_dir": None, "counts": {}, "forwards": None}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, COUNTS_ENV: counts_file})
+    try:
+        deadline = time.monotonic() + 300
+        start = None
+        while proc.poll() is None and start is None and time.monotonic() < deadline:
+            start, _ = _http_events(log_path, "start")
+            time.sleep(0.005)
+        if start is not None and client is not None:
+            out["client"] = client(start["host"], start["port"])
+        if start is not None and sigterm_after_ready_s is not None:
+            while proc.poll() is None and time.monotonic() < deadline:
+                if _http_events(log_path, "ready")[0] is not None:
+                    time.sleep(sigterm_after_ready_s)
+                    break
+                time.sleep(0.02)
+        if proc.poll() is None and ("--scenario" not in args or sigterm_after_ready_s is not None):
+            proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+    out["seconds"] = time.perf_counter() - t0
+    out["rc"], out["err"] = proc.returncode, stderr[-3000:]
+    if proc.returncode == 0:
+        out["verdict"] = json.loads(stdout)
+    stop, out["run_dir"] = _http_events(log_path, "stop")
+    if stop is not None:
+        out["forwards"] = stop["forwards"]
+    if os.path.exists(counts_file):
+        with open(counts_file) as f:
+            out["counts"] = json.load(f)
+    return out
+
+
+def sh_launch_gate(tag: str, run: dict, mode: str) -> bool:
+    """The run's launches == 19 × its engines' forwards, for the kernels
+    ``mode`` runs (the ``http`` ``stop`` event's ``forwards``)."""
+    if run["forwards"] is None:
+        log(f"[serve-http] {tag} no http stop event: forwards unknown")
+        return False
+    return sb_launch_gate(tag, run["counts"], [(mode, run["forwards"], False)],
+                          phase="[serve-http]")
+
+
+def sh_accounted(v: dict) -> bool:
+    """The client's ledger and the server's: every request answered, none
+    dropped, none failed, the drain clean, the server ledger's identity."""
+    c = v.get("client") or {}
+    return (c.get("dropped") == 0 and c.get("responses") == c.get("submitted")
+            and v["requests_completed"] + v["requests_shed"] + v["requests_failed"]
+            + v["requests_rejected"] == v["requests_submitted"]
+            and v["requests_failed"] == 0 and v["drained_clean"])
+
+
+def sh_per_priority(v: dict) -> dict:
+    return {p: {k: b[k] for k in ("submitted", "completed", "shed", "shed_rate", "p50_ms",
+                                  "p95_ms", "p99_ms")}
+            for p, b in v["per_priority"].items()}
+
+
+def sh_wire_check(answers: list, alone, tag: str) -> dict:
+    """Answers over the wire ``[(status, body)]`` against ``alone`` (the
+    engine's logits of each image alone): the largest difference and the
+    tolerance, rows bitwise equal to the rounded logits, and the top-1
+    disagreements, each where the top two logits lie within the tolerance."""
+    import numpy as np
+
+    got = np.array([a[1]["result"]["logits"] for a in answers], np.float64)
+    scale = float(np.max(np.abs(alone)))
+    tol = SH_WIRE_ATOL + CPU_LOGIT_TOL * scale
+    diff = float(np.max(np.abs(got - alone)))
+    rounded = [[round(float(x), 4) for x in row] for row in alone]
+    bitwise = sum(a[1]["result"]["logits"] == r for a, r in zip(answers, rounded))
+    top2 = np.sort(alone, axis=-1)[:, -2:]
+    near = np.abs(top2[:, 1] - top2[:, 0]) <= tol
+    pred = np.array([a[1]["result"]["pred"] for a in answers])
+    off = pred != alone.argmax(-1)
+    ok = (all(a[0] == 200 for a in answers) and diff <= tol and not bool(np.any(off & ~near)))
+    log(f"[serve-http] {tag} {len(answers)} answers vs predict_logits of each image alone: "
+        f"max diff {diff} (tol {SH_WIRE_ATOL} + {CPU_LOGIT_TOL}·max|logit| = {tol}), "
+        f"{bitwise} of {len(answers)} bitwise the rounded logits, pred off the argmax on "
+        f"{int(off.sum())} ({int((off & near).sum())} with the top two within tolerance, "
+        f"{int(near.sum())} such rows); ok={ok}")
+    return {"ok": ok, "max_diff": diff, "tol": tol, "bitwise": bitwise,
+            "pred_off": int(off.sum()), "top2_near": int(near.sum())}
+
+
+def sh_busy_share(art: str, rate: float, requests: int = 256) -> tuple:
+    """The device's busy share under HTTP load, as [serve-bench] measures
+    it: the packed/unpack engine behind the batcher and ``HttpFrontEnd`` on
+    loopback, the socket load generator offering a ``requests``-long
+    Poisson schedule at ``rate``, torch.profiler (CUPTI) around the load
+    alone; busy = the kernels' device time over the load's wall. Returns
+    (busy ms, wall ms, client ledger, launch counts, forwards)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdbnn_tpu_torch.serve.admission import AdmissionController
+    from bdbnn_tpu_torch.serve.batching import MicroBatcher
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.http import HttpFrontEnd, image_codec
+    from bdbnn_tpu_torch.serve.loadgen import HttpLoadGenerator, build_schedule
+
+    engine = InferenceEngine(art, buckets=SH_BUCKETS, device="cuda", packed=True)
+    decode, encode = image_codec(224)
+    fe = HttpFrontEnd(
+        MicroBatcher(lambda xs: engine.predict_logits(np.stack(xs)), max_batch=SH_BUCKETS[-1],
+                     max_queue=64, max_delay_ms=5.0, priorities=3),
+        AdmissionController(default_rate=1e9, default_burst=1e9), decode=decode, encode=encode,
+        port=0)
+    host, port = fe.start()
+    images = np.random.default_rng(0).standard_normal((32, 224, 224, 3)).astype(np.float32)
+    bodies = [x.tobytes() for x in images]
+    sched = build_schedule("poisson", requests=requests, rate=rate, seed=0)
+    reset_counts()
+    fw0 = engine.forwards
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            raw = HttpLoadGenerator(host, port, sched, body_fn=lambda i: bodies[i % 32],
+                                    concurrency=16).run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fe.drain(60)
+    counts = {**read_counts(), **read_bf16_counts()}
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy, wall_ms, raw, counts, engine.forwards - fw0
+
+
+def phase_serve_http(art: str, smi_line: str, sb_thr=None):
+    """[serve-http]: the flagship served over loopback sockets through
+    ``serve-http`` (admission, the asyncio front end, the capacity plane,
+    the registry, the scenario load generator), every run's launches held
+    to 19 × its engines' forwards. ``sb_thr`` (serve-bench's closed-loop
+    throughput in this run, when it ran) caps the bench's rate. Returns
+    (launch counts summed over the runs, ok)."""
+    import threading
+
+    import numpy as np
+
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.loadgen import HttpLoadGenerator, build_schedule
+
+    t_phase = time.perf_counter()
+    log(f"[serve-http] {smi_line}")
+    oks = {}
+    total = {k: 0 for k in SB_COUNTED}
+    summary = {"device": smi_line}
+
+    def add(counts):
+        for k in SB_COUNTED:
+            total[k] += counts.get(k, 0)
+
+    engine = InferenceEngine(art, buckets=(1,), device="cuda")
+    rng = np.random.default_rng(21)
+    tern = rng.integers(-1, 2, size=(64, 224, 224, 3)).astype(np.float32)
+    alone = np.concatenate([engine.predict_logits(tern[i:i + 1]) for i in range(len(tern))])
+
+    with tempfile.TemporaryDirectory() as root:
+        # (a) serve mode, the client here, in another process than the server
+        def client_a(host, port):
+            seen, health = set(), True
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                status, _, body = sh_request(host, port, "GET", "/readyz")
+                seen.add((status, body["state"]))
+                health = health and sh_request(host, port, "GET", "/healthz")[0] == 200
+                if status == 200:
+                    break
+                time.sleep(0.01)
+            answers, wire = [None] * 64, []
+            for i in range(16):  # one at a time: each rides alone, bucket 1
+                s, _, b, secs = sh_predict(host, port, tern[i], raw=i % 2 == 0,
+                                           priority=i % 3, tenant=f"tenant-{'ab'[i % 2]}")
+                answers[i] = (s, b)
+                wire.append(secs * 1e3)
+
+            def worker(ids):
+                for i in ids:
+                    s, _, b, _ = sh_predict(host, port, tern[i], raw=i < 40, priority=i % 3,
+                                            tenant=f"tenant-{'ab'[i % 2]}")
+                    answers[i] = (s, b)
+
+            threads = [threading.Thread(target=worker, args=(range(16 + w, 64, 8),))
+                       for w in range(8)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            conc_s = time.perf_counter() - t0
+            # the schedule (b)'s calibration offers from the server's own
+            # process, offered from this one: what the in-process client costs
+            bodies = [x.astype("<f4").tobytes() for x in tern[:32]]
+            sat = HttpLoadGenerator(host, port, build_schedule(
+                "poisson", requests=SH_SAT_REQUESTS, rate=SH_SAT_RATE, seed=0),
+                body_fn=lambda i: bodies[i % 32], concurrency=16).run()
+            health = health and sh_request(host, port, "GET", "/healthz")[0] == 200
+            statsz = sh_request(host, port, "GET", "/statsz")
+            return {"readyz": sorted(seen), "health": health, "answers": answers,
+                    "wire_ms": wire, "concurrent_s": conc_s, "statsz": statsz, "sat": sat}
+
+        a = sh_cli(root, art, ["--default-quota", SH_QUOTA, "--packed-weights"], client=client_a)
+        add(a["counts"])
+        v, c = a["verdict"], a["client"]
+        if v is None or c is None:
+            log(f"[serve-http] (a) FAIL: exit {a['rc']}\n{a['err']}")
+            return total, False
+        wire = sh_wire_check(c["answers"], alone, "(a)")
+        ws = sorted(c["wire_ms"])
+        st_status, _, st = c["statsz"]
+        oks["a"] = (a["rc"] == 0 and (503, "warming") in c["readyz"] and (200, "ready") in
+                    c["readyz"] and c["health"] and wire["ok"] and st_status == 200
+                    and all(st.get(k) for k in ("batcher", "admission", "capacity"))
+                    and v["preempted"] is True and v["drained_clean"] is True
+                    and v["requests_completed"] == v["requests_submitted"] == 64 + SH_SAT_REQUESTS
+                    and c["sat"]["dropped"] == 0
+                    and v["capacity"]["demand"]["identity_ok"] is True
+                    and sh_launch_gate("(a)", a, "unpack"))
+        sat_rps = round(c["sat"]["responses"] / max(c["sat"]["wall_s"], 1e-9), 3)
+        raw_ms = sorted(c["wire_ms"][0::2])
+        json_ms = sorted(c["wire_ms"][1::2])
+        log(f"[serve-http] (a) serve mode, packed/unpack, client in this process and the "
+            f"server in another: /readyz states seen {c['readyz']}, /healthz 200 throughout "
+            f"{c['health']}; 16 requests one at a time, wire ms of the 8 raw float32 bodies "
+            f"p50 {raw_ms[4]:.3f} min {raw_ms[0]:.3f} max {raw_ms[-1]:.3f}, of the 8 JSON "
+            f"bodies p50 {json_ms[4]:.3f} min {json_ms[0]:.3f} max {json_ms[-1]:.3f}; 48 more "
+            f"(24 raw, 24 JSON) from 8 threads in {c['concurrent_s']:.3f} s "
+            f"({48 / c['concurrent_s']:.1f} req/s); then poisson at {SH_SAT_RATE} req/s "
+            f"offered, {SH_SAT_REQUESTS} raw requests on 16 connections from here: "
+            f"{sat_rps} req/s, client {c['sat']['by_status']} dropped {c['sat']['dropped']}, "
+            f"p99 by priority {c['sat']['p99_ms_by_priority']}; /statsz "
+            f"{st_status} with {sorted(st)}; SIGTERM: exit {a['rc']}, preempted "
+            f"{v['preempted']}, drained_clean {v['drained_clean']}; {sb_line(v)} "
+            f"({a['seconds']:.1f}s) ok={oks['a']}")
+        summary["a"] = {"wire_ms_raw": raw_ms, "wire_ms_json": json_ms,
+                        "concurrent_s": c["concurrent_s"], "wire": wire,
+                        "out_of_process_rps": sat_rps, "out_of_process": c["sat"],
+                        "per_priority": sh_per_priority(v),
+                        "attribution": sb_attribution(v["attribution"])}
+
+        # (b) bench mode, poisson, packed weights: R from a calibration run
+        base = ["--default-quota", SH_QUOTA, "--packed-weights", "--concurrency", "16"]
+        cal = sh_cli(root, art, [*base, "--scenario", "poisson", "--rate", str(SH_SAT_RATE),
+                                 "--requests", str(SH_SAT_REQUESTS)])
+        add(cal["counts"])
+        if cal["verdict"] is None:
+            log(f"[serve-http] (b) calibration FAIL: exit {cal['rc']}\n{cal['err']}")
+            return total, False
+        cal_thr = cal["verdict"]["throughput_rps"]
+        cc_ = cal["verdict"]["client"]
+        cal_client_rps = round(cc_["responses"] / max(cc_["wall_s"], 1e-9), 3)
+        log(f"[serve-http] (b) the GIL: the same poisson schedule ({SH_SAT_RATE} req/s offered, "
+            f"{SH_SAT_REQUESTS} requests, 16 connections) answered {cal_client_rps} req/s with "
+            f"the client in the server's process and {sat_rps} req/s with the client in "
+            f"another ((a)), as each client counts (responses over its wall)")
+        summary["gil"] = {"in_process_rps": cal_client_rps, "out_of_process_rps": sat_rps}
+        rate = 0.5 * cal_thr if sb_thr is None else min(0.5 * cal_thr, 0.5 * sb_thr)
+        rate = round(rate, 3)
+        oks["b_cal"] = sh_accounted(cal["verdict"]) and sh_launch_gate("(b) calibration", cal,
+                                                                       "unpack")
+        log(f"[serve-http] (b) calibration: poisson at {SH_SAT_RATE} req/s offered, "
+            f"{SH_SAT_REQUESTS} requests, "
+            f"packed: {sb_line(cal['verdict'])}; R = 0.5 × {cal_thr}"
+            + (f", capped at 0.5 × serve-bench's {sb_thr}" if sb_thr else "")
+            + f" = {rate} req/s ({cal['seconds']:.1f}s) ok={oks['b_cal']}")
+        b = sh_cli(root, art, [*base, "--scenario", "poisson", "--rate", str(rate),
+                               "--requests", "1024"])
+        add(b["counts"])
+        vb = b["verdict"]
+        att = (vb or {}).get("attribution") or {}
+        stages = {s for s, blk in (att.get("stages") or {}).items() if blk is not None}
+        oks["b"] = (b["rc"] == 0 and vb is not None and sh_accounted(vb)
+                    and {"read", "admit", "respond"} <= stages and vb["capacity"] is not None
+                    and sh_launch_gate("(b)", b, "unpack"))
+        if vb is not None:
+            log(f"[serve-http] (b) poisson at {rate} req/s, 1024 requests, concurrency 16, "
+                f"packed/unpack: {sb_line(vb)}; client {vb['client']}")
+            log(f"[serve-http] (b) per priority {json.dumps(sh_per_priority(vb))}")
+            log(f"[serve-http] (b) attribution {json.dumps(sb_attribution(att))}")
+            log(f"[serve-http] (b) capacity headroom {json.dumps(vb['capacity']['headroom'])} "
+                f"burn_rate_max {vb['capacity']['burn_rate_max']}")
+            summary["b"] = {"rate": rate, "calibration_rps": cal_thr,
+                            "throughput_rps": vb["throughput_rps"],
+                            "per_priority": sh_per_priority(vb),
+                            "attribution": sb_attribution(att)}
+        log(f"[serve-http] (b) exit {b['rc']} ({b['seconds']:.1f}s) ok={oks['b']}"
+            + ("" if vb is not None else f"\n{b['err']}"))
+        busy, wall, raw, counts, fw = sh_busy_share(art, rate)
+        add(counts)
+        oks["b_busy"] = raw["dropped"] == 0 and sb_launch_gate(
+            "(b) profiled", counts, [("unpack", fw, False)], phase="[serve-http]")
+        share = (f"busy share {busy / wall:.4f}, idle {1 - busy / wall:.4f}" if busy > 0
+                 else "the profiler saw no device time (busy share not measured)")
+        log(f"[serve-http] (b) device busy under HTTP load (packed/unpack, in process, 256 "
+            f"requests poisson at {rate} req/s, concurrency 16, torch.profiler on): {busy:.3f} "
+            f"ms of kernels in {wall:.3f} ms wall: {share}; client {raw['by_status']}; "
+            f"ok={oks['b_busy']}")
+        summary["b_busy"] = {"busy_ms": busy, "wall_ms": wall}
+
+        # (c) flash crowd ×8, dense: 10,000 requests with SIGTERM 3 s after
+        # ready (the burst window opens a third of the way through the
+        # schedule, 10000 / (3 R) s in); then 3,000 requests run to their
+        # end, whose burst opens 1000 / R s in, from 64 connections against
+        # 8-deep class queues (16 connections never fill the default
+        # 64-deep queues: the backlog would wait on the client's side)
+        for tag, n, term, extra in (
+                ("c", 10000, 3.0, []),
+                ("c_burst", 3000, None, ["--concurrency", "64", "--queue-depth", "8"])):
+            cc = sh_cli(root, art, ["--default-quota", SH_QUOTA, "--scenario", "flash_crowd",
+                                    "--rate", str(rate), "--flash-factor", "8", "--requests",
+                                    str(n), *extra], sigterm_after_ready_s=term)
+            add(cc["counts"])
+            vc = cc["verdict"]
+            if vc is None:
+                oks[tag] = False
+                log(f"[serve-http] ({tag}) FAIL: exit {cc['rc']}\n{cc['err']}")
+                continue
+            by = vc["client"]["by_status"]
+            explicit = set(by) <= {"200", "429", "503"} and (
+                by.get("429", 0) + by.get("503", 0) == vc["requests_shed"])
+            pp = vc["per_priority"]
+            oks[tag] = (cc["rc"] == 0 and vc["preempted"] is (term is not None)
+                        and sh_accounted(vc) and explicit
+                        and (vc["client"]["submitted"] < n if term else
+                             vc["client"]["submitted"] == n)
+                        and pp["0"]["shed_rate"] <= pp["2"]["shed_rate"]
+                        and sh_launch_gate(f"({tag})", cc, "dense"))
+            log(f"[serve-http] ({tag}) flash crowd at {rate} req/s × 8, {n} requests {extra}"
+                + (f", SIGTERM {term} s after ready" if term else "")
+                + f": exit {cc['rc']}, preempted {vc['preempted']}, {sb_line(vc)}; client "
+                f"{vc['client']}; shed rate by class "
+                f"{ {p: b['shed_rate'] for p, b in pp.items()} }; fairness_ratio "
+                f"{vc['fairness_ratio']} ({cc['seconds']:.1f}s) ok={oks[tag]}")
+            summary[tag] = {"per_priority": sh_per_priority(vc),
+                            "fairness_ratio": vc["fairness_ratio"], "client": vc["client"],
+                            "throughput_rps": vc["throughput_rps"]}
+
+        # (d) quotas: tenant-b on the default 20:20, tenant-a unlimited
+        def client_d(host, port):
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                if sh_request(host, port, "GET", "/readyz")[0] == 200:
+                    break
+                time.sleep(0.01)
+            got = [sh_predict(host, port, tern[i % 8], tenant="tenant-b")[:3] for i in range(30)]
+            got += [sh_predict(host, port, tern[i % 8], tenant="tenant-a")[:3] for i in range(5)]
+            return got
+
+        d = sh_cli(root, art, ["--scenario", "poisson", "--rate", str(rate), "--requests", "1024",
+                               "--default-quota", "20:20", "--tenant-quota",
+                               "tenant-a=100000:100000"], client=client_d)
+        add(d["counts"])
+        vd = d["verdict"]
+        if vd is not None and d["client"] is not None:
+            b429 = [x for x in d["client"][:30] if x[0] == 429]
+            a_codes = {x[0] for x in d["client"][30:]}
+            pt = vd["per_tenant"]
+            oks["d"] = (d["rc"] == 0 and bool(b429)
+                        and all(x[2]["error"] == "over_quota" and "retry-after" in x[1]
+                                for x in b429)
+                        and a_codes == {200} and pt["tenant-b"]["over_quota"] > 0
+                        and pt["tenant-a"]["over_quota"] == 0 and sh_accounted(vd)
+                        and sh_launch_gate("(d)", d, "dense"))
+            log(f"[serve-http] (d) quotas 20:20 default, tenant-a unlimited, poisson at {rate} "
+                f"req/s, 1024 requests, and 30 direct tenant-b + 5 tenant-a requests: direct "
+                f"tenant-b 429s {len(b429)} (over_quota with retry-after), tenant-a codes "
+                f"{sorted(a_codes)}; per tenant "
+                f"{ {t: {k: r[k] for k in ('submitted', 'completed', 'over_quota')} for t, r in pt.items()} }; "
+                f"client {vd['client']} ({d['seconds']:.1f}s) ok={oks['d']}")
+        else:
+            oks["d"] = False
+            log(f"[serve-http] (d) FAIL: exit {d['rc']}\n{d['err']}")
+
+        # (e) the registry and two resident flagship versions
+        second = os.path.join(root, "resnet18_react_seed1")
+        make_flagship_artifact(second, seed=1)
+        reg = os.path.join(root, "registry")
+        pubs = [subprocess.run([sys.executable, "-m", "bdbnn_tpu_torch.cli", "registry",
+                                "publish", p, "-r", reg], cwd=REPO, capture_output=True,
+                               text=True, timeout=300) for p in (art, second)]
+        res = subprocess.run([sys.executable, "-m", "bdbnn_tpu_torch.cli", "registry", "resolve",
+                              "v0002", "-r", reg], cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        e_alone = {"v0001": alone[:8],
+                   "v0002": np.concatenate([
+                       InferenceEngine(res.stdout.strip(), buckets=(1,), device="cuda")
+                       .predict_logits(tern[i:i + 1]) for i in range(8)])} if (
+            res.returncode == 0) else None
+
+        def client_e(host, port):
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                if sh_request(host, port, "GET", "/readyz")[0] == 200:
+                    break
+                time.sleep(0.01)
+            got = {m: [sh_predict(host, port, tern[i], model=m)[:3] for i in range(8)]
+                   for m in ("v0001", "v0002")}
+            got["bad"] = sh_predict(host, port, tern[0], model="v0009")[:3]
+            got["replicas"] = sh_request(host, port, "GET", "/admin/replicas")
+            return got
+
+        e = sh_cli(root, "v0001", ["--default-quota", SH_QUOTA, "--registry", reg,
+                                   "--resident-models", "2"], client=client_e)
+        add(e["counts"])
+        ve, ce = e["verdict"], e["client"]
+        if ve is not None and ce is not None and e_alone is not None:
+            checks = {m: sh_wire_check([(s, b) for s, _, b in ce[m]], e_alone[m], f"(e) {m}")
+                      for m in ("v0001", "v0002")}
+            differ = [b["result"]["logits"] for _, _, b in ce["v0001"]] != [
+                b["result"]["logits"] for _, _, b in ce["v0002"]]
+            # no engine ran for the unknown version: the forwards are the two
+            # engines' warmups and the 16 requests, one at a time
+            want_fw = 2 * len(SH_BUCKETS) + 16
+            oks["e"] = (all(p.returncode == 0 for p in pubs) and res.returncode == 0
+                        and all(ch["ok"] for ch in checks.values()) and differ
+                        and ce["bad"][0] == 404 and ce["replicas"][0] == 200
+                        and set(ve["resident"]["models"]) == {"default", "v0002"}
+                        and e["forwards"] == want_fw and ve["requests_rejected"] == 1
+                        and sh_launch_gate("(e)", e, "dense"))
+            log(f"[serve-http] (e) registry: two flagships published and v0002 resolved by "
+                f"the port's CLI; "
+                f"served as v0001 with --resident-models 2: answers differ across versions "
+                f"{differ}, x-model v0009 -> {ce['bad'][0]} {ce['bad'][2]}; resident "
+                f"{ {k: m['resident_bytes'] for k, m in ve['resident']['models'].items()} }; "
+                f"forwards {e['forwards']} (want {want_fw}) ({e['seconds']:.1f}s) ok={oks['e']}")
+        else:
+            oks["e"] = False
+            log(f"[serve-http] (e) FAIL: publish {[p.returncode for p in pubs]} resolve "
+                f"{res.returncode} serve exit {e['rc']}\n{e['err']}\n{res.stderr[-2000:]}")
+
+    ok = all(oks.values())
+    summary["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[serve-http] summary {json.dumps(summary)}")
+    log(f"[serve-http] gates {oks}; launches over the runs {total}; {summary['seconds']}s: "
+        f"ok={ok}")
     return total, ok
 
 
@@ -4153,6 +4713,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-bench", action="store_true",
                     help="only build the kernels, write the flagship artifact and run the "
                          "[serve-bench] phase (about 90 s); exits 0 when its gates pass")
+    ap.add_argument("--serve-http", action="store_true",
+                    help="only build the kernels, write the flagship artifact and run the "
+                         "[serve-http] phase (about 120 s); exits 0 when its gates pass")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4178,12 +4741,15 @@ def main(argv=None) -> int:
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     log_mma_instructions()
 
-    if args.serve_bench:
+    if args.serve_bench or args.serve_http:
         with tempfile.TemporaryDirectory() as tmp:
             art = os.path.join(tmp, "resnet18_react")
             make_flagship_artifact(art)
-            _, ok_sb = phase_serve_bench(art, smi_line)
-        return 0 if ok_sb else 1
+            if args.serve_bench:
+                _, ok_alone, _ = phase_serve_bench(art, smi_line)
+            else:
+                _, ok_alone = phase_serve_http(art, smi_line)
+        return 0 if ok_alone else 1
     if args.weight_kernels:
         wrecs, ok_w = phase_weight_kernels(pk)
         wrecs["K7"], ok_k7 = phase_k7(pk)
@@ -4202,7 +4768,8 @@ def main(argv=None) -> int:
         log(f"[main] wrote flagship artifact in {time.perf_counter() - t0:.1f}s")
         counts, ok_m = phase_main(art)
         ok_c = phase_cli(art)
-        sb_counts, ok_sb = phase_serve_bench(art, smi_line)
+        sb_counts, ok_sb, sb_thr = phase_serve_bench(art, smi_line)
+        sh_counts, ok_sh = phase_serve_http(art, smi_line, sb_thr)
     train_counts, _, ok_t = phase_train()
     time_host_input()
     ok_tp = phase_train_parity()
@@ -4245,10 +4812,12 @@ def main(argv=None) -> int:
     # path's mp run (K1, K2, K5-K7), on the bf16 flagship's (K1, K2,
     # K5-K7), and on the data-parallel job's two ranks (K1, K2, K5-K7,
     # both ranks' launches summed), and on the serve-bench runs (K1-K4; the
-    # sum over its runs). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # sum over its runs), and on the serve-http runs (K1-K3; the sum over
+    # its runs and its in-process profiled load). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
     # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
+                   "serve-http": sh_counts.get(k, 0),
                    "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
                    "train-resume": resume_counts.get(k, 0),
@@ -4269,7 +4838,8 @@ def main(argv=None) -> int:
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
         for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder",
                      "train-bf16", "train-ddp")) and all(
-        by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16"))
+        by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16")) and all(
+        by_path[k]["serve-http"] > 0 for k in ("K1", "K2", "K3"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -4316,7 +4886,7 @@ def main(argv=None) -> int:
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
-           "serve_bench": ok_sb,
+           "serve_bench": ok_sb, "serve_http": ok_sh,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td, "launched": ok_used}

@@ -19,7 +19,10 @@ where the sampled dW is far from the hard one. The bf16 modes: K1 bitwise
 its plain bf16 version (hard sign and draw), K2's sign bitwise and its
 alpha within one bf16 rounding, K5 and K6 within the f32 summation bound
 plus a bf16 rounding on each side, all bitwise across two runs and
-counted apart (``launches_bf16``). Every test here is marked ``cuda`` and
+counted apart (``launches_bf16``). The HTTP front end over the flagship
+engine on ``cuda:0`` answers 8 requests over loopback, each bitwise the
+engine's logits of the batch it rode in, rounded to 4 places. Every test
+here is marked ``cuda`` and
 skips with a reason where no CUDA device exists (this file imports torch
 and the port only, no JAX). On the GPU machine:
 
@@ -709,3 +712,72 @@ def test_two_gloo_ranks_on_one_card_step_as_one_process(cuda):
     assert max(cmp["grad_err"].values()) <= 1e-3, cmp["grad_err"]
     assert not chip_smoke.state_diff(ranks[0]["state"], ranks[1]["state"])
     assert all(r["launches"][k] > 0 for r in ranks for k in ("K1", "K2", "K5", "K6"))
+
+
+@pytest.mark.cuda
+def test_http_front_end_over_the_flagship_engine(cuda, tmp_path):
+    """``HttpFrontEnd`` over the flagship engine on ``cuda:0``: 8 raw
+    float32 requests at once over loopback, every answer equal to the
+    engine's logits of the batch it rode in (recomputed on the same
+    batch), rounded to 4 places, with the argmax as ``pred``; /readyz
+    reads the engine's warm state."""
+    import json
+    import socket
+    import threading
+
+    import chip_smoke
+    from bdbnn_tpu_torch.serve.admission import AdmissionController
+    from bdbnn_tpu_torch.serve.batching import MicroBatcher
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.http import HttpFrontEnd, image_codec
+    from bdbnn_tpu_torch.serve.loadgen import recv_response
+
+    art = str(tmp_path / "resnet18_react")
+    chip_smoke.make_flagship_artifact(art)
+    engine = InferenceEngine(art, buckets=(1, 8), device="cuda", warm=False)
+    batches = []
+
+    def runner(xs):
+        out = engine.predict_logits(np.stack(xs))
+        batches.append((np.stack(xs), out))
+        return out
+
+    decode, encode = image_codec(224)
+    fe = HttpFrontEnd(MicroBatcher(runner, max_batch=8, max_queue=16, max_delay_ms=50.0,
+                                   priorities=3),
+                      AdmissionController(default_rate=1e9, default_burst=1e9),
+                      ready_fn=lambda: engine.warmed, decode=decode, encode=encode, port=0)
+    host, port = fe.start()
+
+    def call(method, path, body=b"", headers=None):
+        with socket.create_connection((host, port), timeout=60) as s:
+            head = f"{method} {path} HTTP/1.1\r\nhost: t\r\ncontent-length: {len(body)}\r\n"
+            for k, v in (headers or {}).items():
+                head += f"{k}: {v}\r\n"
+            s.sendall((head + "connection: close\r\n\r\n").encode("latin-1") + body)
+            status, _, raw = recv_response(s.makefile("rb"))
+            return status, json.loads(raw)
+
+    try:
+        assert call("GET", "/readyz")[0] == 503
+        engine.warmup()
+        assert call("GET", "/readyz")[0] == 200
+        x = np.random.default_rng(3).integers(-1, 2, size=(8, 224, 224, 3)).astype(np.float32)
+        answers = {}
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, call(
+            "POST", "/v1/predict", x[i].astype("<f4").tobytes(),
+            {"content-type": "application/octet-stream", "x-priority": str(i % 3)})))
+            for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        assert fe.drain(timeout=60)
+    assert sorted(answers) == list(range(8)) and all(a[0] == 200 for a in answers.values())
+    for batch, out in batches:
+        want = engine.predict_logits(batch)
+        assert np.array_equal(out.view(np.uint32), want.view(np.uint32))
+        for row, img in enumerate(batch):
+            (i,) = [i for i in range(8) if np.array_equal(x[i], img)]
+            assert answers[i][1]["result"] == encode(want[row])

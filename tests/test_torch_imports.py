@@ -94,6 +94,16 @@ def test_serving_stack_modules_are_scanned():
         assert os.path.join("bdbnn_tpu_torch", mod) in rel
 
 
+def test_http_slice_modules_are_scanned():
+    """The scans above cover the serve-http slice's modules: the front
+    end, admission control, the artifact registry, the capacity plane and
+    the detector discipline it builds on."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("serve/http.py", "serve/admission.py", "serve/registry.py", "obs/capacity.py",
+                "obs/health.py", "serve/loadgen.py", "serve/config.py", "cli.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
 def test_a_spawned_decode_worker_imports_no_jax_and_no_torch(tmp_path):
     """A worker of ``MPImageFolderPipeline`` after it built a batch: the
     modules it holds include the port's pipeline and PIL, and nothing of

@@ -133,10 +133,11 @@ def _emit_calls(path, skip_functions=()):
     return out
 
 
-# the kinds a ``serve-bench`` run dir adds (serve/loadgen.py): the port's
-# ``memory`` events are its serving residency alone, and the training
-# ``memory`` events the reference's fit emits wait for ROADMAP A Later 7
-SERVE_KINDS = {"serve", "rtrace", "replica", "memory"}
+# the kinds a ``serve-bench`` run dir adds (serve/loadgen.py), and those a
+# ``serve-http`` run dir adds (serve/http.py): the port's ``memory`` events
+# are its serving residency alone, and the training ``memory`` events the
+# reference's fit emits wait for ROADMAP A Later 7
+SERVE_KINDS = {"serve", "rtrace", "replica", "memory", "http", "admission", "capacity"}
 TRAIN_KINDS = KNOWN_KINDS - SERVE_KINDS
 
 
