@@ -27,6 +27,19 @@ names and field names, so the reference's ``summarize``, ``watch`` and
 - ``data_error``  — an undecodable image was replaced by its next
   decodable neighbour (the folder pipelines): ``index``, ``substitute``,
   ``path``, ``error``, with ``epoch`` (train) or ``where="eval"``
+- ``profile``     — a profiler capture window closed (obs/trace.py):
+  ``epoch``, ``start_step``, ``steps`` traced, ``trace_dir``
+- ``memory``      — allocator watermark poll (obs/memory.py), by
+  ``phase``: ``post_compile`` (after the first step) and ``epoch`` (at an
+  epoch's end): ``available``, per-device rows, ``peak_bytes``,
+  ``limit_bytes``
+- ``alert``       — a health detector fired (obs/health.py): detector,
+  severity (``critical`` is run-ending for ``summarize --strict``),
+  epoch/step, the value against its threshold and a message; may be
+  followed by auto-forensics (a ``checkpoint`` event with reason
+  ``forensics`` and a ``profile`` window)
+- ``health``      — run-end health summary: intervals observed, alert
+  totals (overall and critical) and per-detector counts
 - ``run_end``     — best acc/epoch, total wall seconds
 - ``export``      — a checkpoint was frozen into a serving artifact
   (serve/export.py), appended to the source run's timeline
@@ -79,6 +92,26 @@ A ``serve-http`` run dir (serve/http.py) adds three more, and its
   ``recovered`` (the latched detector's fast window fell back under
   budget; the episode lands in the verdict's ``capacity`` block)
 
+The rollouts (serve/pool.py, serve/canary.py) add three more:
+
+- ``swap``        — a blue/green rollout, by ``phase``: ``trigger`` (the
+  swap-under-load orchestration fired at a schedule position),
+  ``start`` (version_from/version_to, replica count; ``canary`` true
+  when the rollout runs the canary stage), ``warm`` (one standby runner
+  built and warmed), ``shift`` (one replica drained its vN work and now
+  serves vN+1), ``done`` (seconds, replicas shifted), ``failed`` (the
+  standby build aborted — vN kept serving; the error) and
+  ``rolled_back`` (the canary stage rolled the rollout back: trigger,
+  seconds)
+- ``canary``      — one canary episode, by ``phase``: ``start``,
+  ``observing``, ``evaluate`` (the per-detector evidence table, cohort
+  served counts, the running decision), ``decision`` (resolved at the
+  observation budget), ``rollback`` (one canary replica restored vN) and
+  ``promote``; the episode also lands in the verdict's ``canary`` block
+- ``shadow``      — the logit-drift probe, phase ``mirror``: one sampled
+  incumbent batch also ran on the canary, ``drift`` its max absolute
+  logit difference
+
 :meth:`EventWriter.emit` refuses a kind not in :data:`KNOWN_KINDS`
 (``ValueError``) and writes no non-finite number: :func:`jsonsafe` puts
 ``null`` in its place (a bare ``NaN`` token is not JSON; the
@@ -108,10 +141,13 @@ KNOWN_KINDS = frozenset(
         "epoch",
         "eval",
         "nonfinite",
+        "profile",
         "checkpoint",
         "restore",
         "preempt",
         "data_error",
+        "alert",
+        "health",
         "run_end",
         "export",
         "serve",
@@ -121,6 +157,9 @@ KNOWN_KINDS = frozenset(
         "http",
         "admission",
         "capacity",
+        "swap",
+        "canary",
+        "shadow",
     }
 )
 

@@ -1,7 +1,8 @@
 """Serving: export artifacts, the bucketed inference engine, the
 ``serve-bench`` stack — micro-batcher, replica pool, load generator and
 SLO verdict — and the ``serve-http`` front end with its admission
-control, artifact registry and scenario load generator."""
+control, artifact registry, scenario load generator and rollouts
+(blue/green swap, canary, shadow)."""
 
 from bdbnn_tpu_torch.serve.admission import (
     AdmissionController,
@@ -10,6 +11,12 @@ from bdbnn_tpu_torch.serve.admission import (
     parse_tenant_quotas,
 )
 from bdbnn_tpu_torch.serve.batching import LoadShedError, MicroBatcher
+from bdbnn_tpu_torch.serve.canary import (
+    CanaryConfig,
+    CanaryMonitor,
+    apply_canary_overrides,
+    assign_canary,
+)
 from bdbnn_tpu_torch.serve.config import ServeBenchConfig, ServeHttpConfig
 from bdbnn_tpu_torch.serve.engine import (
     DEFAULT_BUCKETS,
@@ -65,6 +72,8 @@ __all__ = [
     "AdmissionController",
     "ArtifactRegistry",
     "Arrival",
+    "CanaryConfig",
+    "CanaryMonitor",
     "HttpFrontEnd",
     "HttpLoadGenerator",
     "InferenceEngine",
@@ -78,6 +87,8 @@ __all__ = [
     "ServeBenchConfig",
     "ServeHttpConfig",
     "TokenBucket",
+    "apply_canary_overrides",
+    "assign_canary",
     "build_schedule",
     "evaluate_split",
     "fairness_ratio",

@@ -146,10 +146,6 @@ class ServeBenchConfig:
         return self
 
 
-# where the refused rollout options stand in the ROADMAP
-ROLLOUTS_ITEM = "ROADMAP A 'Later' 12 (rollouts)"
-
-
 @dataclasses.dataclass(frozen=True)
 class ServeHttpConfig:
     """Typed configuration of the ``serve-http`` CLI (serve/http.py).
@@ -161,9 +157,11 @@ class ServeHttpConfig:
 
     The rollout knobs (``swap_to``, ``swap_at``, ``canary_fraction``,
     ``canary_replicas``, ``shadow_every``, ``canary_thresholds``) keep
-    the reference's names, defaults and range checks, and a value other
-    than the default raises ``NotImplementedError`` naming their ROADMAP
-    item: blue/green swap and canary rollouts are not ported.
+    the reference's names, defaults and range checks, with one
+    departure: a swap under load (``--swap-at``) runs on one replica,
+    since one card holds one replica; the batches assembled while it
+    shifts are shed, and the verdict's ``swap`` block counts them. A
+    canary still needs two replicas.
     """
 
     artifact: str  # export artifact dir (serve/export.py)
@@ -400,14 +398,6 @@ class ServeHttpConfig:
                 "the requested swap would exit 0 and read as a met "
                 "rollout contract"
             )
-        if self.swap_at > 0 and self.replicas < 2:
-            raise ValueError(
-                "swap-under-load needs --replicas >= 2: the blue/green "
-                "shift takes the shifting replica out of the dispatch "
-                "set while peers absorb its load — with one replica "
-                "every batch assembled during the shift would shed, "
-                "failing the zero-shed gate by construction"
-            )
         if not 0.0 <= self.canary_fraction < 1.0:
             raise ValueError(
                 "--canary-fraction is the traffic fraction routed to "
@@ -434,19 +424,12 @@ class ServeHttpConfig:
                 "--shadow-every must be >= 0 (0 disables the "
                 "logit-drift probe)"
             )
-        # the rollout options, set away from their defaults
-        for flag, value, default in (
-            ("--swap-to", self.swap_to, ""),
-            ("--swap-at", self.swap_at, 0.0),
-            ("--canary-fraction", self.canary_fraction, 0.0),
-            ("--canary-replicas", self.canary_replicas, 1),
-            ("--shadow-every", self.shadow_every, 8),
-            ("--canary-threshold", self.canary_thresholds, ()),
-        ):
-            if value != default:
-                raise NotImplementedError(
-                    f"option {flag!r} is not ported yet: {ROLLOUTS_ITEM}"
-                )
+        if self.canary_thresholds:
+            # unknown detector-threshold names fail at config time, not
+            # mid-rollout (the --health-threshold precedent)
+            from bdbnn_tpu_torch.serve.canary import CanaryConfig, apply_canary_overrides
+
+            apply_canary_overrides(CanaryConfig(), self.canary_thresholds)
         if self.replica_queue_batches <= 0:
             raise ValueError("--replica-queue-batches must be >= 1")
         if self.wedge_timeout_s <= 0:
@@ -529,4 +512,4 @@ class ServeHttpConfig:
         return self
 
 
-__all__ = ["ROLLOUTS_ITEM", "ServeBenchConfig", "ServeHttpConfig"]
+__all__ = ["ServeBenchConfig", "ServeHttpConfig"]

@@ -36,10 +36,11 @@ Endpoints:
                       (obs/capacity.py) and — when tracing is on — the
                       live request-path stage histograms
                       (obs/rtrace.py: per-stage p99, queue share).
-``GET /admin/*``      with a replica pool: ``/admin/replicas`` (the
-                      per-replica table) and ``/admin/swap`` (the swap
-                      status, idle). ``POST /admin/swap`` answers 501:
-                      rollouts are not ported (ROADMAP A, Later 12).
+``/admin/*``          with a replica pool: ``GET /admin/replicas`` (the
+                      per-replica table), ``GET /admin/swap`` (the swap
+                      state machine's status) and ``POST /admin/swap``
+                      (``{"version": N}`` or ``{"artifact": dir}``:
+                      starts a blue/green rollout, 202).
 ==================  ====================================================
 
 **Drain contract (the batcher's drain extended over sockets).** SIGTERM
@@ -73,6 +74,7 @@ from bdbnn_tpu_torch.obs.rtrace import (
     TRACE_HEADER,
     encode_stage_header,
     parse_trace_context,
+    pop_future_answered_by,
 )
 from bdbnn_tpu_torch.serve.admission import (
     ADMIT,
@@ -82,7 +84,6 @@ from bdbnn_tpu_torch.serve.admission import (
     AdmissionController,
 )
 from bdbnn_tpu_torch.serve.batching import LoadShedError, MicroBatcher
-from bdbnn_tpu_torch.serve.config import ROLLOUTS_ITEM
 from bdbnn_tpu_torch.serve.pool import DEFAULT_MODEL
 
 _REASONS = {
@@ -92,7 +93,6 @@ _REASONS = {
     413: "Payload Too Large",
     429: "Too Many Requests",
     500: "Internal Server Error",
-    501: "Not Implemented",
     503: "Service Unavailable",
 }
 
@@ -148,9 +148,16 @@ class HttpFrontEnd:
         tracer: Optional[Any] = None,
         server_id: Optional[str] = None,
         capacity: Optional[CapacityPlane] = None,
+        canary: Optional[Any] = None,
     ):
         self.batcher = batcher
         self.admission = admission
+        # canary monitor (serve/canary.py): when wired, every served
+        # request's (priority, latency, answered-by version) feeds the
+        # per-cohort latency windows the rollout verdict judges. The
+        # monitor ignores feeds outside an armed episode, so this
+        # costs one attribute read per request when no rollout runs.
+        self.canary = canary
         # capacity observatory (obs/capacity.py): every request feeds
         # the per-(model, tenant, priority) demand ledger and — on its
         # terminal disposition — the SLO budget plane. Always present
@@ -183,8 +190,8 @@ class HttpFrontEnd:
         )
         self.retry_after_s = int(retry_after_s)
         # the replica-pool operator surface (serve/pool.py:PoolAdmin):
-        # GET /admin/replicas, GET /admin/swap. None = the admin routes
-        # 404 (single-engine serving has no pool to administer).
+        # GET /admin/replicas, GET/POST /admin/swap. None = the admin
+        # routes 404 (single-engine serving has no pool to administer).
         self.admin = admin
         # multi-model residency (serve/pool.py ResidentModelCache):
         # maps an ``x-model`` header value to a model key the batcher
@@ -486,11 +493,14 @@ class HttpFrontEnd:
             )
 
     async def _admin(self, writer, method, path, body) -> None:
-        """The replica-pool operator routes, read side: ``GET
-        /admin/replicas`` = the live per-replica table (device, version,
-        health, queue depth, completed); ``GET /admin/swap`` = the swap
-        state machine's status. ``POST /admin/swap`` (a blue/green
-        rollout) answers 501: rollouts are not ported."""
+        """The replica-pool operator routes. ``GET /admin/replicas`` =
+        the live per-replica table (device, version, health, queue
+        depth, completed); ``GET /admin/swap`` = the swap state
+        machine's status; ``POST /admin/swap`` with ``{"version": N}``
+        (registry, digest-verified) or ``{"artifact": "/dir"}`` starts
+        a blue/green rollout and returns 202 while traffic keeps
+        flowing — the rollout is the pool's, the route only triggers
+        it."""
         if self.admin is None:
             self._respond(writer, 404, {
                 "error": "no replica pool behind this server "
@@ -502,9 +512,26 @@ class HttpFrontEnd:
         elif method == "GET" and path == "/admin/swap":
             self._respond(writer, 200, self.admin.swap_status())
         elif method == "POST" and path == "/admin/swap":
-            self._respond(writer, 501, {
-                "error": f"POST /admin/swap is not ported yet: {ROLLOUTS_ITEM}",
-            })
+            try:
+                spec = json.loads(body) if body else {}
+            except Exception as e:
+                self._respond(
+                    writer, 400, {"error": f"undecodable body: {e}"}
+                )
+                return
+            if not isinstance(spec, dict):
+                self._respond(
+                    writer, 400,
+                    {"error": "swap body must be a JSON object"},
+                )
+                return
+            # off the event loop: start_swap digest-verifies the target
+            # (hashes the weights payload) before spawning the rollout
+            # thread — run inline it would stall every in-flight
+            # connection for the duration
+            status, payload = await asyncio.get_event_loop(
+            ).run_in_executor(None, self.admin.start_swap, spec)
+            self._respond(writer, status, payload)
         else:
             self._respond(
                 writer, 404, {"error": f"no route {method} {path}"}
@@ -717,6 +744,14 @@ class HttpFrontEnd:
             return
         lat_ms = (time.perf_counter() - t0) * 1000.0
         self._lat_by_priority[priority].append(lat_ms)
+        if self.canary is not None:
+            # cohort truth is who ANSWERED: the version label rides
+            # the request future (obs/rtrace.py), so a canary-assigned
+            # batch that fell back to the incumbent feeds the
+            # incumbent's window
+            self.canary.record_served(
+                priority, lat_ms, pop_future_answered_by(fut)
+            )
         counts["completed"] += 1
         self.admission.record_completed(tenant)
         cap.ledger.admitted(ledger_model, tenant, priority)
@@ -805,8 +840,11 @@ class HttpFrontEnd:
             "rtrace": (
                 self.tracer.stats() if self.tracer is not None else None
             ),
-            # the live canary view: null, rollouts are not ported
-            "canary": None,
+            # the live canary view while a rollout observes: per-
+            # detector status, cohort served counts, drift so far
+            "canary": (
+                self.canary.live() if self.canary is not None else None
+            ),
             # the live capacity block (obs/capacity.py): demand table,
             # utilization gauges, burn-rate peek + headroom estimate
             "capacity": self.capacity.live_block(),
@@ -887,8 +925,12 @@ def run_serve_http(cfg, degrade=None) -> Dict[str, Any]:
     ``serve-http`` CLI body). ``cfg`` is a
     :class:`bdbnn_tpu_torch.serve.config.ServeHttpConfig`. Raises before
     anything runs when the config asks for the card (the default) and
-    there is none. ``degrade`` (the reference's fault injection into a
-    rollout's new version) is refused with the rollouts.
+    there is none. ``degrade`` (tests and canary drills only — never a
+    CLI flag) is the fault-injection spec threaded into the pool's runner
+    factory (serve/pool.py ``_apply_degradation``): per-version latency
+    inflation, error rate, or logit perturbation, so the auto-rollback
+    path can be proven against a genuinely degraded vN+1 through the
+    real orchestration.
 
     Two modes sharing one server lifecycle:
 
@@ -908,19 +950,15 @@ def run_serve_http(cfg, degrade=None) -> Dict[str, Any]:
     from bdbnn_tpu_torch import resolve_device
     from bdbnn_tpu_torch.train.resilience import PreemptionHandler
 
-    if degrade is not None:
-        raise NotImplementedError(
-            f"fault injection (degrade) is not ported yet: {ROLLOUTS_ITEM}"
-        )
     cfg = cfg.validate()
     resolve_device(cfg.device)
     # the SIGTERM latch covers the WHOLE run — a preemption during the
     # warmup must drain-and-report, not die with the default disposition
     with PreemptionHandler() as handler:
-        return _serve_http_body(cfg, handler)
+        return _serve_http_body(cfg, handler, degrade)
 
 
-def _serve_http_body(cfg, handler) -> Dict[str, Any]:
+def _serve_http_body(cfg, handler, degrade=None) -> Dict[str, Any]:
     import datetime
 
     import numpy as np
@@ -1007,12 +1045,15 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
             "replicas": cfg.replicas,
             "registry": os.path.abspath(cfg.registry) if cfg.registry
             else None,
-            # the rollout knobs, unset (validate refuses any other value)
-            "swap_to": None,
-            "swap_at": None,
-            "canary_fraction": None,
-            "canary_replicas": None,
-            "shadow_every": None,
+            "swap_to": cfg.swap_to or None,
+            "swap_at": cfg.swap_at or None,
+            "canary_fraction": cfg.canary_fraction or None,
+            "canary_replicas": (
+                cfg.canary_replicas if cfg.canary_fraction else None
+            ),
+            "shadow_every": (
+                cfg.shadow_every if cfg.canary_fraction else None
+            ),
             "packed_weights": cfg.packed_weights,
             "packed_impl": cfg.packed_impl,
             "resident_models": cfg.resident_models,
@@ -1183,6 +1224,24 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
                     f"{e.args[0] if e.args else e}"
                 )
 
+    # the canary monitor (serve/canary.py): one long-lived instance,
+    # armed per rollout episode by the pool — the front end feeds it
+    # served latencies, the replica workers feed it batch splits, and
+    # its live verdict decides promote vs auto-rollback
+    canary_monitor = None
+    if cfg.canary_fraction > 0:
+        from bdbnn_tpu_torch.serve.canary import (
+            CanaryConfig,
+            CanaryMonitor,
+            apply_canary_overrides,
+        )
+
+        canary_monitor = CanaryMonitor(
+            apply_canary_overrides(CanaryConfig(), cfg.canary_thresholds),
+            priorities=cfg.priorities,
+            on_event=lambda kind, **f: events.emit(kind, **f),
+        )
+
     # the capacity observatory (obs/capacity.py): burn-rate windows
     # scale with the stats cadence — the pump is the only detector
     # clock, so ~5 ticks of fast window / ~30 of slow keeps the
@@ -1218,6 +1277,7 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
         tracer=tracer,
         server_id=cfg.server_id or None,
         capacity=capacity_plane,
+        canary=canary_monitor,
     )
     host, port = front.start()
     events.emit(
@@ -1239,6 +1299,7 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
         version=version_label if cfg.pooled else None,
     )
     factory = None
+    admin = None
     if cfg.pooled:
         # build the replica set: one engine per card, warmed by the
         # factory — readyz stays 503 "warming" until the whole set is
@@ -1261,6 +1322,7 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
             resident_models=cfg.resident_models,
             model_dirs=model_dirs,
             on_event=lambda kind, **f: events.emit(kind, **f),
+            degrade=degrade,
         )
         pool = ReplicaPool(
             factory,
@@ -1283,7 +1345,31 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
                 for key in sorted(k for k in keys if k is not None):
                     cache.get(key)
         pool_ref.append(pool)  # readyz flips 200 from here
-        front.admin = PoolAdmin(pool)
+        admin = PoolAdmin(
+            pool,
+            registry=registry,
+            # "shed caused during the swap window" across BOTH layers:
+            # the front batcher's per-class queues and the pool's
+            # replica queues — both in REQUEST units (the pool also
+            # counts shed batches, a different unit)
+            shed_counter=lambda: (
+                batcher.stats()["shed"] + pool.stats()["shed_requests"]
+            ),
+            # --canary-fraction > 0 turns every triggered rollout into
+            # a canary rollout: the monitor's live verdict promotes or
+            # auto-rolls-back instead of an unconditional full shift
+            canary=(
+                {
+                    "monitor": canary_monitor,
+                    "fraction": cfg.canary_fraction,
+                    "replicas": cfg.canary_replicas,
+                    "shadow_every": cfg.shadow_every,
+                    "seed": cfg.seed,
+                }
+                if canary_monitor is not None else None
+            ),
+        )
+        front.admin = admin
         warmup_s = dict(warm_compile)
     else:
         pool = None
@@ -1315,7 +1401,7 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
 
     def _forwards() -> int:
         if cfg.pooled:
-            return sum(c.forwards() for c in factory.caches)
+            return factory.forwards()
         return engine.forwards
 
     resident_now = _resident_snapshot()
@@ -1464,6 +1550,63 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
                     if cfg.model_weights else None
                 ),
             )
+            # swap-under-load: after --swap-at of the schedule has been
+            # OFFERED, fire the same blue/green rollout the admin
+            # endpoint exposes — the bench then shows every request
+            # answered through the swap, and what it shed
+            on_arrival = None
+            if cfg.swap_at > 0 and admin is not None:
+                threshold = max(int(cfg.swap_at * len(schedule)), 1)
+                swap_fired: List[bool] = []
+                from bdbnn_tpu_torch.serve.registry import (
+                    looks_like_version,
+                    parse_version,
+                )
+
+                if registry is not None and looks_like_version(
+                    cfg.swap_to
+                ):
+                    swap_spec: Dict[str, Any] = {
+                        "version": parse_version(cfg.swap_to)
+                    }
+                else:
+                    swap_spec = {"artifact": cfg.swap_to}
+
+                def on_arrival(i: int) -> None:
+                    if not swap_fired and i + 1 >= threshold:
+                        swap_fired.append(True)
+
+                        # fire OFF the arrival-scheduling thread:
+                        # start_swap digest-verifies the target before
+                        # returning, and a stall here would offer every
+                        # later arrival late — inflating exactly the
+                        # latencies the swap-under-load bench measures
+                        def _fire(at=i + 1):
+                            status, payload = admin.start_swap(
+                                swap_spec
+                            )
+                            if status != 202:
+                                # a rejected SCHEDULED swap must land
+                                # in the verdict as not-performed — a
+                                # bad --swap-to exiting 0 would read
+                                # as a met rollout contract
+                                admin.note_request_failed(
+                                    cfg.swap_to, payload.get("error")
+                                )
+                            events.emit(
+                                "swap",
+                                phase="trigger",
+                                at_request=at,
+                                of=len(schedule),
+                                status=status,
+                                **payload,
+                            )
+
+                        threading.Thread(
+                            target=_fire, name="swap-trigger",
+                            daemon=True,
+                        ).start()
+
             gen = HttpLoadGenerator(
                 host,
                 port,
@@ -1473,6 +1616,7 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
                 stop_fn=lambda: handler.preempted,
                 slow_chunks=cfg.slow_chunks,
                 slow_gap_s=cfg.slow_gap_ms / 1000.0,
+                on_arrival=on_arrival,
             )
             client_raw = gen.run()
         else:
@@ -1487,6 +1631,10 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
             preempted=preempted,
         )
         drained_clean = front.drain(timeout=120.0)
+        if admin is not None:
+            # let an in-flight rollout settle before the pool winds
+            # down — its report belongs in the verdict either way
+            admin.wait(timeout=30.0)
         if pool is not None:
             drained_clean = pool.drain(timeout=60.0) and drained_clean
         stats_stop.set()
@@ -1554,10 +1702,14 @@ def _serve_http_body(cfg, handler) -> Dict[str, Any]:
             _pool_replicas_block(pool.stats()) if pool is not None
             else None
         ),
+        swap=admin.swap_report() if admin is not None else None,
         resident=resident_final,
         packed=packed_block,
         attribution=(
             tracer.attribution() if tracer is not None else None
+        ),
+        canary=(
+            admin.canary_report() if admin is not None else None
         ),
         capacity=capacity_plane.verdict_block(),
     )

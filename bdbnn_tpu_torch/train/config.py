@@ -14,10 +14,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 from bdbnn_tpu_torch.nn.binarize import resolve_family
+from bdbnn_tpu_torch.obs.health import HealthConfig, apply_overrides
+from bdbnn_tpu_torch.obs.trace import parse_profile_at
 from bdbnn_tpu_torch.parallel.mesh import TENSOR_PARALLEL
-
-# ROADMAP A "Later" items, by number
-OBS = "item 7: obs, scripts"
 
 # the reference's tf.data input engine (``TFDataImageFolderPipeline``,
 # bdbnn_tpu/data/pipeline.py:695) runs on TensorFlow, which the GPU
@@ -30,11 +29,6 @@ TFDATA_UNPORTED = (
 # field -> ROADMAP item; asked for when the value differs from the default
 UNSUPPORTED = {
     "model_parallel": TENSOR_PARALLEL,
-    "profile_dir": OBS,
-    "profile_at": OBS,
-    "health_forensics_steps": OBS,
-    "health_max_forensics": OBS,
-    "health_thresholds": OBS,
 }
 
 
@@ -167,6 +161,18 @@ class RunConfig:
             raise ValueError(f"unknown input_backend {self.input_backend!r}")
         if self.nonfinite_policy not in ("raise", "warn", "ignore"):
             raise ValueError(f"unknown nonfinite_policy {self.nonfinite_policy!r} (raise | warn | ignore)")
+        if self.profile_at:
+            # fail at config time, not at the target epoch hours in
+            for spec in self.profile_at:
+                parse_profile_at(spec, default_steps=self.profile_steps)
+        if self.health_thresholds:
+            # unknown detector-threshold names fail at config time, not
+            # at the first drain hours into the run
+            apply_overrides(HealthConfig(), self.health_thresholds)
+        if self.health_forensics_steps < 1:
+            raise ValueError("--health-forensics-steps must be >= 1")
+        if self.health_max_forensics < 0:
+            raise ValueError("--health-max-forensics must be >= 0")
         if not 0.0 <= self.target_acc < 100.0:
             raise ValueError(f"target_acc is a top-1 PERCENTAGE in [0, 100), got {self.target_acc!r}")
         if self.events_max_mb < 0:

@@ -59,14 +59,26 @@ and restores onto any number of ranks (the (epoch, step) cursor is
 global), with ``resharded`` in the ``restore`` event when the layout
 changed.
 
-Not in this slice (``RunConfig.validate`` raises for each option, naming
-its ROADMAP item): profiling windows and the ``memory`` event (item 7),
-tensor parallelism (item 9). The health monitor (item 7) is not ported: a
-run with ``cfg.health`` on (the default) says so in one warning.
+The health monitor (obs/health.py, on unless ``--no-health``) reads each
+drain's already-fetched floats and the ``memory`` events (after the first
+step and at each epoch's end, obs/memory.py); an alert is an ``alert``
+event and, with ``--health-forensics`` (the default, at most
+``--health-max-forensics`` times a run), a checkpoint with full resume
+state under ``<run_dir>/forensics/<detector>_e<E>_s<S>/`` and a profiler
+window over the next ``--health-forensics-steps`` steps. In a job the
+alert's checkpoint waits for the next step boundary's agreement, so every
+rank saves the same step. ``--profile-at EPOCH:STEP[:NSTEPS]`` and
+``--profile-dir`` open ``torch.profiler`` windows (obs/trace.py) whose
+traces land under ``--profile-dir`` or ``<run_dir>/profile``, each closed
+by a ``profile`` event; a ``health`` summary event ends the run.
+
+Not in this slice (``RunConfig.validate`` raises, naming its ROADMAP
+item): tensor parallelism (item 9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -106,9 +118,12 @@ from bdbnn_tpu_torch.models import (
 )
 from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
 from bdbnn_tpu_torch.obs.events import EventWriter
+from bdbnn_tpu_torch.obs.health import DETECTORS, HealthConfig, HealthMonitor, apply_overrides
 from bdbnn_tpu_torch.obs.manifest import read_manifest, write_manifest
+from bdbnn_tpu_torch.obs.memory import emit_memory_event
 from bdbnn_tpu_torch.obs.probes import NonFiniteLossError, drain_probe_report
 from bdbnn_tpu_torch.obs.timing import StepPhaseTimer
+from bdbnn_tpu_torch.obs.trace import TraceCapture, parse_profile_at
 from bdbnn_tpu_torch.parallel import (
     Mesh,
     broadcast_host_int,
@@ -120,7 +135,7 @@ from bdbnn_tpu_torch.parallel import (
     sum_host_values,
     topology,
 )
-from bdbnn_tpu_torch.train.config import OBS, RunConfig
+from bdbnn_tpu_torch.train.config import RunConfig
 from bdbnn_tpu_torch.train.ede import cpt_tk
 from bdbnn_tpu_torch.train.optim import make_optimizer
 from bdbnn_tpu_torch.train.resilience import CheckpointPolicy, PreemptedError, PreemptionHandler
@@ -256,7 +271,9 @@ def _apply_nonfinite_policy(policy: str, events, msg: str, **fields) -> None:
 class ObsHooks:
     """What the epoch loop reports into: the event channel, the scalar
     writer, the step-phase timer, the probe sizes, the non-finite policy,
-    and the mesh whose ranks' metrics are summed at each drain."""
+    the mesh whose ranks' metrics are summed at each drain, the profiler
+    windows (``tracer``), the health monitor and the auto-forensics hook
+    ``forensics(state, epoch, step_cursor, alerts)``."""
 
     events: EventWriter
     writer: ScalarWriter
@@ -264,6 +281,19 @@ class ObsHooks:
     probe_sizes: Dict[str, int]
     nonfinite_policy: str
     mesh: Mesh = Mesh()
+    tracer: Optional[TraceCapture] = None
+    health: Optional[HealthMonitor] = None
+    forensics: Optional[Callable] = None
+
+
+def _detector_code(detector: str) -> int:
+    """Stable numeric code of a health detector: what rides the ranks'
+    agreement (floats only), so every rank derives the same forensics
+    tag. Unknown names map past the registry (a generic ``alert``)."""
+    try:
+        return DETECTORS.index(detector)
+    except ValueError:
+        return len(DETECTORS)
 
 
 # drained metric sums over the ranks: counts and example sums add up;
@@ -288,7 +318,10 @@ def global_sums(sums: Dict[str, float], mesh: Mesh) -> Dict[str, float]:
 
 def _interval_observe(obs: ObsHooks, epoch, step_idx, interval_steps, sums, n, rate, probe_m):
     """Drain-time telemetry on the already-fetched sums: the non-finite
-    check, the per-layer probes and the ``train_interval`` event."""
+    check, the per-layer probes, the ``train_interval`` event and the
+    health monitor's detector pass — host work only, no device sync.
+    Returns the health alerts fired (the caller's auto-forensics needs
+    the live state)."""
     bad = int(sums.get("nonfinite", 0))
     if bad:
         _apply_nonfinite_policy(
@@ -316,6 +349,22 @@ def _interval_observe(obs: ObsHooks, epoch, step_idx, interval_steps, sums, n, r
         **({"flip_rate": {k: round(v, 8) for k, v in flip_rate.items()}} if flip_rate else {}),
         **({"kurtosis": {k: round(v, 4) for k, v in kurt.items()}} if kurt else {}),
     )
+    alerts = []
+    if obs.health is not None:
+        alerts = obs.health.observe_interval(
+            epoch=epoch, step=step_idx, loss=sums["loss_sum"] / n, img_per_s=rate,
+            flip_rate=flip_rate, kurtosis=kurt,
+        )
+        for a in alerts:
+            logger.warning("HEALTH ALERT [%s] %s: %s", a["severity"], a["detector"], a["message"])
+    return alerts
+
+
+def _profile_window_done(obs: ObsHooks, info) -> None:
+    """A capture window closed: the ``profile`` event, and a log line."""
+    obs.events.emit("profile", **info)
+    logger.info("profiler trace written to %s (epoch %d steps %d..+%d)", info["trace_dir"],
+                info["epoch"], info["start_step"], info["steps"] - 1)
 
 
 def _add_component_means(comp_m, sums, interval_steps) -> None:
@@ -334,7 +383,11 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
     device but at the drain every ``print_freq`` steps; the telemetry
     rides the same drains. After each step but the epoch's last,
     ``resil.after_step`` may checkpoint (cadence) or checkpoint and raise
-    (preemption)."""
+    (preemption).
+
+    A profiler window (``obs.tracer``) opens before its first step's data
+    fetch and is stopped exactly once on every exit path; while it is
+    open the host phases are ``data_wait`` / ``dispatch`` annotations."""
     devmet = DeviceMetrics()
     loss_m, top1_m, top5_m = Mean("Loss", "{:.4e}"), Mean("Acc@1", "{:6.2f}"), Mean("Acc@5", "{:6.2f}")
     comp_m: Dict[str, Mean] = {}
@@ -342,6 +395,14 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
     thr = Throughput()
     progress = ProgressLog(steps_per_epoch, logger, prefix=f"Epoch: [{epoch}]")
     timer = obs.timer
+    tracer = obs.tracer
+    annot = tracer.annotate if tracer is not None else (lambda _name: contextlib.nullcontext())
+
+    def fence():
+        # the queued steps finish inside the window, so the trace holds them
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
     t_epoch = time.time()
     timer.reset()
 
@@ -357,7 +418,11 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
         top1_m.add(100.0 * sums["top1"] / n, n)
         top5_m.add(100.0 * sums["top5"] / n, n)
         rate = thr.tick(n)
-        _interval_observe(obs, epoch, step_idx, interval_steps, sums, n, rate, probe_m)
+        alerts = _interval_observe(obs, epoch, step_idx, interval_steps, sums, n, rate, probe_m)
+        if alerts and obs.forensics is not None:
+            # the state after step step_idx is resume cursor step_idx + 1,
+            # the convention of resil.after_step
+            obs.forensics(state, epoch, step_idx + 1, alerts)
         progress.emit(step_idx, [loss_m.render(), top1_m.render(), top5_m.render(),
                                  f"img/s {rate:8.1f}"])
         sec_per_step = (time.time() - t_epoch) / max(step_idx + 1 - start_step, 1)
@@ -373,16 +438,23 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
         # every rank runs steps_per_epoch steps, though the first ranks'
         # shards may hold one batch more
         while step_idx + 1 < steps_per_epoch:
+            # the window of the upcoming step opens before its data fetch,
+            # so the first traced step's data_wait is inside the trace
+            if tracer is not None and tracer.maybe_start(epoch, step_idx + 1):
+                logger.info("profiler trace started (epoch %d step %d) -> %s", epoch,
+                            step_idx + 1, tracer.trace_dir)
             t_mark = time.perf_counter()
             try:
-                x, y = next(it)
+                with annot("data_wait"):
+                    x, y = next(it)
             except StopIteration:
                 break
             step_idx += 1
             timer.add("data_wait", time.perf_counter() - t_mark)
             t_mark = time.perf_counter()
-            state, m = train_step(state, (to_device(x, device), to_device(y, device)), tk,
-                                  kurt_gate)
+            with annot("dispatch"):
+                state, m = train_step(state, (to_device(x, device), to_device(y, device)), tk,
+                                      kurt_gate)
             devmet.add(m)
             t_done = time.perf_counter()
             timer.add("dispatch", t_done - t_mark)
@@ -391,6 +463,16 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
                 # launches the kernels
                 timer.record_compile(t_done - t_mark)
                 obs.events.emit("compile", seconds=round(t_done - t_mark, 3))
+                # the first step's footprint, before any drift: the
+                # hbm_creep detector's baseline (allocator counters only,
+                # no device sync)
+                rec = emit_memory_event(obs.events, "post_compile", [device], epoch=epoch)
+                if obs.health is not None:
+                    obs.health.observe_memory(rec)
+            if tracer is not None:
+                info = tracer.maybe_stop(epoch, step_idx, fence=fence)
+                if info is not None:
+                    _profile_window_done(obs, info)
             if on_step is not None:
                 on_step(epoch, step_idx, m)
             if step_idx % cfg.print_freq == 0:
@@ -401,6 +483,18 @@ def _train_epoch(train_step, state, pipe, epoch, tk, kurt_gate, cfg, steps_per_e
                 resil.after_step(state, epoch, step_idx + 1)
     finally:
         it.close()
+        # exactly one stop on every exit path: an epoch that ends short of
+        # the window's budget, or a step that raised mid-window
+        if tracer is not None:
+            def _quiet_fence():
+                try:
+                    fence()
+                except Exception:
+                    pass  # the original exception is already in flight
+
+            info = tracer.stop_if_active(fence=_quiet_fence, last_step=step_idx)
+            if info is not None:
+                _profile_window_done(obs, info)
     if devmet.pending_steps:
         drain(step_idx)
     writer = obs.writer
@@ -655,21 +749,27 @@ def _fast_forward_adam(opt: torch.optim.Optimizer, step: int) -> None:
 class _Resilience:
     """fit()'s preemption and cadence bundle (the reference's).
     ``save(state, epoch, step_in_epoch, reason)`` commits a checkpoint,
-    emits its event and resets the cadence.
+    emits its event and resets the cadence;
+    ``save_forensics(state, epoch, step, detector_code)`` writes a
+    forensics checkpoint under ``<run_dir>/forensics/``.
 
     On a ``mesh`` of more than one rank (``collective``) every step
     boundary is a coordination step: each rank's (latched signal, cadence
-    due) goes through :func:`coordinate_flags`, so every rank acts on the
-    same agreed triggers at the same step and the checkpoint's barriers
-    align; only the ``clock_leader``'s (rank 0's) wallclock decides
-    ``--save-every-mins``. One process is its own agreement, with no
-    collective."""
+    due, pending forensics request) goes through :func:`coordinate_flags`,
+    so every rank acts on the same agreed triggers at the same step and
+    the checkpoint's barriers align; only the ``clock_leader``'s (rank
+    0's) wallclock decides ``--save-every-mins``. One process is its own
+    agreement, with no collective."""
 
     handler: PreemptionHandler
     policy: CheckpointPolicy
     save: Any
     events: EventWriter
     mesh: Mesh = Mesh()
+    save_forensics: Any = None
+    # pending forensics request of a job: the detector code + 1 (0: none),
+    # latched at an alert's drain and consumed at the next agreement
+    forensics_request: int = 0
 
     @property
     def collective(self) -> bool:
@@ -679,14 +779,22 @@ class _Resilience:
     def clock_leader(self) -> bool:
         return self.mesh.primary
 
+    def request_forensics(self, detector_code: int) -> None:
+        """Latch a forensics checkpoint request (a job): the alert fired
+        at this rank's drain, but the aligned save happens at a step
+        boundary every rank agrees on."""
+        self.forensics_request = int(detector_code) + 1
+
     def _agree(self, cadence_due: bool):
-        """(signum, cadence) agreed over the ranks: a collective on a
-        job, which every rank calls at the same point of its loop."""
-        local = (float(self.handler.signum or 0), 1.0 if cadence_due else 0.0)
+        """(signum, cadence, forensics code + 1) agreed over the ranks
+        (elementwise max): a collective on a job, which every rank calls
+        at the same point of its loop."""
+        local = (float(self.handler.signum or 0), 1.0 if cadence_due else 0.0,
+                 float(self.forensics_request))
         if not self.collective:
-            return int(local[0]), bool(cadence_due)
+            return int(local[0]), bool(cadence_due), int(local[2])
         agreed = coordinate_flags(local, self.mesh)
-        return int(agreed[0]), bool(agreed[1] >= 1.0)
+        return int(agreed[0]), bool(agreed[1] >= 1.0), int(agreed[2])
 
     def preempt_exit(self, state, epoch: int, step_in_epoch: int,
                      already_durable: bool = False, signum: Optional[int] = None) -> None:
@@ -705,20 +813,32 @@ class _Resilience:
 
     def after_step(self, state, epoch: int, next_step: int) -> None:
         """At a step boundary: agreed preemption → checkpoint, event,
-        raise; agreed cadence → mid-epoch checkpoint and continue."""
+        raise; agreed forensics → the aligned forensics checkpoint;
+        agreed cadence → mid-epoch checkpoint and continue."""
         cadence_due = False
         if self.policy.active:
             self.policy.tick()
             cadence_due = self.policy.due(clock_leader=self.clock_leader)
-        signum, cadence = self._agree(cadence_due)
+        signum, cadence, forensic = self._agree(cadence_due)
         if signum:
             self.preempt_exit(state, epoch, next_step, signum=signum)
+        if forensic and self.save_forensics is not None:
+            self.forensics_request = 0
+            self.save_forensics(state, epoch, next_step, forensic - 1)
         if cadence:
             self.save(state, epoch, next_step, "interval")
 
-    def poll_boundary(self) -> int:
-        """The agreed signal number at an epoch boundary (0: none)."""
-        return self._agree(False)[0]
+    def poll_boundary(self, state=None, epoch: int = 0, boundary_step: int = 0) -> int:
+        """The agreed signal number at an epoch boundary (0: none). A
+        forensics request latched at the epoch's final drain (the one
+        step with no ``after_step``) is saved here when ``state`` is
+        given, unless a preemption's save is imminent. Every rank calls
+        it at the same point of its loop."""
+        signum, _, forensic = self._agree(False)
+        if forensic and state is not None and self.save_forensics is not None and not signum:
+            self.forensics_request = 0
+            self.save_forensics(state, epoch, boundary_step, forensic - 1)
+        return signum
 
 
 def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, float]:
@@ -786,10 +906,6 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
     resources.append(events)
     logger.info("telemetry: manifest.json + events.jsonl in %s (config %s)", log_path,
                 manifest["config_hash"])
-
-    if cfg.health and mesh.primary:
-        logger.warning("the health monitor is not ported yet (ROADMAP A 'Later' %s): this run "
-                       "has none; --no-health silences this warning", OBS)
 
     if cfg.seed is not None:
         np.random.seed(cfg.seed)
@@ -926,8 +1042,95 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
         logger.info("resumed from %s at epoch %d step %d", cfg.resume, start_epoch, start_step)
     state = create_sharded_state(mesh, state)
 
+    # --profile-at windows (EPOCH:STEP[:NSTEPS]); a bare --profile-dir is
+    # the epoch-0 window at [profile_start, profile_start + profile_steps)
+    windows = [parse_profile_at(spec, default_steps=cfg.profile_steps) for spec in cfg.profile_at]
+    if not windows and cfg.profile_dir:
+        windows = [(0, cfg.profile_start, cfg.profile_steps)]
+    # auto-forensics schedules windows on the tracer, so it exists (with
+    # no static window) whenever forensics can fire
+    forensics_on = cfg.health and cfg.health_forensics and cfg.health_max_forensics > 0
+    tracer = None
+    if windows or forensics_on:
+        tracer = TraceCapture(cfg.profile_dir or os.path.join(log_path, "profile"), windows,
+                              device=device)
+
+    health_monitor = None
+    if cfg.health:
+        health_monitor = HealthMonitor(
+            apply_overrides(HealthConfig(), cfg.health_thresholds), events, epochs=cfg.epochs,
+            kurt_target=cfg.w_kurtosis_target if cfg.w_kurtosis else None,
+        )
+
+    forensics_used = [0]
+
+    def _save_forensics_ckpt(st, epoch, step_cursor, detector_code):
+        """A forensics checkpoint under ``<run_dir>/forensics/`` with full
+        resume state, restorable like any checkpoint. One process saves
+        at the alerting drain; a job at the next agreed step boundary,
+        where every rank passes the same (epoch, step, detector)."""
+        detector = DETECTORS[detector_code] if 0 <= detector_code < len(DETECTORS) else "alert"
+        tag = f"{detector}_e{epoch}_s{step_cursor}"
+        t0 = time.time()
+        ede_t, ede_k, kg = _sched(epoch)
+        lr_step = int(st.step)
+        path = save_checkpoint(
+            os.path.join(log_path, "forensics", tag), st, epoch=epoch, arch=cfg.arch,
+            best_acc1=best_acc1, is_best=False, step_in_epoch=step_cursor, mesh=mesh,
+            resume_state={
+                "best_epoch": int(best_epoch),
+                "host_rng": _pack_host_rng(),
+                "lr_step": lr_step,
+                "ede_t": ede_t,
+                "ede_k": ede_k,
+                "kurt_gate": kg,
+                "binarizer": cfg.binarizer,
+                "sched": _sched_values(epoch),
+                "topology": topology(mesh),
+            },
+        )
+        events.emit("checkpoint", reason="forensics", detector=detector,
+                    coordinated=mesh.collective, epoch=epoch, step_in_epoch=step_cursor,
+                    lr_step=lr_step, path=path, seconds=round(time.time() - t0, 3))
+        return path
+
+    def _forensics(st, epoch, step_cursor, alerts):
+        """An alert fired at a drain: a forensics checkpoint of the live
+        state (the main checkpoint chain untouched) and a trace window
+        over the next steps, at most ``--health-max-forensics`` times. A
+        job defers the checkpoint to the next agreed step boundary (a
+        detector with rank-local input, like throughput, can fire on one
+        rank); the trace window is scheduled on each rank at once."""
+        if not forensics_on or forensics_used[0] >= cfg.health_max_forensics:
+            return
+        forensics_used[0] += 1
+        detector = alerts[0]["detector"]
+        path = None
+        if not mesh.collective:
+            path = _save_forensics_ckpt(st, epoch, step_cursor, _detector_code(detector))
+        else:
+            resil.request_forensics(_detector_code(detector))
+        window_at = None
+        if tracer is not None:
+            # never at or past the epoch's step count, where the loop has
+            # no step to trace: an alert at the epoch's last drain traces
+            # the next epoch's first steps, or nothing when the run ends
+            if step_cursor < steps_per_epoch:
+                window_at = (epoch, step_cursor)
+            elif epoch + 1 < cfg.epochs:
+                window_at = (epoch + 1, 0)
+            if window_at is not None:
+                tracer.schedule(*window_at, cfg.health_forensics_steps)
+        logger.warning(
+            "auto-forensics for %s: checkpoint %s, trace window %s", detector,
+            path or "(deferred to the next coordinated step boundary)",
+            f"{cfg.health_forensics_steps} steps from epoch {window_at[0]} step {window_at[1]}"
+            if window_at is not None else "(skipped: run ends here)",
+        )
+
     obs = ObsHooks(events=events, writer=writer, timer=StepPhaseTimer(), probe_sizes=probe_sizes,
-                   nonfinite_policy=cfg.nonfinite_policy, mesh=mesh)
+                   nonfinite_policy=cfg.nonfinite_policy, mesh=mesh, tracer=tracer,
+                   health=health_monitor, forensics=_forensics)
     eval_fill = np.uint8 if cfg.device_normalize else np.float32
     if cfg.evaluate:
         return {"acc1": _validate(eval_step, state, val_pipe, device, 0, obs, eval_fill)}
@@ -984,7 +1187,8 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                        start_epoch)
 
     handler = PreemptionHandler()
-    resil = _Resilience(handler, policy, _save_ckpt, events, mesh)
+    resil = _Resilience(handler, policy, _save_ckpt, events, mesh,
+                        save_forensics=_save_forensics_ckpt)
     with handler:
         for epoch in range(start_epoch, cfg.epochs):
             tk, kurt_gate = epoch_schedule(family, cfg, epoch)
@@ -1000,8 +1204,9 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                                  start_step=start_step if epoch == start_epoch else 0,
                                  resil=resil)
             # a signal during the epoch's last step: save now, before the
-            # eval pass outlasts the grace period
-            signum = resil.poll_boundary()
+            # eval pass outlasts the grace period (and a forensics request
+            # of the epoch's final drain is saved here)
+            signum = resil.poll_boundary(state, epoch, steps_per_epoch)
             if signum:
                 resil.preempt_exit(state, epoch, 0, signum=signum)
             acc1 = _validate(eval_step, state, val_pipe, device, epoch, obs, eval_fill)
@@ -1010,6 +1215,11 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                 writer.add_scalar("Time to target (s)", time_to_target, epoch)
                 logger.info(" ##### reached target Acc@1 %.2f at epoch %d after %.1fs",
                             cfg.target_acc, epoch, time_to_target)
+            # the epoch-end watermark: drift past the post_compile
+            # baseline is what the hbm_creep detector watches
+            mem_rec = emit_memory_event(events, "epoch", [device], epoch=epoch)
+            if health_monitor is not None:
+                health_monitor.observe_memory(mem_rec)
             is_best = acc1 > best_acc1
             if is_best:
                 best_epoch = epoch
@@ -1020,10 +1230,23 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
             _save_ckpt(state, epoch, 0, "epoch", is_best=is_best)
             # a signal during eval or the save: the epoch-end checkpoint
             # is already durable
-            signum = resil.poll_boundary()
+            signum = resil.poll_boundary(state, epoch, steps_per_epoch)
             if signum:
                 resil.preempt_exit(state, epoch, 0, already_durable=True, signum=signum)
 
+    if tracer is not None and tracer.unfired():
+        logger.warning(
+            "--profile-at window(s) never fired (epoch resumed past, or start step beyond the "
+            "epoch's %d steps): %s", steps_per_epoch,
+            ", ".join(f"{e}:{s}:{n}" for e, s, n in tracer.unfired()),
+        )
+    if health_monitor is not None:
+        # the run-end roll-up `summarize --strict` gates on
+        health_monitor.emit_summary()
+        if health_monitor.alerts:
+            logger.warning("run finished with %d health alert(s): %s", len(health_monitor.alerts),
+                           ", ".join(f"{k} x{v}"
+                                     for k, v in sorted(health_monitor.counts().items())))
     events.emit("run_end", best_acc1=best_acc1, best_epoch=best_epoch,
                 wall_s=round(time.time() - t_fit, 1),
                 **({"time_to_target_s": round(time_to_target, 1)}

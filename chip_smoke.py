@@ -93,6 +93,19 @@ Phases (any failure exits non-zero and prints no result line):
              served with ``--resident-models 2``: each answer its own
              version's, the versions' answers differ, an unknown
              ``x-model`` is 404 and runs no engine;
+4d. serve-rollout — blue/green swaps of the flagship, v1 and v2 (seeds 0
+             and 1) published in a registry, ``--packed-weights``,
+             ``--replicas 1`` (phase_serve_rollout): (a) bench mode,
+             poisson at 100 req/s, 512 requests, ``--swap-to v0002
+             --swap-at 0.5``: nothing dropped, the ledger identity, lone
+             probes from here before the swap within tolerance of v1's
+             engine and after it of v2's, p99 and shed rate before, during
+             and after the swap, launches 19 × the forwards; the peak
+             memory while both models are resident, from an in-process
+             pool swapped the same way; (c) a standby whose weights file is
+             truncated: the swap ``failed``, v1 still answering; (b) then,
+             on that server, ``POST /admin/swap {"version": 2}`` polled to
+             ``done``, v2 answering; (d) the canary, only on two cards;
 5. train_kernels — holds K5 (binary conv dgrad with the sign
              estimator's slope), K6 (binary conv wgrad with the STE mask)
              and K7 (grouped kurtosis regularizer and gradient) against
@@ -237,10 +250,22 @@ Phases (any failure exits non-zero and prints no result line):
              without a process group, and what wrapping the student costs a
              step; (d) (a)'s mid-epoch checkpoint resumed on one process,
              ``resharded`` and bitwise;
+16b. train-health — the health monitor (phase_train_health) on the
+             flagship recipe through the CLI's ``fit``, 8 steps, a drain a
+             step: (a) flip_explosion forced past real flip rates: one
+             alert, one forensics checkpoint that verifies, one ``profile``
+             window whose trace holds K1, K2, K5, K6 and K7 by kernel name
+             as often as the launch counters say, the ``health`` summary;
+             (b) the forensics checkpoint resumed bitwise; (c) the memory
+             events' peaks equal ``torch.cuda.max_memory_allocated()``;
+             (d) ``--profile-at 0:5:3``; (e) the default monitor against
+             ``--no-health``: step times and the synchronisation calls in
+             a window;
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
-             serve, serve-bench, serve-http, train, train-stoch, train-ts, train-resume,
-             train-folder, train-bf16 and train-ddp, and for a bf16 mode
+             serve, serve-bench, serve-http, serve-rollout, train, train-stoch,
+             train-ts, train-resume, train-folder, train-bf16, train-ddp and
+             train-health, and for a bf16 mode
              train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
              train-ddp and serve-bench), then as the last line
              ``{"ok": true, "device": {...}}``.
@@ -249,7 +274,12 @@ Phases (any failure exits non-zero and prints no result line):
 K7 alone and prints their records as one JSON line: run from two trees in
 turns, it compares their weight kernels on one card. ``python3
 chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
-``python3 chip_smoke.py --serve-http`` the build and phase 4c alone.
+``python3 chip_smoke.py --serve-http`` the build and phase 4c alone, and
+``python3 chip_smoke.py --health`` the build and phases 4d and 16b.
+``python3 chip_smoke.py --trace-prefix N`` runs [train-health] (a)'s fit
+2N times, in turns without and with the burst that opens a profiler window
+on the card (``obs/trace.py``), and counts the device records each window's
+trace lost.
 """
 
 from __future__ import annotations
@@ -313,8 +343,16 @@ U = 2.0**-24
 CPU_LOGIT_TOL = 1e-5
 
 
+# every logged line that reports a failure, repeated on standard error at
+# the end of a failed run: a caller that keeps only the tail of the
+# output (the training phases log to standard error) still sees why
+_FAILURES: list = []
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if "FAIL" in msg or "ok=False" in msg:
+        _FAILURES.append(msg[:3000])
 
 
 def peaks_for(name: str):
@@ -1527,10 +1565,11 @@ def sh_per_priority(v: dict) -> dict:
             for p, b in v["per_priority"].items()}
 
 
-def sh_wire_check(answers: list, alone, tag: str) -> dict:
+def sh_wire_check(answers: list, alone, tag: str, lone: int = 0) -> dict:
     """Answers over the wire ``[(status, body)]`` against ``alone`` (the
     engine's logits of each image alone): the largest difference and the
-    tolerance, rows bitwise equal to the rounded logits, and the top-1
+    tolerance, rows bitwise equal to the rounded logits (the first
+    ``lone`` answers, each sent alone, counted apart), and the top-1
     disagreements, each where the top two logits lie within the tolerance."""
     import numpy as np
 
@@ -1539,7 +1578,8 @@ def sh_wire_check(answers: list, alone, tag: str) -> dict:
     tol = SH_WIRE_ATOL + CPU_LOGIT_TOL * scale
     diff = float(np.max(np.abs(got - alone)))
     rounded = [[round(float(x), 4) for x in row] for row in alone]
-    bitwise = sum(a[1]["result"]["logits"] == r for a, r in zip(answers, rounded))
+    same = [a[1]["result"]["logits"] == r for a, r in zip(answers, rounded)]
+    bitwise, lone_bitwise = sum(same), sum(same[:lone])
     top2 = np.sort(alone, axis=-1)[:, -2:]
     near = np.abs(top2[:, 1] - top2[:, 0]) <= tol
     pred = np.array([a[1]["result"]["pred"] for a in answers])
@@ -1549,9 +1589,12 @@ def sh_wire_check(answers: list, alone, tag: str) -> dict:
         f"max diff {diff} (tol {SH_WIRE_ATOL} + {CPU_LOGIT_TOL}·max|logit| = {tol}), "
         f"{bitwise} of {len(answers)} bitwise the rounded logits, pred off the argmax on "
         f"{int(off.sum())} ({int((off & near).sum())} with the top two within tolerance, "
-        f"{int(near.sum())} such rows); ok={ok}")
+        f"{int(near.sum())} such rows)"
+        + (f"; of the {lone} sent alone {lone_bitwise} bitwise, of the other "
+           f"{len(answers) - lone} {bitwise - lone_bitwise}" if lone else "") + f"; ok={ok}")
     return {"ok": ok, "max_diff": diff, "tol": tol, "bitwise": bitwise,
-            "pred_off": int(off.sum()), "top2_near": int(near.sum())}
+            "lone_bitwise": lone_bitwise, "pred_off": int(off.sum()),
+            "top2_near": int(near.sum())}
 
 
 def sh_busy_share(art: str, rate: float, requests: int = 256) -> tuple:
@@ -1623,7 +1666,9 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
         for k in SB_COUNTED:
             total[k] += counts.get(k, 0)
 
-    engine = InferenceEngine(art, buckets=(1,), device="cuda")
+    # the yardstick in the server's own mode: packed weights, its buckets (a
+    # lone image runs at bucket 1 in both)
+    engine = InferenceEngine(art, buckets=SH_BUCKETS, device="cuda", packed=True)
     rng = np.random.default_rng(21)
     tern = rng.integers(-1, 2, size=(64, 224, 224, 3)).astype(np.float32)
     alone = np.concatenate([engine.predict_logits(tern[i:i + 1]) for i in range(len(tern))])
@@ -1678,7 +1723,7 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
         if v is None or c is None:
             log(f"[serve-http] (a) FAIL: exit {a['rc']}\n{a['err']}")
             return total, False
-        wire = sh_wire_check(c["answers"], alone, "(a)")
+        wire = sh_wire_check(c["answers"], alone, "(a)", lone=16)
         ws = sorted(c["wire_ms"])
         st_status, _, st = c["statsz"]
         oks["a"] = (a["rc"] == 0 and (503, "warming") in c["readyz"] and (200, "ready") in
@@ -4700,6 +4745,557 @@ DDP_JOBS = {"steps": ddp_steps, "fit": ddp_fit, "batchnorm": ddp_batchnorm,
             "primitives": ddp_primitives, "each": ddp_each}
 
 
+# [train-health]: the health monitor on the flagship recipe, 8 steps at
+# -b 256, a drain every step; every fit under its own temporary log_path
+HEALTH_STEPS = 8
+HEALTH_FORENSICS_STEPS = 4
+HEALTH_ARGS = dict(epochs=1, batch_size=TRAIN_BATCH, print_freq=1, device="cuda",
+                   synthetic_train_size=HEALTH_STEPS * TRAIN_BATCH,
+                   synthetic_val_size=TRAIN_BATCH)
+# (a): flip_explosion armed past any real flip rate, after 2 drains, on
+# one breach; the other detectors disarmed, as the reference's own test
+# disarms throughput
+HEALTH_FORCED = ("warmup_intervals=2", "debounce=1", "flip_explosion_rate=1e-9",
+                 "throughput_window=999", "flip_collapse_rate=0", "kurt_divergence_abs=1e9",
+                 "loss_spike_factor=1e9", "plateau_rel_range=0", "hbm_creep_frac=1e9")
+# (d) and (e): a window over steps 5-7, after the steps (e) times
+HEALTH_PROFILE_AT = "0:5:3"
+# the device kernel each K wrapper launches exactly once a call, by the
+# name the profiler gives it
+K_TRACE_NAMES = {"K1": "binary_conv_fwd_kernel", "K2": "weight_sign_kernel",
+                 "K5": "binary_conv_dgrad_kernel", "K6": "binary_conv_wgrad_kernel",
+                 "K7": "kurt_mean_kernel"}
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def health_cli_args(root: str, extra=()) -> list:
+    """The CLI flags of HEALTH_ARGS over TRAIN_ARGS, under ``root``."""
+    kw = {**TRAIN_ARGS, **HEALTH_ARGS}
+    assert kw["w_kurtosis"] and kw["diffkurt"] and kw["synthetic"]
+    return ["--dataset", kw["dataset"], "-a", kw["arch"], "--synthetic", "-b",
+            str(kw["batch_size"]), "--epochs", str(kw["epochs"]), "-lr", str(kw["lr"]),
+            "--w-kurtosis", "--diffkurt", "--seed", str(kw["seed"]), "-p", str(kw["print_freq"]),
+            "--synthetic-train-size", str(kw["synthetic_train_size"]),
+            "--synthetic-val-size", str(kw["synthetic_val_size"]), "--device", kw["device"],
+            "--log_path", root, *extra]
+
+
+def trace_counts(path: str) -> dict:
+    """Kernel events of each K (by K_TRACE_NAMES) and runtime calls named
+    SYNC_CALLS in a gzipped Chrome trace, and under ``lost`` the launches,
+    copies and sets whose device record (by correlation id) the trace
+    lacks."""
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        evs = json.load(f).get("traceEvents", [])
+    out = {k: 0 for k in (*K_TRACE_NAMES, *SYNC_CALLS)}
+    on_device, issued = set(), []
+    for e in evs:
+        name, cat = str(e.get("name", "")), e.get("cat")
+        if cat == "kernel":
+            for k, n in K_TRACE_NAMES.items():
+                if n in name:
+                    out[k] += 1
+        elif name in SYNC_CALLS:
+            out[name] += 1
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            on_device.add(e.get("args", {}).get("correlation"))
+        elif cat == "cuda_runtime" and any(w in name for w in ("Launch", "Memcpy", "Memset")):
+            issued.append(e.get("args", {}).get("correlation"))
+    out["lost"] = sum(1 for c in issued if c not in on_device)
+    return out
+
+
+def health_fit(root: str, extra=()) -> dict:
+    """``cli.main`` on the health recipe under ``root``, cuDNN deterministic
+    (the caller sets it). Records each step's loss and CUDA event, the
+    host clock between steps, the launch counters at each profiler
+    window's open and stop, and ``torch.cuda.max_memory_allocated()`` read
+    just before each ``memory`` event's poll."""
+    import torch
+
+    from bdbnn_tpu_torch import cli
+    from bdbnn_tpu_torch.train import loop
+
+    losses, marks, walls, windows, mems = {}, [], [], [], []
+    real_fit, real_capture, real_mem = loop.fit, loop.TraceCapture, loop.emit_memory_event
+    opened = {}
+
+    def on_step(epoch, step, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        walls.append(time.perf_counter())
+        losses[(epoch, step)] = m["loss"].clone()
+
+    class Capture(real_capture):
+        def maybe_start(self, epoch, step):
+            started = super().maybe_start(epoch, step)
+            if started:
+                opened.update(read_counts())
+            return started
+
+        def _stop(self, fence):
+            info = super()._stop(fence)
+            now = read_counts()
+            windows.append({**info, "launches": {k: now[k] - opened[k] for k in now}})
+            return info
+
+    def mem_spy(events, phase, devices, **kw):
+        want = torch.cuda.max_memory_allocated(devices[0])
+        rec = real_mem(events, phase, devices, **kw)
+        mems.append((phase, want, rec["peak_bytes"]))
+        return rec
+
+    loop.fit = lambda cfg: real_fit(cfg, on_step=on_step)
+    loop.TraceCapture, loop.emit_memory_event = Capture, mem_spy
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(health_cli_args(root, extra))
+    finally:
+        loop.fit, loop.TraceCapture, loop.emit_memory_event = real_fit, real_capture, real_mem
+    torch.cuda.synchronize()
+    return {"rc": rc, "run_dir": run_dir_of(root), "losses": losses, "counts": read_counts(),
+            "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+            "host_ms": [(b - a) * 1e3 for a, b in zip(walls, walls[1:])],
+            "windows": windows, "mems": mems, "seconds": time.perf_counter() - t0}
+
+
+def trace_prefix(n: int, smi_line: str) -> bool:
+    """[train-health] (a)'s forced-alert fit 2n times, the profiler window
+    opened without (``ABSORB_LAUNCHES`` 0) and with its absorbing burst in
+    turns: for each window, the device records its trace lost and each K's
+    shortfall against its launch counter. True when no window opened with
+    the burst lost a record or a K kernel."""
+    import torch
+
+    from bdbnn_tpu_torch.obs import trace as trace_mod
+
+    tag = "[trace-prefix]"
+    log(f"{tag} {smi_line}")
+    burst = trace_mod.ABSORB_LAUNCHES
+    thresholds = [x for t in HEALTH_FORCED for x in ("--health-threshold", t)]
+    runs = {0: [], burst: []}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i in range(n):
+            for launches in runs:
+                trace_mod.ABSORB_LAUNCHES = launches
+                a = health_fit(fresh_log_root(), ["--health-forensics-steps",
+                                                  str(HEALTH_FORENSICS_STEPS), *thresholds])
+                trace = trace_mod.find_trace_file(a["run_dir"])
+                tc = trace_counts(trace) if trace else {"lost": None}
+                win = a["windows"][0]["launches"] if len(a["windows"]) == 1 else {}
+                short = {k: win.get(k, 0) - tc.get(k, 0) for k in K_TRACE_NAMES
+                         if tc.get(k) != win.get(k)}
+                runs[launches].append((tc["lost"], short))
+                log(f"{tag} run {i} burst {launches}: device records lost {tc['lost']}, "
+                    f"K kernels missing {short}")
+    finally:
+        trace_mod.ABSORB_LAUNCHES = burst
+        torch.backends.cudnn.deterministic = prev_det
+    for launches, rs in runs.items():
+        log(f"{tag} burst {launches}: {sum(1 for lost, _ in rs if lost)} of {len(rs)} windows "
+            f"lost device records (counts {[lost for lost, _ in rs]}), "
+            f"{sum(1 for _, short in rs if short)} lost a K kernel")
+    ok = all(lost == 0 and not short for lost, short in runs[burst])
+    log(f"{tag} ok={ok}")
+    return ok
+
+
+def phase_train_health(smi_line: str):
+    """[train-health]: the health monitor on the flagship recipe (BASELINE
+    config 3, synthetic, -b 256, a drain every step), through the CLI's
+    ``fit``, cuDNN deterministic. (a) a forced alert: flip_explosion armed
+    past any real flip rate, the other detectors disarmed: exactly one
+    alert, one forensics checkpoint whose files verify, one ``profile``
+    event of HEALTH_FORENSICS_STEPS steps whose trace holds K1, K2, K5, K6
+    and K7 by kernel name as many times as the launch counters say for
+    those steps, the ``health`` summary (and the reference's ``summarize
+    --strict`` exits nonzero where the JAX package is installed); (b) the
+    forensics checkpoint resumed, bitwise (a)'s later losses and final
+    state; (c) the ``post_compile`` and ``epoch`` memory events' peak
+    bytes equal to ``torch.cuda.max_memory_allocated()`` read at the same
+    points; (d) ``--profile-at 0:5:3``: one ``profile`` event over 3
+    steps and a trace; (e) the default monitor against ``--no-health``,
+    two runs each, in turns: the step times before the window (steps 1-4)
+    and the synchronisation calls inside it. Returns ((a)'s launch
+    counts, ok)."""
+
+    import torch
+
+    from bdbnn_tpu_torch.obs.events import read_events
+    from bdbnn_tpu_torch.obs.trace import find_trace_file
+    from bdbnn_tpu_torch.train import loop
+    from bdbnn_tpu_torch.utils import checkpoint as ck
+
+    tag = "[train-health]"
+    t_phase = time.perf_counter()
+    log(f"{tag} {smi_line}")
+    oks = {}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) the forced alert
+        thresholds = [x for t in HEALTH_FORCED for x in ("--health-threshold", t)]
+        a = health_fit(fresh_log_root(), ["--health-forensics-steps",
+                                          str(HEALTH_FORENSICS_STEPS), *thresholds])
+        dir_a = a["run_dir"]
+        alerts = read_events(dir_a, "alert")
+        fcks = [e for e in read_events(dir_a, "checkpoint") if e["reason"] == "forensics"]
+        profs = read_events(dir_a, "profile")
+        healths = read_events(dir_a, "health")
+        trace = find_trace_file(dir_a)
+        tc = trace_counts(trace) if trace else {}
+        win = a["windows"][0]["launches"] if len(a["windows"]) == 1 else {}
+        in_trace = {k: (tc.get(k), win.get(k)) for k in K_TRACE_NAMES}
+        verified = len(fcks) == 1 and ck.verify_integrity(fcks[0]["path"]) == "ok"
+        oks["a"] = (a["rc"] == 0 and [x["detector"] for x in alerts] == ["flip_explosion"]
+                    and verified and len(profs) == 1
+                    and profs[0]["steps"] == HEALTH_FORENSICS_STEPS
+                    and all(t == w and w and w > 0 for t, w in in_trace.values())
+                    and len(healths) == 1 and healths[0]["by_detector"] == {"flip_explosion": 1})
+        log(f"{tag} (a) forced alert, cli.main -> {a['rc']} in {a['seconds']:.1f}s: alerts "
+            f"{[(x['detector'], x['epoch'], x['step'], x['value'], x['threshold']) for x in alerts]}"
+            f"; forensics checkpoints {[(e['detector'], e['epoch'], e['step_in_epoch'], e['seconds']) for e in fcks]}"
+            f" files verify {verified}; profile events "
+            f"{[(p['epoch'], p['start_step'], p['steps']) for p in profs]}; trace "
+            f"{os.path.relpath(trace, dir_a) if trace else None} "
+            f"({os.path.getsize(trace) if trace else 0} bytes); each K's kernels in the trace "
+            f"against its launch counter over the window's steps {in_trace}; device records "
+            f"the trace lost {tc.get('lost')}; health "
+            f"{healths[0] if healths else None}; launches {a['counts']}; ok={oks['a']}")
+        # the reference's summarize, in a process of its own; skipped where
+        # the JAX package's modules are not installed
+        r = subprocess.run([sys.executable, "-m", "bdbnn_tpu.cli", "summarize", dir_a,
+                            "--strict"], cwd=REPO, capture_output=True, text=True, timeout=300)
+        if "ModuleNotFoundError" not in r.stderr:
+            oks["a_strict"] = r.returncode != 0 and "run-ending alert" in r.stderr
+            log(f"{tag} (a) the reference's summarize --strict -> {r.returncode}: "
+                f"{r.stderr.strip().splitlines()[:2]}")
+        else:
+            err = [x for x in r.stderr.splitlines() if "ModuleNotFoundError" in x][-1]
+            log(f"{tag} (a) the reference's summarize --strict: skipped, the JAX package "
+                f"does not import on this machine ({err.strip()})")
+
+        # (b) the forensics checkpoint resumed, held to (a)
+        b_losses = {}
+        root_b = fresh_log_root()
+        if fcks:
+            loop.fit(train_config(log_path=root_b, resume=fcks[0]["path"], **HEALTH_ARGS),
+                     on_step=lambda e, i, m: b_losses.__setitem__((e, i), m["loss"].clone()))
+        oks["b"] = bool(fcks) and resumed_like(
+            tag, "(b) the forensics checkpoint resumed", b_losses,
+            final_payload(run_dir_of(root_b)),
+            {"losses": a["losses"], "final": final_payload(dir_a)})
+
+        # (c) the memory events
+        oks["c"] = ([m[0] for m in a["mems"]] == ["post_compile", "epoch"]
+                    and all(want == got for _, want, got in a["mems"]))
+        log(f"{tag} (c) memory events (phase, torch.cuda.max_memory_allocated() just before "
+            f"the poll, the event's peak_bytes): {a['mems']}; limit "
+            f"{read_events(dir_a, 'memory')[0]['limit_bytes']} bytes; ok={oks['c']}")
+
+        # (d) + (e): the default monitor and --no-health, in turns
+        runs = {"on": [], "off": []}
+        for which in ("on", "off", "on", "off"):
+            extra = ["--profile-at", HEALTH_PROFILE_AT] + (["--no-health"] if which == "off"
+                                                            else [])
+            runs[which].append(health_fit(fresh_log_root(), extra))
+        d = runs["on"][0]
+        dprof = read_events(d["run_dir"], "profile")
+        dtrace = find_trace_file(d["run_dir"])
+        oks["d"] = (d["rc"] == 0 and [(p["epoch"], p["start_step"], p["steps"]) for p in dprof]
+                    == [(0, 5, 3)] and dtrace is not None)
+        log(f"{tag} (d) --profile-at {HEALTH_PROFILE_AT}: profile events "
+            f"{[(p['epoch'], p['start_step'], p['steps']) for p in dprof]}, trace "
+            f"{os.path.relpath(dtrace, d['run_dir']) if dtrace else None}; ok={oks['d']}")
+        stats = {}
+        for which, rs in runs.items():
+            host = [sum(r["host_ms"][1:5]) / 4 for r in rs]
+            dev = [sum(r["step_ms"][1:5]) / 4 for r in rs]
+            syncs = [{c: trace_counts(find_trace_file(r["run_dir"]))[c] for c in SYNC_CALLS}
+                     for r in rs]
+            stats[which] = {"host_ms": host, "event_ms": dev, "syncs": syncs,
+                            "alerts": [len(read_events(r["run_dir"], "alert")) for r in rs],
+                            "health": [len(read_events(r["run_dir"], "health")) for r in rs],
+                            "rc": [r["rc"] for r in rs]}
+        on, off = stats["on"], stats["off"]
+        oks["e"] = (on["rc"] == off["rc"] == [0, 0] and on["syncs"] == off["syncs"]
+                    and on["alerts"] == [0, 0] and on["health"] == [1, 1]
+                    and off["health"] == [0, 0])
+        spread = lambda xs: f"{min(xs):.3f}-{max(xs):.3f}"
+        log(f"{tag} (e) the flagship's fit step, steps 1-4 of {HEALTH_STEPS} (mean a run), "
+            f"two runs each in turns on off on off: default monitor host ms "
+            f"{[round(x, 3) for x in on['host_ms']]} (spread {spread(on['host_ms'])}), CUDA "
+            f"events ms {[round(x, 3) for x in on['event_ms']]}; --no-health host ms "
+            f"{[round(x, 3) for x in off['host_ms']]} (spread {spread(off['host_ms'])}), CUDA "
+            f"events ms {[round(x, 3) for x in off['event_ms']]}; synchronisation calls in the "
+            f"window (steps 5-7, its closing fence included) on {on['syncs']} off "
+            f"{off['syncs']}; alerts {on['alerts']}; ok={oks['e']}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    torch.cuda.empty_cache()
+    ok = all(oks.values())
+    log(f"{tag} gates {oks} in {time.perf_counter() - t_phase:.1f}s: ok={ok}")
+    return a["counts"], ok
+
+
+def sr_phase_stats(run_dir: str, verdict: dict) -> dict:
+    """p99 and shed rate of the requests that arrived before, during and
+    after the swap (between its ``swap`` ``start`` and ``done`` events), on
+    the server's clock: each completed request's arrival is its ``rtrace``
+    ``request`` event's time less its total; the sheds during it are the
+    verdict's ``swap`` block's, those before it the ``http`` ``stats``
+    events' cumulative count at the last tick before it (once a second),
+    the rest after it."""
+    from bdbnn_tpu_torch.obs.events import read_events
+    from bdbnn_tpu_torch.serve.engine import _pct
+
+    swaps = {e["phase"]: e["t"] for e in read_events(run_dir, "swap")}
+    t0, t1 = swaps.get("start"), swaps.get("done", swaps.get("failed"))
+    if t0 is None or t1 is None:
+        return {}
+    lat = {"before": [], "during": [], "after": []}
+    for e in read_events(run_dir, "rtrace"):
+        if e.get("phase") == "request":
+            arr = e["t"] - e["total_ms"] / 1e3
+            lat["before" if arr < t0 else "during" if arr <= t1 else "after"].append(e["total_ms"])
+    before = max([sum(e["shed_by_priority"]) for e in read_events(run_dir, "http")
+                  if e.get("phase") == "stats" and e["t"] <= t0], default=0)
+    during = verdict["swap"]["shed"] or 0
+    shed = {"before": before, "during": during,
+            "after": max(verdict["requests_shed"] - before - during, 0)}
+    return {k: {"completed": len(v), "p99_ms": _pct(sorted(v), 99.0), "shed": shed[k],
+                "shed_rate": round(shed[k] / max(len(v) + shed[k], 1), 4)}
+            for k, v in lat.items()} | {"swap_s": round(t1 - t0, 3)}
+
+
+def phase_serve_rollout(art: str, smi_line: str):
+    """[serve-rollout]: blue/green swaps of the flagship on one card, v1 and
+    v2 (seeds 0 and 1) published in a registry, ``--packed-weights``,
+    ``--replicas 1``. (a) a swap under load: ``serve-http`` bench mode,
+    poisson at 100 req/s, 512 requests, ``--swap-to v0002 --swap-at 0.5``:
+    zero client drops, the ledger identity, 8 lone probes from another
+    process before the swap within tolerance of v1's engine and 8 after it
+    of v2's (and not of v1's), p99 and shed rate before, during and after
+    the swap, launches 19 × the forwards; the card's peak memory while two
+    models are resident, from an in-process pool swapped the same way; (b)
+    an operator swap on a serving server: ``POST /admin/swap {"version":
+    2}``, polled through ``GET /admin/swap`` to ``done``; (c) before it, on
+    the same server, a standby that fails to load (a truncated weights
+    file): the swap ``failed`` and v1 still answering; (d) the canary, only
+    with two cards. Returns (launch counts over the runs, ok)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.pool import ReplicaPool, make_engine_runner_factory
+    from bdbnn_tpu_torch.serve.registry import ArtifactRegistry
+
+    tag = "[serve-rollout]"
+    t_phase = time.perf_counter()
+    log(f"{tag} {smi_line}")
+    oks = {}
+    total = {k: 0 for k in SB_COUNTED}
+
+    def add(counts):
+        for k in SB_COUNTED:
+            total[k] += counts.get(k, 0)
+
+    with tempfile.TemporaryDirectory() as root:
+        second = os.path.join(root, "resnet18_react_seed1")
+        make_flagship_artifact(second, seed=1)
+        reg = os.path.join(root, "registry")
+        registry = ArtifactRegistry(reg)
+        for p in (art, second):
+            registry.publish(p)
+        alone = {}
+        reset_counts()
+        for v, path in (("v0001", art), ("v0002", second)):
+            e = InferenceEngine(path, buckets=SH_BUCKETS, device="cuda", packed=True)
+            size = e.image_size
+            tern = np.random.default_rng(23).integers(-1, 2, size=(8, size, size, 3)).astype(
+                np.float32)
+            alone[v] = np.concatenate([e.predict_logits(tern[i:i + 1]) for i in range(8)])
+            del e
+
+        def probe(host, port):
+            return [sh_predict(host, port, tern[i])[:3] for i in range(8)]
+
+        def held(answers, version) -> bool:
+            """Each answer within the wire tolerance of ``version``'s engine
+            on its image, and outside it of the other's."""
+            other = "v0002" if version == "v0001" else "v0001"
+            got = np.array([b["result"]["logits"] for s, _, b in answers if s == 200], np.float64)
+            if len(got) != len(answers):
+                return False
+            tol = SH_WIRE_ATOL + CPU_LOGIT_TOL * float(np.max(np.abs(alone[version])))
+            return bool(np.max(np.abs(got - alone[version])) <= tol
+                        and np.all(np.max(np.abs(got - alone[other]), axis=1) > tol))
+
+        def wait_ready(host, port):
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                if sh_request(host, port, "GET", "/readyz")[0] == 200:
+                    return True
+                time.sleep(0.01)
+            return False
+
+        def wait_swap(host, port, timeout=120):
+            deadline = time.monotonic() + timeout
+            body = None
+            while time.monotonic() < deadline:
+                body = sh_request(host, port, "GET", "/admin/swap")[2]
+                if body["last"] is not None:
+                    return body
+                time.sleep(0.02)
+            return body
+
+        # (a) the swap under load
+        def client_a(host, port):
+            wait_ready(host, port)
+            before = probe(host, port)
+            status = wait_swap(host, port)
+            return {"before": before, "after": probe(host, port), "swap": status}
+
+        run = sh_cli(root, "v0001", ["--registry", reg, "--packed-weights", "--replicas", "1",
+                                     "--swap-to", "v0002", "--swap-at", "0.5", "--scenario",
+                                     "poisson", "--rate", "100", "--requests", "512",
+                                     "--concurrency", "16", "--default-quota", SH_QUOTA,
+                                     "--rtrace-sample-every", "1"], client=client_a)
+        add(run["counts"])
+        v, c = run["verdict"], run["client"]
+        if v is None or c is None:
+            oks["a"] = False
+            log(f"{tag} (a) FAIL: exit {run['rc']}\n{run['err']}")
+        else:
+            sw = v["swap"]
+            phases = sr_phase_stats(run["run_dir"], v)
+            oks["a"] = (run["rc"] == 0 and v["client"]["dropped"] == 0 and sh_accounted(v)
+                        and v["client"]["submitted"] == 512 and sw["performed"]
+                        and sw["version_to"] == "v0002"
+                        and sum(sw["answered_by"].values()) == v["requests_completed"]
+                        and held(c["before"], "v0001") and held(c["after"], "v0002")
+                        and sh_launch_gate("(a)", run, "unpack"))
+            log(f"{tag} (a) swap under load (poisson 100 req/s, 512 requests, swap at 0.5, "
+                f"one replica): swap block {sw}; by phase (server clock, arrival) {phases}; "
+                f"probes before the swap held to v1 {held(c['before'], 'v0001')}, after it to v2 "
+                f"{held(c['after'], 'v0002')}; {sb_line(v)}; per priority p99 "
+                f"{ {p: b['p99_ms'] for p, b in v['per_priority'].items()} } "
+                f"({run['seconds']:.1f}s) ok={oks['a']}")
+        # the card's memory while the standby joins: an in-process pool of
+        # the same factory, swapped the same way
+        counts0 = read_counts()
+        factory = make_engine_runner_factory(SH_BUCKETS, packed=True)
+        pool = ReplicaPool(factory, [torch.device("cuda")], artifact_ref=art, version="v0001")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        status = pool.swap(second, "v0002")
+        torch.cuda.synchronize()
+        peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        out = pool.submit([tern[0]]).result(60)
+        pool_ok = (status["state"] == "done" and pool.drain(30)
+                   and bool(np.max(np.abs(np.asarray(out[0], np.float64) - alone["v0002"][0]))
+                            <= SH_WIRE_ATOL + CPU_LOGIT_TOL * float(np.max(np.abs(alone["v0002"])))))
+        now = read_counts()
+        add({k: now[k] - counts0[k] for k in now})
+        oks["a_memory"] = pool_ok and peak > base
+        log(f"{tag} (a) in-process pool swap v0001 -> v0002 on cuda:0: allocated before "
+            f"{base} bytes, peak while both are resident {peak} (+{peak - base}, "
+            f"{(peak - base) / 2**20:.2f} MiB), after {after}; swap {status['state']} in "
+            f"{status.get('seconds')} s; forwards {factory.forwards()}; ok={oks['a_memory']}")
+        del pool, factory
+
+        # (c) then (b) on one serving server
+        corrupt = os.path.join(root, "corrupt")
+        shutil.copytree(second, corrupt)
+        wpath = os.path.join(corrupt, "weights.npz")
+        with open(wpath, "r+b") as f:
+            f.truncate(os.path.getsize(wpath) // 2)
+
+        def client_bc(host, port):
+            wait_ready(host, port)
+            got = {"bad": sh_request(host, port, "POST", "/admin/swap",
+                                     json.dumps({"artifact": corrupt}).encode())}
+            got["bad_status"] = wait_swap(host, port)
+            got["v1"] = probe(host, port)
+            t0 = time.perf_counter()
+            got["post"] = sh_request(host, port, "POST", "/admin/swap", b'{"version": 2}')
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                body = sh_request(host, port, "GET", "/admin/swap")[2]
+                if (body["last"] or {}).get("version_to") == "v0002":
+                    break
+                time.sleep(0.02)
+            got["swap_s"] = time.perf_counter() - t0
+            got["status"] = body
+            got["v2"] = probe(host, port)
+            return got
+
+        bc = sh_cli(root, "v0001", ["--registry", reg, "--packed-weights", "--replicas", "1",
+                                    "--default-quota", SH_QUOTA], client=client_bc)
+        add(bc["counts"])
+        vb, cb = bc["verdict"], bc["client"]
+        if vb is None or cb is None:
+            oks["b"] = oks["c"] = False
+            log(f"{tag} (b)/(c) FAIL: exit {bc['rc']}\n{bc['err']}")
+        else:
+            bad = cb["bad_status"]["last"]
+            oks["c"] = (cb["bad"][0] == 202 and bad["state"] == "failed"
+                        and held(cb["v1"], "v0001"))
+            log(f"{tag} (c) a standby that fails to load (weights.npz truncated): POST -> "
+                f"{cb['bad'][0]}, the swap {bad['state']} ({bad.get('error')}), v1 still "
+                f"answering, held to its engine {held(cb['v1'], 'v0001')}; ok={oks['c']}")
+            st = cb["status"]
+            oks["b"] = (bc["rc"] == 0 and cb["post"][0] == 202
+                        and st["current"]["state"] == st["last"]["state"] == "done"
+                        and held(cb["v2"], "v0002") and vb["swap"]["performed"]
+                        and vb["requests_completed"] == vb["requests_submitted"] == 16
+                        and vb["requests_failed"] == 0 and vb["drained_clean"]
+                        and sh_launch_gate("(b)", bc, "unpack"))
+            log(f"{tag} (b) operator swap: POST /admin/swap {{\"version\": 2}} -> "
+                f"{cb['post'][0]} {cb['post'][2]}; GET /admin/swap polled to "
+                f"{st['last']['state']} in {cb['swap_s']:.3f} s (the pool's {st['last'].get('seconds')} s,"
+                f" shed {st['last'].get('shed')}), the pool's current state "
+                f"{st['current'].get('state')}; answers after held to v2 "
+                f"{held(cb['v2'], 'v0002')}; verdict swap block {vb['swap']}; exit {bc['rc']}, "
+                f"submitted {vb['requests_submitted']} completed {vb['requests_completed']} "
+                f"failed {vb['requests_failed']} drained_clean {vb['drained_clean']} "
+                f"({bc['seconds']:.1f}s) ok={oks['b']}")
+
+        # (d) the canary needs two replicas, one card each
+        n = torch.cuda.device_count()
+        if n < 2:
+            log(f"{tag} (d) canary: not run — it needs --replicas >= 2 and one card a "
+                f"replica, and this machine has {n} card")
+        else:
+            d = sh_cli(root, "v0001", ["--registry", reg, "--packed-weights", "--replicas", "2",
+                                       "--swap-to", "v0002", "--swap-at", "0.5", "--scenario",
+                                       "poisson", "--rate", "100", "--requests", "512",
+                                       "--default-quota", SH_QUOTA, "--canary-fraction", "0.3",
+                                       "--canary-replicas", "1", "--shadow-every", "2",
+                                       "--canary-threshold", "min_samples=8",
+                                       "--canary-threshold", "healthy_evals=2",
+                                       "--canary-threshold", "eval_interval_s=0.2"])
+            add(d["counts"])
+            vd = d["verdict"]
+            oks["d"] = (vd is not None and vd["client"]["dropped"] == 0
+                        and (vd.get("canary") or {}).get("decision") in ("promote", "rollback"))
+            log(f"{tag} (d) canary on {n} cards: exit {d['rc']}, canary block "
+                f"{(vd or {}).get('canary')}; ok={oks['d']}")
+    ok = all(oks.values())
+    log(f"{tag} gates {oks}; launches over the runs {total}; "
+        f"{time.perf_counter() - t_phase:.1f}s: ok={ok}")
+    return total, ok
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4716,6 +5312,13 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-http", action="store_true",
                     help="only build the kernels, write the flagship artifact and run the "
                          "[serve-http] phase (about 120 s); exits 0 when its gates pass")
+    ap.add_argument("--health", action="store_true",
+                    help="only build the kernels and run the [train-health] and "
+                         "[serve-rollout] phases; exits 0 when their gates pass")
+    ap.add_argument("--trace-prefix", type=int, default=0, metavar="N",
+                    help="only build the kernels and run [train-health] (a)'s fit 2N times, "
+                         "without and with the profiler window's absorbing burst in turns; "
+                         "exits 0 when no window opened with the burst lost a record")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4741,14 +5344,21 @@ def main(argv=None) -> int:
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
     log_mma_instructions()
 
-    if args.serve_bench or args.serve_http:
+    if args.trace_prefix:
+        return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
+    if args.serve_bench or args.serve_http or args.health:
         with tempfile.TemporaryDirectory() as tmp:
             art = os.path.join(tmp, "resnet18_react")
             make_flagship_artifact(art)
             if args.serve_bench:
                 _, ok_alone, _ = phase_serve_bench(art, smi_line)
-            else:
+            elif args.serve_http:
                 _, ok_alone = phase_serve_http(art, smi_line)
+            else:
+                ok_alone = phase_serve_rollout(art, smi_line)[1]
+                ok_alone = phase_train_health(smi_line)[1] and ok_alone
+        if not ok_alone:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
         return 0 if ok_alone else 1
     if args.weight_kernels:
         wrecs, ok_w = phase_weight_kernels(pk)
@@ -4770,6 +5380,7 @@ def main(argv=None) -> int:
         ok_c = phase_cli(art)
         sb_counts, ok_sb, sb_thr = phase_serve_bench(art, smi_line)
         sh_counts, ok_sh = phase_serve_http(art, smi_line, sb_thr)
+        sr_counts, ok_sr = phase_serve_rollout(art, smi_line)
     train_counts, _, ok_t = phase_train()
     time_host_input()
     ok_tp = phase_train_parity()
@@ -4783,6 +5394,7 @@ def main(argv=None) -> int:
     bf16_counts, brecs, ok_tb = phase_train_bf16(pk, f32_prof)
     recs.update(brecs)
     ddp_counts, ok_td = phase_train_ddp(smi_line)
+    th_counts, ok_th = phase_train_health(smi_line)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -4818,12 +5430,14 @@ def main(argv=None) -> int:
     # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
                    "serve-http": sh_counts.get(k, 0),
+                   "serve-rollout": sr_counts.get(k, 0),
                    "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
                    "train-resume": resume_counts.get(k, 0),
                    "train-folder": folder_counts.get(k, 0),
                    "train-bf16": bf16_counts["train-bf16"].get(k, 0),
-                   "train-ddp": ddp_counts.get(k, 0)}
+                   "train-ddp": ddp_counts.get(k, 0),
+                   "train-health": th_counts.get(k, 0)}
                for k in sources}
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
@@ -4837,9 +5451,10 @@ def main(argv=None) -> int:
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
         for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder",
-                     "train-bf16", "train-ddp")) and all(
+                     "train-bf16", "train-ddp", "train-health")) and all(
         by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16")) and all(
-        by_path[k]["serve-http"] > 0 for k in ("K1", "K2", "K3"))
+        by_path[k]["serve-http"] > 0 and by_path[k]["serve-rollout"] > 0
+        for k in ("K1", "K2", "K3"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -4886,12 +5501,14 @@ def main(argv=None) -> int:
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
-           "serve_bench": ok_sb, "serve_http": ok_sh,
+           "serve_bench": ok_sb, "serve_http": ok_sh, "serve_rollout": ok_sr,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
-           "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td, "launched": ok_used}
+           "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td,
+           "train_health": ok_th, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
+        print("\n".join(_FAILURES), file=sys.stderr, flush=True)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -307,7 +307,7 @@ def cli_run(tmp_path_factory):
 
 def _health_warnings(run_dir):
     with open(os.path.join(run_dir, "log.txt")) as f:
-        return [line for line in f if "health monitor" in line]
+        return [line for line in f if "health" in line and "WARNING" in line]
 
 
 def test_cli_trains_on_a_folder_with_one_data_error(cli_run):
@@ -322,7 +322,10 @@ def test_cli_trains_on_a_folder_with_one_data_error(cli_run):
     assert all(np.isfinite(i["loss"]) for i in intervals)
     (ev,) = read_events(cli_run["run_dir"], "eval")
     assert ev["count"] == 6
-    assert len(_health_warnings(cli_run["run_dir"])) == 1
+    # the health monitor ran (its run-end summary) and raised nothing
+    (health,) = read_events(cli_run["run_dir"], "health")
+    assert health["alerts_total"] == 0 and health["intervals"] == 2
+    assert _health_warnings(cli_run["run_dir"]) == []
 
 
 def test_cli_predict_over_the_export_matches_the_eval(cli_run, tmp_path, capsys):
@@ -339,17 +342,21 @@ def test_cli_predict_over_the_export_matches_the_eval(cli_run, tmp_path, capsys)
 
 
 def test_health_warning_only_when_the_monitor_is_asked_for(tmp_path):
-    """ROADMAP C1: the monitor is on by default and not ported; ``fit``
-    says so once, and not under ``--no-health``."""
+    """ROADMAP C1, closed: the monitor is on by default and runs — its
+    memory baseline and its run-end ``health`` summary — and
+    ``--no-health`` builds none; neither run warns (no alert fired)."""
     kw = dict(dataset="cifar10", arch="resnet8_tiny", synthetic=True, batch_size=8, epochs=1,
               synthetic_train_size=8, synthetic_val_size=8, device="cpu")
     for health in (True, False):
         root = tmp_path / str(health)
         tloop.fit(RunConfig(**kw, health=health, log_path=str(root)))
         (run_dir,) = {r for r, _, fs in os.walk(root) for f in fs if f == "log.txt"}
-        said = _health_warnings(run_dir)
-        assert len(said) == (1 if health else 0)
-        assert not health or ("WARNING" in said[0] and "Later' item 7" in said[0])
+        summaries = read_events(run_dir, "health")
+        assert len(summaries) == (1 if health else 0)
+        assert not health or (summaries[0]["intervals"] == 1
+                              and summaries[0]["alerts_total"] == 0)
+        assert [m["phase"] for m in read_events(run_dir, "memory")] == ["post_compile", "epoch"]
+        assert _health_warnings(run_dir) == []
 
 
 def test_reference_predict_feeds_raw_uint8_under_device_normalize(tree, tmp_path):

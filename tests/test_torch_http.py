@@ -6,22 +6,23 @@ HTTP half of ``serve/loadgen.py``) against the JAX package, on the CPU.
   ``http_slo_verdict`` on one ledger with each optional block set and
   null, the ``x-rtrace`` context and stage-header codecs on the
   reference's hardening cases and a seeded fuzz of headers, and
-  ``ServeHttpConfig.validate``'s refusals. The rollout options keep the
-  reference's range checks and then raise ``NotImplementedError``
-  naming their ROADMAP item.
+  ``ServeHttpConfig.validate``'s refusals, the rollout options' included
+  (one departure: a swap under load on one replica validates).
 - Mirrors of the reference's socket tests (``tests/test_http.py``) on
   the port with a stub runner over real sockets on port 0: health and
   readiness, quotas, strict priority under a full queue, the drain
   contract, the scenarios' shapes, the verdict, the flash crowd and the
-  trace-context hardening; the admin routes answer read-only and
-  ``POST /admin/swap`` answers 501.
+  trace-context hardening; the admin routes answer the replica table and
+  the swap status, and ``POST /admin/swap`` starts a swap that completes.
 - End to end on the tiny artifact with ``device="cpu"``: a bench run's
   verdict has the reference's keys and schema on the same config, and
   the reference's ``summarize``, ``watch`` and ``compare`` read the run
   dir; answers over the wire in serve mode equal the port engine's
   logits rounded to 4 places, and lie within 5e-5 + 2e-5·max|logit| of
   the JAX engine's; SIGTERM mid flash crowd drops nothing; the CLI runs
-  only with ``--device cpu``; a rollout flag raises. The reference's two
+  only with ``--device cpu``; a ``--swap-to/--swap-at`` bench run swaps
+  and its verdict's ``swap`` block has the reference's keys; the
+  ``degrade`` hook slows the swapped-to version alone. The reference's two
   soaks (flash crowd against the priority-0 SLO, slow clients) are
   mirrored and marked slow, as there.
 """
@@ -46,7 +47,6 @@ from bdbnn_tpu.obs import rtrace as jrtrace
 from bdbnn_tpu.serve import loadgen as jloadgen
 from bdbnn_tpu_torch.obs import rtrace as trtrace
 from bdbnn_tpu_torch.serve import loadgen as tloadgen
-from bdbnn_tpu_torch.serve.config import ROLLOUTS_ITEM
 from bdbnn_tpu_torch.serve.config import ServeHttpConfig as TConfig
 from bdbnn_tpu_torch.serve.loadgen import (
     Arrival,
@@ -292,7 +292,9 @@ _CONFIG_CASES = [
     dict(artifact="a", scenario="poisson", swap_at=0.5),
     dict(artifact="a", swap_to="v0002", swap_at=0.5),
     dict(artifact="a", scenario="poisson", swap_to="v0002"),
-    dict(artifact="a", scenario="poisson", swap_to="v0002", swap_at=0.5),
+    # one replica swaps on the port (test_a_swap_under_load_validates_on_one_replica);
+    # both refuse a swap under load with no replica at all
+    dict(artifact="a", scenario="poisson", swap_to="v0002", swap_at=0.5, replicas=0),
     dict(artifact="a", canary_fraction=1.5), dict(artifact="a", canary_fraction=0.3),
     dict(artifact="a", canary_fraction=0.3, replicas=2, canary_replicas=2),
     dict(artifact="a", shadow_every=-1), dict(artifact="a", replica_queue_batches=0),
@@ -318,20 +320,25 @@ def test_config_refusals_equal_the_reference(case):
 
 
 @pytest.mark.parametrize("kw,flag", [
-    (dict(swap_to="v0002"), "--swap-to"),
-    (dict(scenario="poisson", swap_to="v0002", swap_at=0.5, replicas=2), "--swap-to"),
-    (dict(canary_fraction=0.3, replicas=2), "--canary-fraction"),
-    (dict(canary_replicas=2, replicas=3), "--canary-replicas"),
-    (dict(shadow_every=0), "--shadow-every"),
-    (dict(canary_thresholds=("p99_ratio=3",)), "--canary-threshold"),
+    (dict(swap_to="v0002"), dict(scenario="poisson", swap_to="v0002")),
+    (dict(scenario="poisson", swap_to="v0002", swap_at=0.5, replicas=2),
+     dict(scenario="poisson", swap_to="v0002", swap_at=1.5, replicas=2)),
+    (dict(canary_fraction=0.3, replicas=2), dict(canary_fraction=0.3, replicas=1)),
+    (dict(canary_replicas=2, replicas=3, canary_fraction=0.2),
+     dict(canary_replicas=3, replicas=3, canary_fraction=0.2)),
+    (dict(shadow_every=0), dict(shadow_every=-1)),
+    (dict(canary_thresholds=("p99_ratio=3",)), dict(canary_thresholds=("p99_ratio=x",))),
 ])
 def test_rollout_options_refuse_by_name(kw, flag):
-    """What the reference accepts, the port refuses naming the item; the
-    defaults, the pooled predicate and the field set are the reference's."""
+    """Each rollout option validates as the reference's does: a value the
+    reference accepts passes, and a bad one (``flag``) is refused with
+    the reference's error; the defaults, the pooled predicate and the
+    field set are the reference's."""
     assert _refusal(JConfig, artifact="a", **kw) is None
-    with pytest.raises(NotImplementedError, match=f"'{flag}' is not ported yet") as e:
-        TConfig(artifact="a", **kw).validate()
-    assert ROLLOUTS_ITEM in str(e.value) and "Later' 12" in str(e.value)
+    assert _refusal(TConfig, artifact="a", **kw) is None
+    want = _refusal(JConfig, artifact="a", **flag)
+    assert want is not None and want[0] == "ValueError"
+    assert _refusal(TConfig, artifact="a", **flag) == want
     ok = TConfig(artifact="a").validate()
     assert ok.priorities == 3 and ok.scenario == "" and ok.default_quota == "100:200"
     assert set(TConfig.__dataclass_fields__) == set(JConfig.__dataclass_fields__) | {"device"}
@@ -339,6 +346,17 @@ def test_rollout_options_refuse_by_name(kw, flag):
         assert getattr(TConfig(artifact="a"), f) == getattr(JConfig(artifact="a"), f), f
     for pk in (dict(), dict(replicas=2), dict(registry="r"), dict(resident_models=2)):
         assert TConfig(artifact="a", **pk).pooled == JConfig(artifact="a", **pk).pooled
+
+
+def test_a_swap_under_load_validates_on_one_replica():
+    """The one departure from the reference's checks: one card holds one
+    replica, so ``--swap-at`` runs on one (the reference asks for two)."""
+    kw = dict(artifact="a", scenario="poisson", swap_to="v0002", swap_at=0.5)
+    assert _refusal(JConfig, **kw)[0] == "ValueError"
+    assert _refusal(TConfig, **kw) is None
+    # a canary still needs two replicas, refused as the reference does
+    one = dict(artifact="a", canary_fraction=0.3)
+    assert _refusal(TConfig, **one) == _refusal(JConfig, **one) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +412,10 @@ class TestHealthReady:
         status, _, body = _predict(fe, priority=0, body=b"[" + b"1," * 20 + b"1]")
         assert status == 413
 
-    def test_admin_routes_are_read_only(self, port_frontend):
+    def test_admin_routes_are_read_only(self, port_frontend, tmp_path):
+        """The read routes, then ``POST /admin/swap``: a version without a
+        registry is 400, a missing dir 404, an artifact dir 202, and the
+        rollout runs to ``done`` (polled through ``GET /admin/swap``)."""
         from bdbnn_tpu_torch.serve.pool import PoolAdmin, ReplicaPool
 
         fe = port_frontend()
@@ -410,7 +431,27 @@ class TestHealthReady:
             status, _, body = _request(fe, "GET", "/admin/swap")
             assert status == 200 and body == {"current": {"state": "idle"}, "last": None}
             status, _, body = _request(fe, "POST", "/admin/swap", body=b'{"version": 2}')
-            assert status == 501 and ROLLOUTS_ITEM in body["error"]
+            assert status == 400 and "no --registry configured" in body["error"]
+            status, _, body = _request(fe, "POST", "/admin/swap",
+                                       body=json.dumps({"artifact": str(tmp_path / "no")}).encode())
+            assert status == 404
+            status, _, body = _request(fe, "POST", "/admin/swap", body=b"[1]")
+            assert status == 400 and "JSON object" in body["error"]
+            (tmp_path / "v2").mkdir()
+            status, _, body = _request(fe, "POST", "/admin/swap",
+                                       body=json.dumps({"artifact": str(tmp_path / "v2")}).encode())
+            assert status == 202 and body["version_to"] == "v2" and body["accepted"]
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline:
+                _, _, body = _request(fe, "GET", "/admin/swap")
+                if body["last"] is not None:
+                    break
+                time.sleep(0.02)
+            assert body["current"]["state"] == body["last"]["state"] == "done"
+            assert body["last"]["replicas_shifted"] == 2 and body["last"]["shed"] == 0
+            _, _, body = _request(fe, "GET", "/admin/replicas")
+            assert body["version"] == "v2"
+            assert [r["version"] for r in body["replicas"]] == ["v2", "v2"]
         finally:
             pool.drain(timeout=5.0)
 
@@ -883,11 +924,13 @@ def test_slow_client_soak(port_artifact, tmp_path):  # noqa: F811
     assert v["requests_failed"] == 0 and v["drained_clean"] and not v["preempted"]
 
 
-def test_cli_runs_on_the_cpu_only_when_asked(port_artifact, tmp_path):  # noqa: F811
+def test_cli_runs_on_the_cpu_only_when_asked(port_artifact, tmp_path, capsys):  # noqa: F811
     """``python -m bdbnn_tpu_torch.cli serve-http ... --device cpu`` exits 0
     with the verdict on stdout; without ``--device cpu`` there is no card
-    here and it raises before any run dir; a rollout flag raises naming
-    its item."""
+    here and it raises before any run dir; ``--swap-to/--swap-at`` swaps
+    under the load (one replica) and the verdict's ``swap`` block has the
+    reference's keys; the ``degrade`` hook fails the swapped-to version's
+    batches alone."""
     from bdbnn_tpu_torch import cli
 
     args = ["serve-http", port_artifact, "--scenario", "poisson", "--rate", "100", "--requests",
@@ -904,14 +947,40 @@ def test_cli_runs_on_the_cpu_only_when_asked(port_artifact, tmp_path):  # noqa: 
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
         assert not os.path.exists(args[-1])
-    with pytest.raises(NotImplementedError, match="'--swap-to' is not ported yet"):
-        cli.main([*args, "--device", "cpu", "--swap-to", "v0002", "--swap-at", "0.5",
-                  "--replicas", "2"])
+    import shutil
+
+    from bdbnn_tpu.serve import pool as jpool
     from bdbnn_tpu_torch.serve.http import run_serve_http
 
-    with pytest.raises(NotImplementedError, match="degrade"):
-        run_serve_http(TConfig(artifact=port_artifact, device="cpu"),
-                       degrade={"latency_ms": 6.0})
+    v2 = str(tmp_path / "v2")
+    shutil.copytree(port_artifact, v2)
+    args[-1] = str(tmp_path / "swap")
+    capsys.readouterr()
+    assert cli.main([*args, "--device", "cpu", "--swap-to", v2, "--swap-at", "0.5"]) == 0
+    v = json.loads(capsys.readouterr().out)
+    swap = v["swap"]
+    jp = jpool.ReplicaPool(lambda ref, dev: (lambda b: list(b)), ["d0", "d1"])
+    try:
+        jadmin = jpool.PoolAdmin(jp)
+        assert jadmin.start_swap({"artifact": v2})[0] == 202 and jadmin.wait(10)
+        assert set(swap) == set(jadmin.swap_report())
+    finally:
+        jp.drain(timeout=5.0)
+    assert swap["performed"] and swap["state"] == "done" and swap["version_to"] == "v2"
+    assert swap["replicas_shifted"] == 1
+    assert sum(swap["answered_by"].values()) == v["requests_completed"]
+    assert v["requests_completed"] + v["requests_shed"] == 24 and v["client"]["dropped"] == 0
+    # the degrade hook: every batch of the swapped-to version fails, and
+    # the incumbent's answer
+    # the swap fires after 10 of 120 requests, so the later ones meet v2
+    out = run_serve_http(TConfig(**_http_kw(port_artifact, tmp_path / "deg", swap_to=v2,
+                                            swap_at=0.09, requests=120, device="cpu")),
+                         degrade={"artifact": v2, "error_rate": 1.0})
+    dv = out["verdict"]
+    assert dv["swap"]["performed"] and dv["client"]["dropped"] == 0
+    assert set(dv["swap"]["answered_by"]) == {swap["version_from"]}
+    assert dv["requests_failed"] > 0
+    assert dv["requests_completed"] == dv["swap"]["answered_by"][swap["version_from"]]
 
 
 def test_two_resident_models_route_by_x_model(port_artifact, tmp_path):  # noqa: F811

@@ -104,6 +104,16 @@ def test_http_slice_modules_are_scanned():
         assert os.path.join("bdbnn_tpu_torch", mod) in rel
 
 
+def test_health_slice_modules_are_scanned():
+    """The scans above cover the health slice's modules: the training
+    monitor, the memory watermarks, the profiler windows, the canary
+    monitor and the pool's rollouts."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("obs/health.py", "obs/memory.py", "obs/trace.py", "serve/canary.py",
+                "serve/pool.py", "train/loop.py", "train/config.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
 def test_a_spawned_decode_worker_imports_no_jax_and_no_torch(tmp_path):
     """A worker of ``MPImageFolderPipeline`` after it built a batch: the
     modules it holds include the port's pipeline and PIL, and nothing of

@@ -107,10 +107,13 @@ def test_a_job_writes_one_run_dir_and_evaluates_the_whole_split(tmp_path):
                  for evs in (read_events(run_dir), read_jsonl(os.path.join(run_dir,
                                                                             "events.p1.jsonl")))]
     assert intervals[0] == intervals[1] and len(intervals[0]) == 2
-    with open(os.path.join(run_dir, "log.txt")) as f:
-        assert "health monitor is not ported" in f.read()
-    with open(os.path.join(run_dir, "log.p1.txt")) as f:
-        assert "health monitor is not ported" not in f.read()
+    # each rank's monitor ran and wrote its run-end summary into its own
+    # timeline, over the same drains
+    healths = [[e for e in evs if e["kind"] == "health"]
+               for evs in (read_events(run_dir), read_jsonl(os.path.join(run_dir,
+                                                                          "events.p1.jsonl")))]
+    assert [len(h) for h in healths] == [1, 1]
+    assert healths[0][0]["intervals"] == healths[1][0]["intervals"] == 2
     side = ck.read_resume_state(os.path.join(run_dir, ck.CKPT_NAME))
     assert side["topology"] == TWO
 

@@ -7,9 +7,11 @@ every 2 steps) through both packages' ``fit``.
   of the JAX package's.
 - For each event kind the port emits, its field names are a superset of
   the reference's: in the two runs' timelines, and at every
-  ``emit`` call of the reference's ``fit`` (``restore`` and ``preempt``
-  included; the health monitor's forensics checkpoint is ROADMAP A
-  "Later" item 7).
+  ``emit`` call of the reference's ``fit`` (``restore``, ``preempt`` and
+  the forensics checkpoint included) and of its health monitor and
+  memory poll.
+- The reference's ``summarize --strict`` exits nonzero on a port run
+  whose health monitor raised a critical alert, and 0 on a clean one.
 - ``bdbnn_tpu.obs.summarize.summarize_run`` reads a resumed port run dir:
   its best top-1 and its checkpoint and restore lineage.
 - The port's ``events.jsonl`` rotates past ``--events-max-mb`` into
@@ -134,10 +136,9 @@ def _emit_calls(path, skip_functions=()):
 
 
 # the kinds a ``serve-bench`` run dir adds (serve/loadgen.py), and those a
-# ``serve-http`` run dir adds (serve/http.py): the port's ``memory`` events
-# are its serving residency alone, and the training ``memory`` events the
-# reference's fit emits wait for ROADMAP A Later 7
-SERVE_KINDS = {"serve", "rtrace", "replica", "memory", "http", "admission", "capacity"}
+# ``serve-http`` run dir adds (serve/http.py, serve/pool.py)
+SERVE_KINDS = {"serve", "rtrace", "replica", "http", "admission", "capacity", "swap", "canary",
+               "shadow"}
 TRAIN_KINDS = KNOWN_KINDS - SERVE_KINDS
 
 
@@ -146,16 +147,20 @@ def test_port_event_fields_are_a_superset_of_the_references(runs):
         want = {k for e in read_events(runs["jax"], kind) for k in e}
         got = {k for e in read_events(runs["port"], kind) for k in e}
         assert want <= got, (kind, want - got)
-    ref = _emit_calls(os.path.join(REPO, "bdbnn_tpu", "train", "loop.py"),
-                      skip_functions=("_save_forensics_ckpt",))
+    ref = _emit_calls(os.path.join(REPO, "bdbnn_tpu", "train", "loop.py"))
     port = _emit_calls(os.path.join(REPO, "bdbnn_tpu_torch", "train", "loop.py"))
     checked = set()
     for kind, fields in ref:
-        if kind not in TRAIN_KINDS:
-            continue  # health, memory, profile, alert, data_error: not in this slice
+        assert kind in TRAIN_KINDS, kind
         assert any(k == kind and fields <= f for k, f in port), (kind, fields)
         checked.add(kind)
-    assert {"restore", "preempt", "checkpoint", "eval", "run_start"} <= checked
+    assert {"restore", "preempt", "checkpoint", "eval", "run_start", "profile"} <= checked
+    # the monitor's and the memory poll's own emits, module for module
+    for mod in ("health", "memory"):
+        ref = _emit_calls(os.path.join(REPO, "bdbnn_tpu", "obs", f"{mod}.py"))
+        port = _emit_calls(os.path.join(REPO, "bdbnn_tpu_torch", "obs", f"{mod}.py"))
+        assert ref and sorted((k, sorted(f)) for k, f in port) == \
+            sorted((k, sorted(f)) for k, f in ref)
 
 
 def test_summarize_reads_a_resumed_port_run(runs, tmp_path):
@@ -173,6 +178,33 @@ def test_summarize_reads_a_resumed_port_run(runs, tmp_path):
     assert (r["source"], r["epoch"], r["step_in_epoch"], r["integrity"], r["fallback"]) \
         == (old, 1, 2, "ok", False)
     assert summary["provenance"]["backend"] == "cpu"
+
+
+def test_summarize_strict_fails_on_a_port_run_with_a_critical_alert(runs, tmp_path, capsys):
+    """The reference's ``summarize --strict`` passes the clean port run
+    and exits nonzero on one whose monitor raised a critical alert (the
+    probe drain patched to report zero flips, as the reference's own
+    ``collapsed_run`` does); its report names the detector."""
+    from bdbnn_tpu import cli as jcli
+
+    assert jcli.main(["summarize", runs["port"], "--strict"]) == 0
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tloop, "drain_probe_report",
+               lambda sums, sizes, steps: ({"layer": 0.0}, {"layer": 2.5}))
+    try:
+        tloop.fit(RunConfig(log_path=str(tmp_path), device="cpu", **{
+            **CFG, "epochs": 1, "print_freq": 1,
+            "health_thresholds": ("warmup_intervals=1", "debounce=1")}))
+    finally:
+        mp.undo()
+    run_dir = _run_dir(tmp_path)
+    capsys.readouterr()
+    assert jcli.main(["summarize", run_dir, "--strict"]) != 0
+    out = capsys.readouterr()
+    assert "flip_collapse" in out.out + out.err
+    _, summary = summarize_run(run_dir)
+    assert summary["health"]["alerts_critical"] == 1
+    assert summary["health"]["by_detector"] == {"flip_collapse": 1}
 
 
 def test_export_from_a_port_run_serves_in_both_engines(runs, tmp_path):
@@ -208,7 +240,7 @@ def test_events_rotate_into_one_timeline_both_readers_read(tmp_path):
     w = EventWriter(str(tmp_path / "w"))
     try:
         with pytest.raises(ValueError, match="unknown event kind"):
-            w.emit("alert", detector="x")
+            w.emit("no_such_kind", detector="x")
         rec = w.emit("eval", loss=float("nan"), acc1=float("inf"), count=np.int64(3))
     finally:
         w.close()
