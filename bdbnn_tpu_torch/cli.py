@@ -52,8 +52,17 @@ verdict (exit 0); with ``--scenario`` a socket load generator in the
 same process drives it and the verdict gains the client's ledger. It
 exits 1 when a request failed or got no response and 3 when
 ``--slo-p99-ms`` was missed. The rollout flags (``--swap-to``,
-``--swap-at``, ``--canary-*``, ``--shadow-every``) are parsed and raise
-``NotImplementedError`` naming their ROADMAP item.
+``--swap-at``, ``--canary-*``, ``--shadow-every``) swap the served
+version under load (on one replica too) or run a canary (two replicas).
+
+``serve-fleet --hosts HOST:PORT ...`` is the reference's cross-host
+router in front of running ``serve-http`` hosts: health probes, least
+in-flight dispatch, retries on a different host with backoff, relayed
+sheds, the host-by-host fleet swap and the fleet verdict. With
+``--scenario`` it drives the load from its own process. It exits 1 when a
+request got no response, when the per-host ledgers do not sum to the
+client's or when a fleet swap did not end ``done``, and 3 when
+``--slo-p99-ms`` was missed.
 
 ``registry {publish,list,resolve,pull} -r ROOT`` manages a versioned
 artifact registry in the reference's layout (a registry either package
@@ -61,7 +70,7 @@ publishes resolves in the other).
 
 Training, ``predict``, ``serve-bench`` and ``serve-http`` run on the CUDA
 card unless ``--device cpu`` is given, and raise without a card;
-``export`` and ``registry`` are host work.
+``export``, ``registry`` and the ``serve-fleet`` router are host work.
 """
 
 from __future__ import annotations
@@ -545,14 +554,21 @@ def serve_http_main(argv) -> int:
     ap.add_argument("--registry", default="",
                     help="artifact registry root: lets ARTIFACT and x-model name published "
                     "versions (vNNNN), digest-verified")
-    ap.add_argument("--swap-to", default="", help="not ported (rollouts)")
-    ap.add_argument("--swap-at", type=float, default=0.0, help="not ported (rollouts)")
+    ap.add_argument("--swap-to", default="",
+                    help="blue/green target: a registry version (vNNNN) or an artifact dir")
+    ap.add_argument("--swap-at", type=float, default=0.0,
+                    help="with --scenario: swap after this fraction of the schedule (0 = no "
+                    "scheduled swap; POST /admin/swap still works)")
     ap.add_argument("--canary-fraction", type=float, default=0.0,
-                    help="not ported (rollouts)")
-    ap.add_argument("--canary-replicas", type=int, default=1, help="not ported (rollouts)")
-    ap.add_argument("--shadow-every", type=int, default=8, help="not ported (rollouts)")
+                    help="with a swap: route this share of batches to the new version first "
+                    "and promote or roll back on the canary's evidence (0 = plain swap)")
+    ap.add_argument("--canary-replicas", type=int, default=1,
+                    help="replicas the canary stage shifts first")
+    ap.add_argument("--shadow-every", type=int, default=8,
+                    help="mirror every Nth incumbent batch to the canary to measure logit drift "
+                    "(0 = off)")
     ap.add_argument("--canary-threshold", action="append", default=[], metavar="NAME=VALUE",
-                    dest="canary_thresholds", help="not ported (rollouts)")
+                    dest="canary_thresholds", help="override one canary threshold (repeatable)")
     ap.add_argument("--replica-queue-batches", type=int, default=8)
     ap.add_argument("--wedge-timeout-s", type=float, default=30.0,
                     help="a replica busy on one batch longer than this is marked unhealthy, "
@@ -618,6 +634,135 @@ def serve_http_main(argv) -> int:
     return 0
 
 
+def serve_fleet_main(argv) -> int:
+    """``serve-fleet --hosts H:P H:P ... [ARTIFACT]`` — the cross-host
+    fleet router (serve/fleet.py) in front of running ``serve-http``
+    hosts: per-host health probes (warmup → debounce → hysteresis), least
+    in-flight dispatch, bounded retry with backoff on a different host
+    (an accepted request is answered, never dropped), relayed sheds,
+    digest-verified registry replication and the host-by-host fleet
+    swap. With ``--scenario`` the socket load generator drives the router
+    from this process and the verdict's ``fleet`` block carries per-host
+    ledgers that must sum to the client's. The router is host work: it
+    loads no weights and touches no card."""
+    from bdbnn_tpu_torch.serve.config import ServeFleetConfig
+
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli serve-fleet",
+        description="Route traffic across a fleet of serve-http hosts by health and "
+        "occupancy, with retry/backoff host-failure tolerance and fleet-consistent verdicts.",
+    )
+    ap.add_argument("artifact", nargs="?", default="",
+                    help="export artifact dir (scenario mode reads image_size from its "
+                    "artifact.json to shape request bodies; no weights are loaded)")
+    ap.add_argument("--hosts", nargs="+", required=True, metavar="HOST:PORT",
+                    help="backend serve-http hosts to route across")
+    ap.add_argument("--log-path", default="serve_fleet_log")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="router bind port (default 0 = kernel-assigned)")
+    ap.add_argument("--priorities", type=int, default=3,
+                    help="x-priority classes the router ledgers by (must match the hosts')")
+    ap.add_argument("--probe-interval-s", type=float, default=0.25,
+                    help="health-probe cadence per host (default 0.25)")
+    ap.add_argument("--probe-timeout-s", type=float, default=1.0)
+    ap.add_argument("--health-warmup", type=int, default=0,
+                    help="probes never judged after a host joins (default 0)")
+    ap.add_argument("--health-debounce", type=int, default=2,
+                    help="consecutive probe failures before a host is declared dead "
+                    "(default 2)")
+    ap.add_argument("--max-attempts", type=int, default=3,
+                    help="distinct hosts a request is tried on across transport failures "
+                    "before the router sheds it explicitly (default 3)")
+    ap.add_argument("--backoff-base-ms", type=float, default=25.0)
+    ap.add_argument("--backoff-cap-ms", type=float, default=250.0)
+    ap.add_argument("--proxy-timeout-s", type=float, default=60.0)
+    ap.add_argument("--ready-timeout-s", type=float, default=60.0,
+                    help="how long to wait for at least one host to probe ready")
+    ap.add_argument("--scenario", default="",
+                    choices=["", "poisson", "diurnal", "flash_crowd", "heavy_tail",
+                             "slow_client"],
+                    help="bench mode: drive this arrival process against the ROUTER, then "
+                    "drain and report (default: route until SIGTERM)")
+    ap.add_argument("--rate", type=float, default=100.0)
+    ap.add_argument("--requests", type=int, default=200)
+    ap.add_argument("--concurrency", type=int, default=16)
+    ap.add_argument("--flash-factor", type=float, default=8.0)
+    ap.add_argument("--diurnal-amp", type=float, default=0.8)
+    ap.add_argument("--heavy-sigma", type=float, default=1.5)
+    ap.add_argument("--slow-fraction", type=float, default=0.2)
+    ap.add_argument("--priority-weights", type=float, nargs="+", default=[])
+    ap.add_argument("--tenants", nargs="+", default=["tenant-a", "tenant-b"])
+    ap.add_argument("--tenant-weights", type=float, nargs="+", default=[])
+    ap.add_argument("--slo-p99-ms", type=float, default=0.0)
+    ap.add_argument("--slo-shed-rate", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="", help="also write the SLO verdict JSON here")
+    ap.add_argument("--stats-interval-s", type=float, default=1.0)
+    ap.add_argument("--events-max-mb", type=float, default=256.0)
+    ap.add_argument("--no-rtrace", dest="rtrace", action="store_false",
+                    help="disable cross-host tracing (obs/rtrace.py FleetTracer): no x-rtrace "
+                    "propagation, no stitched waterfall, fleet_attribution lands null")
+    ap.add_argument("--rtrace-sample-every", type=int, default=16,
+                    help="emit every Nth proxied request's stitched cross-host waterfall as an "
+                    "rtrace event (default 16)")
+    ap.add_argument("--rtrace-tail-k", type=int, default=5,
+                    help="slowest proxied requests per priority kept as cross-host tail "
+                    "exemplars (default 5)")
+    ap.add_argument("--scrape-timeout-s", type=float, default=0.5,
+                    help="per-host bound on one stats-pump /statsz scrape (default 0.5)")
+    ap.add_argument("--scrape-stale-after", type=int, default=3,
+                    help="consecutive scrape failures before a host's merged window is marked "
+                    "stale and excluded (default 3)")
+    ap.add_argument("--registry", default="",
+                    help="PRIMARY artifact registry fleet rollouts pull from")
+    ap.add_argument("--host-registries", nargs="+", default=[], metavar="DIR",
+                    help="per-host registry roots (one per --hosts entry, in order) the fleet "
+                    "swap replicates versions into by digest-verified pull")
+    ap.add_argument("--swap-to", default="",
+                    help="fleet blue/green target: a registry version (vNNNN, with --registry) "
+                    "or an artifact dir")
+    ap.add_argument("--swap-at", type=float, default=0.0,
+                    help="with --scenario: fire the fleet swap after this fraction of the "
+                    "schedule has been offered (0 = no scheduled swap; POST /fleet/swap still "
+                    "works)")
+    ap.add_argument("--swap-host-timeout-s", type=float, default=120.0)
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.serve.fleet import run_serve_fleet
+
+    kw = {k: v for k, v in vars(args).items() if k in ServeFleetConfig.__dataclass_fields__}
+    for k, v in kw.items():
+        if isinstance(v, list):
+            kw[k] = tuple(v)
+    result = run_serve_fleet(ServeFleetConfig(**kw))
+    v = result["verdict"]
+    print(json.dumps(v, indent=2, sort_keys=True), flush=True)
+    print(f"[serve-fleet] run dir: {result['run_dir']} "
+          f"(routed on {result['host']}:{result['port']})", file=sys.stderr)
+    fleet = v.get("fleet") or {}
+    dropped = fleet.get("dropped") or 0
+    if dropped:
+        print(f"[serve-fleet] {dropped} request(s) got NO response (dropped) — the fleet "
+              "drain contract was violated", file=sys.stderr)
+        return 1
+    if fleet.get("ledger_consistent") is False:
+        print("[serve-fleet] per-host ledgers do NOT sum to the client totals — fleet "
+              "accounting is torn; see the verdict's fleet block", file=sys.stderr)
+        return 1
+    swap = fleet.get("swap")
+    if swap is not None and swap.get("state") not in (None, "done"):
+        print(f"[serve-fleet] fleet swap ended in state {swap.get('state')}: "
+              f"{swap.get('error')}", file=sys.stderr)
+        return 1
+    slo = v.get("slo")
+    if slo is not None and not slo.get("met"):
+        print(f"[serve-fleet] SLO MISSED: priority-0 p99 {slo.get('p99_ms_priority0')}ms > "
+              f"target {slo.get('p99_ms_target_priority0')}ms", file=sys.stderr)
+        return 3
+    return 0
+
+
 def registry_main(argv) -> int:
     """``registry {publish,list,resolve,pull} -r ROOT`` — a versioned
     artifact registry (serve/registry.py): ``publish`` copies an export
@@ -666,7 +811,8 @@ def registry_main(argv) -> int:
 
 
 COMMANDS = {"predict": predict_main, "export": export_main, "serve-bench": serve_bench_main,
-            "serve-http": serve_http_main, "registry": registry_main}
+            "serve-http": serve_http_main, "serve-fleet": serve_fleet_main,
+            "registry": registry_main}
 
 
 def main(argv=None) -> int:

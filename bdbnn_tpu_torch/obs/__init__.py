@@ -1,42 +1,50 @@
-from bdbnn_tpu_torch.obs.health import (
-    DETECTORS,
-    RUN_ENDING_SEVERITY,
-    SEVERITIES,
-    DetectorState,
-    HealthConfig,
-    HealthMonitor,
-    apply_overrides,
-)
-from bdbnn_tpu_torch.obs.memory import emit_memory_event, hbm_watermark
-from bdbnn_tpu_torch.obs.probes import (
-    FLIP_PREFIX,
-    KURT_PREFIX,
-    NonFiniteLossError,
-    drain_probe_report,
-    nonfinite_flag,
-    probe_metrics,
-    probe_signs,
-)
-from bdbnn_tpu_torch.obs.trace import TraceCapture, find_trace_file, parse_profile_at
+"""Observability: the health monitor and its detectors, the memory
+watermarks, the step probes and the profiler windows by name; the request
+tracer, the capacity plane, the event channel and the run manifest as
+modules of their own.
 
-__all__ = [
-    "DETECTORS",
-    "FLIP_PREFIX",
-    "KURT_PREFIX",
-    "RUN_ENDING_SEVERITY",
-    "SEVERITIES",
-    "DetectorState",
-    "HealthConfig",
-    "HealthMonitor",
-    "NonFiniteLossError",
-    "TraceCapture",
-    "apply_overrides",
-    "drain_probe_report",
-    "emit_memory_event",
-    "find_trace_file",
-    "hbm_watermark",
-    "nonfinite_flag",
-    "parse_profile_at",
-    "probe_metrics",
-    "probe_signs",
-]
+The names below are imported on first use: a host-only process (the
+fleet router) reads the capacity, trace and event modules without
+loading torch."""
+
+from __future__ import annotations
+
+import importlib
+
+# each public name and the module that defines it, imported on first use
+_EXPORTS = {
+    "DETECTORS": "bdbnn_tpu_torch.obs.health",
+    "DetectorState": "bdbnn_tpu_torch.obs.health",
+    "HealthConfig": "bdbnn_tpu_torch.obs.health",
+    "HealthMonitor": "bdbnn_tpu_torch.obs.health",
+    "RUN_ENDING_SEVERITY": "bdbnn_tpu_torch.obs.health",
+    "SEVERITIES": "bdbnn_tpu_torch.obs.health",
+    "apply_overrides": "bdbnn_tpu_torch.obs.health",
+    "emit_memory_event": "bdbnn_tpu_torch.obs.memory",
+    "hbm_watermark": "bdbnn_tpu_torch.obs.memory",
+    "FLIP_PREFIX": "bdbnn_tpu_torch.obs.probes",
+    "KURT_PREFIX": "bdbnn_tpu_torch.obs.probes",
+    "NonFiniteLossError": "bdbnn_tpu_torch.obs.probes",
+    "drain_probe_report": "bdbnn_tpu_torch.obs.probes",
+    "nonfinite_flag": "bdbnn_tpu_torch.obs.probes",
+    "probe_metrics": "bdbnn_tpu_torch.obs.probes",
+    "probe_signs": "bdbnn_tpu_torch.obs.probes",
+    "TraceCapture": "bdbnn_tpu_torch.obs.trace",
+    "find_trace_file": "bdbnn_tpu_torch.obs.trace",
+    "parse_profile_at": "bdbnn_tpu_torch.obs.trace",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -36,9 +36,15 @@ The signals come from accounting sites the HTTP front end
 
 Burn rate = (observed bad fraction) / (budgeted bad fraction); a breach
 requires BOTH windows over the threshold — the fast window proves it is
-happening now, the slow one that it is not a blip. The router-side
-``FleetCapacityWindows`` waits for the port's fleet router (ROADMAP A,
-Later 11).
+happening now, the slow one that it is not a blip.
+
+One level up, :class:`FleetCapacityWindows` is the fleet router's merge
+of the ``capacity`` blocks its stats pump scrapes from each host's
+``/statsz`` (serve/fleet.py): per-host rows, and over the FRESH hosts
+only the summed offered and headroom rps and the worst burn rate and
+shed ratio. ``stale_after`` failed scrapes in a row take a host out of
+the merge, as :class:`~bdbnn_tpu_torch.obs.rtrace.HostStatsWindows` does
+for the trace windows.
 """
 
 from __future__ import annotations
@@ -711,6 +717,133 @@ class CapacityPlane:
         }
 
 
+class FleetCapacityWindows:
+    """The router-side merge of scraped per-host ``capacity`` blocks,
+    under the same staleness discipline as the rtrace metrics plane
+    (obs/rtrace.py HostStatsWindows): ``stale_after`` consecutive
+    scrape failures freeze a host out of the merged view — an
+    autoscaler must never act on a wedged host's frozen numbers."""
+
+    def __init__(self, *, stale_after: int = 3):
+        if stale_after < 1:
+            raise ValueError("stale_after must be >= 1")
+        self.stale_after = int(stale_after)
+        self._lock = threading.Lock()
+        # guarded-by: _lock: _last, _scrapes, _failures, _fail_streak
+        self._last: Dict[str, Optional[Dict[str, Any]]] = {}
+        self._scrapes: Dict[str, int] = {}
+        self._failures: Dict[str, int] = {}
+        self._fail_streak: Dict[str, int] = {}
+
+    def record(
+        self, host: str, capacity_block: Optional[Dict[str, Any]]
+    ) -> None:
+        """One good scrape carrying the host's live capacity block (a
+        host running without objectives still reports demand +
+        utilization). A payload with no block is a failure — the host
+        is not producing the plane."""
+        if not isinstance(capacity_block, dict):
+            return self.record_failure(host)
+        with self._lock:
+            self._last[host] = capacity_block
+            self._scrapes[host] = self._scrapes.get(host, 0) + 1
+            self._fail_streak[host] = 0
+
+    def record_failure(self, host: str) -> None:
+        with self._lock:
+            self._failures[host] = self._failures.get(host, 0) + 1
+            self._fail_streak[host] = self._fail_streak.get(host, 0) + 1
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Per-host summaries with staleness plus the merged view over
+        FRESH hosts only: offered/headroom rps summed (the fleet's
+        aggregate demand and remaining capacity), burn-rate max taken
+        as the worst fresh host's (one saturated host is a fleet
+        problem even when peers are idle)."""
+        with self._lock:
+            last = dict(self._last)
+            scrapes = dict(self._scrapes)
+            failures = dict(self._failures)
+            streaks = dict(self._fail_streak)
+        for h in set(failures) - set(last):
+            last[h] = None
+        hosts: Dict[str, Any] = {}
+        fresh = stale = 0
+        merged_offered: Optional[float] = None
+        merged_headroom: Optional[float] = None
+        merged_burn: Optional[float] = None
+        merged_shed: Optional[float] = None
+        for h in sorted(last):
+            block = last[h]
+            is_stale = streaks.get(h, 0) >= self.stale_after
+            if is_stale:
+                stale += 1
+            else:
+                fresh += 1
+            demand = (block or {}).get("demand") or {}
+            headroom = (block or {}).get("headroom") or {}
+            budget = (block or {}).get("slo_budget") or {}
+            burn_vals = [
+                b
+                for row in (budget.get("detectors") or {}).values()
+                for b in (row.get("burn_rate_fast"),
+                          row.get("burn_rate_slow"))
+                if isinstance(b, (int, float)) and math.isfinite(b)
+            ]
+            row = {
+                "stale": is_stale,
+                "scrapes": scrapes.get(h, 0),
+                "failures": failures.get(h, 0),
+                "fail_streak": streaks.get(h, 0),
+                "offered_rps": demand.get("offered_rps"),
+                "headroom_rps": headroom.get("headroom_rps"),
+                "capacity_rps_est": headroom.get("capacity_rps_est"),
+                "burn_rate_max": max(burn_vals) if burn_vals else None,
+                "demand_shed_ratio_max": demand.get(
+                    "demand_shed_ratio_max"
+                ),
+            }
+            hosts[h] = row
+            if is_stale or block is None:
+                continue
+            if row["offered_rps"] is not None:
+                merged_offered = (merged_offered or 0.0) + row[
+                    "offered_rps"
+                ]
+            if row["headroom_rps"] is not None:
+                merged_headroom = (merged_headroom or 0.0) + row[
+                    "headroom_rps"
+                ]
+            if row["burn_rate_max"] is not None:
+                merged_burn = (
+                    row["burn_rate_max"] if merged_burn is None
+                    else max(merged_burn, row["burn_rate_max"])
+                )
+            if row["demand_shed_ratio_max"] is not None:
+                merged_shed = (
+                    row["demand_shed_ratio_max"] if merged_shed is None
+                    else max(merged_shed, row["demand_shed_ratio_max"])
+                )
+        return {
+            "stale_after": self.stale_after,
+            "hosts_fresh": fresh,
+            "hosts_stale": stale,
+            "hosts": hosts,
+            "merged": {
+                "offered_rps": (
+                    round(merged_offered, 4)
+                    if merged_offered is not None else None
+                ),
+                "headroom_rps": (
+                    round(merged_headroom, 4)
+                    if merged_headroom is not None else None
+                ),
+                "burn_rate_max": merged_burn,
+                "demand_shed_ratio_max": merged_shed,
+            },
+        }
+
+
 __all__ = [
     "BURN_RATE_CAP",
     "BURN_RATE_THRESHOLD",
@@ -721,6 +854,7 @@ __all__ = [
     "SHED_OBJECTIVE",
     "CapacityPlane",
     "DemandLedger",
+    "FleetCapacityWindows",
     "SLOBudget",
     "UtilizationWindows",
     "demand_key",

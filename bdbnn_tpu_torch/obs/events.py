@@ -112,6 +112,24 @@ The rollouts (serve/pool.py, serve/canary.py) add three more:
   incumbent batch also ran on the canary, ``drift`` its max absolute
   logit difference
 
+The fleet router (serve/fleet.py, ``serve-fleet``) adds one more:
+
+- ``fleet``       — the router's lifecycle, by ``phase``: ``start`` (bind
+  host/port, the backend host set, scenario), ``ready`` (a backend probed
+  ready), ``probe`` (a host's state changed: ``state_from``/``state_to``
+  over warming/ready/draining/dead; steady probes emit nothing),
+  ``proxy`` (a proxy attempt failed at the transport and the request is
+  retried on a peer: host, cause ``connect``/``timeout``/``reset``,
+  attempt), ``pull`` (the fleet swap copied a version into one host's
+  registry, digest-verified), ``swap`` (``trigger``, one ``shifted`` a
+  host as its own swap reaches a terminal state, then ``done`` or
+  ``failed``), ``stats`` (the per-host table, the router's ``rtrace``
+  windows, the scraped ``host_windows`` with staleness and the merged
+  ``capacity``), ``drain`` (the SIGTERM latch fired) and ``stop`` (the
+  listener closed after the verdict); the per-host ledgers land in the
+  verdict's ``fleet`` block, the cross-host waterfall in its
+  ``fleet_attribution`` block
+
 :meth:`EventWriter.emit` refuses a kind not in :data:`KNOWN_KINDS`
 (``ValueError``) and writes no non-finite number: :func:`jsonsafe` puts
 ``null`` in its place (a bare ``NaN`` token is not JSON; the
@@ -160,6 +178,7 @@ KNOWN_KINDS = frozenset(
         "swap",
         "canary",
         "shadow",
+        "fleet",
     }
 )
 

@@ -61,11 +61,20 @@ class RunManifest:
     @classmethod
     def capture(cls, cfg: Any, device=None) -> "RunManifest":
         """Snapshot the process, ``device`` (a ``torch.device``; the
-        CUDA card when None) and ``cfg``."""
-        import torch
+        CUDA card when None) and ``cfg``. A process on the CPU that has
+        not loaded torch (the fleet router, which touches no device) does
+        not load it here: its ``torch_version`` is the installed
+        distribution's and its ``cuda_version`` None."""
+        if str(device) == "cpu" and "torch" not in sys.modules:
+            from importlib.metadata import version
 
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda":
+            backend, torch_version, cuda_version = "cpu", version("torch"), None
+        else:
+            import torch
+
+            dev = torch.device("cuda" if device is None else device)
+            backend, torch_version, cuda_version = dev.type, torch.__version__, torch.version.cuda
+        if backend == "cuda":
             kind = torch.cuda.get_device_name(dev)
             count = torch.cuda.device_count()
         else:
@@ -84,9 +93,9 @@ class RunManifest:
             created_unix=round(now, 3),
             config_hash=config_hash(cfg_dict),
             config=cfg_dict,
-            torch_version=torch.__version__,
-            cuda_version=torch.version.cuda,
-            backend=dev.type,
+            torch_version=torch_version,
+            cuda_version=cuda_version,
+            backend=backend,
             device_kind=kind,
             device_count=count,
             local_device_count=count,

@@ -2,112 +2,87 @@
 ``serve-bench`` stack — micro-batcher, replica pool, load generator and
 SLO verdict — and the ``serve-http`` front end with its admission
 control, artifact registry, scenario load generator and rollouts
-(blue/green swap, canary, shadow)."""
+(blue/green swap, canary, shadow), and the ``serve-fleet`` router in front
+of several ``serve-http`` hosts.
 
-from bdbnn_tpu_torch.serve.admission import (
-    AdmissionController,
-    TokenBucket,
-    parse_quota,
-    parse_tenant_quotas,
-)
-from bdbnn_tpu_torch.serve.batching import LoadShedError, MicroBatcher
-from bdbnn_tpu_torch.serve.canary import (
-    CanaryConfig,
-    CanaryMonitor,
-    apply_canary_overrides,
-    assign_canary,
-)
-from bdbnn_tpu_torch.serve.config import ServeBenchConfig, ServeHttpConfig
-from bdbnn_tpu_torch.serve.engine import (
-    DEFAULT_BUCKETS,
-    InferenceEngine,
-    evaluate_split,
-    max_abs_logit_drift,
-    percentile,
-)
-from bdbnn_tpu_torch.serve.export import (
-    load_artifact_packed,
-    load_artifact_variables,
-    read_artifact,
-    write_artifact,
-)
-from bdbnn_tpu_torch.serve.http import PREDICT_PATH, HttpFrontEnd, run_serve_http
-from bdbnn_tpu_torch.serve.loadgen import (
-    SCENARIOS,
-    VERDICT_NAME,
-    VERDICT_SCHEMA_VERSION,
-    Arrival,
-    HttpLoadGenerator,
-    LoadGenerator,
-    build_schedule,
-    fairness_ratio,
-    http_slo_verdict,
-    run_serve_bench,
-    slo_verdict,
-    write_verdict_files,
-)
-from bdbnn_tpu_torch.serve.pool import (
-    DEFAULT_MODEL,
-    PoolAdmin,
-    Replica,
-    ReplicaPool,
-    ResidentModelCache,
-    make_engine_runner_factory,
-    resident_block,
-    single_engine_resident_block,
-)
-from bdbnn_tpu_torch.serve.registry import (
-    ArtifactRegistry,
-    looks_like_version,
-    parse_version,
-)
+The names below are imported on first use, so a process that needs only
+part of the package loads only that part: the fleet router imports its
+own modules and the HTTP wire helpers, never the engine or torch.
+"""
 
-__all__ = [
-    "DEFAULT_BUCKETS",
-    "DEFAULT_MODEL",
-    "PREDICT_PATH",
-    "SCENARIOS",
-    "VERDICT_NAME",
-    "VERDICT_SCHEMA_VERSION",
-    "AdmissionController",
-    "ArtifactRegistry",
-    "Arrival",
-    "CanaryConfig",
-    "CanaryMonitor",
-    "HttpFrontEnd",
-    "HttpLoadGenerator",
-    "InferenceEngine",
-    "LoadGenerator",
-    "LoadShedError",
-    "MicroBatcher",
-    "PoolAdmin",
-    "Replica",
-    "ReplicaPool",
-    "ResidentModelCache",
-    "ServeBenchConfig",
-    "ServeHttpConfig",
-    "TokenBucket",
-    "apply_canary_overrides",
-    "assign_canary",
-    "build_schedule",
-    "evaluate_split",
-    "fairness_ratio",
-    "http_slo_verdict",
-    "load_artifact_packed",
-    "load_artifact_variables",
-    "looks_like_version",
-    "make_engine_runner_factory",
-    "max_abs_logit_drift",
-    "parse_quota",
-    "parse_tenant_quotas",
-    "parse_version",
-    "percentile",
-    "read_artifact",
-    "resident_block",
-    "run_serve_bench",
-    "run_serve_http",
-    "single_engine_resident_block",
-    "slo_verdict",
-    "write_artifact",
-    "write_verdict_files",
-]
+from __future__ import annotations
+
+import importlib
+
+# each public name and the module that defines it, imported on first use
+_EXPORTS = {
+    "AdmissionController": "bdbnn_tpu_torch.serve.admission",
+    "TokenBucket": "bdbnn_tpu_torch.serve.admission",
+    "parse_quota": "bdbnn_tpu_torch.serve.admission",
+    "parse_tenant_quotas": "bdbnn_tpu_torch.serve.admission",
+    "LoadShedError": "bdbnn_tpu_torch.serve.batching",
+    "MicroBatcher": "bdbnn_tpu_torch.serve.batching",
+    "CanaryConfig": "bdbnn_tpu_torch.serve.canary",
+    "CanaryMonitor": "bdbnn_tpu_torch.serve.canary",
+    "apply_canary_overrides": "bdbnn_tpu_torch.serve.canary",
+    "assign_canary": "bdbnn_tpu_torch.serve.canary",
+    "ServeBenchConfig": "bdbnn_tpu_torch.serve.config",
+    "ServeFleetConfig": "bdbnn_tpu_torch.serve.config",
+    "ServeHttpConfig": "bdbnn_tpu_torch.serve.config",
+    "DEFAULT_BUCKETS": "bdbnn_tpu_torch.serve.engine",
+    "InferenceEngine": "bdbnn_tpu_torch.serve.engine",
+    "evaluate_split": "bdbnn_tpu_torch.serve.engine",
+    "max_abs_logit_drift": "bdbnn_tpu_torch.serve.engine",
+    "load_artifact_packed": "bdbnn_tpu_torch.serve.export",
+    "load_artifact_variables": "bdbnn_tpu_torch.serve.export",
+    "read_artifact": "bdbnn_tpu_torch.serve.export",
+    "write_artifact": "bdbnn_tpu_torch.serve.export",
+    "FleetRouter": "bdbnn_tpu_torch.serve.fleet",
+    "RETRY_CAUSES": "bdbnn_tpu_torch.serve.fleet",
+    "backoff_s": "bdbnn_tpu_torch.serve.fleet",
+    "fleet_slo_verdict": "bdbnn_tpu_torch.serve.fleet",
+    "parse_hosts": "bdbnn_tpu_torch.serve.fleet",
+    "run_serve_fleet": "bdbnn_tpu_torch.serve.fleet",
+    "HttpFrontEnd": "bdbnn_tpu_torch.serve.http",
+    "PREDICT_PATH": "bdbnn_tpu_torch.serve.http",
+    "run_serve_http": "bdbnn_tpu_torch.serve.http",
+    "Arrival": "bdbnn_tpu_torch.serve.loadgen",
+    "HttpLoadGenerator": "bdbnn_tpu_torch.serve.loadgen",
+    "LoadGenerator": "bdbnn_tpu_torch.serve.loadgen",
+    "SCENARIOS": "bdbnn_tpu_torch.serve.loadgen",
+    "VERDICT_NAME": "bdbnn_tpu_torch.serve.loadgen",
+    "VERDICT_SCHEMA_VERSION": "bdbnn_tpu_torch.serve.loadgen",
+    "build_schedule": "bdbnn_tpu_torch.serve.loadgen",
+    "fairness_ratio": "bdbnn_tpu_torch.serve.loadgen",
+    "http_slo_verdict": "bdbnn_tpu_torch.serve.loadgen",
+    "percentile": "bdbnn_tpu_torch.serve.loadgen",
+    "run_serve_bench": "bdbnn_tpu_torch.serve.loadgen",
+    "slo_verdict": "bdbnn_tpu_torch.serve.loadgen",
+    "write_verdict_files": "bdbnn_tpu_torch.serve.loadgen",
+    "DEFAULT_MODEL": "bdbnn_tpu_torch.serve.pool",
+    "PoolAdmin": "bdbnn_tpu_torch.serve.pool",
+    "Replica": "bdbnn_tpu_torch.serve.pool",
+    "ReplicaPool": "bdbnn_tpu_torch.serve.pool",
+    "ResidentModelCache": "bdbnn_tpu_torch.serve.pool",
+    "make_engine_runner_factory": "bdbnn_tpu_torch.serve.pool",
+    "resident_block": "bdbnn_tpu_torch.serve.pool",
+    "single_engine_resident_block": "bdbnn_tpu_torch.serve.pool",
+    "ArtifactRegistry": "bdbnn_tpu_torch.serve.registry",
+    "looks_like_version": "bdbnn_tpu_torch.serve.registry",
+    "parse_version": "bdbnn_tpu_torch.serve.registry",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

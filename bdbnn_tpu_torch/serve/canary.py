@@ -172,7 +172,7 @@ def apply_canary_overrides(
 
 
 def _p99(window) -> Optional[float]:
-    from bdbnn_tpu_torch.serve.engine import _pct
+    from bdbnn_tpu_torch.serve.loadgen import _pct
 
     return _pct(sorted(window), 99.0)
 

@@ -1,8 +1,9 @@
-"""Typed configuration of the ``serve-bench`` and ``serve-http`` CLIs —
-the port's copies of ``ServeBenchConfig`` and ``ServeHttpConfig`` in
+"""Typed configuration of the ``serve-bench``, ``serve-http`` and
+``serve-fleet`` CLIs — the port's copies of ``ServeBenchConfig``,
+``ServeHttpConfig`` and ``ServeFleetConfig`` in
 ``bdbnn_tpu/configs/config.py``: the reference's fields, defaults and
-``validate()``, plus ``device`` (the card unless the caller asks for the
-CPU; there is no fallback)."""
+``validate()``, plus ``device`` on the two that hold engines (the card
+unless the caller asks for the CPU; there is no fallback)."""
 
 from __future__ import annotations
 
@@ -512,4 +513,229 @@ class ServeHttpConfig:
         return self
 
 
-__all__ = ["ServeBenchConfig", "ServeHttpConfig"]
+@dataclasses.dataclass(frozen=True)
+class ServeFleetConfig:
+    """Typed configuration of the ``serve-fleet`` CLI (serve/fleet.py).
+
+    Same resolve-once contract as the other serving configs: every
+    knob of the cross-host router — the backend host set, health-probe
+    state machine, retry/backoff budget, fleet swap targets and (in
+    bench mode) the traffic scenario — is validated before any socket
+    exists. The router holds no engine and so has no ``device``: each
+    host's own ``serve-http`` picks its card.
+    """
+
+    hosts: Tuple[str, ...]  # backend serve-http hosts, "HOST:PORT" each
+    # export artifact dir: scenario mode reads image_size/num_classes
+    # from its artifact.json (stdlib JSON read — no weights, no JAX) to
+    # shape request bodies. "" = serve mode only.
+    artifact: str = ""
+    log_path: str = "serve_fleet_log"
+    host: str = "127.0.0.1"  # router bind address
+    port: int = 0  # 0 = kernel-assigned ephemeral port
+    priorities: int = 3  # x-priority classes the ledger buckets by
+    # health-probe state machine (obs/health.py DetectorState): probe
+    # every interval; the first `health_warmup` probes are never
+    # judged, a connect/timeout breach must persist `health_debounce`
+    # consecutive probes before the host is declared dead, and a dead
+    # host re-arms on the first successful probe (hysteresis).
+    probe_interval_s: float = 0.25
+    probe_timeout_s: float = 1.0
+    health_warmup: int = 0
+    health_debounce: int = 2
+    # proxy retry budget: an accepted request is tried on up to
+    # `max_attempts` DISTINCT hosts on connect/timeout/reset failures
+    # (a backend 4xx/5xx RESPONSE is relayed, never retried), with
+    # exponential backoff base*2^attempt capped at `backoff_cap_ms`
+    # between attempts and a per-attempt proxy timeout.
+    max_attempts: int = 3
+    backoff_base_ms: float = 25.0
+    backoff_cap_ms: float = 250.0
+    proxy_timeout_s: float = 60.0
+    # how long router startup may wait for at least one backend host
+    # to probe ready before the run aborts
+    ready_timeout_s: float = 60.0
+    # bench mode: "" = route until SIGTERM; otherwise one of the
+    # loadgen scenarios driven over real sockets against the ROUTER
+    scenario: str = ""
+    rate: float = 100.0
+    requests: int = 200
+    concurrency: int = 16
+    flash_factor: float = 8.0
+    diurnal_amp: float = 0.8
+    heavy_sigma: float = 1.5
+    slow_fraction: float = 0.2
+    slow_chunks: int = 4
+    slow_gap_ms: float = 20.0
+    priority_weights: Tuple[float, ...] = ()
+    tenants: Tuple[str, ...] = ("tenant-a", "tenant-b")
+    tenant_weights: Tuple[float, ...] = ()
+    slo_p99_ms: float = 0.0
+    # budgeted shed fraction for the backends' capacity planes — the
+    # router records it in its manifest; each HOST's own
+    # --slo-shed-rate arms the detectors the router's scrape merges
+    slo_shed_rate: float = 0.0
+    seed: int = 0
+    out: str = ""
+    stats_interval_s: float = 1.0
+    events_max_mb: float = 256.0
+    # cross-host tracing (obs/rtrace.py FleetTracer): the router mints
+    # a trace id per proxied request, stamps its own stages
+    # (probe_wait/pick/connect/retry_hop/network), propagates the
+    # context via x-rtrace and stitches the backend's x-rtrace-stages
+    # reply into the v7 fleet_attribution block. Same sampling knob
+    # semantics as serve-http's rtrace.
+    rtrace: bool = True
+    rtrace_sample_every: int = 16
+    rtrace_tail_k: int = 5
+    # fleet metrics plane: the stats pump scrapes every host's
+    # /statsz rtrace block with its OWN bounded timeout (a wedged
+    # host costs one timeout per pump period, never a stall) and
+    # `scrape_stale_after` consecutive failures mark that host's
+    # merged window stale.
+    scrape_timeout_s: float = 0.5
+    scrape_stale_after: int = 3
+    # fleet blue/green: the PRIMARY registry rollouts pull from, the
+    # per-host registry roots replicated into (one per host, in host
+    # order; hosts sharing a filesystem may share one root), and the
+    # scheduled swap trigger (--swap-at fraction of the scenario).
+    registry: str = ""
+    host_registries: Tuple[str, ...] = ()
+    swap_to: str = ""
+    swap_at: float = 0.0
+    # how long the host-by-host shift may wait on any ONE host's swap
+    # state machine before declaring the fleet rollout failed
+    swap_host_timeout_s: float = 120.0
+
+    def validate(self) -> "ServeFleetConfig":
+        from bdbnn_tpu_torch.serve.loadgen import SCENARIOS
+
+        if not self.hosts:
+            raise ValueError(
+                "serve-fleet needs at least one backend host "
+                "(--hosts HOST:PORT ...)"
+            )
+        for spec in self.hosts:
+            host, sep, port = str(spec).rpartition(":")
+            if not sep or not host or not port.isdigit():
+                raise ValueError(
+                    f"bad --hosts entry {spec!r} (want HOST:PORT)"
+                )
+        if len(set(self.hosts)) != len(self.hosts):
+            raise ValueError(f"duplicate --hosts entries: {self.hosts!r}")
+        if self.priorities < 1:
+            raise ValueError("--priorities must be >= 1")
+        if self.probe_interval_s <= 0 or self.probe_timeout_s <= 0:
+            raise ValueError(
+                "--probe-interval-s and --probe-timeout-s must be > 0"
+            )
+        if self.health_warmup < 0 or self.health_debounce < 1:
+            raise ValueError(
+                "--health-warmup must be >= 0 and --health-debounce "
+                ">= 1"
+            )
+        if self.max_attempts < 1:
+            raise ValueError("--max-attempts must be >= 1")
+        if self.backoff_base_ms < 0 or self.backoff_cap_ms < 0:
+            raise ValueError(
+                "--backoff-base-ms and --backoff-cap-ms must be >= 0"
+            )
+        if self.proxy_timeout_s <= 0 or self.ready_timeout_s <= 0:
+            raise ValueError(
+                "--proxy-timeout-s and --ready-timeout-s must be > 0"
+            )
+        if self.scenario and self.scenario not in SCENARIOS:
+            raise ValueError(
+                f"unknown --scenario {self.scenario!r} "
+                f"(want one of {SCENARIOS}, or omit to route until "
+                "SIGTERM)"
+            )
+        if self.scenario:
+            if not self.artifact:
+                raise ValueError(
+                    "--scenario needs ARTIFACT (the export artifact "
+                    "dir whose artifact.json shapes request bodies)"
+                )
+            if self.requests <= 0 or self.rate <= 0:
+                raise ValueError(
+                    "--scenario needs --requests > 0 and --rate > 0"
+                )
+            if self.concurrency <= 0:
+                raise ValueError("--concurrency must be >= 1")
+        if self.priority_weights and (
+            len(self.priority_weights) != self.priorities
+            or any(w < 0 for w in self.priority_weights)
+            or sum(self.priority_weights) <= 0
+        ):
+            raise ValueError(
+                "--priority-weights needs one nonnegative weight per "
+                f"priority class ({self.priorities}), summing > 0"
+            )
+        if not self.tenants:
+            raise ValueError("need at least one tenant name")
+        if self.tenant_weights and (
+            len(self.tenant_weights) != len(self.tenants)
+            or any(w < 0 for w in self.tenant_weights)
+            or sum(self.tenant_weights) <= 0
+        ):
+            raise ValueError(
+                "--tenant-weights needs one nonnegative weight per "
+                f"tenant ({len(self.tenants)}), summing > 0"
+            )
+        if not 0.0 <= self.slow_fraction <= 1.0:
+            raise ValueError("--slow-fraction must be in [0, 1]")
+        if self.slo_p99_ms < 0:
+            raise ValueError("--slo-p99-ms must be >= 0 (0 disables)")
+        if not 0.0 <= self.slo_shed_rate <= 1.0:
+            raise ValueError(
+                "--slo-shed-rate must be in [0, 1] (0 disables)"
+            )
+        if self.stats_interval_s <= 0:
+            raise ValueError("--stats-interval-s must be > 0")
+        if self.events_max_mb < 0:
+            raise ValueError("--events-max-mb must be >= 0")
+        if self.rtrace_sample_every < 1:
+            raise ValueError(
+                "--rtrace-sample-every must be >= 1 (1 = every "
+                "request; use --no-rtrace to disable tracing)"
+            )
+        if self.rtrace_tail_k < 0:
+            raise ValueError("--rtrace-tail-k must be >= 0")
+        if self.scrape_timeout_s <= 0:
+            raise ValueError("--scrape-timeout-s must be > 0")
+        if self.scrape_stale_after < 1:
+            raise ValueError("--scrape-stale-after must be >= 1")
+        if not 0.0 <= self.swap_at < 1.0:
+            raise ValueError(
+                "--swap-at is a fraction of the scenario's offered "
+                f"requests in [0, 1), got {self.swap_at!r}"
+            )
+        if self.swap_at > 0 and not self.swap_to:
+            raise ValueError("--swap-at needs --swap-to (what to swap to)")
+        if self.swap_at > 0 and not self.scenario:
+            raise ValueError(
+                "--swap-at schedules a swap against a --scenario's "
+                "offered load; without one, drive POST /fleet/swap "
+                "instead"
+            )
+        if self.swap_to and not self.registry:
+            from bdbnn_tpu_torch.serve.registry import looks_like_version
+
+            if looks_like_version(self.swap_to):
+                raise ValueError(
+                    "--swap-to by version needs --registry (the "
+                    "primary registry the fleet pulls from)"
+                )
+        if self.host_registries and len(self.host_registries) != len(
+            self.hosts
+        ):
+            raise ValueError(
+                "--host-registries needs one registry root per host "
+                f"({len(self.hosts)}), got {len(self.host_registries)}"
+            )
+        if self.swap_host_timeout_s <= 0:
+            raise ValueError("--swap-host-timeout-s must be > 0")
+        return self
+
+
+__all__ = ["ServeBenchConfig", "ServeFleetConfig", "ServeHttpConfig"]

@@ -54,28 +54,9 @@ import numpy as np
 import torch
 
 from bdbnn_tpu_torch import resolve_device
+from bdbnn_tpu_torch.serve.loadgen import _pct, percentile
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 8, 32)
-
-
-def percentile(sorted_vals: Sequence[float], q: float) -> Optional[float]:
-    """Nearest-rank percentile over an ascending sequence; None when
-    empty (copy of the reference's ``serve.loadgen.percentile``; the
-    port's one definition, which its load generator, SLO verdict and
-    request tracer use)."""
-    import math
-
-    if not 0.0 <= q <= 100.0:
-        raise ValueError(f"percentile q must be in [0, 100], got {q!r}")
-    if not sorted_vals:
-        return None
-    rank = max(int(math.ceil(q / 100.0 * len(sorted_vals))), 1)
-    return sorted_vals[min(rank, len(sorted_vals)) - 1]
-
-
-def _pct(vals: Sequence[float], q: float, digits: int = 3) -> Optional[float]:
-    v = percentile(vals, q)
-    return None if v is None else round(v, digits)
 
 
 class InferenceEngine:

@@ -58,7 +58,6 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from bdbnn_tpu_torch.serve.batching import LoadShedError, MicroBatcher
-from bdbnn_tpu_torch.serve.engine import _pct, percentile
 
 VERDICT_NAME = "verdict.json"
 # the reference's verdict schema: v1 aggregates; v2 per-priority,
@@ -68,6 +67,25 @@ VERDICT_NAME = "verdict.json"
 # ``fleet_attribution``; v8 ``capacity``. Every block the bench does not
 # fill is null, so each consumer of an older version keeps working.
 VERDICT_SCHEMA_VERSION = 8
+
+def percentile(sorted_vals: Sequence[float], q: float) -> Optional[float]:
+    """Nearest-rank percentile over an ascending sequence; None when
+    empty (the reference's ``serve.loadgen.percentile``; the port's one
+    definition, which its engine, load generators, SLO verdicts, request
+    tracers and fleet router use). Nearest-rank needs no numpy, so a
+    host-only process (the fleet router) computes it without it."""
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"percentile q must be in [0, 100], got {q!r}")
+    if not sorted_vals:
+        return None
+    rank = max(int(math.ceil(q / 100.0 * len(sorted_vals))), 1)
+    return sorted_vals[min(rank, len(sorted_vals)) - 1]
+
+
+def _pct(vals: Sequence[float], q: float, digits: int = 3) -> Optional[float]:
+    v = percentile(vals, q)
+    return None if v is None else round(v, digits)
+
 
 class LoadGenerator:
     """Offer load to a submit callable; collect per-request latency.

@@ -106,6 +106,28 @@ Phases (any failure exits non-zero and prints no result line):
              truncated: the swap ``failed``, v1 still answering; (b) then,
              on that server, ``POST /admin/swap {"version": 2}`` polled to
              ``done``, v2 answering; (d) the canary, only on two cards;
+4e. serve-fleet — ``serve-fleet`` (the router as its CLI subprocess, its
+             scenario's load in its own process) in front of port
+             ``serve-http`` hosts sharing the card, each a CLI subprocess
+             with its own CUDA context and registry, ``--replicas 1
+             --packed-weights``, buckets 1 8 32 (phase_serve_fleet): (a)
+             poisson at 100 req/s, 512 requests over h0 and h1: nothing
+             dropped, the per-host ledgers summing to the client's; lone
+             raw requests through the router byte-for-byte (but for
+             ``latency_ms``) the host's own answer, within the serve-http
+             tolerance of an engine in the hosts' mode; (b) 4,000 req/s
+             offered through the router and to h0 alone, each host's device
+             busy share (a profiler window SIGUSR1/SIGUSR2 open and close in
+             the host); (e) a torn v2 in h0's registry fails the fleet swap
+             with v1 answering on both, then v1 -> v2 under load host by
+             host to ``done``, v2 answering on both, each host's shed and
+             p99 before / during / after; (d) SIGSTOP h1 (timeouts retried
+             on h0, its scraped window stale, the hop in
+             ``fleet_attribution``), (c) a flash crowd with SIGTERM to h1
+             half way (it drains, the router sees ``draining`` first), (d)
+             SIGKILL a fresh host h2 (connect/reset retries on h0, ``dead``
+             after the debounce); launches 19 × the forwards of each host
+             that exits cleanly, the SIGKILLed host's unknown;
 5. train_kernels — holds K5 (binary conv dgrad with the sign
              estimator's slope), K6 (binary conv wgrad with the STE mask)
              and K7 (grouped kurtosis regularizer and gradient) against
@@ -263,7 +285,7 @@ Phases (any failure exits non-zero and prints no result line):
              a window;
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
-             serve, serve-bench, serve-http, serve-rollout, train, train-stoch,
+             serve, serve-bench, serve-http, serve-rollout, serve-fleet, train, train-stoch,
              train-ts, train-resume, train-folder, train-bf16, train-ddp and
              train-health, and for a bf16 mode
              train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
@@ -274,7 +296,9 @@ Phases (any failure exits non-zero and prints no result line):
 K7 alone and prints their records as one JSON line: run from two trees in
 turns, it compares their weight kernels on one card. ``python3
 chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
-``python3 chip_smoke.py --serve-http`` the build and phase 4c alone, and
+``python3 chip_smoke.py --serve-http`` the build and phase 4c alone,
+``python3 chip_smoke.py --serve-fleet`` the build and phase 4e alone
+(``--fleet-verdicts DIR`` keeps its verdicts), and
 ``python3 chip_smoke.py --health`` the build and phases 4d and 16b.
 ``python3 chip_smoke.py --trace-prefix N`` runs [train-health] (a)'s fit
 2N times, in turns without and with the burst that opens a profiler window
@@ -973,9 +997,12 @@ COUNTED_CLI = "import sys, chip_smoke; sys.exit(chip_smoke.counted_cli())"
 
 def counted_cli() -> int:
     """``python -m bdbnn_tpu_torch.cli`` with this process's arguments;
-    then the run's kernel launch counts as JSON into ``$CHIP_SMOKE_COUNTS``."""
+    then the run's kernel launch counts as JSON into ``$CHIP_SMOKE_COUNTS``
+    and, when SIGUSR1/SIGUSR2 opened and closed profiler windows
+    (:class:`BusyWindows`), their kernel and wall ms beside it."""
     import runpy
 
+    busy = BusyWindows(os.environ[COUNTS_ENV] + BUSY_SUFFIX)
     code = 1
     try:
         runpy.run_module("bdbnn_tpu_torch.cli", run_name="__main__", alter_sys=True)
@@ -985,6 +1012,9 @@ def counted_cli() -> int:
     finally:
         with open(os.environ[COUNTS_ENV], "w") as f:
             json.dump({**read_counts(), **read_bf16_counts()}, f)
+        if busy.windows:
+            with open(os.environ[COUNTS_ENV] + BUSY_SUFFIX, "w") as f:
+                json.dump(busy.windows, f)
     return code
 
 
@@ -5296,6 +5326,759 @@ def phase_serve_rollout(art: str, smi_line: str):
     return total, ok
 
 
+# [serve-fleet]: the fleet router in front of serve-http hosts on one card
+SF_RATE = 100.0
+SF_REQUESTS = 512
+SF_PROBE_S = 0.1
+# the busy windows a host's counted CLI keeps: SIGUSR1 opens a
+# torch.profiler window over the card's kernels, SIGUSR2 closes it
+BUSY_SUFFIX = ".busy"
+
+
+class BusyWindows:
+    """Profiler windows that a parent opens and closes by signal. SIGUSR1
+    starts a ``torch.profiler`` session over the card's kernels (the CUDA
+    activity only: no host-op records, so the server's Python runs as
+    without it) and then writes the count of windows opened so far into
+    ``<path>.open``; SIGUSR2 ends it, keeps (kernel ms, wall ms) and writes
+    the count of windows closed into ``<path>.closed``. Starting or ending
+    a session can take seconds in a busy process, so the parent waits for
+    each count before it goes on (:func:`sf_open_windows`,
+    :func:`sf_close_windows`). A handler runs on the main thread between
+    two of its bytecodes: no exception escapes into the server."""
+
+    def __init__(self, path: str):
+        import signal
+
+        self.path = path
+        self.windows = []
+        self.opened = 0
+        self._prof = None
+        signal.signal(signal.SIGUSR1, self._open)
+        signal.signal(signal.SIGUSR2, self._close)
+
+    def _mark(self, suffix: str, n: int) -> None:
+        with open(self.path + suffix, "w") as f:
+            f.write(str(n))
+
+    def _open(self, *_):
+        if self._prof is None:
+            try:
+                import torch
+                from torch.profiler import ProfilerActivity, profile
+
+                if torch.cuda.is_available():
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    self._t0 = time.perf_counter()
+                    self._prof = prof
+            except Exception as e:
+                print(f"BusyWindows: the profiler did not start: {e!r}", file=sys.stderr)
+        self.opened += 1
+        self._mark(".open", self.opened)
+
+    def _close(self, *_):
+        prof, self._prof = self._prof, None
+        window = [0.0, 0.0]
+        if prof is not None:
+            try:
+                import torch
+
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - self._t0) * 1e3
+                prof.__exit__(None, None, None)
+                busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                           if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                window = [busy, wall]
+            except Exception as e:
+                print(f"BusyWindows: the window did not close: {e!r}", file=sys.stderr)
+        self.windows.append(window)
+        self._mark(".closed", len(self.windows))
+
+
+def _wait_marks(hosts: list, suffix: str, want: dict, timeout: float) -> float:
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        done = 0
+        for h in hosts:
+            try:
+                with open(h["counts_file"] + BUSY_SUFFIX + suffix) as f:
+                    done += int(f.read() or 0) >= want[h["name"]]
+            except (OSError, ValueError):
+                pass
+        if done == len(hosts):
+            break
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def sf_open_windows(hosts: list, label: str, timeout: float = 120.0) -> float:
+    """SIGUSR1 to each host, then wait until each has started its profiler
+    session (:class:`BusyWindows`); returns the seconds that took. Each
+    host notes the window's label."""
+    import signal
+
+    for h in hosts:
+        h["windows"].append([label, None])
+        h["proc"].send_signal(signal.SIGUSR1)
+    return _wait_marks(hosts, ".open", {h["name"]: len(h["windows"]) for h in hosts}, timeout)
+
+
+def sf_close_windows(hosts: list, load_wall_s, timeout: float = 120.0) -> float:
+    """SIGUSR2 to each host, then wait until each has ended its session;
+    ``load_wall_s`` (the load's own wall, the share's denominator: an idle
+    host launches no kernel) is noted beside its label."""
+    import signal
+
+    for h in hosts:
+        h["windows"][-1][1] = load_wall_s
+        h["proc"].send_signal(signal.SIGUSR2)
+    return _wait_marks(hosts, ".closed", {h["name"]: len(h["windows"]) for h in hosts}, timeout)
+
+
+def sf_host(root: str, name: str, registry: str, art: str = "") -> dict:
+    """One fleet host: ``serve-http v0001 --registry REG --replicas 1
+    --packed-weights`` (or, with ``art``, ``serve-http ART --packed-weights``:
+    one engine, no pool) through :func:`counted_cli` on port 0, in serve
+    mode on the card (no ``--device``: no fallback)."""
+    log_path = os.path.join(root, name)
+    os.makedirs(log_path)
+    counts = os.path.join(log_path, "counts.json")
+    served = [art] if art else ["v0001", "--registry", registry, "--replicas", "1"]
+    cmd = [sys.executable, "-c", COUNTED_CLI, "serve-http", *served, "--packed-weights",
+           "--port", "0", "--log-path", log_path, "--buckets", *map(str, SH_BUCKETS),
+           "--default-quota", SH_QUOTA, "--server-id", name]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, COUNTS_ENV: counts})
+    return {"name": name, "proc": proc, "log_path": log_path, "counts_file": counts,
+            "port": None, "windows": []}
+
+
+def sf_wait_host(h: dict, timeout: float = 300.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and h["proc"].poll() is None:
+        start, _ = _http_events(h["log_path"], "start")
+        if start is not None and _http_events(h["log_path"], "ready")[0] is not None:
+            h["port"] = start["port"]
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def sf_reap(h: dict, signalled: bool = False) -> dict:
+    """Stop a host (SIGCONT, as a stopped process would act on nothing,
+    then SIGTERM, unless it has had its SIGTERM already: a second one
+    during its exit would meet the default handler) and read what it
+    left: exit code, its verdict, the ``http`` ``stop`` event's forwards,
+    its launch counts (written at a clean exit only; None when it wrote
+    none) and profiler windows."""
+    import signal
+
+    p = h["proc"]
+    if p.poll() is None and not signalled:
+        p.send_signal(signal.SIGCONT)
+        p.send_signal(signal.SIGTERM)
+    try:
+        out, err = p.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        out, err = p.communicate()
+    res = {"rc": p.returncode, "err": err[-3000:], "err_all": err, "verdict": None,
+           "forwards": None, "counts": None, "busy": []}
+    if p.returncode == 0:
+        res["verdict"] = json.loads(out)
+    stop, res["run_dir"] = _http_events(h["log_path"], "stop")
+    if stop is not None:
+        res["forwards"] = stop["forwards"]
+    if os.path.exists(h["counts_file"]):
+        with open(h["counts_file"]) as f:
+            res["counts"] = json.load(f)
+    if os.path.exists(h["counts_file"] + BUSY_SUFFIX):
+        with open(h["counts_file"] + BUSY_SUFFIX) as f:
+            res["busy"] = json.load(f)
+    return res
+
+
+def _fleet_events(log_path: str, kind: str = "fleet"):
+    import glob
+
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    out = []
+    for ev in glob.glob(os.path.join(log_path, "*", "events.jsonl")):
+        out += read_events(os.path.dirname(ev), kind)
+    return out
+
+
+def sf_router(root: str, art: str, hosts: list, args: list, on_ready=None, on_proxied=None,
+              client=None):
+    """``serve-fleet ART --hosts ... args`` as a subprocess (the router,
+    with its scenario's load generator in its own process). ``on_ready()``
+    runs once its ``fleet`` ``ready`` event lands, ``on_proxied(n)`` on
+    each new ``fleet`` ``stats`` event with the requests proxied so far.
+    With ``client`` (serve mode: no ``--scenario`` in ``args``),
+    ``client(host, port)`` runs here once the router is ready, its result
+    is kept, and the router gets SIGTERM after it. Returns rc, verdict
+    (printed on exit 0 and 1), run dir, client, stderr tail, seconds."""
+    log_path = tempfile.mkdtemp(dir=root)
+    cmd = [sys.executable, "-m", "bdbnn_tpu_torch.cli", "serve-fleet", art, "--hosts",
+           *(f"127.0.0.1:{h['port']}" for h in hosts), "--log-path", log_path,
+           "--probe-interval-s", str(SF_PROBE_S), "--stats-interval-s", "0.2", *args]
+    t0, t_spawn = time.perf_counter(), time.time()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    if client is not None:
+        import signal
+
+        def on_ready(run=client):
+            start = [e for e in _fleet_events(log_path) if e.get("phase") == "start"][0]
+            got["client"] = run(start["host"], start["port"])
+            proc.send_signal(signal.SIGTERM)
+
+    got = {"client": None}
+    ready, seen = on_ready is None, 0
+    try:
+        deadline = time.monotonic() + 600
+        # the run dir's events are read only while a hook waits on them
+        while (proc.poll() is None and time.monotonic() < deadline
+               and not (ready and on_proxied is None)):
+            ev = _fleet_events(log_path)
+            if not ready and any(e.get("phase") == "ready" for e in ev):
+                ready = True
+                on_ready()
+            stats = [e for e in ev if e.get("phase") == "stats"]
+            if on_proxied is not None and len(stats) > seen:
+                seen = len(stats)
+                on_proxied(sum(r["proxied"] for r in stats[-1]["hosts"].values()))
+            time.sleep(0.02)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            out, err = proc.communicate()
+    import glob
+
+    dirs = [os.path.dirname(p) for p in glob.glob(os.path.join(log_path, "*", "events.jsonl"))]
+    # where the router process's wall went, on its own event clock
+    at = {e["phase"]: e["t"] for e in _fleet_events(log_path)
+          if e.get("phase") in ("start", "ready", "drain", "stop")}
+    if len(at) == 4:
+        log(f"[serve-fleet] router process: started {at['start'] - t_spawn:.2f}s after its "
+            f"spawn, ready {at['ready'] - at['start']:.2f}s later, load {at['drain'] - at['ready']:.2f}s, "
+            f"drain to stop {at['stop'] - at['drain']:.2f}s, exited {time.time() - at['stop']:.2f}s "
+            "after its stop event")
+    verdict = None
+    if proc.returncode in (0, 1, 3) and out.strip().startswith("{"):
+        verdict = json.loads(out)
+    return {"rc": proc.returncode, "verdict": verdict, "run_dir": dirs[0] if dirs else None,
+            "client": got["client"], "err": err[-3000:], "seconds": time.perf_counter() - t0}
+
+
+def sf_consistent(v: dict, client: dict) -> bool:
+    """The fleet block's ledger rule, applied to a client the router did
+    not see (one in another process): per status, the hosts' relayed
+    answers and the router's own sheds sum to what the client got."""
+    f = v["fleet"]
+    hs = f["hosts"].values()
+    want = {"200": sum(h["completed"] for h in hs), "429": sum(h["relayed_429"] for h in hs),
+            "503": sum(h["relayed_503"] for h in hs) + f["router_unrouteable"]
+            + f["router_shed_draining"], "other": sum(h["relayed_other"] for h in hs)}
+    got = {"other": 0}
+    for k, n in client["by_status"].items():
+        key = k if k in ("200", "429", "503") else "other"
+        got[key] = got.get(key, 0) + n
+    return {k: n for k, n in want.items() if n} == {k: n for k, n in got.items() if n}
+
+
+def sf_raw(host: str, port: int, body: bytes, timeout: float = 60.0):
+    """One raw-float32 predict on a fresh connection: (status, headers,
+    body bytes)."""
+    import socket
+
+    from bdbnn_tpu_torch.serve.loadgen import recv_response
+
+    with socket.create_connection((host, port), timeout=timeout) as s:
+        s.sendall((f"POST /v1/predict HTTP/1.1\r\nhost: {host}\r\nx-priority: 0\r\n"
+                   "x-tenant: tenant-a\r\ncontent-type: application/octet-stream\r\n"
+                   f"content-length: {len(body)}\r\nconnection: close\r\n\r\n").encode() + body)
+        return recv_response(s.makefile("rb"))
+
+
+def sf_line(v: dict) -> str:
+    f = v["fleet"]
+    hosts = {k: {x: h[x] for x in ("state", "proxied", "completed", "relayed_429",
+                                   "relayed_503", "retries", "p99_ms")}
+             for k, h in f["hosts"].items()}
+    # a client in another process than the router: its ledger is held here
+    dropped, consistent = f["dropped"], f["ledger_consistent"]
+    if dropped is None:
+        dropped, consistent = v["client"]["dropped"], sf_consistent(v, v["client"])
+    return (f"client {v['client']['by_status']} dropped {dropped} ledger_consistent "
+            f"{consistent}; {v['throughput_rps']} req/s, p50/p99 {v['p50_ms']}/"
+            f"{v['p99_ms']} ms, shed {v['requests_shed']}; retries {f['retries_total']} "
+            f"(rate {f['retry_rate']}); hosts {json.dumps(hosts)}")
+
+
+def sf_held(answers, alone) -> bool:
+    """Every answer, a (status, parsed body), is a 200 whose logits lie
+    within the wire tolerance of ``alone`` (one engine's logits, an image
+    each): the versions' engines differ far beyond it, so this names the
+    version that answered."""
+    import numpy as np
+
+    got = np.array([b["result"]["logits"] for s, b in answers if s == 200], np.float64)
+    if len(got) != len(answers):
+        return False
+    tol = SH_WIRE_ATOL + CPU_LOGIT_TOL * float(np.max(np.abs(alone)))
+    return bool(np.max(np.abs(got - alone)) <= tol)
+
+
+def phase_serve_fleet(art: str, smi_line: str, keep: str = ""):
+    """[serve-fleet]: ``serve-fleet`` (the router as the CLI subprocess it
+    is for users, its scenario's load generator in its own process) in
+    front of port ``serve-http`` hosts, each a CLI subprocess on the one
+    card with its own CUDA context (``--registry`` of its own,
+    ``--replicas 1``, ``--packed-weights``, buckets 1 8 32, the flagship v1
+    and v2 of seeds 0 and 1). (a) poisson at 100 req/s, 512 requests over
+    h0 and h1: nothing dropped, a consistent ledger; 16 lone raw requests
+    through an in-process ``FleetRouter`` byte-for-byte (but for
+    ``latency_ms``) the answering host's own answer to the same body, and
+    within the serve-http tolerance of an engine in the hosts' mode. (b)
+    4,000 req/s offered, 512 requests, 16 connections, through the router
+    over h0 and h1 (the client in the router's process, then in this one)
+    and over h0 alone, then the same schedule from this process to h0 (its
+    peers idle) and to h3 (one engine without a pool, the others stopped); each host's device busy share in
+    each run (a torch.profiler window in the host, CUDA activity only,
+    opened before the load: kernel ms over the load's wall). (e) a torn v2 in h0's registry: the fleet swap ``failed``, v1
+    answering on both hosts; then v1 -> v2 under load at 100 req/s, swap
+    at 0.5: pulled digest-verified, host by host to ``done``, v2 answering
+    on both, each host's shed and p99 before / during / after. (d) SIGSTOP
+    h1 mid-run (0.75 s proxy timeout): timeouts retried on h0, h1's window
+    stale, the hop in ``fleet_attribution``; SIGCONT. (c) a flash crowd
+    with SIGTERM to h1 half way: nothing dropped, h1 drains what it took
+    and exits 0, the router sees it ``draining`` first. (d) SIGKILL a fresh
+    host h2 mid-load over h0 and h2: connect/reset retries land on h0,
+    nothing dropped, ``dead`` only after the debounce. Each host that
+    exits cleanly: launches 19 × its forwards; the SIGKILLed one's are
+    unknown. Returns (launch counts summed over the clean hosts, ok)."""
+    import re
+    import shutil
+    import signal
+
+    import numpy as np
+
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.fleet import RETRY_CAUSES, FleetRouter
+    from bdbnn_tpu_torch.serve.registry import ArtifactRegistry
+
+    tag = "[serve-fleet]"
+    t_phase = time.perf_counter()
+    log(f"{tag} {smi_line}")
+    oks = {}
+    total = {k: 0 for k in SB_COUNTED}
+    summary = {"device": smi_line}
+
+    def keep_verdict(name, v):
+        if keep and v is not None:
+            os.makedirs(keep, exist_ok=True)
+            with open(os.path.join(keep, f"{name}.json"), "w") as f:
+                json.dump(v, f)
+
+    with tempfile.TemporaryDirectory() as root:
+        second = os.path.join(root, "resnet18_react_seed1")
+        make_flagship_artifact(second, seed=1)
+        primary = os.path.join(root, "primary")
+        reg = ArtifactRegistry(primary)
+        for p in (art, second):
+            reg.publish(p)
+        regs = [os.path.join(root, f"reg{i}") for i in range(3)]
+        for r in regs:
+            ArtifactRegistry(r).pull(primary, 1)
+        hosts = [sf_host(root, f"h{i}", regs[i]) for i in range(3)]
+        hosts.append(sf_host(root, "h3", "", art))
+        # the yardsticks in the hosts' mode, while the hosts warm up
+        alone = {}
+        for v, path in (("v1", art), ("v2", second)):
+            e = InferenceEngine(path, buckets=SH_BUCKETS, device="cuda", packed=True)
+            size = e.image_size
+            images = np.random.default_rng(31).integers(-1, 2, size=(16, size, size, 3)).astype(
+                np.float32)
+            alone[v] = np.concatenate([e.predict_logits(images[i:i + 1]) for i in range(16)])
+            del e
+        bodies = [x.astype("<f4").tobytes() for x in images]
+        t0 = time.perf_counter()
+        up = [sf_wait_host(h) for h in hosts]
+        log(f"{tag} four hosts up on port 0 in {time.perf_counter() - t0:.1f}s after the "
+            f"yardsticks: {[(h['name'], h['port']) for h in hosts]}")
+        h0, h1, h2, h3 = hosts
+        reaped = {}
+        try:
+            if not all(up):
+                oks["hosts"] = False
+                for h in hosts:
+                    reaped[h["name"]] = sf_reap(h)
+                log(f"{tag} FAIL: a host never got ready: "
+                    f"{ {k: (r['rc'], r['err'][-800:]) for k, r in reaped.items()} }")
+                return total, False
+
+            # a process's first profiler session is the slowest to start
+            warm = sf_open_windows(hosts, "warm")
+            log(f"{tag} warm profiler windows on the four hosts opened in {warm:.2f}s and "
+                f"closed in {sf_close_windows(hosts, None):.2f}s")
+
+            def probe(h, v):
+                got = [sh_request("127.0.0.1", h["port"], "POST", "/v1/predict", bodies[i],
+                                  {"content-type": "application/octet-stream"})
+                       for i in range(8)]
+                return sf_held([(s, b) for s, _, b in got], alone[v][:8])
+
+            # (a) lone requests through an in-process router, then the
+            # scenario through the CLI
+            router = FleetRouter([("127.0.0.1", h0["port"]), ("127.0.0.1", h1["port"])],
+                                 probe_interval_s=SF_PROBE_S)
+            router.start()
+            same, answers, served = 0, [], {}
+            try:
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline and not all(
+                        x.state == "ready" and x.server_id for x in router.hosts):
+                    time.sleep(0.01)
+                for i in range(16):
+                    s, hd, raw = sf_raw("127.0.0.1", router.port, bodies[i])
+                    who = hd.get("x-served-by")
+                    served[who] = served.get(who, 0) + 1
+                    direct = {"h0": h0, "h1": h1}[who]
+                    s2, _, raw2 = sf_raw("127.0.0.1", direct["port"], bodies[i])
+                    strip = lambda b: re.sub(rb'"latency_ms": [0-9.eE+-]+', b"", b)
+                    same += int(s == s2 == 200 and strip(raw) == strip(raw2))
+                    answers.append((s, json.loads(raw)))
+            finally:
+                router.drain(10)
+            wire = sh_wire_check(answers, alone["v1"], "(a) through the router")
+            a = sf_router(root, art, [h0, h1], ["--scenario", "poisson", "--rate", str(SF_RATE),
+                                                "--requests", str(SF_REQUESTS)])
+            va = a["verdict"]
+            keep_verdict("a_poisson", va)
+            oks["a"] = (a["rc"] == 0 and va is not None and va["fleet"]["dropped"] == 0
+                        and va["fleet"]["ledger_consistent"] is True
+                        and va["client"]["responses"] == SF_REQUESTS
+                        and va["requests_failed"] == 0 and same == 16 and wire["ok"]
+                        and len(served) == 2)
+            log(f"{tag} (a) 16 lone raw requests through an in-process router "
+                f"(served by {served}): {same} of 16 byte-for-byte the host's own answer "
+                f"but for latency_ms; poisson {SF_RATE} req/s, {SF_REQUESTS} requests, the "
+                f"client in the router's process: exit {a['rc']}; "
+                + (sf_line(va) if va else a["err"]) + f" ({a['seconds']:.1f}s) ok={oks['a']}")
+            if va:
+                summary["a"] = {"throughput_rps": va["throughput_rps"], "p99_ms": va["p99_ms"],
+                                "hosts": {k: h["completed"] for k, h in va["fleet"]["hosts"].items()},
+                                "attribution_retry_hop_share":
+                                    (va["fleet_attribution"] or {}).get("retry_hop_share")}
+
+            # (b) saturation: the same schedule through the router over h0
+            # and h1 with the client in the router's process (its scenario)
+            # and in this one (the router in serve mode), through the
+            # router over h0 alone, and from this process to h0 with its
+            # peers idle and to h3 (one engine, no registry: the path
+            # [serve-http] measures) with the others stopped. Each host's busy
+            # share in a profiler window of its own, opened before the load:
+            # kernel ms over the load's wall
+            from bdbnn_tpu_torch.serve.loadgen import HttpLoadGenerator, build_schedule
+
+            sched = build_schedule("poisson", requests=SH_SAT_REQUESTS, rate=SH_SAT_RATE, seed=0)
+            rates = {}
+
+            def rps(c):
+                return round(c["responses"] / max(c["wall_s"], 1e-9), 3)
+
+            def load(host, port):
+                return HttpLoadGenerator(host, port, sched, body_fn=lambda i: bodies[i % 16],
+                                         concurrency=16).run()
+
+            def via_router(label, hs, here):
+                open_s = sf_open_windows(hs, label)
+                if here:
+                    run = sf_router(root, art, hs, [], client=load)
+                else:
+                    run = sf_router(root, art, hs, [
+                        "--scenario", "poisson", "--rate", str(SH_SAT_RATE), "--requests",
+                        str(SH_SAT_REQUESTS), "--concurrency", "16"])
+                v, c = run["verdict"], run["client"] or (run["verdict"] or {}).get("client")
+                sf_close_windows(hs, c["wall_s"] if c else None)
+                rates[label] = rps(c) if c else None
+                where = "this process" if here else "the router's process"
+                log(f"{tag} (b) {label}: {rates[label]} req/s, client in {where} (profiler "
+                    f"windows opened in {open_s:.2f}s); exit {run['rc']}; "
+                    + (sf_line({**v, "client": c}) if v and c else run["err"])
+                    + f" ({run['seconds']:.1f}s)")
+                return run, v, c
+
+            def direct(label, h, stop=()):
+                for x in stop:
+                    x["proc"].send_signal(signal.SIGSTOP)
+                try:
+                    open_s = sf_open_windows([h], label)
+                    raw = load("127.0.0.1", h["port"])
+                    sf_close_windows([h], raw["wall_s"])
+                finally:
+                    for x in stop:
+                        x["proc"].send_signal(signal.SIGCONT)
+                rates[label] = rps(raw)
+                log(f"{tag} (b) {label}: {rates[label]} req/s, client in this process "
+                    f"(profiler window opened in {open_s:.2f}s); {raw['by_status']}, dropped "
+                    f"{raw['dropped']}, p99 by priority {raw['p99_ms_by_priority']}")
+                return raw
+
+            routed = [via_router("fleet h0+h1", [h0, h1], False),
+                      via_router("fleet h0+h1, client here", [h0, h1], True),
+                      via_router("fleet h0 only, client here", [h0], True)]
+            keep_verdict("b_saturation", routed[0][1])
+            raws = [direct("h0 alone, peers idle", h0),
+                    direct("h3 alone (one engine), peers stopped", h3, [h0, h1, h2])]
+            oks["b"] = (all(r[0]["rc"] == 0 and r[1] is not None and r[2] is not None
+                            and r[2]["dropped"] == 0 and sf_consistent(r[1], r[2])
+                            for r in routed)
+                        and all(raw["dropped"] == 0 for raw in raws))
+            log(f"{tag} (b) saturation, poisson {SH_SAT_RATE} req/s offered, "
+                f"{SH_SAT_REQUESTS} requests, 16 connections: req/s {rates}; ok={oks['b']}")
+            summary["b"] = rates
+
+            # (e) the fleet swap: a torn v2 in h0's registry first
+            reg_args = ["--registry", primary, "--host-registries", regs[0], regs[1]]
+            ArtifactRegistry(regs[0]).pull(primary, 2)
+            torn = os.path.join(ArtifactRegistry(regs[0]).resolve(2), "weights.npz")
+            good = os.path.join(root, "weights_v2.npz")
+            shutil.copyfile(torn, good)
+            with open(torn, "r+b") as f:
+                f.truncate(os.path.getsize(torn) // 2)
+            et = sf_router(root, art, [h0, h1], [
+                "--scenario", "poisson", "--rate", str(SF_RATE), "--requests", "64",
+                *reg_args, "--swap-to", "v0002", "--swap-at", "0.25"])
+            vt = et["verdict"]
+            swt = ((vt or {}).get("fleet") or {}).get("swap") or {}
+            pulls_t = [e for e in _fleet_events(os.path.dirname(et["run_dir"] or root))
+                       if e.get("phase") == "pull"] if et["run_dir"] else []
+            v1_held = probe(h0, "v1") and probe(h1, "v1")
+            oks["e_torn"] = (et["rc"] == 1 and swt.get("state") == "failed"
+                             and sorted(p["pulled"] for p in pulls_t) == [0, 1]
+                             and swt.get("hosts_shifted") == [] and "h0" in str(swt.get("error"))
+                             and vt["fleet"]["dropped"] == 0 and v1_held)
+            log(f"{tag} (e) torn v2 in h0's registry (weights truncated after a verified "
+                f"pull): exit {et['rc']}, fleet swap {swt}; pulls {pulls_t}; v1 answering "
+                f"on both hosts {v1_held} ({et['seconds']:.1f}s) ok={oks['e_torn']}")
+            shutil.copyfile(good, torn)
+            e = sf_router(root, art, [h0, h1], [
+                "--scenario", "poisson", "--rate", str(SF_RATE), "--requests",
+                str(SF_REQUESTS), "--rtrace-sample-every", "1", *reg_args, "--swap-to",
+                "v0002", "--swap-at", "0.5"])
+            ve = e["verdict"]
+            keep_verdict("e_swap", ve)
+            sw = ((ve or {}).get("fleet") or {}).get("swap") or {}
+            fev = _fleet_events(os.path.dirname(e["run_dir"])) if e["run_dir"] else []
+            pulls = [x for x in fev if x.get("phase") == "pull"]
+            swaps = [x for x in fev if x.get("phase") == "swap"]
+            v2_held = probe(h0, "v2") and probe(h1, "v2")
+            phases = sf_swap_phases(e["run_dir"], swaps) if e["run_dir"] else {}
+            oks["e"] = (e["rc"] == 0 and sw.get("state") == "done"
+                        and sw.get("hosts_shifted") == ["h0", "h1"]
+                        and [x.get("host") for x in swaps if x.get("state") == "shifted"]
+                        == ["h0", "h1"] and len(pulls) == 2
+                        and ve["fleet"]["dropped"] == 0
+                        and ve["fleet"]["ledger_consistent"] is True and v2_held)
+            log(f"{tag} (e) v1 -> v2 under poisson {SF_RATE} req/s, {SF_REQUESTS} requests, "
+                f"swap at 0.5: exit {e['rc']}, fleet swap {sw}; pulls {pulls}; the shifts "
+                f"{[(x.get('host'), x.get('shed')) for x in swaps if x.get('state') == 'shifted']}"
+                f"; by phase (router clock, arrival) {phases}; v2 answering on both hosts "
+                f"{v2_held}; " + (sf_line(ve) if ve else e["err"])
+                + f" ({e['seconds']:.1f}s) ok={oks['e']}")
+            summary["e"] = {"swap": sw, "phases": phases}
+
+            # (d) SIGSTOP h1 mid-run, SIGCONT after
+            stopped = []
+
+            def wedge(n):
+                if not stopped and n >= 40:
+                    stopped.append(n)
+                    h1["proc"].send_signal(signal.SIGSTOP)
+
+            try:
+                ds = sf_router(root, art, [h0, h1], [
+                    "--scenario", "poisson", "--rate", "60", "--requests", "160",
+                    "--proxy-timeout-s", "0.75", "--scrape-timeout-s", "0.2",
+                    "--scrape-stale-after", "2", "--rtrace-sample-every", "1"],
+                    on_proxied=wedge)
+            finally:
+                h1["proc"].send_signal(signal.SIGCONT)
+            vs = ds["verdict"]
+            keep_verdict("d_sigstop", vs)
+            stale = []
+            if ds["run_dir"]:
+                stale = [x["host_windows"]["hosts"]["h1"]["stale"]
+                         for x in _fleet_events(os.path.dirname(ds["run_dir"]))
+                         if x.get("phase") == "stats"
+                         and "h1" in ((x.get("host_windows") or {}).get("hosts") or {})]
+            fa = (vs or {}).get("fleet_attribution") or {}
+            hop = (fa.get("stages") or {}).get("retry_hop") or {}
+            backend = [blk["p99_ms"] for blk in (fa.get("backend_stages") or {}).values()
+                       if blk and blk.get("p99_ms") is not None]
+            oks["d_stop"] = (ds["rc"] == 0 and bool(stopped) and vs is not None
+                             and vs["fleet"]["dropped"] == 0
+                             and vs["fleet"]["ledger_consistent"] is True
+                             and vs["fleet"]["hosts"]["h1"]["retries"]["timeout"] > 0
+                             and any(stale) and (fa.get("retry_hop_share") or 0) > 0
+                             and bool(backend) and (hop.get("p99_ms") or 0) > max(backend))
+            log(f"{tag} (d) SIGSTOP h1 after {stopped} proxied (poisson 60 req/s, 160 "
+                f"requests, proxy timeout 0.75 s), SIGCONT after: exit {ds['rc']}; h1's "
+                f"scraped window stale in {sum(stale)} of {len(stale)} stats events; "
+                f"fleet_attribution retry_hop_share {fa.get('retry_hop_share')}, retry_hop "
+                f"p99 {hop.get('p99_ms')} ms against the backend stages' p99 max "
+                f"{max(backend) if backend else None}; reconciliation "
+                f"{(fa.get('reconciliation') or {}).get('violations')} violations; "
+                + (sf_line(vs) if vs else ds["err"]) + f" ({ds['seconds']:.1f}s) "
+                f"ok={oks['d_stop']}")
+            summary["d_stop"] = {"retry_hop_share": fa.get("retry_hop_share"),
+                                 "retry_hop_p99_ms": hop.get("p99_ms")}
+
+            # (c) a flash crowd, SIGTERM to h1 half way
+            n_c = SF_REQUESTS
+            termed = []
+
+            def term(n):
+                if not termed and n >= n_c // 2:
+                    termed.append(time.time())
+                    h1["proc"].send_signal(signal.SIGTERM)
+
+            c = sf_router(root, art, [h0, h1], [
+                "--scenario", "flash_crowd", "--rate", str(SF_RATE), "--flash-factor", "8",
+                "--requests", str(n_c), "--probe-interval-s", "0.05"], on_proxied=term)
+            reaped["h1"] = r1 = sf_reap(h1, signalled=bool(termed))
+            vc = c["verdict"]
+            keep_verdict("c_sigterm", vc)
+            trail = []
+            if c["run_dir"]:
+                trail = [(x["state_from"], x["state_to"])
+                         for x in _fleet_events(os.path.dirname(c["run_dir"]))
+                         if x.get("phase") == "probe" and x.get("host") == "h1"]
+            hv = r1["verdict"] or {}
+            answered = (r1["rc"] == 0 and hv.get("requests_failed") == 0
+                        and hv.get("drained_clean") is True and hv.get("preempted") is True
+                        and hv["requests_completed"] + hv["requests_shed"]
+                        + hv["requests_rejected"] == hv["requests_submitted"])
+            fc = (vc or {}).get("fleet") or {}
+            # its first change of state after the router found it ready
+            after = trail[trail.index(("warming", "ready")) + 1:] if (
+                ("warming", "ready") in trail) else []
+            oks["c"] = (c["rc"] == 0 and bool(termed) and fc.get("dropped") == 0
+                        and fc.get("ledger_consistent") is True and answered
+                        and bool(after) and after[0] == ("ready", "draining")
+                        and all(set(h["retries"]) == set(RETRY_CAUSES)
+                                for h in fc["hosts"].values())
+                        and fc["retries_total"] == sum(sum(h["retries"].values())
+                                                       for h in fc["hosts"].values()))
+            log(f"{tag} (c) flash crowd at {SF_RATE} req/s × 8, {n_c} requests, probes every "
+                f"0.05 s, SIGTERM h1 at {n_c // 2} proxied: exit {c['rc']}; h1's probe trail {trail}; h1 exit "
+                f"{r1['rc']}, its own verdict submitted {hv.get('requests_submitted')} "
+                f"completed {hv.get('requests_completed')} shed {hv.get('requests_shed')} "
+                f"failed {hv.get('requests_failed')} drained_clean {hv.get('drained_clean')}; "
+                + (sf_line(vc) if vc else c["err"]) + f" ({c['seconds']:.1f}s) ok={oks['c']}")
+
+            # (d) SIGKILL the fresh h2 mid-load over h0 and h2
+            killed = []
+
+            def kill(n):
+                if not killed and n >= 80:
+                    killed.append(time.time())
+                    h2["proc"].kill()
+
+            dk = sf_router(root, art, [h0, h2], [
+                "--scenario", "poisson", "--rate", str(SF_RATE), "--requests", "256"],
+                on_proxied=kill)
+            vk = dk["verdict"]
+            keep_verdict("d_sigkill", vk)
+            dead = []
+            if dk["run_dir"]:
+                dead = [x for x in _fleet_events(os.path.dirname(dk["run_dir"]))
+                        if x.get("phase") == "probe" and x.get("host") == "h1"
+                        and x.get("state_to") == "dead"]
+            fk = (vk or {}).get("fleet") or {}
+            k_h = (fk.get("hosts") or {}).get("h1") or {}
+            lag = round(dead[0]["t"] - killed[0], 3) if dead and killed else None
+            oks["d_kill"] = (dk["rc"] == 0 and bool(killed) and fk.get("dropped") == 0
+                             and fk.get("ledger_consistent") is True
+                             and k_h["retries"]["connect"] + k_h["retries"]["reset"] > 0
+                             and fk["hosts"]["h0"]["completed"] > 0
+                             and vk["requests_failed"] == 0 and len(dead) == 1
+                             and dead[0]["state_from"] == "ready"
+                             and lag is not None and lag >= SF_PROBE_S)
+            log(f"{tag} (d) SIGKILL the fresh host h2 (h1 of this router) after 80 proxied "
+                f"(poisson {SF_RATE} req/s, 256 requests): exit {dk['rc']}; its retries "
+                f"{k_h.get('retries')}, probe ready -> dead {lag} s after the kill (debounce "
+                f"2 × {SF_PROBE_S} s); " + (sf_line(vk) if vk else dk["err"])
+                + f" ({dk['seconds']:.1f}s) ok={oks['d_kill']}")
+            summary["d_kill"] = {"retries": k_h.get("retries"), "dead_after_s": lag}
+        finally:
+            for h in hosts:
+                if h["name"] not in reaped:
+                    reaped[h["name"]] = sf_reap(h)
+
+        # launches: the hosts that exited cleanly wrote their counters
+        hosts_by = {h["name"]: h for h in hosts}
+        clean = []
+        for name in ("h0", "h1", "h3"):
+            r = reaped[name]
+            ok_h = (r["rc"] == 0 and r["counts"] is not None
+                    and sb_launch_gate(f"{name}", r["counts"], [("unpack", r["forwards"] or 0,
+                                                                 False)], phase=tag)
+                    and r["forwards"] is not None)
+            oks[f"launches_{name}"] = ok_h
+            if r["counts"] is not None:
+                clean.append(name)
+                for k in SB_COUNTED:
+                    total[k] += r["counts"].get(k, 0)
+            # kernel ms over the load's wall; a window with no device time
+            # was not measured
+            busy_share = [(label, round(b_, 3), round(w_, 1),
+                           round(b_ / (1e3 * load_s), 4) if b_ > 0 and load_s else None)
+                          for (label, load_s), (b_, w_) in zip(hosts_by[name]["windows"],
+                                                                r["busy"]) if label != "warm"]
+            said = [ln for ln in r["err_all"].splitlines() if ln.startswith("BusyWindows")]
+            log(f"{tag} {name} exit {r['rc']}, forwards {r['forwards']}, profiler windows "
+                f"(run, kernel ms, window ms, busy share of the load) {busy_share}" + (f"; {said}" if said else ""))
+            summary[f"busy_{name}"] = busy_share
+        r2 = reaped["h2"]
+        log(f"{tag} h2 SIGKILLed: exit {r2['rc']}, launch counts "
+            f"{'unknown (it wrote none)' if r2['counts'] is None else r2['counts']}")
+        oks["h2_killed"] = r2["rc"] == -signal.SIGKILL and r2["counts"] is None
+    ok = all(oks.values())
+    summary["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"{tag} summary {json.dumps(summary)}")
+    log(f"{tag} gates {oks}; launches over the clean hosts {clean} {total}; "
+        f"{summary['seconds']}s: ok={ok}")
+    return total, ok
+
+
+def sf_swap_phases(run_dir: str, swaps: list) -> dict:
+    """p99 of the requests the router answered before, during and after
+    the fleet swap (its ``trigger`` to ``done`` events), on the router's
+    clock: each sampled waterfall's arrival is its ``rtrace`` event's time
+    less its total."""
+    from bdbnn_tpu_torch.obs.events import read_events
+    from bdbnn_tpu_torch.serve.engine import _pct
+
+    t = {x.get("state"): x["t"] for x in swaps}
+    t0, t1 = t.get("trigger"), t.get("done", t.get("failed"))
+    if t0 is None or t1 is None:
+        return {}
+    lat = {"before": [], "during": [], "after": []}
+    for e in read_events(run_dir, "rtrace"):
+        if e.get("phase") == "request":
+            arr = e["t"] - e["total_ms"] / 1e3
+            lat["before" if arr < t0 else "during" if arr <= t1 else "after"].append(e["total_ms"])
+    return {k: {"completed": len(v), "p99_ms": _pct(sorted(v), 99.0)} for k, v in lat.items()} | {
+        "swap_s": round(t1 - t0, 3)}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5312,6 +6095,12 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-http", action="store_true",
                     help="only build the kernels, write the flagship artifact and run the "
                          "[serve-http] phase (about 120 s); exits 0 when its gates pass")
+    ap.add_argument("--serve-fleet", action="store_true",
+                    help="only build the kernels, write the flagship artifact and run the "
+                         "[serve-fleet] phase; exits 0 when its gates pass")
+    ap.add_argument("--fleet-verdicts", default="", metavar="DIR",
+                    help="also write each [serve-fleet] verdict into DIR (for the reference's "
+                         "compare, which needs the JAX package, on another machine)")
     ap.add_argument("--health", action="store_true",
                     help="only build the kernels and run the [train-health] and "
                          "[serve-rollout] phases; exits 0 when their gates pass")
@@ -5346,7 +6135,7 @@ def main(argv=None) -> int:
 
     if args.trace_prefix:
         return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
-    if args.serve_bench or args.serve_http or args.health:
+    if args.serve_bench or args.serve_http or args.serve_fleet or args.health:
         with tempfile.TemporaryDirectory() as tmp:
             art = os.path.join(tmp, "resnet18_react")
             make_flagship_artifact(art)
@@ -5354,6 +6143,8 @@ def main(argv=None) -> int:
                 _, ok_alone, _ = phase_serve_bench(art, smi_line)
             elif args.serve_http:
                 _, ok_alone = phase_serve_http(art, smi_line)
+            elif args.serve_fleet:
+                _, ok_alone = phase_serve_fleet(art, smi_line, args.fleet_verdicts)
             else:
                 ok_alone = phase_serve_rollout(art, smi_line)[1]
                 ok_alone = phase_train_health(smi_line)[1] and ok_alone
@@ -5381,6 +6172,7 @@ def main(argv=None) -> int:
         sb_counts, ok_sb, sb_thr = phase_serve_bench(art, smi_line)
         sh_counts, ok_sh = phase_serve_http(art, smi_line, sb_thr)
         sr_counts, ok_sr = phase_serve_rollout(art, smi_line)
+        sf_counts, ok_sf = phase_serve_fleet(art, smi_line, args.fleet_verdicts)
     train_counts, _, ok_t = phase_train()
     time_host_input()
     ok_tp = phase_train_parity()
@@ -5425,12 +6217,15 @@ def main(argv=None) -> int:
     # K5-K7), and on the data-parallel job's two ranks (K1, K2, K5-K7,
     # both ranks' launches summed), and on the serve-bench runs (K1-K4; the
     # sum over its runs), and on the serve-http runs (K1-K3; the sum over
-    # its runs and its in-process profiled load). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # its runs and its in-process profiled load), and on the serve-fleet
+    # hosts (K1-K3; the sum over the hosts that exited cleanly and wrote
+    # their counters: the SIGKILLed host's are unknown). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
     # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
                    "serve-http": sh_counts.get(k, 0),
                    "serve-rollout": sr_counts.get(k, 0),
+                   "serve-fleet": sf_counts.get(k, 0),
                    "train": train_counts.get(k, 0),
                    "train-stoch": stoch_counts.get(k, 0), "train-ts": ts_counts.get(k, 0),
                    "train-resume": resume_counts.get(k, 0),
@@ -5454,7 +6249,7 @@ def main(argv=None) -> int:
                      "train-bf16", "train-ddp", "train-health")) and all(
         by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16")) and all(
         by_path[k]["serve-http"] > 0 and by_path[k]["serve-rollout"] > 0
-        for k in ("K1", "K2", "K3"))
+        and by_path[k]["serve-fleet"] > 0 for k in ("K1", "K2", "K3"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -5502,6 +6297,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "serve_bench": ok_sb, "serve_http": ok_sh, "serve_rollout": ok_sr,
+           "serve_fleet": ok_sf,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td,

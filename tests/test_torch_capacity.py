@@ -13,6 +13,9 @@ the port (``bdbnn_tpu_torch/obs/capacity.py``, ``obs/health.py``,
   on the port: the ledger identity under concurrent feeders, the
   detectors' warmup/debounce/hysteresis, ``peek`` never ticking them,
   and the live ``/statsz`` capacity block over real sockets.
+- The fleet router's merge, ``FleetCapacityWindows``, fed the same scraped
+  blocks and failures as the reference's: the snapshot after every step
+  equal, staleness and the merge over fresh hosts only included.
 """
 
 import json
@@ -296,3 +299,51 @@ def test_rejects_and_sheds_land_in_ledger(port_frontend):  # noqa: F811
     row = fe.capacity.ledger.snapshot()["keys"][tcap.demand_key("default", "greedy", 1)]
     assert row["offered"] == 2 and row["rejected"] == 1 and row["admitted"] == 1
     assert row["identity_delta"] == 0
+
+
+def _fleet_capacity_script(mod, seed):
+    """``mod.FleetCapacityWindows`` fed a seeded sequence of scraped
+    capacity blocks (with and without burn detectors, non-finite burns,
+    missing sub-blocks), payloads with no block and failures for three
+    hosts; the snapshot after every step."""
+    rng = random.Random(seed)
+    win = mod.FleetCapacityWindows(stale_after=2)
+    snaps = []
+    for i in range(40):
+        host = f"h{rng.randrange(3)}"
+        r = rng.random()
+        if r < 0.25:
+            win.record_failure(host)
+        elif r < 0.35:
+            win.record(host, None)
+        else:
+            block = {"demand": {"offered_rps": round(rng.uniform(0, 200), 3),
+                                "demand_shed_ratio_max": rng.choice([None, rng.random()])},
+                     "headroom": {"headroom_rps": round(rng.uniform(-50, 150), 3),
+                                  "capacity_rps_est": rng.choice([None, 210.5])}}
+            if rng.random() < 0.6:
+                block["slo_budget"] = {"detectors": {
+                    "p0:latency": {"burn_rate_fast": rng.choice([0.5, float("inf"), 3.0]),
+                                   "burn_rate_slow": rng.uniform(0, 2)},
+                    "p2:shed": {"burn_rate_fast": None, "burn_rate_slow": rng.uniform(0, 4)}}}
+            win.record(host, block)
+        snaps.append(win.snapshot())
+    return snaps
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fleet_capacity_windows_equal_the_reference(seed):
+    port = _fleet_capacity_script(tcap, seed)
+    assert port == _fleet_capacity_script(jcap, seed)
+    assert any(s["hosts_stale"] for s in port) and any(s["hosts_fresh"] >= 2 for s in port)
+    assert any(s["merged"]["offered_rps"] is not None for s in port)
+    json.dumps(port[-1], allow_nan=False)
+
+
+def test_fleet_capacity_refusal_equals_the_reference():
+    msgs = []
+    for mod in (tcap, jcap):
+        with pytest.raises(ValueError) as e:
+            mod.FleetCapacityWindows(stale_after=0)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]

@@ -114,6 +114,57 @@ def test_health_slice_modules_are_scanned():
         assert os.path.join("bdbnn_tpu_torch", mod) in rel
 
 
+def test_fleet_slice_modules_are_scanned():
+    """The scans above cover the fleet slice's modules: the router, the
+    fleet tracer and stats windows, the fleet capacity merge, the
+    ``fleet`` event kind and ``ServeFleetConfig``."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("serve/fleet.py", "obs/rtrace.py", "obs/capacity.py", "obs/events.py",
+                "serve/config.py", "serve/__init__.py", "cli.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
+def test_the_fleet_router_loads_no_jax_no_reference_and_no_torch():
+    """Importing ``bdbnn_tpu_torch.serve.fleet`` and the CLI in a fresh
+    interpreter loads no module of jax, flax or the JAX package, nor
+    torch or numpy: the router is a byte proxy that holds no device (and
+    so starts in a fraction of a second), and ``serve-fleet --help``
+    works."""
+    code = (
+        "import sys\n"
+        "import bdbnn_tpu_torch.serve.fleet as f\n"
+        "from bdbnn_tpu_torch.cli import COMMANDS\n"
+        "assert COMMANDS['serve-fleet'].__name__ == 'serve_fleet_main'\n"
+        "from bdbnn_tpu_torch.serve.config import ServeFleetConfig\n"
+        "from bdbnn_tpu_torch.obs.manifest import RunManifest\n"
+        "assert RunManifest.capture({}, 'cpu').backend == 'cpu'\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('torch', 'numpy')!r})\n"
+        "print(bad, f.FleetRouter.__module__)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "[] bdbnn_tpu_torch.serve.fleet"
+    r = subprocess.run([sys.executable, "-m", "bdbnn_tpu_torch.cli", "serve-fleet", "--help"],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "--hosts" in r.stdout and "--swap-at" in r.stdout
+
+
+@pytest.mark.parametrize("package", ["bdbnn_tpu_torch.obs", "bdbnn_tpu_torch.serve"])
+def test_package_names_resolve_on_first_use(package):
+    """``obs`` and ``serve`` import their public names on first use: each
+    name of ``__all__`` resolves to the object its module defines, and an
+    unknown name raises ``AttributeError``."""
+    import importlib
+
+    pkg = importlib.import_module(package)
+    for name in pkg.__all__:
+        obj = getattr(pkg, name)
+        assert getattr(importlib.import_module(pkg._EXPORTS[name]), name) is obj
+    with pytest.raises(AttributeError, match="no attribute"):
+        getattr(pkg, "not_a_name")
+
+
 def test_a_spawned_decode_worker_imports_no_jax_and_no_torch(tmp_path):
     """A worker of ``MPImageFolderPipeline`` after it built a batch: the
     modules it holds include the port's pipeline and PIL, and nothing of

@@ -9,6 +9,11 @@ the port's micro-batcher and replica pool.
   empty-stage tests (``tests/test_rtrace.py``), on the port.
 - The reconciliation identity (stage sum == end-to-end latency) over the
   port's batcher on the sync runner path and the pool's async path.
+- The fleet half, exact parity on one scripted clock: ``FleetTracer``'s
+  stitching (stitched, unstitched and mismatched stage headers, retry
+  hops, aborts, several hosts), its waterfalls, ``stats()`` and
+  ``attribution()``; ``HostStatsWindows`` fed the same scrapes and
+  failures, its snapshot after every step (staleness included).
 """
 
 import json
@@ -261,3 +266,112 @@ class TestReconciliation:
         set_future_timing(fut, 1.5, 2.5)
         assert pop_future_timing(fut) == (1.5, 2.5)
         assert pop_future_timing(fut) is None
+
+
+# ---------------------------------------------------------------------------
+# the fleet half: FleetTracer and HostStatsWindows
+# ---------------------------------------------------------------------------
+
+
+def _fleet_script(mod, monkeypatch):
+    """The same 31 proxied requests through ``mod.FleetTracer`` on a
+    scripted clock: router stamps, a measured connect, 0-2 retry hops,
+    the backend's stage header stitched (matching id), missing, garbled
+    or naming another trace, three hosts, two priorities, two aborts;
+    returns every report the tracer gives."""
+    monkeypatch.setattr(time, "perf_counter", _Clock([0.0007 * (i % 5) for i in range(900)]))
+    sampled = []
+    tracer = mod.FleetTracer(seed=5, sample_every=4, tail_k=3, window=8,
+                             on_sample=sampled.append)
+    waterfalls = []
+    for i in range(31):
+        tr = tracer.begin(i % 2, "tenant-b" if i % 3 else None)
+        tr.stamp("probe_wait")
+        tr.stamp("pick")
+        for _ in range(i % 3 if i % 5 == 0 else 0):
+            tr.stamp("retry_hop")
+            tr.stamp("pick")
+        if i in (9, 22):
+            tracer.abort(tr)
+            continue
+        tr.add("connect", 0.05 * (i % 4))
+        tr.attempts = 1 + (i % 3 if i % 5 == 0 else 0)
+        stages = {"read": 0.2, "admit": 0.01 * i, "queue": 1.5 + (i % 6), "compute": 4.0}
+        header = mod.encode_stage_header(tr.trace_id, sum(stages.values()) + 0.3, stages)
+        if i % 7 == 3:
+            header = None
+        elif i % 11 == 4:
+            header = "v=1;garbled"
+        elif i % 13 == 6:
+            header = mod.encode_stage_header(mod.mint_trace_id(99, i), 9.0, stages)
+        exchange = 12.0 + (i % 9)
+        tracer.stitch(tr, exchange, header, f"h{i % 3}")
+        tr.sync()
+        tracer.finish(tr)
+        waterfalls.append(tr.waterfall())
+    return {"waterfalls": waterfalls, "sampled": sampled, "stats": tracer.stats(),
+            "attribution": tracer.attribution(device={"busy": 0.1})}
+
+
+def _windows_script(mod, monkeypatch):
+    """``mod.HostStatsWindows`` fed the same scrapes (finite, non-finite
+    and non-numeric p99s, a non-dict block) and failures for three hosts
+    on a scripted clock; the snapshot after every step."""
+    clock = _Clock([0.01 * (i % 3) for i in range(400)])
+    monkeypatch.setattr(time, "perf_counter", clock)
+    win = mod.HostStatsWindows(window=4, stale_after=2)
+    snaps = []
+    for i in range(18):
+        host = f"h{i % 3}"
+        if i % 5 == 4 or (host == "h2" and i > 9):
+            win.record_failure(host)
+        elif i == 7:
+            win.record(host, "not a block")
+        else:
+            win.record(host, {
+                "stage_p99_ms": {"queue": 1.0 + i, "compute": 4.0 + 0.5 * (i % 4),
+                                 "read": float("nan") if i == 3 else 0.5, "admit": "x"},
+                "e2e_p99_ms_by_priority": {"0": 6.0 + i, "2": 9.0, "1": None},
+                "queue_share": 0.1 * (i % 4),
+            })
+        snaps.append(win.snapshot())
+    return snaps
+
+
+class TestFleetParity:
+    def test_fleet_tracer_equals_the_reference(self, monkeypatch):
+        assert trtrace.FLEET_STAGES == jrtrace.FLEET_STAGES
+        port = _fleet_script(trtrace, monkeypatch)
+        ref = _fleet_script(jrtrace, monkeypatch)
+        assert port == ref
+        att = port["attribution"]
+        assert att["requests"] == 29 and att["aborted"] == 2
+        assert 0 < att["stitched"] < att["requests"] and att["unstitched"] > 0
+        assert att["retry_hop_share"] > 0 and set(att["per_host"]) == {"h0", "h1", "h2"}
+        assert att["reconciliation"]["requests"] == 29 and port["sampled"]
+        assert any(w["backend"] is None for w in port["waterfalls"])
+        json.dumps(att, allow_nan=False)
+
+    def test_empty_fleet_tracer_reports_equal(self):
+        t, j = trtrace.FleetTracer(seed=2), jrtrace.FleetTracer(seed=2)
+        assert t.stats() == j.stats()
+        assert t.attribution() == j.attribution()
+        assert t.stats()["retry_hop_share"] is None
+
+    def test_host_stats_windows_equal_the_reference(self, monkeypatch):
+        port = _windows_script(trtrace, monkeypatch)
+        ref = _windows_script(jrtrace, monkeypatch)
+        assert port == ref
+        last = port[-1]
+        assert last["hosts"]["h2"]["stale"] is True and last["hosts_stale"] >= 1
+        assert last["merged"]["stage_p99_ms"]["queue"] is not None
+        json.dumps(last, allow_nan=False)
+
+    @pytest.mark.parametrize("kw", [dict(window=0), dict(stale_after=0)])
+    def test_host_stats_windows_refusals_equal_the_reference(self, kw):
+        msgs = []
+        for mod in (trtrace, jrtrace):
+            with pytest.raises(ValueError) as e:
+                mod.HostStatsWindows(**kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]

@@ -135,10 +135,11 @@ def _emit_calls(path, skip_functions=()):
     return out
 
 
-# the kinds a ``serve-bench`` run dir adds (serve/loadgen.py), and those a
-# ``serve-http`` run dir adds (serve/http.py, serve/pool.py)
+# the kinds a ``serve-bench`` run dir adds (serve/loadgen.py), those a
+# ``serve-http`` run dir adds (serve/http.py, serve/pool.py) and the fleet
+# router's (serve/fleet.py)
 SERVE_KINDS = {"serve", "rtrace", "replica", "http", "admission", "capacity", "swap", "canary",
-               "shadow"}
+               "shadow", "fleet"}
 TRAIN_KINDS = KNOWN_KINDS - SERVE_KINDS
 
 
