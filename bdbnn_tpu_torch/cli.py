@@ -8,14 +8,17 @@ plus ``--device``:
         -b 256 --epochs 1 --w-kurtosis --diffkurt
 
 runs :func:`bdbnn_tpu_torch.train.loop.fit` and prints its result dict
-as JSON on the last line. Options the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item. A data-parallel job
+as JSON on the last line (``--input-backend tfdata`` raises: the port
+runs without TensorFlow). A data-parallel job
 over N cards starts one process a card with torchrun:
 
     torchrun --nproc-per-node N -m bdbnn_tpu_torch.cli DATA ... --distributed-init
 
 (``-b`` stays the global batch; ``--device cpu`` trains the ranks on the
-CPU over gloo). The reference's rendezvous-era flags (``--world-size``,
+CPU over gloo). ``--model-parallel M`` splits the N ranks into a ``data``
+axis of N / M and a ``model`` axis of M, whose ranks share their rows and
+hold output-channel shards of the wide layers (``-b`` divides by N / M;
+M > 1 without a process group raises the reference's ``ValueError``). The reference's rendezvous-era flags (``--world-size``,
 ``--rank``, ``--dist-url`` and the like) are noted on stderr and ignored,
 as the reference does: torchrun's environment describes the job.
 

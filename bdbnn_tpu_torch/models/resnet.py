@@ -56,6 +56,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from bdbnn_tpu_torch.parallel.tensor import (
+    copy_to_model,
+    full_state_dict,
+    gather_from_model,
+    shard_state_dict,
+)
 from bdbnn_tpu_torch.nn.layers import (
     BN_EPS,
     BatchNorm,
@@ -122,13 +128,21 @@ def _pool_and_classify(fc: nn.Linear, x: Tensor, dtype: torch.dtype, pool: bool)
     """Global average pool (``pool``) and the classifier, f32 logits. In
     bf16 the pool averages in f32 and rounds (``jnp.mean``), and the
     classifier rounds its product and then its bias add (flax ``Dense``
-    with ``dtype=bfloat16``)."""
-    if dtype == torch.float32:
+    with ``dtype=bfloat16``). A classifier sharded over ``model``
+    (``fc.model_axis``) takes the product with its rank's rows of the
+    weight, gathers the logits' columns and adds the replicated bias."""
+    axis = getattr(fc, "model_axis", None)
+    if dtype == torch.float32 and axis is None:
         return fc(x.mean(dim=(1, 2)) if pool else x)
     if pool:
-        x = x.to(torch.float32).mean(dim=(1, 2)).to(dtype)
-    y = nn.functional.linear(x, fc.weight.to(dtype)) + fc.bias.to(dtype)
-    return y.to(torch.float32)
+        x = x.mean(dim=(1, 2)) if dtype == torch.float32 else (
+            x.to(torch.float32).mean(dim=(1, 2)).to(dtype))
+    if axis is None:
+        y = nn.functional.linear(x, fc.weight.to(dtype))
+    else:
+        y = gather_from_model(nn.functional.linear(copy_to_model(x, axis), fc.weight.to(dtype)),
+                              axis, -1)
+    return (y + fc.bias.to(dtype)).to(torch.float32)
 
 
 class _DrawTape:
@@ -185,18 +199,20 @@ def _nchw(f, x: Tensor, *args, **kwargs) -> Tensor:
 
 
 class _FlaxBridged(nn.Module):
-    """``to_flax`` / ``from_flax`` through the weight bridge."""
+    """``to_flax`` / ``from_flax`` through the weight bridge; a model
+    sharded over ``model`` gives whole arrays (every model rank must call
+    ``to_flax``: it gathers) and takes whole ones, keeping its slices."""
 
     def to_flax(self):
         from bdbnn_tpu_torch.bridge import state_dict_to_flax
 
-        return state_dict_to_flax(self.state_dict())
+        return state_dict_to_flax(full_state_dict(self))
 
     def from_flax(self, variables) -> "_FlaxBridged":
         from bdbnn_tpu_torch.bridge import flax_to_state_dict
 
         device = next(self.parameters()).device
-        sd = flax_to_state_dict(variables)
+        sd = shard_state_dict(self, flax_to_state_dict(variables))
         self.load_state_dict({k: v.to(device) for k, v in sd.items()}, strict=True)
         return self
 

@@ -44,7 +44,12 @@ and ``FloatConv`` cast their parameters to it; ``BatchNorm`` takes f32
 statistics of the bf16 input, normalizes in f32 and casts to bf16 once
 (flax ``_normalize``); a binary conv casts its ``act_shift`` and hands
 bf16 operands to the kernels' bf16 modes (K2 rounds the f32 latent
-weight to bf16 itself). Under remat (``models/resnet.py``) a residual
+weight to bf16 itself). A conv whose weight is sharded over the mesh's
+``model`` axis (``model_axis`` set by
+:func:`~bdbnn_tpu_torch.parallel.tensor.shard_model`) runs the same
+kernels on its rank's output channels of the whole input and gathers
+the channels (``copy_to_model`` on its input and shift, ``gather_from_model``
+on its output). Under remat (``models/resnet.py``) a residual
 block's forward runs again in the backward; :func:`frozen_running_stats`
 keeps that recompute from updating the running statistics a second time.
 """
@@ -63,6 +68,7 @@ from torch import nn
 from bdbnn_tpu_torch.nn.binarize import DrawSource, get_active_family
 from bdbnn_tpu_torch.nn.kernels import binary_conv2d, weight_binarize
 from bdbnn_tpu_torch.nn.kernels.binary_conv import BinaryConvFn
+from bdbnn_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
 
 Tensor = torch.Tensor
 
@@ -224,6 +230,8 @@ class _BinaryConvBase(nn.Module):
     ``{sign, alpha}`` buffers + the magnitude-scaled binary conv."""
 
     has_shift = False
+    # the ``model`` axis its weight is sharded over (parallel/tensor.py)
+    model_axis = None
 
     def __init__(
         self,
@@ -338,7 +346,15 @@ class _BinaryConvBase(nn.Module):
         # ``tk`` (the family's schedule scalars) only changes the
         # training backward; ``draws`` only the stochastic family's
         # training forward
-        return self.binary_conv(x, self.act_shift if self.has_shift else None, tk, draws)
+        shift = self.act_shift if self.has_shift else None
+        axis = self.model_axis
+        if axis is None:
+            return self.binary_conv(x, shift, tk, draws)
+        # this rank's output channels of the whole input (the same draw
+        # on every model rank), gathered
+        x = copy_to_model(x, axis)
+        shift = copy_to_model(shift, axis) if shift is not None else None
+        return gather_from_model(self.binary_conv(x, shift, tk, draws), axis, -1)
 
 
 class BinaryConvReact(_BinaryConvBase):
@@ -359,7 +375,11 @@ class BinaryConvCifar(_BinaryConvBase):
 
 class FloatConv(nn.Module):
     """Full-precision conv with torch-compatible symmetric padding; the
-    teacher-side twin of the binary convs (``weight``, OIHW)."""
+    teacher-side twin of the binary convs (``weight``, OIHW). Sharded
+    over ``model``, it convolves with its rank's output channels and
+    gathers them before the (replicated) bias."""
+
+    model_axis = None
 
     def __init__(
         self,
@@ -381,7 +401,12 @@ class FloatConv(nn.Module):
 
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         del tk, draws
-        y = conv2d(x, self.weight.to(x.dtype), strides=self.strides)
+        axis = self.model_axis
+        if axis is None:
+            y = conv2d(x, self.weight.to(x.dtype), strides=self.strides)
+        else:
+            y = conv2d(copy_to_model(x, axis), self.weight.to(x.dtype), strides=self.strides)
+            y = gather_from_model(y, axis, -1)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y

@@ -8,7 +8,8 @@
 - ``nonfinite``     — 1 when the step's loss is not finite.
 
 Every value stays a device tensor; the train loop drains them with the
-other metrics.
+other metrics. A weight sharded over the mesh's ``model`` axis counts its
+flips over every model rank and takes its kurtosis whole.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from bdbnn_tpu_torch.nn.kernels.kurtosis import kurtosis_grouped
+from bdbnn_tpu_torch.parallel.tensor import sharded, sum_over_model, whole
 
 FLIP_PREFIX = "flips/"
 KURT_PREFIX = "kurt/"
@@ -43,11 +45,21 @@ def probe_metrics(
     out: Dict[str, torch.Tensor] = {}
     if not probe_names:
         return out
+    with torch.no_grad():
+        whole_weights = [whole(w).detach() for w in new_weights]
     _, kurt, _ = kurtosis_grouped(
-        [w.detach() for w in new_weights], (0.0,) * len(new_weights), "sum", with_grad=False
+        whole_weights, (0.0,) * len(new_weights), "sum", with_grad=False
     )
-    for i, (old, w, name) in enumerate(zip(old_signs, new_weights, probe_names)):
-        out[FLIP_PREFIX + name] = (old != torch.sign(w.detach())).sum().to(torch.float32)
+    flips = [(old != torch.sign(w.detach())).sum().to(torch.float32)
+             for old, w in zip(old_signs, new_weights)]
+    split = [i for i, w in enumerate(new_weights) if sharded(w)]
+    if split:
+        summed = sum_over_model(torch.stack([flips[i] for i in split]),
+                                new_weights[split[0]].model_axis)
+        for j, i in enumerate(split):
+            flips[i] = summed[j]
+    for i, name in enumerate(probe_names):
+        out[FLIP_PREFIX + name] = flips[i]
         out[KURT_PREFIX + name] = kurt[i]
     return out
 

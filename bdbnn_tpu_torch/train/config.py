@@ -2,10 +2,10 @@
 ``RunConfig`` (``bdbnn_tpu/configs/config.py``): the same fields, names
 and defaults, plus ``device``.
 
-:meth:`RunConfig.validate` raises ``NotImplementedError`` for every option
-the port does not run yet, naming the ROADMAP item that brings it — an
-option is never silently ignored. An option counts as asked for when its
-value differs from the default.
+:meth:`RunConfig.validate` refuses what the reference refuses, and
+``--input-backend tfdata``, whose TensorFlow pipeline the port does not
+run (``RuntimeError``): an option is never silently ignored. Every other
+training option of the reference is ported.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from typing import Optional, Tuple
 from bdbnn_tpu_torch.nn.binarize import resolve_family
 from bdbnn_tpu_torch.obs.health import HealthConfig, apply_overrides
 from bdbnn_tpu_torch.obs.trace import parse_profile_at
-from bdbnn_tpu_torch.parallel.mesh import TENSOR_PARALLEL
 
 # the reference's tf.data input engine (``TFDataImageFolderPipeline``,
 # bdbnn_tpu/data/pipeline.py:695) runs on TensorFlow, which the GPU
@@ -25,11 +24,6 @@ TFDATA_UNPORTED = (
     "--input-backend tfdata: the TensorFlow input pipeline (TFDataImageFolderPipeline) is "
     "not ported, since the port runs without TensorFlow; use --input-backend mp or threads"
 )
-
-# field -> ROADMAP item; asked for when the value differs from the default
-UNSUPPORTED = {
-    "model_parallel": TENSOR_PARALLEL,
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +89,9 @@ class RunConfig:
     temperature: float = 4.0
     beta: float = 200.0
     w_lambda_ce: float = 1.0
-    # parallelism: --distributed-init joins torchrun's process group (a
-    # data-parallel job); model_parallel > 1 is not ported
+    # parallelism: --distributed-init joins torchrun's process group;
+    # model_parallel ranks of it shard the wide layers over 'model', the
+    # rest of the world is the 'data' axis (parallel/mesh.py)
     model_parallel: int = 1
     distributed_init: bool = False
     # compute
@@ -127,13 +122,6 @@ class RunConfig:
     def teacher_student(self) -> bool:
         return self.imagenet_setting_step_2_ts
 
-    def unsupported(self):
-        """(field, ROADMAP item) of every option asked for that the port
-        does not run yet."""
-        defaults = RunConfig()
-        return [(f, item) for f, item in UNSUPPORTED.items()
-                if getattr(self, f) != getattr(defaults, f)]
-
     def input_engine(self) -> Tuple[str, int]:
         """(backend, workers) of the image-folder pipelines, chosen as the
         reference chooses where TensorFlow is absent: ``-j`` defaults to 4;
@@ -153,6 +141,8 @@ class RunConfig:
             raise ValueError(f"unknown kurtosis mode {self.kurtosis_mode!r}")
         if self.batch_size <= 0 or self.epochs <= 0:
             raise ValueError("batch_size and epochs must be positive")
+        if self.model_parallel < 1:
+            raise ValueError(f"--model-parallel must be >= 1, got {self.model_parallel}")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if self.opt_policy not in ("", "sgd-cosine", "adam-linear"):
@@ -190,13 +180,9 @@ class RunConfig:
                 "--device-normalize needs uint8 pipelines; the synthetic "
                 "smoke pipeline emits pre-normalized floats"
             )
-        missing = self.unsupported()
-        if missing:
-            f, item = missing[0]
-            raise NotImplementedError(f"option {f!r} is not ported yet: ROADMAP A 'Later' {item}")
         self.input_engine()  # tfdata raises before anything is built
         fam = resolve_family(self.binarizer, ede=self.ede)
         return dataclasses.replace(self, binarizer=fam.spec, ede=fam.name == "ede")
 
 
-__all__ = ["RunConfig", "TFDATA_UNPORTED", "UNSUPPORTED"]
+__all__ = ["RunConfig", "TFDATA_UNPORTED"]

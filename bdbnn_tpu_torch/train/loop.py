@@ -59,6 +59,19 @@ and restores onto any number of ranks (the (epoch, step) cursor is
 global), with ``resharded`` in the ``restore`` event when the layout
 changed.
 
+``--model-parallel N`` (tensor parallelism) splits the job's W ranks into a
+``data`` axis of W / N and a ``model`` axis of N, in the reference's
+order (rank r at data rank r // N, model rank r % N): every model rank of
+a data rank reads the same ``batch_size // (W / N)`` rows; the
+parameters the reference's rule shards (the output channels of the convs
+and the classifier that are at least 256 wide), the teacher's too, hold
+the rank's ``1/N`` slice, with their optimizer state; the layers gather
+their outputs, so the loss, the metrics and every replicated tensor are
+the same on the model ranks, and the drained sums add up over the data
+axis only. A checkpoint is gathered whole by every rank before rank 0
+writes it: the model = 1 layout, which any layout restores
+(``resharded``), ``cli export`` reads and serves.
+
 The health monitor (obs/health.py, on unless ``--no-health``) reads each
 drain's already-fetched floats and the ``memory`` events (after the first
 step and at each epoch's end, obs/memory.py); an alert is an ``alert``
@@ -71,9 +84,6 @@ rank saves the same step. ``--profile-at EPOCH:STEP[:NSTEPS]`` and
 ``--profile-dir`` open ``torch.profiler`` windows (obs/trace.py) whose
 traces land under ``--profile-dir`` or ``<run_dir>/profile``, each closed
 by a ``profile`` event; a ``health`` summary event ends the run.
-
-Not in this slice (``RunConfig.validate`` raises, naming its ROADMAP
-item): tensor parallelism (item 9).
 """
 
 from __future__ import annotations
@@ -190,15 +200,16 @@ def build_datasets(cfg: RunConfig, *, val_only: bool = False, mesh: Mesh = Mesh(
     image folders ``cfg.data/train`` and ``cfg.data/val`` under
     :meth:`RunConfig.input_engine`'s backend. A missing data dir raises
     ``FileNotFoundError``. ``val_only`` (``cli predict``) builds no train
-    split and returns None in its place. On a ``mesh`` of W ranks each
-    pipeline is this rank's shard at ``batch_size // W`` a step (W must
-    divide the global batch)."""
+    split and returns None in its place. On a ``mesh`` of D data ranks
+    each pipeline is this rank's data shard at ``batch_size // D`` a step
+    (D must divide the global batch); the model ranks of a data rank read
+    the same rows."""
     if cfg.batch_size % mesh.data:
         raise ValueError(f"-b {cfg.batch_size} is the global batch: {mesh.data} ranks must "
-                         "divide it")
+                         "divide it (the mesh's data axis)")
     image_size = 224 if cfg.dataset == "imagenet" else 32
     seed = cfg.seed or 0
-    shard = dict(host_id=mesh.rank, num_hosts=mesh.data)
+    shard = dict(host_id=mesh.data_rank, num_hosts=mesh.data)
     batch = cfg.batch_size // mesh.data
     if cfg.synthetic:
         transform = None
@@ -296,17 +307,19 @@ def _detector_code(detector: str) -> int:
         return len(DETECTORS)
 
 
-# drained metric sums over the ranks: counts and example sums add up;
-# the per-rank loss means ("loss", "loss_*") average; the rest (the grad
-# norm, the binarization probes) are computed from replicated weights
-# and gradients, the same on every rank
+# drained metric sums over the data ranks: counts and example sums add
+# up; the per-rank loss means ("loss", "loss_*") average; the rest (the
+# grad norm, the binarization probes) are computed from the whole
+# gradient and weights (the data ranks' average, with the sharded ones'
+# terms summed over 'model' in the step), the same on every rank. The
+# model ranks of a data rank hold the same sums, so they are not added
 _SUMMED = ("loss_sum", "top1", "top5", "count", "nonfinite")
 
 
 def global_sums(sums: Dict[str, float], mesh: Mesh) -> Dict[str, float]:
-    """A drain's metric sums over every rank of ``mesh`` (one collective;
-    the sums as they are on a mesh of one)."""
-    if not mesh.collective:
+    """A drain's metric sums over the data ranks of ``mesh`` (one
+    collective; the sums as they are with one data rank)."""
+    if mesh.data == 1:
         return sums
     keys = sorted(k for k in sums if k in _SUMMED or k.startswith("loss"))
     total = sum_host_values([sums[k] for k in keys], mesh)
@@ -897,8 +910,10 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
     resources.append(writer)
     logger.info("config: %s", cfg)
     if mesh.collective:
-        logger.info("data-parallel job: rank %d of %d on %s, %d images a rank a step",
-                    mesh.rank, mesh.data, device, cfg.batch_size // mesh.data)
+        logger.info("job of %d ranks (data %d x model %d): rank %d (data rank %d, model rank %d) "
+                    "on %s, %d images a data rank a step", mesh.world, mesh.data, mesh.model,
+                    mesh.rank, mesh.data_rank, mesh.model_rank, device,
+                    cfg.batch_size // mesh.data)
     manifest = write_manifest(log_path, cfg, extra=_resume_lineage(cfg.resume, mesh),
                               device=device, write=mesh.primary)
     events = EventWriter(log_path, name=f"events{proc}.jsonl",
@@ -915,8 +930,8 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
         val_pipe.on_data_error = lambda info: events.emit("data_error", where="eval", **info)
     steps_per_epoch = max(train_pipe.steps_per_epoch(), 1)
     state, step_cfg = build_training(cfg, device, steps_per_epoch, image_size)
-    if mesh.collective:
-        step_cfg = dataclasses.replace(step_cfg, data_shard=(mesh.rank, mesh.data))
+    if mesh.data > 1:
+        step_cfg = dataclasses.replace(step_cfg, data_shard=(mesh.data_rank, mesh.data))
     if cfg.pretrained:
         # a float checkpoint initializes the student: conv weights land on
         # float_weight (OIHW -> HWIO), binary extras keep their init
@@ -1005,9 +1020,11 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
             if restored["fallback"]:
                 logger.warning("committed checkpoint unusable; restored the previous one "
                                "from %s", restored["source"])
-            # elastic resume: the state is replicated and the (epoch, step)
-            # cursor global, so a checkpoint restores onto any number of
-            # ranks; the change of layout is recorded
+            # elastic resume: a checkpoint holds the whole state (the model
+            # shards of a tensor-parallel writer gathered) and the global
+            # (epoch, step) cursor, so it restores onto any layout, which
+            # create_sharded_state then cuts; the change of layout is
+            # recorded
             topo_from, topo_to = restored.get("topology"), topology(mesh)
             reshard = resharded(topo_from, topo_to)
             if reshard:
@@ -1040,7 +1057,7 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
                 seconds=round(load_s, 3),
             )
         logger.info("resumed from %s at epoch %d step %d", cfg.resume, start_epoch, start_step)
-    state = create_sharded_state(mesh, state)
+    state = create_sharded_state(mesh, state, teacher=teacher if cfg.teacher_student else None)
 
     # --profile-at windows (EPOCH:STEP[:NSTEPS]); a bare --profile-dir is
     # the epoch-0 window at [profile_start, profile_start + profile_steps)

@@ -23,6 +23,15 @@ of the ranks' gradients is the gradient of the global batch's mean; the
 kurtosis and the weight KL see the replicated weights on every rank, and
 the teacher runs on each rank's rows. The stochastic draws are the global
 batch's, each rank taking its rows (``StepConfig.data_shard``).
+
+With a ``model`` axis (tensor parallelism) a sharded parameter holds the
+rank's output channels: the kurtosis, L2, WR and the layer KL gather each
+sharded weight whole before they read it (each rank's gradient is then
+its slice of theirs), the grad norm sums the sharded gradients' squares
+over ``model``, and the probes sum a sharded weight's sign flips over it.
+The logits are gathered, so every model rank's loss and metrics are the
+same; the replicated parameters' gradients are made the same bits on the
+model ranks before the update (``agree_replicated_grads``).
 """
 
 from __future__ import annotations
@@ -41,6 +50,12 @@ from bdbnn_tpu_torch.losses.kurtosis import (
 from bdbnn_tpu_torch.models.resnet import conv_weight_hwio
 from bdbnn_tpu_torch.nn.binarize import DrawSource, StepDraws
 from bdbnn_tpu_torch.obs.probes import nonfinite_flag, probe_metrics, probe_signs
+from bdbnn_tpu_torch.parallel.tensor import (
+    agree_replicated_grads,
+    sharded,
+    sum_over_model,
+    whole,
+)
 from bdbnn_tpu_torch.train.optim import set_lr
 from bdbnn_tpu_torch.train.state import StepConfig, TrainState
 
@@ -88,7 +103,7 @@ def regularization_terms(model, cfg: StepConfig, kurt_gate: float) -> Tuple[Tens
     terms: Dict[str, Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.w_kurtosis and cfg.kurt_paths:
-        weights = [param_by_path(model, p) for p in cfg.kurt_paths]
+        weights = [whole(param_by_path(model, p)) for p in cfg.kurt_paths]
         kurt = kurtosis_regularization(weights, cfg.kurt_targets, cfg.kurtosis_mode)
         kurt = cfg.w_lambda_kurtosis * kurt * kurt_gate
         terms["loss_kurt"] = kurt
@@ -104,10 +119,25 @@ def regularization_terms(model, cfg: StepConfig, kurt_gate: float) -> Tuple[Tens
     return total, terms
 
 
-def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepConfig):
+def grad_norm(params, grads) -> Tensor:
+    """The global norm of the gradients, each element counted once: a
+    sharded parameter's squares summed over ``model``."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    split = [sharded(p) for p in params]
+    if not any(split):
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(split, device=norms.device)
+    sq = norms * norms
+    axis = next(p.model_axis for p in params if sharded(p))
+    return torch.sqrt(sq[~mask].sum() + sum_over_model(sq[mask].sum(), axis))
+
+
+def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepConfig,
+                 params=None):
     """The per-step metric dict: loss terms, example-weighted loss sum,
-    top-k counts and, per StepConfig, grad norm, probes, non-finite flag.
-    Every value is a device tensor."""
+    top-k counts and, per StepConfig, grad norm (of ``grads``, the
+    gradients of ``params``), probes, non-finite flag. Every value is a
+    device tensor."""
     metrics = {
         **aux,
         "loss_sum": aux["loss"] * labels.shape[0],
@@ -116,7 +146,7 @@ def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepCo
         "count": torch.full((), labels.shape[0], dtype=torch.int32, device=logits.device),
     }
     if cfg.log_grad_norm:
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        metrics["grad_norm"] = grad_norm(params, grads)
     if cfg.probe_paths:
         metrics.update(probe_metrics(old_signs, new_weights, cfg.probe_names))
     if cfg.track_nonfinite:
@@ -150,6 +180,8 @@ def _make_step(model, optimizer, cfg: StepConfig, draws, loss_terms) -> Callable
         opt.zero_grad(set_to_none=True)
         loss.backward()
         params = [p for group in opt.param_groups for p in group["params"]]
+        # the model ranks update their replicas from the same bits
+        agree_replicated_grads(params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         probed = [param_by_path(model, p) for p in cfg.probe_paths]
         old_signs = probe_signs(probed) if probed else []
@@ -158,7 +190,8 @@ def _make_step(model, optimizer, cfg: StepConfig, draws, loss_terms) -> Callable
         state.step += 1
         aux = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()},
                **{k: v.detach() for k, v in terms.items()}}
-        metrics = step_metrics(aux, logits.detach(), labels, grads, old_signs, probed, cfg)
+        metrics = step_metrics(aux, logits.detach(), labels, grads, old_signs, probed, cfg,
+                               params=params)
         return state, metrics
 
     return train_step
@@ -198,8 +231,8 @@ def make_ts_train_step(
         ce = softmax_cross_entropy(logits, labels) * cfg.w_lambda_ce
         kl_c = distribution_loss(logits, t_logits) * cfg.alpha
         if cfg.beta != 0.0 and cfg.kd_pairs:
-            sw = [conv_weight_hwio(sp, param_by_path(model, sp)) for sp, _ in cfg.kd_pairs]
-            tw = [conv_weight_hwio(tp, param_by_path(teacher, tp)) for _, tp in cfg.kd_pairs]
+            sw = [conv_weight_hwio(sp, whole(param_by_path(model, sp))) for sp, _ in cfg.kd_pairs]
+            tw = [conv_weight_hwio(tp, whole(param_by_path(teacher, tp))) for _, tp in cfg.kd_pairs]
             kl_layer = layer_weight_kl(sw, tw) * cfg.beta
         else:
             kl_layer = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -234,6 +267,7 @@ def make_eval_step(model, input_norm=None) -> Callable:
 __all__ = [
     "make_eval_step",
     "make_train_step",
+    "grad_norm",
     "make_ts_train_step",
     "param_by_path",
     "prep_images",

@@ -29,11 +29,15 @@ falls back to ``.old`` on a mismatch or an unreadable payload. I/O
 retries transient ``OSError`` (:func:`retry_io`); a save that still
 fails raises.
 
-In a data-parallel job the state is replicated: every rank calls
-:func:`save_checkpoint`, rank 0 writes and commits, and barriers bracket
-the write and the commit as in the reference's collective save, so no
-rank runs on while a checkpoint of its step is still uncommitted. Every
-rank may restore any checkpoint, whatever layout wrote it.
+In a job every rank calls :func:`save_checkpoint`, rank 0 writes and
+commits, and barriers bracket the write and the commit as in the
+reference's collective save, so no rank runs on while a checkpoint of its
+step is still uncommitted. The file always holds whole tensors: under
+tensor parallelism every rank first joins the gather over ``model`` of
+each sharded parameter and its optimizer state (a collective), so the
+payload is the layout a one-process run writes. Every rank may restore
+any checkpoint, whatever layout wrote it: :func:`load_checkpoint` cuts
+the whole tensors to a sharded model's slices.
 """
 
 from __future__ import annotations
@@ -48,6 +52,12 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from bdbnn_tpu_torch.parallel import Mesh, barrier
+from bdbnn_tpu_torch.parallel.tensor import (
+    full_optimizer_state,
+    full_state_dict,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 
 CKPT_NAME = "checkpoint"
 BEST_NAME = "model_best"
@@ -206,11 +216,12 @@ def param_group_names(state) -> List[List[str]]:
 
 def state_payload(state) -> Dict[str, Any]:
     """What ``state.pt`` holds of a :class:`TrainState`: host copies of
-    the model's and optimizer's ``state_dict``, the step, and the param
-    groups' names."""
+    the model's and optimizer's ``state_dict`` (whole: a model sharded
+    over ``model`` is gathered, so every model rank must call it), the
+    step, and the param groups' names."""
     return {
-        "model": _host(state.model.state_dict()),
-        "optimizer": _host(state.optimizer.state_dict()),
+        "model": _host(full_state_dict(state.model)),
+        "optimizer": _host(full_optimizer_state(state.optimizer)),
         "step": int(state.step),
         "param_names": param_group_names(state),
     }
@@ -235,28 +246,32 @@ def save_checkpoint(
     current epoch (not ``epoch + 1``) so resume re-enters it, and the
     sidecar carries the step cursor. ``resume_state`` is merged into the
     sidecar. On a ``mesh`` of more than one rank every rank must call it
-    (it holds barriers) and rank 0 alone writes."""
+    (it holds barriers, and under tensor parallelism the gather of the
+    shards) and rank 0 alone writes."""
     mesh = mesh or Mesh()
     barrier(mesh)
+    # every model rank joins the gather; only rank 0 keeps what it made
+    whole = state_payload(state) if (mesh.primary or mesh.model > 1) else None
     if mesh.primary:
-        _write_checkpoint(save_path, state, epoch=epoch, arch=arch, best_acc1=best_acc1,
+        _write_checkpoint(save_path, whole, epoch=epoch, arch=arch, best_acc1=best_acc1,
                           is_best=is_best, step_in_epoch=step_in_epoch,
                           resume_state=resume_state)
     barrier(mesh)
     return os.path.join(save_path, CKPT_NAME)
 
 
-def _write_checkpoint(save_path: str, state, *, epoch: int, arch: str, best_acc1: float,
-                      is_best: bool, step_in_epoch: int,
+def _write_checkpoint(save_path: str, state_p: Dict[str, Any], *, epoch: int, arch: str,
+                      best_acc1: float, is_best: bool, step_in_epoch: int,
                       resume_state: Optional[Dict[str, Any]]) -> None:
-    """One process's save: the payload, sidecar and digest into
-    ``checkpoint.tmp``, then the commit (and ``model_best``)."""
+    """One process's save of ``state_p`` (:func:`state_payload`): the
+    payload, sidecar and digest into ``checkpoint.tmp``, then the commit
+    (and ``model_best``)."""
     payload_epoch = epoch + 1 if step_in_epoch == 0 else epoch
     payload = {
         "epoch": payload_epoch,
         "arch": arch,
         "best_acc1": float(best_acc1),
-        "state": state_payload(state),
+        "state": state_p,
     }
     sidecar = {
         "epoch": payload_epoch,
@@ -364,7 +379,8 @@ def _first_readable(path: str, what: str):
 
 def load_checkpoint(path: str, state, *, reset_resume: bool = False) -> Dict[str, Any]:
     """Restore a checkpoint (a run dir or a checkpoint dir) into
-    ``state`` in place, on the devices its tensors already lie on.
+    ``state`` in place, on the devices its tensors already lie on; a
+    model sharded over ``model`` takes its slices of the whole tensors.
 
     Returns ``{epoch, arch, best_acc1, state, step_in_epoch, best_epoch,
     host_rng, topology, source, fallback, integrity}``. With
@@ -377,8 +393,9 @@ def load_checkpoint(path: str, state, *, reset_resume: bool = False) -> Dict[str
     payload, used, integrity, fallback = _first_readable(path, "restorable")
     saved = payload["state"]
     meta = {"source": used, "fallback": fallback, "integrity": integrity}
+    model_sd = shard_state_dict(state.model, saved["model"])
     if reset_resume:
-        state.model.load_state_dict(saved["model"], strict=True)
+        state.model.load_state_dict(model_sd, strict=True)
         return {"epoch": 0, "arch": payload.get("arch", ""), "best_acc1": 0.0, "state": state,
                 "step_in_epoch": 0, "best_epoch": -1, "host_rng": None, "topology": None,
                 **meta}
@@ -392,8 +409,9 @@ def load_checkpoint(path: str, state, *, reset_resume: bool = False) -> Dict[str
             f"{next(((i, a, b) for i, (a, b) in enumerate(zip(got or [], want)) if a != b), None)})"
             ": a different arch, optimizer policy or decay mask"
         )
-    state.model.load_state_dict(saved["model"], strict=True)
+    state.model.load_state_dict(model_sd, strict=True)
     state.optimizer.load_state_dict(saved["optimizer"])
+    shard_optimizer_state(state.optimizer)
     state.step = int(saved["step"])
     sidecar = read_resume_state(used)
     return {

@@ -83,11 +83,12 @@ Phases (any failure exits non-zero and prints no result line):
              capacity block, p50/p95/p99 per priority; the device's busy
              share under the profiler for 256 requests over loopback, in
              process; (c) flash crowd ×8 at R, 10,000 requests with SIGTERM
-             3 s after ready, then 3,000 run to their end through the
+             3 s after ready, then 1,500 run to their end through the
              burst from 64 connections against 8-deep class queues: exit 0, drained, nothing dropped, every shed an
              explicit 429 or 503, priority 0's shed rate at most priority
              2's, fairness ratio and shed rates by class printed; (d)
-             quotas 20:20 with tenant-a unlimited: tenant-b gets 429
+             quotas 20:20 with tenant-a unlimited, 512 requests at R:
+             tenant-b gets 429
              ``over_quota`` with ``retry-after``, tenant-a none; (e) two
              flagship versions published with the port's ``registry``,
              served with ``--resident-models 2``: each answer its own
@@ -272,6 +273,17 @@ Phases (any failure exits non-zero and prints no result line):
              without a process group, and what wrapping the student costs a
              step; (d) (a)'s mid-epoch checkpoint resumed on one process,
              ``resharded`` and bitwise;
+16a. train-tp — tensor parallelism (phase_train_tp), the flagship recipe
+             at -b 64, the ranks on the one card over gloo: (a) two ranks,
+             ``--model-parallel 2``, through ``fit`` (3 steps, a checkpoint
+             every 2, eval): exact launch counts a rank, the replicated
+             tensors bitwise across the ranks, the eval count the whole
+             split; (b) its first step against one process: the forward
+             bitwise up to the classifier, the logits within FC_TOL, every
+             gradient within GRAD_TOL; (c) four ranks, data 2 x model 2;
+             (d) checkpoints resumed across the layouts bitwise, the TP run
+             exported and served; (e) K1, K5 and K6 at the shard shapes at
+             N = 2 and 4; (f) the step, the collectives' share and bytes;
 16b. train-health — the health monitor (phase_train_health) on the
              flagship recipe through the CLI's ``fit``, 8 steps, a drain a
              step: (a) flip_explosion forced past real flip rates: one
@@ -286,10 +298,10 @@ Phases (any failure exits non-zero and prints no result line):
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
              serve, serve-bench, serve-http, serve-rollout, serve-fleet, train, train-stoch,
-             train-ts, train-resume, train-folder, train-bf16, train-ddp and
-             train-health, and for a bf16 mode
+             train-ts, train-resume, train-folder, train-bf16, train-ddp,
+             train-tp and train-health, and for a bf16 mode
              train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
-             train-ddp and serve-bench), then as the last line
+             train-ddp, train-tp and serve-bench), then as the last line
              ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
@@ -299,7 +311,8 @@ chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
 ``python3 chip_smoke.py --serve-http`` the build and phase 4c alone,
 ``python3 chip_smoke.py --serve-fleet`` the build and phase 4e alone
 (``--fleet-verdicts DIR`` keeps its verdicts), and
-``python3 chip_smoke.py --health`` the build and phases 4d and 16b.
+``python3 chip_smoke.py --health`` the build and phases 4d and 16b, and
+``python3 chip_smoke.py --train-tp`` the build and phase 16a.
 ``python3 chip_smoke.py --trace-prefix N`` runs [train-health] (a)'s fit
 2N times, in turns without and with the burst that opens a profiler window
 on the card (``obs/trace.py``), and counts the device records each window's
@@ -1847,13 +1860,13 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
 
         # (c) flash crowd ×8, dense: 10,000 requests with SIGTERM 3 s after
         # ready (the burst window opens a third of the way through the
-        # schedule, 10000 / (3 R) s in); then 3,000 requests run to their
-        # end, whose burst opens 1000 / R s in, from 64 connections against
+        # schedule, 10000 / (3 R) s in); then 1,500 requests run to their
+        # end, whose burst opens 500 / R s in, from 64 connections against
         # 8-deep class queues (16 connections never fill the default
         # 64-deep queues: the backlog would wait on the client's side)
         for tag, n, term, extra in (
                 ("c", 10000, 3.0, []),
-                ("c_burst", 3000, None, ["--concurrency", "64", "--queue-depth", "8"])):
+                ("c_burst", 1500, None, ["--concurrency", "64", "--queue-depth", "8"])):
             cc = sh_cli(root, art, ["--default-quota", SH_QUOTA, "--scenario", "flash_crowd",
                                     "--rate", str(rate), "--flash-factor", "8", "--requests",
                                     str(n), *extra], sigterm_after_ready_s=term)
@@ -1894,7 +1907,7 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
             got += [sh_predict(host, port, tern[i % 8], tenant="tenant-a")[:3] for i in range(5)]
             return got
 
-        d = sh_cli(root, art, ["--scenario", "poisson", "--rate", str(rate), "--requests", "1024",
+        d = sh_cli(root, art, ["--scenario", "poisson", "--rate", str(rate), "--requests", "512",
                                "--default-quota", "20:20", "--tenant-quota",
                                "tenant-a=100000:100000"], client=client_d)
         add(d["counts"])
@@ -1910,7 +1923,7 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
                         and pt["tenant-a"]["over_quota"] == 0 and sh_accounted(vd)
                         and sh_launch_gate("(d)", d, "dense"))
             log(f"[serve-http] (d) quotas 20:20 default, tenant-a unlimited, poisson at {rate} "
-                f"req/s, 1024 requests, and 30 direct tenant-b + 5 tenant-a requests: direct "
+                f"req/s, 512 requests, and 30 direct tenant-b + 5 tenant-a requests: direct "
                 f"tenant-b 429s {len(b429)} (over_quota with retry-after), tenant-a codes "
                 f"{sorted(a_codes)}; per tenant "
                 f"{ {t: {k: r[k] for k in ('submitted', 'completed', 'over_quota')} for t, r in pt.items()} }; "
@@ -2548,10 +2561,12 @@ class InputReplay:
         return (Exact.apply(x),) + tuple(args[1:])
 
 
-def make_step(cfg, state, step_cfg, draws=None):
+def make_step(cfg, state, step_cfg, draws=None, mesh=None):
     """The train step ``fit`` builds for ``cfg``: under teacher–student
-    the teacher from ``cfg.resume_teacher`` on the model's device, its
-    layer-KL pairs and the TS step; else the plain step."""
+    the teacher from ``cfg.resume_teacher`` on the model's device (sharded
+    over ``mesh``'s model axis, as ``fit`` shards it), its layer-KL pairs
+    and the TS step; else the plain step."""
+    from bdbnn_tpu_torch.parallel.tensor import shard_model
     from bdbnn_tpu_torch.train.loop import build_teacher, match_kd_pairs
     from bdbnn_tpu_torch.train.step import make_train_step, make_ts_train_step
 
@@ -2560,6 +2575,8 @@ def make_step(cfg, state, step_cfg, draws=None):
     device = next(state.model.parameters()).device
     teacher = build_teacher(cfg, device)
     step_cfg = match_kd_pairs(state.model, teacher, step_cfg)
+    if mesh is not None and mesh.model > 1:
+        shard_model(teacher, mesh)
     return make_ts_train_step(state.model, teacher, state.optimizer, step_cfg, draws=draws)
 
 
@@ -4211,7 +4228,9 @@ class SignTape:
     """The sign each binary conv takes of its input in one forward,
     ``x - shift >= 0`` (what K1 fuses), recorded by forward pre-hooks for
     the model's first ``n`` binary conv calls, each as numpy ``packbits``
-    of its rows; :func:`sign_crossings` counts where two runs differ."""
+    of its rows; :func:`sign_crossings` counts where two runs differ. Also
+    the first forward's output of the last residual block (``feat``, what
+    the pool and the classifier read) and its logits, on the host."""
 
     def __init__(self, model):
         from bdbnn_tpu_torch.nn.layers import _BinaryConvBase
@@ -4220,6 +4239,16 @@ class SignTape:
         self.n = len(mods)
         self.rows = []
         self.handles = [m.register_forward_pre_hook(self._hook) for m in mods]
+        self.out = {}
+        if getattr(model, "block_names", None):
+            last = getattr(model, model.block_names[-1])
+            self.handles.append(last.register_forward_hook(self._keep("feat")))
+        self.handles.append(model.register_forward_hook(self._keep("logits")))
+
+    def _keep(self, key):
+        def hook(mod, args, output):
+            self.out.setdefault(key, output.detach().cpu().clone())
+        return hook
 
     def _hook(self, mod, args):
         import numpy as np
@@ -4263,7 +4292,7 @@ class ShardReplay:
 
 
 def ddp_steps(cfg_kw: dict, batches: list, device: str = "cpu", draws=None, signs: bool = False,
-              steps_per_epoch: int = 4, inputs=None) -> dict:
+              steps_per_epoch: int = 4, inputs=None, model_kw=None, variables=None) -> dict:
     """Train steps of ``RunConfig(**cfg_kw)``'s model from its seeded
     init, one per global batch of ``batches`` (numpy (x, y)), on this
     process's rows of each: rank r of a job of W takes rows
@@ -4280,7 +4309,11 @@ def ddp_steps(cfg_kw: dict, batches: list, device: str = "cpu", draws=None, sign
     batch (the ranks' concatenated): the first step's binary convs and
     RPReLUs take them in its place (:class:`InputReplay`), and
     ``input_flips`` counts, by kind, the values this process's own inputs
-    would have put on the other side of their threshold."""
+    would have put on the other side of their threshold, and
+    ``input_max_diff`` their largest difference from the job's.
+    ``model_kw``: a ``BiResNet(**model_kw)`` with the flax-layout
+    ``variables`` (numpy) in place of the registry's seeded ``cfg.arch``,
+    trained by the plain step (``StepConfig()``)."""
     import dataclasses
 
     import numpy as np
@@ -4293,19 +4326,32 @@ def ddp_steps(cfg_kw: dict, batches: list, device: str = "cpu", draws=None, sign
     from bdbnn_tpu_torch.utils.checkpoint import state_payload
 
     cfg = RunConfig(**cfg_kw).validate()
-    mesh = make_mesh()
+    mesh = make_mesh(cfg.model_parallel)
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     dev = torch.device(device)
     if dev.type == "cuda":
         # as fit: the stem conv and the classifier in full f32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    state, step_cfg = build_training(cfg, dev, steps_per_epoch,
-                                     224 if cfg.dataset == "imagenet" else 32)
-    if mesh.collective:
-        step_cfg = dataclasses.replace(step_cfg, data_shard=(mesh.rank, mesh.data))
-    source = ShardReplay(draws, mesh.rank, mesh.data) if isinstance(draws, list) else draws
-    step = make_step(cfg, state, step_cfg, draws=None if source is None else (lambda _s: source))
+    if model_kw is None:
+        state, step_cfg = build_training(cfg, dev, steps_per_epoch,
+                                         224 if cfg.dataset == "imagenet" else 32)
+    else:
+        from bdbnn_tpu_torch.models.resnet import BiResNet
+        from bdbnn_tpu_torch.train.optim import make_optimizer
+        from bdbnn_tpu_torch.train.state import StepConfig, TrainState
+
+        model = BiResNet(**model_kw).from_flax(variables).to(dev)
+        opt = make_optimizer(model, dataset=cfg.dataset, lr=cfg.lr, epochs=cfg.epochs,
+                             steps_per_epoch=steps_per_epoch, momentum=cfg.momentum,
+                             weight_decay=cfg.weight_decay, policy=cfg.opt_policy)
+        state, step_cfg = TrainState(model=model, optimizer=opt), StepConfig()
+    if mesh.data > 1:
+        step_cfg = dataclasses.replace(step_cfg, data_shard=(mesh.data_rank, mesh.data))
+    source = (ShardReplay(draws, mesh.data_rank, mesh.data) if isinstance(draws, list)
+              else draws)
+    step = make_step(cfg, state, step_cfg, draws=None if source is None else (lambda _s: source),
+                     mesh=mesh)
     create_sharded_state(mesh, state)
     tape = SignTape(state.model) if signs else None
     replay = None
@@ -4315,16 +4361,17 @@ def ddp_steps(cfg_kw: dict, batches: list, device: str = "cpu", draws=None, sign
             replay.recorded = [t.to(dev) for t in inputs]
         handles = replay.hooks(state.model, "card" if inputs == "record" else "cpu")
     tk, gate = epoch_schedule(family, cfg, 0)
-    out = {"losses": [], "rank": mesh.rank, "world": mesh.data}
+    out = {"losses": [], "rank": mesh.rank, "world": mesh.world, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank}
     for i, (x, y) in enumerate(batches):
         b = len(x) // mesh.data
-        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
         batch = tuple(torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev) for a in (x, y))
         _, m = step(state, batch, tk, gate)
         out["losses"].append(float(m["loss"]))
         if i == 0:
-            out["grads"] = {n: p.grad.detach().cpu().clone()
-                            for n, p in state.model.named_parameters()}
+            out["grads"] = whole_grads(state.model)
+            out["metrics"] = {k: float(v) for k, v in m.items()}
             if tape is not None:
                 tape.close()
             if replay is not None:
@@ -4336,17 +4383,76 @@ def ddp_steps(cfg_kw: dict, batches: list, device: str = "cpu", draws=None, sign
                     if replay.at != len(replay.recorded):
                         raise ValueError(f"replayed {replay.at} of {len(replay.recorded)} inputs")
                     out["input_flips"] = dict(replay.flips)
+                    out["input_max_diff"] = replay.max_diff
             if len(batches) > 1:
                 out["first_state"] = state_payload(state)["model"]
     out["state"] = state_payload(state)
+    out["local"] = local_tensors(state)
     out["signs"] = tape.rows if tape is not None else None
+    out["first"] = tape.out if tape is not None else None
     out["launches"] = read_counts()
+    return out
+
+
+def whole_grads(model) -> dict:
+    """Every parameter's gradient on the host, a sharded one gathered
+    whole (a collective over ``model``: every rank calls it)."""
+    import torch
+    import torch.distributed as dist
+
+    from bdbnn_tpu_torch.parallel.tensor import sharded
+
+    out = {}
+    for n, p in model.named_parameters():
+        g = p.grad.detach()
+        if sharded(p):
+            parts = [torch.empty_like(g) for _ in range(p.model_axis.size)]
+            dist.all_gather(parts, g.contiguous(), group=p.model_axis.group)
+            g = torch.cat(parts, dim=p.shard_dim)
+        out[n] = g.cpu().clone()
+    return out
+
+
+def local_tensors(state) -> dict:
+    """This rank's own tensors on the host, sharded or not: the model's
+    ``state_dict`` and each parameter's optimizer state by name
+    (``"opt NAME KEY"``), and the names of the sharded parameters."""
+    from bdbnn_tpu_torch.parallel.tensor import sharded
+
+    out = {"model " + k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            if hasattr(v, "detach"):
+                out[f"opt {names[id(p)]} {k}"] = v.detach().cpu().clone()
+    return {"tensors": out, "sharded": sorted(n for n, p in state.model.named_parameters()
+                                               if sharded(p))}
+
+
+def local_diff(a: dict, b: dict, replicated_only: bool) -> list:
+    """The names whose tensors differ between two ranks'
+    :func:`local_tensors` (only the replicated ones with
+    ``replicated_only``: the tensors of a sharded parameter differ
+    between model ranks by design)."""
+    import torch
+
+    def is_shard(key):
+        return any(key == "model " + n or key.startswith(f"opt {n} ") for n in a["sharded"])
+
+    out = []
+    for k in sorted(set(a["tensors"]) | set(b["tensors"])):
+        if replicated_only and is_shard(k):
+            continue
+        x, y = a["tensors"].get(k), b["tensors"].get(k)
+        if x is None or y is None or x.shape != y.shape or not torch.equal(x, y):
+            out.append(k)
     return out
 
 
 def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
             batch: int = TRAIN_BATCH, device: str = "cuda", deterministic: bool = False,
-            profile_steps: int = 0, time_wrapped: bool = False, **cfg_kw) -> dict:
+            profile_steps: int = 0, time_wrapped: bool = False, eval_images=None,
+            after_shard=None, **cfg_kw) -> dict:
     """``fit`` on the flagship recipe (``cfg_kw`` over it) at global batch
     ``batch`` for ``steps`` steps, an eval pass of ``batch`` images and a
     checkpoint every 2 steps, under ``log_path``, in this process: a rank
@@ -4357,7 +4463,13 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
     (``state_payload``) and the run dir. ``profile_steps``: that many more
     steps of the state, timed and profiled (the share of the gloo
     all-reduces); ``time_wrapped`` (one rank): a fresh state's step timed
-    plain and wrapped in ``DistributedDataParallel`` with global BN."""
+    plain and wrapped in ``DistributedDataParallel`` with global BN. On
+    a ``model`` axis (``model_parallel`` in ``cfg_kw``) the gradients and
+    the final state are gathered whole, and ``local`` holds the rank's
+    own tensors (:func:`local_tensors`). ``eval_images`` (numpy NHWC):
+    the final model's eval-mode logits of them, as ``eval_logits``.
+    ``after_shard``: a list that receives ``state_payload`` of the state
+    as ``create_sharded_state`` leaves it (a restored checkpoint, cut)."""
     import torch
 
     from bdbnn_tpu_torch.train import loop
@@ -4370,6 +4482,13 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
     held, per_step, losses, marks = {}, [], [], []
     prev = {}
     real_build, real_validate = loop.build_training, loop._validate
+    real_shard = loop.create_sharded_state
+
+    def shard(*a, **k):
+        st = real_shard(*a, **k)
+        if after_shard is not None:
+            after_shard.append(state_payload(st))
+        return st
 
     def build(*a, **k):
         st, sc = real_build(*a, **k)
@@ -4386,8 +4505,7 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
         prev.update(now)
         losses.append(m["loss"])
         if "grads" not in held:
-            held["grads"] = {n: p.grad.detach().cpu().clone()
-                             for n, p in held["state"].model.named_parameters()}
+            held["grads"] = whole_grads(held["state"].model)
             held["tape"].close()
 
     def validate(*a, **kw):
@@ -4399,11 +4517,13 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
     torch.backends.cudnn.deterministic = deterministic or prev_det
     reset_counts()
     loop.build_training, loop._validate = build, validate
+    loop.create_sharded_state = shard
     t0 = time.perf_counter()
     try:
         loop.fit(cfg, on_step=on_step)
     finally:
         loop.build_training, loop._validate = real_build, real_validate
+        loop.create_sharded_state = real_shard
         torch.backends.cudnn.deterministic = prev_det
     wall = time.perf_counter() - t0
     counts = {**read_counts(), **read_bf16_counts()}
@@ -4412,8 +4532,16 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
     state = held["state"]
     out = {"counts": counts, "per_step": per_step, "losses": [float(v) for v in losses],
            "step_ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])], "wall_s": wall,
-           "grads": held["grads"], "signs": held["tape"].rows, "state": state_payload(state),
+           "grads": held["grads"], "signs": held["tape"].rows, "first": held["tape"].out,
+           "state": state_payload(state), "local": local_tensors(state),
            "run_dir": run_dir_of(log_path)}
+    if after_shard is not None:
+        out["restored"] = after_shard
+    if eval_images is not None:
+        state.model.eval()
+        with torch.no_grad():
+            x = torch.from_numpy(eval_images).to(next(state.model.parameters()).device)
+            out["eval_logits"] = state.model(x).cpu()
     if profile_steps:
         out["profile"] = _profile_ddp_steps(cfg, state, held["step_cfg"], profile_steps)
     if time_wrapped:
@@ -4430,11 +4558,12 @@ def _rank_shard():
     return dist.get_rank(), dist.get_world_size()
 
 
-def _rank_batch(cfg, device):
-    """A seeded batch of this rank's rows on ``device``."""
+def _rank_batch(cfg, device, data: int = 0):
+    """A seeded batch of this rank's rows on ``device``: the global batch
+    over ``data`` data ranks (the job's world when 0)."""
     import torch
 
-    b = cfg.batch_size // _rank_shard()[1]
+    b = cfg.batch_size // (data or _rank_shard()[1])
     g = torch.Generator().manual_seed(3)
     return (torch.randn((b, 224, 224, 3), generator=g).to(device),
             torch.randint(0, 1000, (b,), generator=g).to(device))
@@ -4442,20 +4571,31 @@ def _rank_batch(cfg, device):
 
 def _profile_ddp_steps(cfg, state, step_cfg, steps: int) -> dict:
     """``steps`` more train steps of ``state`` (DDP-wrapped in a job) on a
-    seeded batch on its device: the host wall per step (synchronized), and
-    under torch.profiler the host spans of the gloo all-reduces (enqueue to
-    completion, so they overlap the backward) and the device busy time."""
+    seeded batch of the step's data shard on its device: the host wall per
+    step (synchronized); under torch.profiler the host spans of the gloo
+    all-reduces and all-gathers (enqueue to completion, so the reducer's
+    overlap the backward) and the device busy time; and the bytes one step
+    hands to the Python collectives (the model axis's gathers and sums, BN's
+    sums; the DDP reducer's buckets are not among them), by op and group,
+    from the tensors' shapes."""
     import dataclasses
 
     import torch
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     from bdbnn_tpu_torch.nn.binarize import get_active_family
+    from bdbnn_tpu_torch.parallel.tensor import sharded
     from bdbnn_tpu_torch.train.loop import epoch_schedule
 
     dev = next(state.model.parameters()).device
-    step = make_step(cfg, state, dataclasses.replace(step_cfg, data_shard=_rank_shard()))
-    batch = _rank_batch(cfg, dev)
+    # this rank's data shard: (rank, world) over the model axis's size
+    axis = next((p.model_axis for p in state.model.parameters() if sharded(p)), None)
+    n = axis.size if axis is not None else 1
+    rank, world = _rank_shard()
+    shard = (rank // n, world // n)
+    step = make_step(cfg, state, dataclasses.replace(step_cfg, data_shard=shard))
+    batch = _rank_batch(cfg, dev, shard[1])
     tk, gate = epoch_schedule(get_active_family(), cfg, 0)
     step(state, batch, tk, gate)
     torch.cuda.synchronize()
@@ -4465,20 +4605,46 @@ def _profile_ddp_steps(cfg, state, step_cfg, steps: int) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(steps):
             step(state, batch, tk, gate)
         torch.cuda.synchronize()
-    comm_ms, busy_ms, keys = 0.0, 0.0, set()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    comm, busy_ms, keys = {"all_reduce": 0.0, "all_gather": 0.0, "broadcast": 0.0}, 0.0, set()
     for ev in prof.key_averages():
-        name = ev.key.lower()
-        if "gloo" in name and ("all_reduce" in name or "allreduce" in name):
-            comm_ms += ev.cpu_time_total / 1e3 / steps
+        name = ev.key.lower().replace("allreduce", "all_reduce").replace("allgather", "all_gather")
+        op = next((k for k in comm if k in name), None)
+        if "gloo" in name and op is not None:
+            comm[op] += ev.cpu_time_total / 1e3 / steps
             keys.add(ev.key)
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             busy_ms += us / 1e3 / steps
-    return {"wall_ms": wall_ms, "gloo_allreduce_ms": comm_ms, "busy_ms": busy_ms,
-            "keys": sorted(keys)}
+    model_group = axis.group if axis is not None else None
+    moved = {}
+    real = {"all_gather": dist.all_gather, "all_reduce": dist.all_reduce,
+            "broadcast": dist.broadcast}
+
+    def counted(op):
+        def call(*args, group=None, **kw):
+            parts = args[0] if op == "all_gather" else [args[0]]
+            key = f"{op} {'model' if group is not None and group is model_group else 'other'}"
+            moved[key] = moved.get(key, 0) + sum(t.numel() * t.element_size() for t in parts)
+            return real[op](*args, group=group, **kw)
+        return call
+
+    for op in real:
+        setattr(dist, op, counted(op))
+    try:
+        step(state, batch, tk, gate)
+    finally:
+        for op, fn in real.items():
+            setattr(dist, op, fn)
+    torch.cuda.synchronize()
+    return {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+            "gloo_allreduce_ms": comm["all_reduce"],
+            "gloo_allgather_ms": comm["all_gather"], "gloo_broadcast_ms": comm["broadcast"],
+            "busy_ms": busy_ms, "keys": sorted(keys), "bytes": moved}
 
 
 def _time_wrapped_step(cfg, iters: int = 3) -> dict:
@@ -4765,6 +4931,51 @@ def ddp_primitives(flags: list, values: list, sums: list) -> dict:
             "global_sums": global_sums(sums[mesh.rank], mesh)}
 
 
+def tp_primitives(seed: int = 0) -> dict:
+    """This rank's view of the model-axis functions (``parallel/tensor.py``)
+    on a ``make_mesh(model_parallel=2)`` of the group that is up, on
+    seeded tensors: ``gather_from_model`` of the rank's slice and its
+    backward (the rank's slice of the cotangent), ``copy_to_model``'s
+    backward (the cotangents summed over ``model``), ``whole`` of a
+    sharded parameter and its gradient, and ``agree_replicated_grads`` on
+    gradients that differ from rank to rank (the first rank's on every
+    rank; a sharded parameter's own left as it is)."""
+    import torch
+
+    from bdbnn_tpu_torch.parallel import make_mesh
+    from bdbnn_tpu_torch.parallel.tensor import (
+        agree_replicated_grads,
+        copy_to_model,
+        gather_from_model,
+        model_axis,
+        shard_slice,
+        whole,
+    )
+
+    mesh = make_mesh(model_parallel=2)
+    axis = model_axis(mesh)
+    g = torch.Generator().manual_seed(seed)
+    full = torch.randn((2, 3, 8), generator=g)
+    cot = torch.randn((2, 3, 8), generator=g)
+    x = shard_slice(full, axis, -1).requires_grad_(True)
+    y = gather_from_model(x, axis, -1)
+    (y * cot).sum().backward()
+    z = torch.randn((4,), generator=g) * (1 + mesh.model_rank)
+    zc = z.clone().requires_grad_(True)
+    (copy_to_model(zc, axis) * 3.0).sum().backward()
+    w = torch.nn.Parameter(shard_slice(torch.randn((3, 8), generator=g), axis, 1))
+    w.model_axis, w.shard_dim = axis, 1
+    ww = whole(w)
+    (ww * ww).sum().backward()
+    rep = torch.nn.Parameter(torch.zeros(5))
+    rep.grad = torch.full((5,), float(mesh.rank) + 0.5)
+    w_grad = w.grad.clone()
+    agree_replicated_grads([w, rep])
+    return {"rank": mesh.rank, "model_rank": mesh.model_rank, "full": full, "cot": cot,
+            "y": y.detach(), "dx": x.grad, "z": z, "dz": zc.grad, "whole": ww.detach(),
+            "dw": w.grad, "dw_before": w_grad, "rep_grad": rep.grad}
+
+
 def ddp_each(calls: list) -> list:
     """``DDP_JOBS[job](**kw)`` of each (job, kw) of ``calls``, in order, in
     one job (one process group for several cases)."""
@@ -4772,7 +4983,391 @@ def ddp_each(calls: list) -> list:
 
 
 DDP_JOBS = {"steps": ddp_steps, "fit": ddp_fit, "batchnorm": ddp_batchnorm,
-            "primitives": ddp_primitives, "each": ddp_each}
+            "primitives": ddp_primitives, "tp_primitives": tp_primitives, "each": ddp_each}
+
+
+# ---------------------------------------------------------------------------
+# [train-tp]: tensor parallelism over the mesh's 'model' axis
+# ---------------------------------------------------------------------------
+
+# the ranks of (a) (data 1 x model 2) and (c) (data 2 x model 2), all on
+# the one card over gloo (NCCL refuses two ranks on one card); the global
+# batch; (a)'s steps, with a mid-epoch checkpoint at step 2; the epoch of
+# (c)'s one-process run, whose step-2 checkpoint (c)'s four ranks resume
+# for the last 2 steps
+TP_MODEL = 2
+TP_BATCH = 64
+TP_STEPS = 3
+TP_ONE_STEPS = 4
+# the classifier's product over O/N columns and the whole one differ in
+# their GEMM's summation order: the logits to this share of the largest
+# |logit| (everything before the classifier is bitwise)
+FC_TOL = 1e-6
+# the shard shapes of the sharded binary convs at N = 2 and 4: the
+# flagship's convs of 256 or more output channels, O cut N ways
+TP_SHARD_CONVS = [cv for cv in FLAGSHIP_CONVS if cv[3] >= 256]
+
+
+def tp_bytes_estimate(batch: int, n: int) -> dict:
+    """The bytes one -b ``batch`` step of the flagship on an N-way model
+    axis hands its model-axis collectives, from the shapes alone: the
+    forward gathers of the sharded convs' outputs and of the logits (each
+    the whole f32 output), and the backward sums of their inputs'
+    cotangents (each the whole f32 input)."""
+    fwd = bwd = 0
+    for name, hw, c, o, k, s, count in TP_SHARD_CONVS:
+        ho = hw // s
+        fwd += count * batch * ho * ho * o * 4
+        bwd += count * batch * hw * hw * c * 4
+    fwd += batch * 1000 * 4
+    bwd += batch * 512 * 4
+    return {"forward_gathers": fwd, "backward_sums": bwd, "model": n}
+
+
+def _hold_k5_k6(x, shift, w, gy, s, pad):
+    """K5 (approx) and K6 at one shape against their plain versions and
+    the float64 sums, with [train_kernels]' gates; (dx, ok5, err5, ok6,
+    err6, ratios)."""
+    import torch
+
+    from bdbnn_tpu_torch.nn.kernels import (
+        binary_conv2d_dgrad,
+        binary_conv2d_dgrad_plain,
+        binary_conv2d_wgrad,
+        binary_conv2d_wgrad_plain,
+        weight_binarize,
+    )
+    from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope
+
+    approx = ("approx", 0.0, 0.0)
+    st = (s, s)
+    wsign, alpha = weight_binarize(w)
+    dx = binary_conv2d_dgrad(gy, x, wsign, alpha, shift=shift, strides=st, estimator=approx)
+    pdx = binary_conv2d_dgrad_plain(gy, x, wsign, alpha, shift=shift, strides=st,
+                                    estimator=approx)
+    slope = estimator_slope(x - shift, approx)
+    ex = dgrad_exact(gy, x, wsign, alpha, s, pad) * slope.double()
+    terms = binary_conv2d_dgrad_plain(gy.abs(), x, torch.ones_like(wsign), alpha.abs(),
+                                      shift=shift, strides=st)
+    scale = U * terms * slope.abs()
+    err, err_ex = (dx - pdx).abs(), (dx.double() - ex).abs()
+    ok5 = (bool((err <= 8 * scale + U * pdx.abs() + 1e-30).all())
+           and bool((err_ex <= 4 * scale + U * ex.abs() + 1e-30).all()))
+    r5 = (_ratio(err, pdx, scale), _ratio(err_ex, ex, scale.double()))
+    err5 = float(err.max())
+    del pdx, ex, terms, scale, err, err_ex
+    dw = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
+    dw2 = binary_conv2d_wgrad(gy, x, w, alpha, shift=shift, strides=st)
+    pdw = binary_conv2d_wgrad_plain(gy, x, w, alpha, shift=shift, strides=st)
+    ex6 = wgrad_exact(gy, x, w, alpha, shift, s, pad)
+    wscale = U * binary_conv2d_wgrad_plain(gy.abs(), torch.ones_like(x), torch.zeros_like(w),
+                                           alpha.abs(), strides=st)
+    err6, err6_ex = (dw - pdw).abs(), (dw.double() - ex6).abs()
+    ok6 = (bool((err6 <= 8 * wscale + U * pdw.abs() + 1e-30).all())
+           and bool((err6_ex <= 4 * wscale + U * ex6.abs() + 1e-30).all())
+           and torch.equal(dw, dw2))
+    r6 = (_ratio(err6, pdw, wscale), _ratio(err6_ex, ex6, wscale.double()))
+    return dx, ok5, err5, ok6, float(err6.max()), r5 + r6
+
+
+def tp_kernels(tag: str, smi_line: str) -> bool:
+    """(e): K1, K5 and K6 at the shard shapes of the sharded binary convs
+    at N = 2 and 4, batch TP_BATCH: each rank's slice against the plain
+    version and the float64 sums with the gates of [kernels] and
+    [train_kernels]; K1's slice bitwise the whole conv's channels; K5's
+    partial dx summed over the N slices beside the whole conv's exact dx
+    (printed); the N = 2 shapes timed (CUDA events)."""
+    import torch
+
+    from bdbnn_tpu_torch.nn.kernels import (
+        binary_conv2d,
+        binary_conv2d_dgrad,
+        binary_conv2d_plain,
+        binary_conv2d_wgrad,
+        weight_binarize,
+    )
+    from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    ok = True
+    b = TP_BATCH
+    approx = ("approx", 0.0, 0.0)
+    for name, hw, c, o, k, s, count in TP_SHARD_CONVS:
+        pad = k // 2
+        ho = (hw + 2 * pad - k) // s + 1
+        st = (s, s)
+        x = torch.randn((b, hw, hw, c), generator=g, device=dev)
+        shift = 0.1 * torch.randn((c,), generator=g, device=dev)
+        w = 0.5 * torch.randn((k, k, c, o), generator=g, device=dev)
+        gy = torch.randn((b, ho, ho, o), generator=g, device=dev)
+        wsign, alpha = weight_binarize(w)
+        y_whole = binary_conv2d(x, wsign, alpha, shift=shift, strides=st)
+        ex_whole = dgrad_exact(gy, x, wsign, alpha, s, pad) * estimator_slope(x - shift,
+                                                                               approx).double()
+        for n in (2, 4):
+            q = o // n
+            dx_sum = None
+            for r in range(n):
+                cut = slice(r * q, (r + 1) * q)
+                ws = w[..., cut].contiguous()
+                wsg, al = weight_binarize(ws)
+                y = binary_conv2d(x, wsg, al, shift=shift, strides=st)
+                py = binary_conv2d_plain(x, wsg, al, shift=shift, strides=st)
+                k1_ok = torch.equal(y, py) and torch.equal(y, y_whole[..., cut])
+                dx, ok5, err5, ok6, err6, ratios = _hold_k5_k6(x, shift, ws,
+                                                               gy[..., cut].contiguous(), s, pad)
+                dx_sum = dx.double() if dx_sum is None else dx_sum + dx.double()
+                this = k1_ok and ok5 and ok6
+                if r == 0 or not this:
+                    log(f"{tag} (e) {name} N={n} slice {r} ({c}->{q}) b{b}: K1 bitwise plain "
+                        f"and the whole conv's channels {k1_ok}; K5 within bound {ok5} "
+                        f"max_abs_err={err5} (vs plain {ratios[0]:.3f} of bound 8, vs exact "
+                        f"{ratios[1]:.3f} of 4); K6 within bound, bitwise across two runs "
+                        f"{ok6} max_abs_err={err6} (vs plain {ratios[2]:.3f}, vs exact "
+                        f"{ratios[3]:.3f}); ok={this}")
+                ok = ok and this
+                del y, py, dx
+            rel = float((dx_sum - ex_whole).abs().max()) / max(float(ex_whole.abs().max()), 1e-30)
+            log(f"{tag} (e) {name} N={n}: the {n} partial dx summed vs the whole conv's exact dx: "
+                f"largest difference {rel:.3e} of its largest |entry|")
+            if n == 2:
+                ws = w[..., :q].contiguous()
+                wsg, al = weight_binarize(ws)
+                gq = gy[..., :q].contiguous()
+                t1 = cuda_ms(lambda: binary_conv2d(x, wsg, al, shift=shift, strides=st), 10)
+                t5 = cuda_ms(lambda: binary_conv2d_dgrad(gq, x, wsg, al, shift=shift, strides=st,
+                                                         estimator=approx), 10)
+                t6 = cuda_ms(lambda: binary_conv2d_wgrad(gq, x, ws, al, shift=shift,
+                                                         strides=st), 10)
+                log(f"{tag} (e) {name} N=2 slice ({c}->{q}) b{b}: K1 {t1:.4f} ms, K5 {t5:.4f} "
+                    f"ms, K6 {t6:.4f} ms (CUDA events; {smi_line})")
+        del x, gy, w, y_whole, ex_whole
+        torch.cuda.empty_cache()
+    return ok
+
+
+def phase_train_tp(smi_line: str):
+    """[train-tp]: tensor parallelism on the flagship recipe (BASELINE
+    config 3) at -b TP_BATCH, all ranks on the one card over gloo. (a) two
+    ranks, ``--model-parallel 2``, through ``fit``: TP_STEPS steps, a
+    checkpoint every 2, the eval pass; each rank's launches exact (K1, K2,
+    K5, K6 19 a step, K7 2), the replicated parameters, BN statistics and
+    Adam state bitwise equal across the ranks, the gathered state too, the
+    eval ``count`` the whole val split. (b) (a)'s first step against one
+    process on the same batch: no sign crossing, the last block's output
+    (what the classifier reads) bitwise, the logits within FC_TOL of the
+    largest |logit|, the loss to TRAIN_LOSS_RTOL, every gradient (the
+    sharded ones gathered) to GRAD_TOL of its tensor's largest |entry|.
+    (c) four ranks, data 2 x model 2, resuming a one-process run's step-2
+    checkpoint (TP_ONE_STEPS a epoch) for 2 steps: launches exact, the
+    replicated tensors bitwise on all four, each shard bitwise on its two
+    data ranks, the eval count the whole split. (d) that resume, and (a)'s
+    mid-epoch checkpoint resumed on one process: ``resharded`` and the
+    restored state (gathered) bitwise the saved one; (a)'s run exported and served
+    in three modes (the export gates of [train-resume]), its logits beside
+    (a)'s eval forward. (e) :func:`tp_kernels`. (f) printed: each rank's
+    step against the one process's at the same batch, the share of the
+    step in the gloo gathers and sums, and the bytes a step hands the
+    model-axis collectives beside :func:`tp_bytes_estimate`. Returns (the
+    launch counts of (a), both ranks summed, ok)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bdbnn_tpu_torch.models import create_model
+    from bdbnn_tpu_torch.obs.events import read_events, read_jsonl
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+    from bdbnn_tpu_torch.serve.export import export_artifact
+    from bdbnn_tpu_torch.train import loop
+    from bdbnn_tpu_torch.utils import checkpoint as ck
+
+    tag = "[train-tp]"
+    card = f"({smi_line})"
+    oks = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fwd = N_BINARY_CONVS
+    want = {"K1": fwd, "K2": fwd, "K3": 0, "K4": 0, "K5": fwd, "K6": fwd, "K7": 2,
+            **{f"{k} bf16": 0 for k in BF16_KERNELS}}
+    eval_x = np.random.default_rng(18).normal(size=(8, 224, 224, 3)).astype(np.float32)
+    common = dict(arch="resnet18", device="cuda:0", batch=TP_BATCH)
+
+    def evals_of(run_dir, world):
+        return [read_events(run_dir, "eval")] + [
+            [e for e in read_jsonl(os.path.join(run_dir, f"events.p{r}.jsonl"))
+             if e["kind"] == "eval"] for r in range(1, world)]
+
+    # (a)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("fit", TP_MODEL, "cuda:0", "gloo",
+                        dict(log_path=fresh_log_root(), steps=TP_STEPS, model_parallel=TP_MODEL,
+                             profile_steps=2, eval_images=eval_x, **common))
+    log(f"{tag} (a) {TP_MODEL} ranks (data 1 x model {TP_MODEL}) over gloo on cuda:0, fit "
+        f"flagship -b {TP_BATCH}, {TP_STEPS} steps + eval, in {time.perf_counter() - t0:.1f}s "
+        "(processes started, kernels loaded)")
+    run_dir = ranks[0]["run_dir"]
+    evals = evals_of(run_dir, TP_MODEL)
+    rep_diff = local_diff(ranks[0]["local"], ranks[1]["local"], replicated_only=True)
+    whole_diff = state_diff(ranks[0]["state"], ranks[1]["state"])
+    oks["(a) launches"] = all(len(r["per_step"]) == TP_STEPS and all(c == want for c in r["per_step"])
+                              for r in ranks)
+    oks["(a) finite"] = all(len(r["losses"]) == TP_STEPS
+                            and all(math.isfinite(v) for v in r["losses"]) for r in ranks)
+    feats_equal = torch.equal(ranks[0]["first"]["feat"], ranks[1]["first"]["feat"])
+    oks["(a) replicated equal"] = not rep_diff and not whole_diff and feats_equal
+    oks["(a) sharded"] = len(ranks[0]["local"]["sharded"]) == 11
+    oks["(a) one run dir"] = all(r["run_dir"] == run_dir for r in ranks)
+    oks["(a) eval count"] = all(len(ev) == 1 and ev[0]["count"] == TP_BATCH for ev in evals)
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    for r, res in enumerate(ranks):
+        log(f"{tag} (a) rank {r}: losses {res['losses']}; launches per step {res['per_step']} "
+            f"(expected {want} each); step ms (CUDA events, fit's loop) {res['step_ms']} {card}")
+    log(f"{tag} (a) sharded parameters {ranks[0]['local']['sharded']}; the first forward's "
+        f"last block output bitwise on both ranks {feats_equal}; replicated tensors that "
+        f"differ between the ranks {rep_diff[:5]}, gathered state {whole_diff[:5]}; eval events "
+        f"{[ev[0] if ev else None for ev in evals]}; whole run launches (both ranks) {counts}")
+    # (b)
+    cfg = train_config(arch="resnet18", batch_size=TP_BATCH,
+                       synthetic_train_size=TP_STEPS * TP_BATCH,
+                       synthetic_val_size=TP_BATCH, device="cuda").validate()
+    pipe, _, _ = loop.build_datasets(cfg)
+    pipe.prefetch = 0
+    x, y = next(iter(pipe.epoch(0)))
+    one = ddp_steps(dataclasses.asdict(cfg), [(x, y)], device="cuda:0", signs=True,
+                    steps_per_epoch=TP_STEPS)
+    cmp = compare_ddp_step(ranks[:1], one)
+    cross = sum(cmp["crossings"])
+    feat_same = torch.equal(ranks[0]["first"]["feat"], one["first"]["feat"])
+    lg, lg1 = ranks[0]["first"]["logits"], one["first"]["logits"]
+    fc_rel = float((lg - lg1).abs().max()) / max(float(lg1.abs().max()), 1e-30)
+    grads_same = all(torch.equal(ranks[1]["grads"][n], g) for n, g in ranks[0]["grads"].items())
+    worst = max(cmp["grad_err"].items(), key=lambda kv: kv[1])
+    oks["(b) step"] = (cross == 0 and feat_same and fc_rel <= FC_TOL and grads_same
+                       and cmp["loss_rel"] <= TRAIN_LOSS_RTOL and worst[1] <= GRAD_TOL)
+    log(f"{tag} (b) first step at -b {TP_BATCH} against one process on the same batch: sign "
+        f"crossings per binary conv {cmp['crossings']} (total {cross}); the last block's output "
+        f"bitwise {feat_same}; logits {fc_rel:.3e} of the largest |logit| (tol {FC_TOL}); loss "
+        f"{cmp['loss']!r} vs {cmp['loss_one']!r}, relative {cmp['loss_rel']:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL}); worst gradient error {worst[1]:.3e} of its tensor's largest |entry| "
+        f"({worst[0]}; tol {GRAD_TOL}, {len(cmp['grad_err'])} tensors); the ranks' gathered "
+        f"gradients bitwise equal {grads_same}; ok={oks['(b) step']}")
+    log(f"{tag} (b) largest gradient errors: " + ", ".join(
+        f"{n} {e:.3e}" for n, e in sorted(cmp["grad_err"].items(), key=lambda kv: -kv[1])[:6]))
+    del one
+    # (c): a one-process run (its step timed for (f)); its step-2
+    # checkpoint resumed by four ranks, data 2 x model 2, for 2 steps
+    topo_tp = {"processes": TP_MODEL, "devices": TP_MODEL, "mesh": {"data": 1, "model": TP_MODEL}}
+    topo4 = {"processes": 2 * TP_MODEL, "devices": 2 * TP_MODEL,
+             "mesh": {"data": 2, "model": TP_MODEL}}
+    topo_one = {"processes": 1, "devices": 1, "mesh": {"data": 1, "model": 1}}
+    p1 = ddp_fit(fresh_log_root(), steps=TP_ONE_STEPS, profile_steps=2, **common)
+    old1 = os.path.join(p1["run_dir"], ck.CKPT_NAME + ".old")
+    saved1 = torch.load(os.path.join(old1, ck.PAYLOAD_NAME), map_location="cpu",
+                        weights_only=True)["state"]
+    t0 = time.perf_counter()
+    four = spawn_ranks("fit", 2 * TP_MODEL, "cuda:0", "gloo",
+                       dict(log_path=fresh_log_root(), steps=TP_ONE_STEPS, model_parallel=TP_MODEL,
+                            resume=old1, after_shard=[], **common))
+    run4 = four[0]["run_dir"]
+    (restore4,) = read_events(run4, "restore")
+    rep4 = [local_diff(four[0]["local"], r["local"], replicated_only=True) for r in four[1:]]
+    shard4 = [local_diff(four[m]["local"], four[m + TP_MODEL]["local"], replicated_only=False)
+              for m in range(TP_MODEL)]
+    restored4 = [state_diff(saved1, r["restored"][0]) for r in four]
+    steps4 = TP_ONE_STEPS - 2
+    oks["(c) launches"] = all(len(r["per_step"]) == steps4
+                              and all(c == want for c in r["per_step"]) for r in four)
+    oks["(c) finite"] = all(len(r["losses"]) == steps4
+                            and all(math.isfinite(v) for v in r["losses"]) for r in four)
+    oks["(c) replicas"] = not any(rep4) and not any(shard4) and not any(
+        state_diff(four[0]["state"], r["state"]) for r in four[1:])
+    oks["(c) eval count"] = all(len(ev) == 1 and ev[0]["count"] == TP_BATCH
+                                for ev in evals_of(run4, 2 * TP_MODEL))
+    oks["(d) one -> tp"] = (restore4["resharded"] is True and restore4["topology_from"] == topo_one
+                            and restore4["topology_to"] == topo4 and not any(restored4))
+    log(f"{tag} (c) 4 ranks (data 2 x model {TP_MODEL}) in {time.perf_counter() - t0:.1f}s, "
+        f"resuming a one-process run's step-2 checkpoint for {steps4} steps: losses "
+        f"{[r['losses'] for r in four]}; launches per step {[r['per_step'] for r in four]}; "
+        f"replicated tensors differing from rank 0's {[d[:3] for d in rep4]}; shards differing "
+        f"between the data ranks {[d[:3] for d in shard4]}; step ms {[r['step_ms'] for r in four]} "
+        f"{card}")
+    log(f"{tag} (d) the one-process step-2 checkpoint resumed under --model-parallel {TP_MODEL} "
+        f"(data 2): resharded {restore4['resharded']} {restore4['topology_from']} -> "
+        f"{restore4['topology_to']}; the restored state, cut and gathered, differs from the "
+        f"saved one in {[d[:3] for d in restored4]}")
+    del four
+    # (d): (a)'s step-2 checkpoint resumed on one process
+    old = os.path.join(run_dir, ck.CKPT_NAME + ".old")
+    saved = torch.load(os.path.join(old, ck.PAYLOAD_NAME), map_location="cpu",
+                       weights_only=True)["state"]
+    d1 = ddp_fit(fresh_log_root(), steps=TP_STEPS, resume=old, after_shard=[], **common)
+    (restore,) = read_events(d1["run_dir"], "restore")
+    diff1 = state_diff(saved, d1["restored"][0])
+    oks["(d) tp -> one"] = (restore["resharded"] is True and restore["topology_from"] == topo_tp
+                            and restore["topology_to"] == topo_one and not diff1
+                            and len(d1["losses"]) == TP_STEPS - 2)
+    log(f"{tag} (d) (a)'s step-2 checkpoint resumed on one process: resharded "
+        f"{restore['resharded']} {restore['topology_from']} -> {restore['topology_to']}; restored "
+        f"state differs from the saved one in {diff1[:5]}; losses after it {d1['losses']}")
+    # the exported weights: (a)'s checkpoint in one process, unfolded, in
+    # eval mode, against (a)'s eval forward (only the classifier's sums
+    # differ); the engine serves them with BatchNorm folded
+    ref = ranks[0]["eval_logits"]
+    model = create_model("resnet18", "imagenet").to("cuda:0")
+    model.load_state_dict(ck.load_variables(run_dir))
+    model.eval()
+    with torch.no_grad():
+        one_eval = model(torch.from_numpy(eval_x).to("cuda:0")).cpu()
+    one_rel = float((one_eval - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "art")
+        a = export_artifact(run_dir, art)
+        out = {}
+        for mode, kw in (("dense", {}), ("unpack", {"packed": True, "packed_impl": "unpack"}),
+                         ("popcount", {"packed": True, "packed_impl": "popcount"})):
+            out[mode] = InferenceEngine(art, buckets=(8,), device="cuda", **kw).predict_logits(eval_x)
+        fin = all(np.all(np.isfinite(v)) and v.shape == (8, 1000) for v in out.values())
+        same = all(np.array_equal(out[m].view(np.uint32), out["dense"].view(np.uint32))
+                   for m in ("unpack", "popcount"))
+        refn = ref.numpy()
+        served_rel = float(np.max(np.abs(out["dense"] - refn))) / max(float(np.max(np.abs(refn))),
+                                                                     1e-30)
+        top1 = float(np.mean(out["dense"].argmax(-1) == refn.argmax(-1)))
+        ranks_same = torch.equal(ranks[0]["eval_logits"], ranks[1]["eval_logits"])
+        oks["(d) export serves"] = (fin and same and a["checkpoint"]["integrity"] == "ok"
+                                    and ranks_same and one_rel <= FC_TOL)
+        log(f"{tag} (d) (a)'s checkpoint in one process, eval mode, vs (a)'s eval forward (the "
+            f"ranks' bitwise equal {ranks_same}): {one_rel:.3e} of the largest |logit| (tol "
+            f"{FC_TOL}); (a)'s run exported (integrity {a['checkpoint']['integrity']}) and served "
+            f"on the card: logits finite {fin}, bitwise across dense/unpack/popcount {same}; "
+            f"dense (BatchNorm folded) vs (a)'s eval forward {served_rel:.3e} of the largest "
+            f"|logit|, top-1 agreement {top1}")
+    # (e)
+    oks["(e) shard kernels"] = tp_kernels(tag, smi_line)
+    # (f)
+    est = tp_bytes_estimate(TP_BATCH, TP_MODEL)
+    one_ms = p1["profile"]["wall_ms"]
+    for r, res in enumerate(ranks):
+        prof = res["profile"]
+        comm = prof["gloo_allgather_ms"] + prof["gloo_allreduce_ms"] + prof["gloo_broadcast_ms"]
+        moved = prof["bytes"]
+        log(f"{tag} (f) rank {r}: {prof['wall_ms']:.2f} ms a step (host wall, synchronized) vs one "
+            f"process at -b {TP_BATCH} {one_ms:.2f} ms {card}; under the profiler "
+            f"{prof['profiled_wall_ms']:.2f} ms a step, of which gloo all-gather spans "
+            f"{prof['gloo_allgather_ms']:.2f} ms + all-reduce spans {prof['gloo_allreduce_ms']:.2f} "
+            f"ms + broadcast spans {prof['gloo_broadcast_ms']:.2f} ms = "
+            f"{comm / prof['profiled_wall_ms']:.3f} (torch.profiler host spans "
+            f"{prof['keys']}); device busy {prof['busy_ms']:.2f} ms; bytes a step handed to the "
+            f"collectives, by op and axis {moved} (worked out from the shapes: forward gathers of "
+            f"the sharded outputs {est['forward_gathers']}, backward sums of their inputs "
+            f"{est['backward_sums']}; the rest are the regularizers' and probes' weight gathers "
+            f"and the metric sums)")
+    ok = all(oks.values())
+    log(f"{tag} {oks} in {time.perf_counter() - t_phase:.1f}s; ok={ok}")
+    return counts, ok
 
 
 # [train-health]: the health monitor on the flagship recipe, 8 steps at
@@ -6104,6 +6699,9 @@ def main(argv=None) -> int:
     ap.add_argument("--health", action="store_true",
                     help="only build the kernels and run the [train-health] and "
                          "[serve-rollout] phases; exits 0 when their gates pass")
+    ap.add_argument("--train-tp", action="store_true",
+                    help="only build the kernels and run the [train-tp] phase (tensor "
+                         "parallelism on the flagship); exits 0 when its gates pass")
     ap.add_argument("--trace-prefix", type=int, default=0, metavar="N",
                     help="only build the kernels and run [train-health] (a)'s fit 2N times, "
                          "without and with the profiler window's absorbing burst in turns; "
@@ -6135,6 +6733,11 @@ def main(argv=None) -> int:
 
     if args.trace_prefix:
         return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
+    if args.train_tp:
+        ok_alone = phase_train_tp(smi_line)[1]
+        if not ok_alone:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
+        return 0 if ok_alone else 1
     if args.serve_bench or args.serve_http or args.serve_fleet or args.health:
         with tempfile.TemporaryDirectory() as tmp:
             art = os.path.join(tmp, "resnet18_react")
@@ -6186,6 +6789,7 @@ def main(argv=None) -> int:
     bf16_counts, brecs, ok_tb = phase_train_bf16(pk, f32_prof)
     recs.update(brecs)
     ddp_counts, ok_td = phase_train_ddp(smi_line)
+    tp_counts, ok_ttp = phase_train_tp(smi_line)
     th_counts, ok_th = phase_train_health(smi_line)
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
@@ -6215,7 +6819,8 @@ def main(argv=None) -> int:
     # path, on the checkpoint/resume path's run A and on the image-folder
     # path's mp run (K1, K2, K5-K7), on the bf16 flagship's (K1, K2,
     # K5-K7), and on the data-parallel job's two ranks (K1, K2, K5-K7,
-    # both ranks' launches summed), and on the serve-bench runs (K1-K4; the
+    # both ranks' launches summed), on the tensor-parallel job's two ranks
+    # (K1, K2, K5-K7 on the shards, both ranks summed), and on the serve-bench runs (K1-K4; the
     # sum over its runs), and on the serve-http runs (K1-K3; the sum over
     # its runs and its in-process profiled load), and on the serve-fleet
     # hosts (K1-K3; the sum over the hosts that exited cleanly and wrote
@@ -6232,6 +6837,7 @@ def main(argv=None) -> int:
                    "train-folder": folder_counts.get(k, 0),
                    "train-bf16": bf16_counts["train-bf16"].get(k, 0),
                    "train-ddp": ddp_counts.get(k, 0),
+                   "train-tp": tp_counts.get(k, 0),
                    "train-health": th_counts.get(k, 0)}
                for k in sources}
     for k in BF16_KERNELS:
@@ -6239,6 +6845,7 @@ def main(argv=None) -> int:
         names[f"{k} bf16"] = names[k].replace(" (", " bf16 mode (", 1)
         by_path[f"{k} bf16"] = {path: c.get(f"{k} bf16", 0) for path, c in bf16_counts.items()}
         by_path[f"{k} bf16"]["train-ddp"] = ddp_counts.get(f"{k} bf16", 0)
+        by_path[f"{k} bf16"]["train-tp"] = tp_counts.get(f"{k} bf16", 0)
         by_path[f"{k} bf16"]["serve-bench"] = sb_counts.get(f"{k} bf16", 0)
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources
             if k in recs and not k.endswith("bf16")}
@@ -6246,7 +6853,7 @@ def main(argv=None) -> int:
     ok_used = all(v > 0 for v in used.values()) and all(
         by_path[k][path] > 0 for k in ("K1", "K2", "K5", "K6", "K7")
         for path in ("train", "train-stoch", "train-ts", "train-resume", "train-folder",
-                     "train-bf16", "train-ddp", "train-health")) and all(
+                     "train-bf16", "train-ddp", "train-tp", "train-health")) and all(
         by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16")) and all(
         by_path[k]["serve-http"] > 0 and by_path[k]["serve-rollout"] > 0
         and by_path[k]["serve-fleet"] > 0 for k in ("K1", "K2", "K3"))
@@ -6301,7 +6908,7 @@ def main(argv=None) -> int:
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td,
-           "train_health": ok_th, "launched": ok_used}
+           "train_tp": ok_ttp, "train_health": ok_th, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         print("\n".join(_FAILURES), file=sys.stderr, flush=True)

@@ -109,7 +109,10 @@ def test_validate_refuses_bad_obs_options_as_the_reference(kw):
 
 
 def test_the_obs_options_validate_and_only_tensor_parallelism_is_unsupported():
-    assert set(tconfig.UNSUPPORTED) == {"model_parallel"}
+    # tensor parallelism is ported too: no training option is left
+    # unsupported (the list of them is gone), and --model-parallel validates
+    assert not hasattr(tconfig, "UNSUPPORTED")
+    assert RunConfig(model_parallel=4).validate().model_parallel == 4
     cfg = RunConfig(profile_dir="p", profile_at=("1:2:3", "0:4"), health_forensics_steps=3,
                     health_max_forensics=0, health_thresholds=("loss_spike_factor=4",))
     assert cfg.validate().profile_at == ("1:2:3", "0:4")

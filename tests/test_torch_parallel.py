@@ -10,7 +10,8 @@ per-rank input shards, on the CPU:
   mesh: {data: 2, model: 1}}``;
 - ``--distributed-init`` outside torchrun's environment, and a rank whose
   peer never joins, fail instead of training as one process;
-  ``--model-parallel`` > 1 names its ROADMAP item;
+  ``--model-parallel`` N in a world N does not divide raises the
+  reference's ``ValueError``;
 - per-rank shards: ``host_shard_indices`` bitwise the JAX package's for
   each (seed, epoch, host_id, num_hosts); the ranks' step-k batches
   together are step k's slice of the global permutation; the synthetic
@@ -109,10 +110,16 @@ def test_two_ranks_agree_on_flags_sums_and_rank_zeros_value():
 
 
 def test_model_parallel_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9: tensor parallelism"):
+    """Tensor parallelism is ported (ROADMAP A item 1, Later 9, done): a
+    config asks for it freely, and a world the ``model`` axis does not
+    divide raises the reference's ``ValueError`` — one process without a
+    group is a world of 1."""
+    assert RunConfig(model_parallel=2).validate().model_parallel == 2
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         make_mesh(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 9: tensor parallelism"):
-        RunConfig(model_parallel=2).validate()
+    with pytest.raises(ValueError, match="must be >= 1"):
+        RunConfig(model_parallel=0).validate()
+    assert make_mesh(model_parallel=1) == Mesh()
 
 
 def test_distributed_init_never_falls_back_to_one_process(monkeypatch):

@@ -407,7 +407,9 @@ def test_cli_refuses_without_a_card_and_names_unported_options():
     # environment it refuses to start rather than train as one process
     with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(args + ["--distributed-init", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # --model-parallel 2 without a process group: a world of 1 that the
+    # model axis does not divide, the reference's ValueError
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         cli.main(args + ["--model-parallel", "2", "--device", "cpu"])
     # the obs options are ported: a bad value fails at config time, as the
     # reference's does
