@@ -71,9 +71,16 @@ client's or when a fleet swap did not end ``done``, and 3 when
 artifact registry in the reference's layout (a registry either package
 publishes resolves in the other).
 
-Training, ``predict``, ``serve-bench`` and ``serve-http`` run on the CUDA
-card unless ``--device cpu`` is given, and raise without a card;
-``export``, ``registry`` and the ``serve-fleet`` router are host work.
+``summarize``, ``watch`` and ``compare`` read run dirs and verdicts (the
+reference's flags and exit codes: ``summarize --strict`` 3 on a critical
+alert, ``compare`` 2 on a recipe mismatch and 3 on a regression);
+``perf ARTIFACT`` is the per-layer roofline over a traced bucket × impl
+sweep (obs/roofline.py).
+
+Training, ``predict``, ``serve-bench``, ``serve-http`` and ``perf`` run on
+the CUDA card unless ``--device cpu`` is given, and raise without a card;
+``export``, ``registry``, the readers and the ``serve-fleet`` router are
+host work.
 """
 
 from __future__ import annotations
@@ -813,9 +820,161 @@ def registry_main(argv) -> int:
     return 0
 
 
+def summarize_main(argv) -> int:
+    """``summarize RUN_DIR [--json] [--strict]`` — the post-hoc report over a
+    run dir's manifest, scalars and events (obs/summarize.py), its
+    attribution section from the run's ``torch.profiler`` trace. Reads
+    files only; loads no torch. ``--strict`` exits 3 when a run-ending
+    (critical) health alert fired."""
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli summarize",
+        description="Render a post-hoc telemetry report for a run dir (or a log root above "
+        "it; the newest run wins).",
+    )
+    ap.add_argument("run_dir", help="run directory (or log root)")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the machine-readable summary instead of the report")
+    ap.add_argument("--strict", action="store_true",
+                    help="exit nonzero (3) when any run-ending (critical) health alert fired, "
+                    "listing them on stderr — the CI run-health gate")
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.obs.summarize import summarize_run
+
+    report, summary = summarize_run(args.run_dir)
+    print(json.dumps(summary, indent=2) if args.json else report)
+    if args.strict:
+        critical = (summary.get("health") or {}).get("critical") or []
+        if critical:
+            print(f"[summarize --strict] {len(critical)} run-ending alert(s):", file=sys.stderr)
+            for a in critical:
+                print(f"  {a.get('detector')} at epoch {a.get('epoch')} step {a.get('step')}: "
+                      f"{a.get('message')}", file=sys.stderr)
+            return 3
+    return 0
+
+
+def compare_main(argv) -> int:
+    """``compare BASELINE CANDIDATE... [--json]`` — the run-vs-run
+    regression verdict over run dirs and/or artifact JSONs
+    (obs/compare.py). Exit codes: 0 pass, 3 regression beyond tolerance, 2
+    incomparable (provenance mismatch without ``--allow-mismatch``, or no
+    shared metric). Reads files only; loads no torch."""
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli compare",
+        description="Compare runs against the first (baseline): time-to-accuracy, top-1, step "
+        "ms, img/s, MFU, memory peak, alert counts, serving SLOs and per-layer perf — with "
+        "regression tolerances, so the verdict can serve as a CI/perf gate.",
+    )
+    ap.add_argument("paths", nargs="+", metavar="RUN",
+                    help="baseline first, then candidate run dir(s) or artifact JSONs "
+                    "(BENCH_*/ACCURACY_*/serve verdict.json/perf_verdict.json)")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the machine-readable verdict instead of the table")
+    ap.add_argument("--tol-acc", type=float, default=0.5, metavar="PP",
+                    help="top-1 regression tolerance in percentage points (default 0.5)")
+    ap.add_argument("--tol-rel", type=float, default=0.10, metavar="FRAC",
+                    help="relative tolerance for time/throughput/step-ms/MFU metrics "
+                    "(default 0.10)")
+    ap.add_argument("--tol-hbm", type=float, default=0.05, metavar="FRAC",
+                    help="relative tolerance for device-memory peak growth (default 0.05)")
+    ap.add_argument("--allow-mismatch", action="store_true",
+                    help="compare even when arch/dataset/recipe provenance differs (default: "
+                    "refuse, exit 2)")
+    args = ap.parse_args(argv)
+    if len(args.paths) < 2:
+        ap.error("need a baseline and at least one candidate")
+
+    from bdbnn_tpu_torch.obs.compare import compare_runs, render_comparison
+
+    result = compare_runs(args.paths, tol_acc_pp=args.tol_acc, tol_rel=args.tol_rel,
+                          tol_hbm=args.tol_hbm, allow_mismatch=args.allow_mismatch)
+    print(json.dumps(result, indent=2, sort_keys=True) if args.json
+          else render_comparison(result))
+    return {"pass": 0, "regression": 3, "incomparable": 2}[result["verdict"]]
+
+
+def watch_main(argv) -> int:
+    """``watch RUN_DIR [--interval S] [--once]`` — live-tail a run's
+    ``events.jsonl`` (obs/watch.py). Reads files only; loads no torch."""
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli watch",
+        description="Live status of a run directory (or a log root above it; the newest run "
+        "wins). Ctrl-C to stop.",
+    )
+    ap.add_argument("run_dir", help="run directory (or log root)")
+    ap.add_argument("--interval", type=float, default=2.0,
+                    help="poll period in seconds (default 2)")
+    ap.add_argument("--once", action="store_true", help="print the current status once and exit")
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.obs.summarize import resolve_run_dir
+    from bdbnn_tpu_torch.obs.watch import watch_run
+
+    return watch_run(resolve_run_dir(args.run_dir), interval=args.interval, once=args.once)
+
+
+def perf_main(argv) -> int:
+    """``perf ARTIFACT [flags]`` — the per-layer roofline (obs/roofline.py):
+    the static cost model over the artifact's arch against the card's
+    ceilings, joined to a measured bucket × packed-impl sweep with
+    per-layer trace attribution; prints the strict-JSON ``perf_verdict``,
+    renders the tables on stderr and appends one line to the log path's
+    ``PERF_LEDGER.jsonl``. Runs on the card unless ``--device cpu``."""
+    from bdbnn_tpu_torch.serve.config import PerfConfig
+
+    ap = argparse.ArgumentParser(
+        prog="bdbnn_tpu_torch.cli perf",
+        description="Per-layer roofline attribution over an export artifact: predicted roof "
+        "vs measured device ms per bucket and packed impl, with a persisted perf ledger.",
+    )
+    ap.add_argument("artifact", help="export artifact dir")
+    ap.add_argument("--log-path", default="perf_log")
+    ap.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32],
+                    help="engine batch-size buckets to sweep")
+    ap.add_argument("--impls", nargs="+", default=["dense", "unpack", "popcount"],
+                    choices=["dense", "unpack", "popcount"],
+                    help="packed_impl variants to measure (popcount on a bf16 artifact is "
+                    "recorded as skipped)")
+    ap.add_argument("--iters", type=int, default=20,
+                    help="measured forwards per (impl, bucket) trace window")
+    ap.add_argument("--ceilings", default="",
+                    help="JSON file overriding the hardware-ceilings table: one row "
+                    "{peak_flops, hbm_gbs} used directly, or a {device_kind: row} table merged "
+                    "over the built-in one")
+    ap.add_argument("--static-only", action="store_true",
+                    help="cost model only: no engines, no kernels, no traces")
+    ap.add_argument("--tol-reconcile", type=float, default=0.5,
+                    help="trace-vs-wall reconciliation tolerance as a fraction of the wall "
+                    "(default 0.5)")
+    ap.add_argument("--out", default="", help="also write the perf verdict JSON here")
+    ap.add_argument("--events-max-mb", type=float, default=256.0,
+                    help="rotate the perf run's events.jsonl past this size in MiB (default "
+                    "256; 0 = unbounded)")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the engines (default: the CUDA card; 'cpu' runs the "
+                    "plain versions)")
+    args = ap.parse_args(argv)
+
+    from bdbnn_tpu_torch.obs.roofline import render_perf, run_perf
+
+    cfg = PerfConfig(
+        artifact=args.artifact, log_path=args.log_path, buckets=tuple(args.buckets),
+        impls=tuple(args.impls), iters=args.iters, ceilings=args.ceilings,
+        static_only=args.static_only, tol_reconcile=args.tol_reconcile, out=args.out,
+        events_max_mb=args.events_max_mb, device=args.device,
+    ).validate()
+    result = run_perf(cfg)
+    print(json.dumps(result["verdict"], indent=2, sort_keys=True))
+    print(render_perf(result["verdict"]), file=sys.stderr)
+    print(f"[perf] run dir: {result['run_dir']}", file=sys.stderr)
+    return 0
+
+
 COMMANDS = {"predict": predict_main, "export": export_main, "serve-bench": serve_bench_main,
             "serve-http": serve_http_main, "serve-fleet": serve_fleet_main,
-            "registry": registry_main}
+            "registry": registry_main, "summarize": summarize_main, "watch": watch_main,
+            "compare": compare_main, "perf": perf_main}
 
 
 def main(argv=None) -> int:

@@ -21,6 +21,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from bdbnn_tpu_torch.obs.trace import span
+
 Tensor = torch.Tensor
 
 
@@ -34,9 +36,10 @@ def softmax_cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
 
 def distribution_loss(stud_logits: Tensor, teacher_logits: Tensor) -> Tensor:
     """Logit distillation: batch mean of −softmax(teacher)·log_softmax(student)."""
-    logp_s = torch.log_softmax(stud_logits, dim=1)
-    p_t = torch.softmax(teacher_logits.detach(), dim=1)
-    return torch.mean(-torch.sum(p_t * logp_s, dim=1))
+    with span("kd_logit_loss"):
+        logp_s = torch.log_softmax(stud_logits, dim=1)
+        p_t = torch.softmax(teacher_logits.detach(), dim=1)
+        return torch.mean(-torch.sum(p_t * logp_s, dim=1))
 
 
 def _check_pairs(stud_weights: Sequence[Tensor], teacher_weights: Sequence[Tensor]) -> Tensor:
@@ -60,10 +63,11 @@ def layer_weight_kl(stud_weights: Sequence[Tensor], teacher_weights: Sequence[Te
     """Σ over pairs of ``mean(exp(w_t)·(w_t − w_s))`` (student as input,
     teacher as log-target)."""
     total = _check_pairs(stud_weights, teacher_weights)
-    for ws, wt in zip(stud_weights, teacher_weights):
-        wt = wt.detach()
-        total = total + torch.mean(torch.exp(wt) * (wt - ws))
-    return total
+    with span("kd_weight_loss"):
+        for ws, wt in zip(stud_weights, teacher_weights):
+            wt = wt.detach()
+            total = total + torch.mean(torch.exp(wt) * (wt - ws))
+        return total
 
 
 def layer_weight_kl_softened(

@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 
 from bdbnn_tpu_torch.nn.kernels.kurtosis import kurtosis_grouped
+from bdbnn_tpu_torch.obs.trace import span
 
 Tensor = torch.Tensor
 
@@ -63,7 +64,8 @@ class _KurtosisRegFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         grads, ctx.grads = ctx.grads, None
-        return (None, None, *[gw * g for gw in grads])
+        with span("kurtosis_loss"):
+            return (None, None, *[gw * g for gw in grads])
 
 
 def kurtosis_regularization(
@@ -76,7 +78,8 @@ def kurtosis_regularization(
     differentiable in every weight."""
     if len(weights) != len(targets):
         raise ValueError(f"{len(weights)} weight tensors but {len(targets)} targets")
-    return _KurtosisRegFn.apply(tuple(float(t) for t in targets), mode, *weights)
+    with span("kurtosis_loss"):
+        return _KurtosisRegFn.apply(tuple(float(t) for t in targets), mode, *weights)
 
 
 def kurtosis_loss(w: Tensor, target) -> Tensor:

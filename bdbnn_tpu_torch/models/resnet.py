@@ -43,6 +43,11 @@ forward (:class:`_DrawTape`) and leaves the BatchNorm running statistics
 alone (:func:`~bdbnn_tpu_torch.nn.layers.frozen_running_stats`), so a
 step computes what it computes without remat; its binary convs launch K2
 and K1 twice, K5 and K6 once.
+
+Trace spans (obs/trace.py): a basic block's BatchNorm, residual add and
+activation open ``bn_act`` (the reference's sites), every conv and the
+classifier a span named by its flax scope path; the global pool is in
+none.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from bdbnn_tpu_torch.obs.trace import span
 from bdbnn_tpu_torch.parallel.tensor import (
     copy_to_model,
     full_state_dict,
@@ -72,6 +78,7 @@ from bdbnn_tpu_torch.nn.layers import (
     RPReLU,
     frozen_running_stats,
     lecun_normal_,
+    name_scopes,
 )
 
 Tensor = torch.Tensor
@@ -132,17 +139,18 @@ def _pool_and_classify(fc: nn.Linear, x: Tensor, dtype: torch.dtype, pool: bool)
     (``fc.model_axis``) takes the product with its rank's rows of the
     weight, gathers the logits' columns and adds the replicated bias."""
     axis = getattr(fc, "model_axis", None)
-    if dtype == torch.float32 and axis is None:
-        return fc(x.mean(dim=(1, 2)) if pool else x)
     if pool:
         x = x.mean(dim=(1, 2)) if dtype == torch.float32 else (
             x.to(torch.float32).mean(dim=(1, 2)).to(dtype))
-    if axis is None:
-        y = nn.functional.linear(x, fc.weight.to(dtype))
-    else:
-        y = gather_from_model(nn.functional.linear(copy_to_model(x, axis), fc.weight.to(dtype)),
-                              axis, -1)
-    return (y + fc.bias.to(dtype)).to(torch.float32)
+    with span(fc.scope):
+        if dtype == torch.float32 and axis is None:
+            return fc(x)
+        if axis is None:
+            y = nn.functional.linear(x, fc.weight.to(dtype))
+        else:
+            y = gather_from_model(
+                nn.functional.linear(copy_to_model(x, axis), fc.weight.to(dtype)), axis, -1)
+        return (y + fc.bias.to(dtype)).to(torch.float32)
 
 
 class _DrawTape:
@@ -272,11 +280,17 @@ class BiBasicBlock(nn.Module):
         if self.needs_ds:
             s = self.strides
             pooled = avg_pool(x, s)
-            shortcut = self.downsample_bn(self.downsample_conv(pooled, tk, draws))
+            shortcut = self.downsample_conv(pooled, tk, draws)
+            with span("bn_act"):
+                shortcut = self.downsample_bn(shortcut)
         else:
             shortcut = x
-        y = self.act1(self.bn1(self.conv1(x, tk, draws)) + shortcut)
-        z = self.act2(self.bn2(self.conv2(y, tk, draws)) + y)
+        y = self.conv1(x, tk, draws)
+        with span("bn_act"):
+            y = self.act1(self.bn1(y) + shortcut)
+        z = self.conv2(y, tk, draws)
+        with span("bn_act"):
+            z = self.act2(self.bn2(z) + y)
         return z
 
     def _float_forward(self, x: Tensor) -> Tensor:
@@ -406,6 +420,7 @@ class BiResNet(_FlaxBridged):
         lecun_normal_(self.fc.weight, in_features, g)
         with torch.no_grad():
             self.fc.bias.zero_()
+        name_scopes(self)
 
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         x = torch.relu(self.bn1(self.conv1(x.to(self.dtype))))
@@ -452,6 +467,7 @@ class VGGSmallBinary(_FlaxBridged):
         lecun_normal_(self.fc.weight, self.fc.in_features, generator)
         with torch.no_grad():
             self.fc.bias.zero_()
+        name_scopes(self)
 
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         x = x.to(self.dtype)

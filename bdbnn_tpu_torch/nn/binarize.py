@@ -51,6 +51,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from bdbnn_tpu_torch.obs.trace import span
 from bdbnn_tpu_torch.train.ede import cpt_tk
 
 Tensor = torch.Tensor
@@ -141,13 +142,15 @@ class _EdeSign(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, t, k = ctx.saved_tensors
+        # the "ede_grad" span isolates the estimator's backward in traces;
         # sech²(t·x) computed directly (1 − tanh² loses precision to
         # cancellation once |t·x| saturates tanh in f32; cosh overflow
         # rounds cleanly to the correct 0 limit)
-        t_ = t.to(g.dtype)
-        sech = 1.0 / torch.cosh(t_ * x)
-        dx = g * (k.to(g.dtype) * t_ * sech * sech)
-        return dx, torch.zeros_like(t), torch.zeros_like(k)
+        with span("ede_grad"):
+            t_ = t.to(g.dtype)
+            sech = 1.0 / torch.cosh(t_ * x)
+            dx = g * (k.to(g.dtype) * t_ * sech * sech)
+            return dx, torch.zeros_like(t), torch.zeros_like(k)
 
 
 class _ProxSign(torch.autograd.Function):

@@ -74,6 +74,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from bdbnn_tpu_torch.nn.binarize import _hard_sign, stoch_sign
+from bdbnn_tpu_torch.obs.trace import span
 
 Tensor = torch.Tensor
 
@@ -650,20 +651,23 @@ class BinaryConvFn(torch.autograd.Function):
     def backward(ctx, g):
         x, shift, w, wsign, alpha, u = ctx.saved_tensors
         strides, padding, estimator = ctx.conv
-        g = g.contiguous()
         dx = dshift = dw = None
         need_shift = shift is not None and ctx.needs_input_grad[1]
-        if ctx.needs_input_grad[0] or need_shift:
-            dx = binary_conv2d_dgrad(
-                g, x, wsign, alpha, shift=shift, strides=strides, padding=padding,
-                estimator=estimator,
-            )
-            if need_shift:
-                dshift = -dx.sum(dim=(0, 1, 2))
-        if ctx.needs_input_grad[2]:
-            dw = binary_conv2d_wgrad(
-                g, x, w, alpha, shift=shift, strides=strides, padding=padding, u=u
-            )
+        # the backward runs on the autograd thread, outside the forward's
+        # spans: it opens its own (obs/trace.py)
+        with span("binary_conv"):
+            g = g.contiguous()
+            if ctx.needs_input_grad[0] or need_shift:
+                dx = binary_conv2d_dgrad(
+                    g, x, wsign, alpha, shift=shift, strides=strides, padding=padding,
+                    estimator=estimator,
+                )
+                if need_shift:
+                    dshift = -dx.sum(dim=(0, 1, 2))
+            if ctx.needs_input_grad[2]:
+                dw = binary_conv2d_wgrad(
+                    g, x, w, alpha, shift=shift, strides=strides, padding=padding, u=u
+                )
         return dx, dshift, dw, None, None, None, None, None, None
 
 

@@ -52,6 +52,11 @@ the channels (``copy_to_model`` on its input and shift, ``gather_from_model``
 on its output). Under remat (``models/resnet.py``) a residual
 block's forward runs again in the backward; :func:`frozen_running_stats`
 keeps that recompute from updating the running statistics a second time.
+
+Trace spans (obs/trace.py, free outside a capture window): each conv opens
+one named by its flax scope path (:func:`name_scopes`), and inside it
+``binarize`` around K2 (and ``binarize/unpack`` around K3) and
+``binary_conv`` around K1, K4 or :class:`BinaryConvFn`.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from torch import nn
 from bdbnn_tpu_torch.nn.binarize import DrawSource, get_active_family
 from bdbnn_tpu_torch.nn.kernels import binary_conv2d, weight_binarize
 from bdbnn_tpu_torch.nn.kernels.binary_conv import BinaryConvFn
+from bdbnn_tpu_torch.obs.trace import span
 from bdbnn_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
 
 Tensor = torch.Tensor
@@ -232,6 +238,9 @@ class _BinaryConvBase(nn.Module):
     has_shift = False
     # the ``model`` axis its weight is sharded over (parallel/tensor.py)
     model_axis = None
+    # its flax scope path, the name of its trace span (set by the model,
+    # :func:`name_scopes`)
+    scope = "binary_conv2d"
 
     def __init__(
         self,
@@ -321,26 +330,31 @@ class _BinaryConvBase(nn.Module):
             # the stochastic family's draw (react never samples)
             sample = draws is not None and fam.stochastic and not self.has_shift
             u = draws(x).contiguous() if sample else None
-            wsign, alpha = weight_binarize(self.float_weight.detach(), lab=lab, dtype=x.dtype)
-            return BinaryConvFn.apply(
-                x, shift, self.float_weight, wsign, alpha, self.strides,
-                self.padding, estimator, u,
-            )
-        if self.packed:
-            w = packed_dense_weight(self.sign, self.alpha, self.weight_shape)
-        else:
-            w = self.float_weight.detach()
-        wsign, alpha = weight_binarize(w, lab=lab, dtype=x.dtype)
+            with span("binarize"):
+                wsign, alpha = weight_binarize(self.float_weight.detach(), lab=lab, dtype=x.dtype)
+            with span("binary_conv"):
+                return BinaryConvFn.apply(
+                    x, shift, self.float_weight, wsign, alpha, self.strides,
+                    self.padding, estimator, u,
+                )
+        with span("binarize"):
+            if self.packed:
+                with span("unpack"):
+                    w = packed_dense_weight(self.sign, self.alpha, self.weight_shape)
+            else:
+                w = self.float_weight.detach()
+            wsign, alpha = weight_binarize(w, lab=lab, dtype=x.dtype)
         x = x.contiguous()
         shift = shift.detach() if shift is not None else None
         impl = self.packed_impl if self.packed_impl is not None else get_packed_impl()
-        if self.packed and impl == "popcount":
-            return popcount_binary_conv(
+        with span("binary_conv"):
+            if self.packed and impl == "popcount":
+                return popcount_binary_conv(
+                    x, wsign, alpha, shift=shift, strides=self.strides, padding=self.padding
+                )
+            return binary_conv2d(
                 x, wsign, alpha, shift=shift, strides=self.strides, padding=self.padding
             )
-        return binary_conv2d(
-            x, wsign, alpha, shift=shift, strides=self.strides, padding=self.padding
-        )
 
     def forward(self, x: Tensor, tk=None, draws: Optional[DrawSource] = None) -> Tensor:
         # ``tk`` (the family's schedule scalars) only changes the
@@ -348,13 +362,14 @@ class _BinaryConvBase(nn.Module):
         # training forward
         shift = self.act_shift if self.has_shift else None
         axis = self.model_axis
-        if axis is None:
-            return self.binary_conv(x, shift, tk, draws)
-        # this rank's output channels of the whole input (the same draw
-        # on every model rank), gathered
-        x = copy_to_model(x, axis)
-        shift = copy_to_model(shift, axis) if shift is not None else None
-        return gather_from_model(self.binary_conv(x, shift, tk, draws), axis, -1)
+        with span(self.scope):
+            if axis is None:
+                return self.binary_conv(x, shift, tk, draws)
+            # this rank's output channels of the whole input (the same draw
+            # on every model rank), gathered
+            x = copy_to_model(x, axis)
+            shift = copy_to_model(shift, axis) if shift is not None else None
+            return gather_from_model(self.binary_conv(x, shift, tk, draws), axis, -1)
 
 
 class BinaryConvReact(_BinaryConvBase):
@@ -380,6 +395,7 @@ class FloatConv(nn.Module):
     gathers them before the (replicated) bias."""
 
     model_axis = None
+    scope = "conv"
 
     def __init__(
         self,
@@ -402,14 +418,25 @@ class FloatConv(nn.Module):
     def forward(self, x: Tensor, tk=None, draws=None) -> Tensor:
         del tk, draws
         axis = self.model_axis
-        if axis is None:
-            y = conv2d(x, self.weight.to(x.dtype), strides=self.strides)
-        else:
-            y = conv2d(copy_to_model(x, axis), self.weight.to(x.dtype), strides=self.strides)
-            y = gather_from_model(y, axis, -1)
-        if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
-        return y
+        with span(self.scope):
+            if axis is None:
+                y = conv2d(x, self.weight.to(x.dtype), strides=self.strides)
+            else:
+                y = conv2d(copy_to_model(x, axis), self.weight.to(x.dtype), strides=self.strides)
+                y = gather_from_model(y, axis, -1)
+            if self.bias is not None:
+                y = y + self.bias.to(x.dtype)
+            return y
+
+
+def name_scopes(model: nn.Module) -> None:
+    """Set the ``scope`` of every conv and dense module of ``model`` to its
+    module path in flax form (``layer1_0.conv1`` → ``layer1_0/conv1``): the
+    name of the trace span it opens (obs/trace.py), which the per-layer
+    roofline joins on."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, (_BinaryConvBase, FloatConv, nn.Linear)):
+            mod.scope = name.replace(".", "/")
 
 
 __all__ = [
@@ -426,4 +453,5 @@ __all__ = [
     "frozen_running_stats",
     "he_normal_",
     "lecun_normal_",
+    "name_scopes",
 ]

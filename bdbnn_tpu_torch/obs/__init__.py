@@ -1,7 +1,8 @@
 """Observability: the health monitor and its detectors, the memory
-watermarks, the step probes and the profiler windows by name; the request
-tracer, the capacity plane, the event channel and the run manifest as
-modules of their own.
+watermarks, the step probes, the trace spans, profiler windows and trace
+attribution, and the run-dir readers (``summarize``, ``compare``) by name;
+the request tracer, the capacity plane, the roofline, ``watch``, the event
+channel and the run manifest as modules of their own.
 
 The names below are imported on first use: a host-only process (the
 fleet router) reads the capacity, trace and event modules without
@@ -29,9 +30,18 @@ _EXPORTS = {
     "nonfinite_flag": "bdbnn_tpu_torch.obs.probes",
     "probe_metrics": "bdbnn_tpu_torch.obs.probes",
     "probe_signs": "bdbnn_tpu_torch.obs.probes",
+    "DEVICE_SPANS": "bdbnn_tpu_torch.obs.trace",
+    "HOST_PHASES": "bdbnn_tpu_torch.obs.trace",
     "TraceCapture": "bdbnn_tpu_torch.obs.trace",
+    "attribute_trace": "bdbnn_tpu_torch.obs.trace",
     "find_trace_file": "bdbnn_tpu_torch.obs.trace",
     "parse_profile_at": "bdbnn_tpu_torch.obs.trace",
+    "span": "bdbnn_tpu_torch.obs.trace",
+    "compare_runs": "bdbnn_tpu_torch.obs.compare",
+    "extract_run": "bdbnn_tpu_torch.obs.compare",
+    "render_comparison": "bdbnn_tpu_torch.obs.compare",
+    "resolve_run_dir": "bdbnn_tpu_torch.obs.summarize",
+    "summarize_run": "bdbnn_tpu_torch.obs.summarize",
 }
 
 __all__ = sorted(_EXPORTS)

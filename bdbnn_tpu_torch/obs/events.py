@@ -112,6 +112,13 @@ The rollouts (serve/pool.py, serve/canary.py) add three more:
   incumbent batch also ran on the canary, ``drift`` its max absolute
   logit difference
 
+A ``perf`` run dir (obs/roofline.py) adds one more:
+
+- ``perf``        — the roofline sweep, by ``phase``: ``start`` (artifact,
+  arch, dataset, device_kind, buckets, impls, iters), ``bucket`` (one
+  traced (impl, bucket) window: wall_ms, attributed_ms, reconciled) and
+  ``verdict`` (the whole perf verdict, last)
+
 The fleet router (serve/fleet.py, ``serve-fleet``) adds one more:
 
 - ``fleet``       — the router's lifecycle, by ``phase``: ``start`` (bind
@@ -136,7 +143,10 @@ The fleet router (serve/fleet.py, ``serve-fleet``) adds one more:
 ``nonfinite`` event carries the incident). ``max_bytes`` > 0 rotates
 the live file into ``events.<N>.jsonl`` (``events.1.jsonl`` the oldest);
 :func:`read_events` reads the segments and the live file as one
-timeline.
+timeline. :func:`serve_digest` and :func:`search_digest` (the reference's,
+the second a copy of ``bdbnn_tpu/search/harness.py``'s) digest a
+timeline's serving and recipe-search telemetry for ``summarize``,
+``watch`` and ``compare``.
 """
 
 from __future__ import annotations
@@ -179,6 +189,7 @@ KNOWN_KINDS = frozenset(
         "canary",
         "shadow",
         "fleet",
+        "perf",
     }
 )
 
@@ -296,4 +307,170 @@ def read_events(run_dir: str, kind: Optional[str] = None) -> List[Dict[str, Any]
     return [r for r in recs if r.get("kind") == kind]
 
 
-__all__ = ["EVENTS_NAME", "KNOWN_KINDS", "EventWriter", "jsonsafe", "read_events", "read_jsonl"]
+def serve_digest(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """One shared digest of a timeline's serving telemetry — the
+    ``export`` events, the ``serve`` phases (``start`` marker, the
+    ``stats`` trail, the LAST ``verdict``) and the network front end's
+    ``http``/``admission`` trail (serve-http runs). ``summarize``,
+    ``watch`` and ``compare`` all consume serving runs through this,
+    so a verdict-field change lands in one place instead of three."""
+    exports = [e for e in events if e.get("kind") == "export"]
+    serves = [e for e in events if e.get("kind") == "serve"]
+    https = [e for e in events if e.get("kind") == "http"]
+    admissions = [e for e in events if e.get("kind") == "admission"]
+    replicas = [e for e in events if e.get("kind") == "replica"]
+    swaps = [e for e in events if e.get("kind") == "swap"]
+    rtraces = [e for e in events if e.get("kind") == "rtrace"]
+    canaries = [e for e in events if e.get("kind") == "canary"]
+    shadows = [e for e in events if e.get("kind") == "shadow"]
+    fleets = [e for e in events if e.get("kind") == "fleet"]
+    capacities = [e for e in events if e.get("kind") == "capacity"]
+    return {
+        "fleet_start": next(
+            (e for e in fleets if e.get("phase") == "start"), None
+        ),
+        "fleet_stats": next(
+            (
+                e for e in reversed(fleets)
+                if e.get("phase") == "stats"
+            ),
+            None,
+        ),
+        "fleet_probes": [
+            e for e in fleets if e.get("phase") == "probe"
+        ],
+        "fleet_drain": next(
+            (e for e in reversed(fleets) if e.get("phase") == "drain"),
+            None,
+        ),
+        "canary_events": canaries,
+        "canary_last": canaries[-1] if canaries else None,
+        "canary_last_evaluate": next(
+            (
+                e for e in reversed(canaries)
+                if e.get("phase") == "evaluate"
+            ),
+            None,
+        ),
+        "shadow_mirrors": [
+            e for e in shadows if e.get("phase") == "mirror"
+        ],
+        "rtrace_stats": next(
+            (
+                e for e in reversed(rtraces)
+                if e.get("phase") == "stats"
+            ),
+            None,
+        ),
+        "replica_stats": next(
+            (
+                e for e in reversed(replicas)
+                if e.get("phase") == "stats"
+            ),
+            None,
+        ),
+        "replica_restarts": [
+            e for e in replicas if e.get("phase") == "restart"
+        ],
+        "swap_events": swaps,
+        "swap_last": swaps[-1] if swaps else None,
+        "exports": exports,
+        "start": next(
+            (e for e in serves if e.get("phase") == "start"), None
+        ),
+        "stats": [e for e in serves if e.get("phase") == "stats"],
+        "verdict": next(
+            (e for e in reversed(serves) if e.get("phase") == "verdict"),
+            None,
+        ),
+        "http_start": next(
+            (e for e in https if e.get("phase") == "start"), None
+        ),
+        "http_stats": [e for e in https if e.get("phase") == "stats"],
+        "http_drain": next(
+            (e for e in reversed(https) if e.get("phase") == "drain"),
+            None,
+        ),
+        "admission_config": next(
+            (e for e in admissions if e.get("phase") == "config"), None
+        ),
+        "admission_summary": next(
+            (
+                e for e in reversed(admissions)
+                if e.get("phase") == "summary"
+            ),
+            None,
+        ),
+        # the capacity plane (obs/capacity.py): the LAST periodic tick
+        # (live headroom/burn gauges), every breach/recovery
+        # transition, and the full tick trail (the headroom-over-time
+        # timeline the flash-crowd acceptance reads)
+        "capacity_stats": next(
+            (
+                e for e in reversed(capacities)
+                if e.get("phase") == "stats"
+            ),
+            None,
+        ),
+        "capacity_stats_trail": [
+            e for e in capacities if e.get("phase") == "stats"
+        ],
+        "capacity_breaches": [
+            e for e in capacities if e.get("phase") == "breach"
+        ],
+        "capacity_recoveries": [
+            e for e in capacities if e.get("phase") == "recovered"
+        ],
+    }
+
+
+def search_digest(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """One shared digest of a timeline's recipe-search telemetry (a copy
+    of the reference harness's pure function; the harness itself is not
+    ported) — what
+    ``watch`` and ``summarize`` both consume (the serve_digest
+    pattern): the sweep start marker, the latest per-trial state, and
+    the final verdict when one landed."""
+    searches = [e for e in events if e.get("kind") == "search"]
+    trials = [e for e in events if e.get("kind") == "trial"]
+    latest: Dict[str, Dict[str, Any]] = {}
+    for e in trials:
+        tid = e.get("trial")
+        if tid:
+            latest[tid] = e
+    best = None
+    for e in trials:
+        if e.get("phase") == "done" and e.get("best_top1") is not None:
+            if best is None or float(e["best_top1"]) > float(
+                best["best_top1"]
+            ):
+                best = e
+    return {
+        "start": next(
+            (
+                e for e in searches
+                if e.get("phase") in ("start", "resume")
+            ),
+            None,
+        ),
+        "trial_latest": latest,
+        "best_done": best,
+        "preempted": next(
+            (
+                e for e in reversed(searches)
+                if e.get("phase") == "preempted"
+            ),
+            None,
+        ),
+        "verdict": next(
+            (
+                e for e in reversed(searches)
+                if e.get("phase") == "verdict"
+            ),
+            None,
+        ),
+    }
+
+
+__all__ = ["EVENTS_NAME", "KNOWN_KINDS", "EventWriter", "jsonsafe", "read_events", "read_jsonl",
+           "search_digest", "serve_digest"]

@@ -1,9 +1,10 @@
-"""Typed configuration of the ``serve-bench``, ``serve-http`` and
-``serve-fleet`` CLIs — the port's copies of ``ServeBenchConfig``,
-``ServeHttpConfig`` and ``ServeFleetConfig`` in
-``bdbnn_tpu/configs/config.py``: the reference's fields, defaults and
-``validate()``, plus ``device`` on the two that hold engines (the card
-unless the caller asks for the CPU; there is no fallback)."""
+"""Typed configuration of the ``serve-bench``, ``serve-http``,
+``serve-fleet`` and ``perf`` CLIs — the port's copies of
+``ServeBenchConfig``, ``ServeHttpConfig``, ``ServeFleetConfig`` and
+``PerfConfig`` in ``bdbnn_tpu/configs/config.py``: the reference's fields,
+defaults and ``validate()``, plus ``device`` on the three that hold
+engines (the card unless the caller asks for the CPU; there is no
+fallback)."""
 
 from __future__ import annotations
 
@@ -738,4 +739,58 @@ class ServeFleetConfig:
         return self
 
 
-__all__ = ["ServeBenchConfig", "ServeFleetConfig", "ServeHttpConfig"]
+@dataclasses.dataclass(frozen=True)
+class PerfConfig:
+    """Typed configuration of the ``perf`` CLI (obs/roofline.py): the
+    sweep's knobs validated before any engine exists, so a bad impl name
+    fails at the command line, not after the first engine warmed."""
+
+    artifact: str  # export artifact dir (serve/export.py)
+    log_path: str = "perf_log"  # run dirs + PERF_LEDGER.jsonl land here
+    # engine batch-size buckets to sweep; each gets its own static
+    # cost-model table (batch changes intensity) and, per impl, its own
+    # traced timing window
+    buckets: Tuple[int, ...] = (1, 8, 32)
+    # packed_impl variants to measure: "dense" (sign·alpha weights
+    # resident, K2 → K1), "unpack" (1-bit resident, K3 → K2 → K1),
+    # "popcount" (1-bit resident, K3 → K2 → K4). popcount on a bf16
+    # artifact is recorded as skipped, never an error
+    impls: Tuple[str, ...] = ("dense", "unpack", "popcount")
+    # measured forwards per (impl, bucket) profiler window (one extra
+    # unmeasured forward runs outside the window)
+    iters: int = 20
+    # ceilings override: path to a JSON file — either one row
+    # {"peak_flops": ..., "hbm_gbs": ...} used directly, or a
+    # {device_kind: row} table merged over the built-in one
+    ceilings: str = ""
+    # static cost model only: no engines, no kernels, no traces
+    static_only: bool = False
+    # reconciliation tolerance: |trace device-op total - wall| / wall
+    # above this marks the bucket's reconciliation not-ok
+    tol_reconcile: float = 0.5
+    out: str = ""  # also write the perf verdict JSON here
+    events_max_mb: float = 256.0
+    # torch device of the engines: None = the CUDA card (raises without
+    # one); "cpu" runs the plain versions
+    device: Optional[str] = None
+
+    def validate(self) -> "PerfConfig":
+        if not self.artifact:
+            raise ValueError("perf needs an export artifact dir")
+        if not self.buckets or any(int(b) <= 0 for b in self.buckets):
+            raise ValueError(f"--buckets must be positive ints, got {self.buckets!r}")
+        known = ("dense", "unpack", "popcount")
+        if not self.impls or any(i not in known for i in self.impls):
+            raise ValueError(f"--impls must be a subset of {known}, got {self.impls!r}")
+        if len(set(self.impls)) != len(self.impls):
+            raise ValueError(f"duplicate impls: {self.impls!r}")
+        if self.iters < 1:
+            raise ValueError("--iters must be >= 1")
+        if self.tol_reconcile <= 0:
+            raise ValueError("--tol-reconcile must be > 0")
+        if self.events_max_mb < 0:
+            raise ValueError("--events-max-mb must be >= 0")
+        return self
+
+
+__all__ = ["PerfConfig", "ServeBenchConfig", "ServeFleetConfig", "ServeHttpConfig"]

@@ -38,6 +38,8 @@ current CUDA device (where the kernels launch) is its own.
 resident on its device against the other weight mode's, and the
 per-bucket activation working set of every conv (the reference's layer
 names and dtype); ``forwards`` counts the engine's forwards.
+:meth:`InferenceEngine.trace_step` runs a bucket's forwards inside a
+profiler window for the roofline (``perf``, obs/roofline.py).
 TF32 is turned off where the engine is built: the stem conv and the
 classifier are full f32 in the reference, and a TF32 stem would flip
 signs in the first binary conv's input.
@@ -296,6 +298,35 @@ class InferenceEngine:
         for _ in range(n):
             self._forward(x)
         return round((time.perf_counter() - t0) * 1000.0 / n, 3)
+
+    def trace_step(self, trace_dir: str, bucket: Optional[int] = None,
+                   iters: int = 10) -> Dict[str, Any]:
+        """The reference's ``trace_step``: one unmeasured forward outside
+        the window, then a profiler window (:class:`TraceCapture`, with its
+        absorbing burst on a card; the spans record inside it) around
+        ``iters`` forwards, each synchronised, timed on the host clock.
+        Returns the mean wall per forward beside the trace dir, so the
+        roofline reconciles the trace's device time against the wall it
+        was captured under; the trace lands under
+        ``<trace_dir>/plugins/profile/<stamp>/``."""
+        from bdbnn_tpu_torch.obs.trace import TraceCapture
+
+        b = self.buckets[-1] if bucket is None else int(bucket)
+        n = max(int(iters), 1)
+        x = self._zeros(b)
+        self._forward(x)
+        self._sync()
+        cap = TraceCapture(trace_dir, [(0, 0, n)], device=self.device)
+        cap.maybe_start(0, 0)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                self._forward(x)
+                self._sync()
+            wall_ms = (time.perf_counter() - t0) * 1000.0 / n
+        finally:
+            cap.stop_if_active()
+        return {"bucket": b, "iters": n, "wall_ms": round(wall_ms, 3), "trace_dir": trace_dir}
 
     def step_stats(self) -> Dict[str, Any]:
         """Percentiles of the host wall per ``predict_logits`` call."""

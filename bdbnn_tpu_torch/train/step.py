@@ -50,6 +50,7 @@ from bdbnn_tpu_torch.losses.kurtosis import (
 from bdbnn_tpu_torch.models.resnet import conv_weight_hwio
 from bdbnn_tpu_torch.nn.binarize import DrawSource, StepDraws
 from bdbnn_tpu_torch.obs.probes import nonfinite_flag, probe_metrics, probe_signs
+from bdbnn_tpu_torch.obs.trace import span
 from bdbnn_tpu_torch.parallel.tensor import (
     agree_replicated_grads,
     sharded,
@@ -148,7 +149,8 @@ def step_metrics(aux, logits, labels, grads, old_signs, new_weights, cfg: StepCo
     if cfg.log_grad_norm:
         metrics["grad_norm"] = grad_norm(params, grads)
     if cfg.probe_paths:
-        metrics.update(probe_metrics(old_signs, new_weights, cfg.probe_names))
+        with span("probes"):
+            metrics.update(probe_metrics(old_signs, new_weights, cfg.probe_names))
     if cfg.track_nonfinite:
         metrics["nonfinite"] = nonfinite_flag(aux["loss"])
     return metrics
@@ -184,9 +186,11 @@ def _make_step(model, optimizer, cfg: StepConfig, draws, loss_terms) -> Callable
         agree_replicated_grads(params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         probed = [param_by_path(model, p) for p in cfg.probe_paths]
-        old_signs = probe_signs(probed) if probed else []
-        set_lr(opt, state.step)
-        opt.step()
+        with span("probes"):
+            old_signs = probe_signs(probed) if probed else []
+        with span("optimizer"):
+            set_lr(opt, state.step)
+            opt.step()
         state.step += 1
         aux = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()},
                **{k: v.detach() for k, v in terms.items()}}

@@ -295,11 +295,24 @@ Phases (any failure exits non-zero and prints no result line):
              (d) ``--profile-at 0:5:3``; (e) the default monitor against
              ``--no-health``: step times and the synchronisation calls in
              a window;
+16c. perf — the observatory (phase_perf, phase_perf_summarize): (a)
+             ``python -m bdbnn_tpu_torch.cli perf`` on the flagship artifact
+             (buckets 1 8 32, impls dense unpack popcount, 20 forwards a
+             profiler window) through ``counted_cli``: exit 0, every cell
+             traced, the 21 layers of the static table attributed with ms >
+             0, each window's K1-K4 kernels in its trace by name equal to
+             its launch counters, every K1-K4 kernel in its binary conv's
+             layer, layers + unattributed = the device total; (b) the
+             port's ``summarize`` of [train-health] (a)'s run dir:
+             binarize, binary_conv, bn_act, kurtosis_loss and optimizer
+             above zero, no K1, K2, K5, K6 or K7 kernel unattributed;
+             (c) the port's ``compare`` of (a)'s verdict against itself
+             exits 0, against a copy with one layer's ms doubled 3;
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
              serve, serve-bench, serve-http, serve-rollout, serve-fleet, train, train-stoch,
              train-ts, train-resume, train-folder, train-bf16, train-ddp,
-             train-tp and train-health, and for a bf16 mode
+             train-tp, train-health and perf, and for a bf16 mode
              train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
              train-ddp, train-tp and serve-bench), then as the last line
              ``{"ok": true, "device": {...}}``.
@@ -312,7 +325,9 @@ chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
 ``python3 chip_smoke.py --serve-fleet`` the build and phase 4e alone
 (``--fleet-verdicts DIR`` keeps its verdicts), and
 ``python3 chip_smoke.py --health`` the build and phases 4d and 16b, and
-``python3 chip_smoke.py --train-tp`` the build and phase 16a.
+``python3 chip_smoke.py --train-tp`` the build and phase 16a, and
+``python3 chip_smoke.py --perf`` the build, [train-health] (a)'s fit and
+phase 16c.
 ``python3 chip_smoke.py --trace-prefix N`` runs [train-health] (a)'s fit
 2N times, in turns without and with the burst that opens a profiler window
 on the card (``obs/trace.py``), and counts the device records each window's
@@ -1012,10 +1027,13 @@ def counted_cli() -> int:
     """``python -m bdbnn_tpu_torch.cli`` with this process's arguments;
     then the run's kernel launch counts as JSON into ``$CHIP_SMOKE_COUNTS``
     and, when SIGUSR1/SIGUSR2 opened and closed profiler windows
-    (:class:`BusyWindows`), their kernel and wall ms beside it."""
+    (:class:`BusyWindows`), their kernel and wall ms beside it; with
+    ``$CHIP_SMOKE_WINDOWS`` set, each ``TraceCapture`` window's launches
+    (:func:`count_windows`) into that file."""
     import runpy
 
     busy = BusyWindows(os.environ[COUNTS_ENV] + BUSY_SUFFIX)
+    windows = count_windows() if os.environ.get(WINDOWS_ENV) else None
     code = 1
     try:
         runpy.run_module("bdbnn_tpu_torch.cli", run_name="__main__", alter_sys=True)
@@ -1025,6 +1043,9 @@ def counted_cli() -> int:
     finally:
         with open(os.environ[COUNTS_ENV], "w") as f:
             json.dump({**read_counts(), **read_bf16_counts()}, f)
+        if windows is not None:
+            with open(os.environ[WINDOWS_ENV], "w") as f:
+                json.dump(windows, f)
         if busy.windows:
             with open(os.environ[COUNTS_ENV] + BUSY_SUFFIX, "w") as f:
                 json.dump(busy.windows, f)
@@ -5405,21 +5426,22 @@ def health_cli_args(root: str, extra=()) -> list:
             "--log_path", root, *extra]
 
 
-def trace_counts(path: str) -> dict:
-    """Kernel events of each K (by K_TRACE_NAMES) and runtime calls named
+def trace_counts(path: str, names=K_TRACE_NAMES) -> dict:
+    """Kernel events of each K (by ``names``) and runtime calls named
     SYNC_CALLS in a gzipped Chrome trace, and under ``lost`` the launches,
     copies and sets whose device record (by correlation id) the trace
-    lacks."""
+    lacks, with ``issued`` (all of them) and ``lost_at`` (the first 20
+    lost ones' positions among them, in launch order)."""
     import gzip
 
     with gzip.open(path, "rt") as f:
         evs = json.load(f).get("traceEvents", [])
-    out = {k: 0 for k in (*K_TRACE_NAMES, *SYNC_CALLS)}
+    out = {k: 0 for k in (*names, *SYNC_CALLS)}
     on_device, issued = set(), []
     for e in evs:
         name, cat = str(e.get("name", "")), e.get("cat")
         if cat == "kernel":
-            for k, n in K_TRACE_NAMES.items():
+            for k, n in names.items():
                 if n in name:
                     out[k] += 1
         elif name in SYNC_CALLS:
@@ -5427,8 +5449,9 @@ def trace_counts(path: str) -> dict:
         if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             on_device.add(e.get("args", {}).get("correlation"))
         elif cat == "cuda_runtime" and any(w in name for w in ("Launch", "Memcpy", "Memset")):
-            issued.append(e.get("args", {}).get("correlation"))
-    out["lost"] = sum(1 for c in issued if c not in on_device)
+            issued.append((float(e.get("ts", 0)), e.get("args", {}).get("correlation")))
+    lost_at = [i for i, (_, c) in enumerate(sorted(issued)) if c not in on_device]
+    out.update(lost=len(lost_at), issued=len(issued), lost_at=lost_at[:20])
     return out
 
 
@@ -5548,7 +5571,7 @@ def phase_train_health(smi_line: str):
     steps and a trace; (e) the default monitor against ``--no-health``,
     two runs each, in turns: the step times before the window (steps 1-4)
     and the synchronisation calls inside it. Returns ((a)'s launch
-    counts, ok)."""
+    counts, ok, (a)'s run dir)."""
 
     import torch
 
@@ -5666,7 +5689,7 @@ def phase_train_health(smi_line: str):
     torch.cuda.empty_cache()
     ok = all(oks.values())
     log(f"{tag} gates {oks} in {time.perf_counter() - t_phase:.1f}s: ok={ok}")
-    return a["counts"], ok
+    return a["counts"], ok, dir_a
 
 
 def sr_phase_stats(run_dir: str, verdict: dict) -> dict:
@@ -6674,6 +6697,221 @@ def sf_swap_phases(run_dir: str, swaps: list) -> dict:
         "swap_s": round(t1 - t0, 3)}
 
 
+# [perf]: the perf command's sweep on the flagship artifact
+PERF_BUCKETS = (1, 8, 32)
+PERF_IMPLS = ("dense", "unpack", "popcount")
+PERF_ITERS = 20
+# the main kernel of K1-K4 by the name the profiler gives it (one a
+# wrapper call), and every kernel each launches (prep passes, finishes)
+PERF_TRACE_NAMES = {"K1": "binary_conv_fwd_kernel", "K2": "weight_sign_kernel",
+                    "K3": "unpack_sign_kernel", "K4": "popcount_conv_fwd_kernel"}
+K_FAMILIES = {"K1": ("fwd_sign_prep_kernel", "binary_conv_fwd_kernel"),
+              "K2": ("weight_sign_kernel", "weight_alpha_finish_kernel"),
+              "K3": ("unpack_sign_kernel",),
+              "K4": ("popcount_prep_kernel", "popcount_conv_fwd_kernel"),
+              "K5": ("dgrad_split_kernel", "binary_conv_dgrad_kernel"),
+              "K6": ("wgrad_prep_kernel", "binary_conv_wgrad_kernel",
+                     "binary_conv_wgrad_reduce_kernel"),
+              "K7": ("kurt_mean_kernel", "kurt_moments_kernel", "kurt_grad_kernel")}
+# a counted CLI child writes each profiler window's launches here
+WINDOWS_ENV = "CHIP_SMOKE_WINDOWS"
+
+
+def k_of(kernel_name: str):
+    """The K whose family launched a kernel of this name, or None."""
+    return next((k for k, names in K_FAMILIES.items()
+                 if any(n in kernel_name for n in names)), None)
+
+
+def count_windows() -> list:
+    """Make every profiler window this process opens (obs/trace.py
+    ``TraceCapture``, the engine's ``trace_step`` included) record the
+    launch counters' increase between its open and its stop; returns the
+    list it appends ``{"trace_dir", "launches"}`` to."""
+    from bdbnn_tpu_torch.obs import trace
+
+    out = []
+
+    class Counted(trace.TraceCapture):
+        def maybe_start(self, epoch, step):
+            started = super().maybe_start(epoch, step)
+            if started:
+                self._opened = read_counts()
+            return started
+
+        def _stop(self, fence):
+            info = super()._stop(fence)
+            now = read_counts()
+            out.append({"trace_dir": info["trace_dir"],
+                        "launches": {k: now[k] - self._opened[k] for k in now}})
+            return info
+
+    trace.TraceCapture = Counted
+    return out
+
+
+def phase_perf(art: str, smi_line: str):
+    """[perf] (a) and (c): ``cli perf`` on the flagship artifact at buckets
+    1 8 32, impls dense unpack popcount, PERF_ITERS forwards a window,
+    through :func:`counted_cli` with each window's launches recorded. (a)
+    exit 0; every cell traced (a window whose trace lost device records
+    is taken again by the command, up to three); the layers attributed
+    exactly the static
+    table's 21 rows, each ms > 0; each window's K1-K4 kernels in its trace
+    by name equal to its launch counters (19 × iters of each the impl
+    runs); every K1-K4 kernel in a binary conv's layer, 19 × iters of each
+    main kernel a layer; layers + unattributed = the device total within
+    rounding. (c) the port's ``compare`` of the verdict against itself
+    exits 0, against a copy with one layer's ms doubled 3. Returns (the
+    run's launch counts, ok)."""
+    import copy
+    import glob
+
+    from bdbnn_tpu_torch.obs.trace import (
+        find_trace_file,
+        layer_needles,
+        layer_of,
+        scoped_device_ops,
+    )
+
+    tag = "[perf]"
+    t_phase = time.perf_counter()
+    log(f"{tag} {smi_line}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_perf-")
+    counts_file = os.path.join(root, "counts.json")
+    windows_file = os.path.join(root, "windows.json")
+    verdict_path = os.path.join(root, "verdict.json")
+    cmd = [sys.executable, "-c", COUNTED_CLI, "perf", art, "--log-path", os.path.join(root, "log"),
+           "--buckets", *map(str, PERF_BUCKETS), "--impls", *PERF_IMPLS,
+           "--iters", str(PERF_ITERS), "--out", verdict_path]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                       env={**os.environ, COUNTS_ENV: counts_file, WINDOWS_ENV: windows_file})
+    seconds = time.perf_counter() - t0
+    oks = {"a_rc": r.returncode == 0}
+    log(f"{tag} (a) cli perf -> {r.returncode} in {seconds:.1f}s; ok={oks['a_rc']}")
+    counts = json.load(open(counts_file)) if os.path.exists(counts_file) else {}
+    if r.returncode != 0:
+        log(f"{tag} (a) FAIL stderr tail: {r.stderr[-3000:]}")
+        return counts, False
+    for line in r.stderr.splitlines():
+        if line.startswith(("==", "ceilings", "bucket", "--", "   ", "summary")):
+            log(f"{tag} {line}")
+    v = json.load(open(verdict_path))
+    (run_dir,) = [os.path.dirname(p) for p in glob.glob(os.path.join(root, "log", "*",
+                                                                     "perf_verdict.json"))]
+    windows = {w["trace_dir"]: w["launches"] for w in json.load(open(windows_file))}
+    rows = v["static"][str(PERF_BUCKETS[0])]
+    names = {x["name"] for x in rows}
+    binary = {x["name"] for x in rows if x["kind"] == "binary"}
+    needles = layer_needles({x["name"]: x["scope"] for x in rows})
+    n = 19 * PERF_ITERS
+    cells = {}
+    for impl in PERF_IMPLS:
+        for b in PERF_BUCKETS:
+            cell = v["measured"][impl][str(b)]
+            rec = cell["reconciliation"]
+            tdir = os.path.join(run_dir, "traces", f"{impl}_b{b}")
+            trace = find_trace_file(tdir)
+            tc = trace_counts(trace, PERF_TRACE_NAMES) if trace else {}
+            win = windows.get(tdir, {})
+            want = {"K1": n if impl != "popcount" else 0, "K2": n,
+                    "K3": n if impl != "dense" else 0, "K4": n if impl == "popcount" else 0}
+            per_layer, outside = {}, 0
+            for op in scoped_device_ops(trace) if trace else []:
+                k = k_of(op["name"])
+                if k is None:
+                    continue
+                layer = layer_of(op["path"], needles)
+                if layer not in binary:
+                    outside += 1
+                elif PERF_TRACE_NAMES[k] in op["name"]:
+                    per_layer.setdefault(layer, {}).setdefault(k, 0)
+                    per_layer[layer][k] += 1
+            each = {k: PERF_ITERS for k, c in want.items() if c}
+            in_layers = outside == 0 and set(per_layer) == binary and all(
+                per_layer[name] == each for name in binary)
+            total = rec["attributed_ms"] + rec["unattributed_ms"]
+            ok = (cell["traced"] is True and set(cell["layers"]) == names
+                  and all(x["ms"] > 0 for x in cell["layers"].values())
+                  and all(tc.get(k) == win.get(k) == want[k] for k in want)
+                  and in_layers and abs(total - rec["device_total_ms"]) <= 2e-3)
+            cells[f"{impl} b{b}"] = ok
+            log(f"{tag} (a) {impl} b{b}: wall {cell['wall_ms']} ms, device {rec['device_total_ms']}"
+                f" ms ({rec['device_total_ms'] / cell['wall_ms']:.3f} of the wall), layers "
+                f"{rec['attributed_ms']} + unattributed {rec['unattributed_ms']} ms "
+                f"({rec['unattributed_ms'] / max(rec['device_total_ms'], 1e-9):.3f}), "
+                f"reconcile err {rec['abs_err_pct']}% ok {rec['ok']}; {len(cell['layers'])} of "
+                f"{len(names)} layers; windows taken {cell['windows']} (the kept one lost "
+                f"{cell['lost_records']}); device records lost {tc.get('lost')} of "
+                f"{tc.get('issued')} (at launch positions {tc.get('lost_at')}); K kernels in the trace "
+                f"{dict((k, tc.get(k)) for k in want)}"
+                f" against the window's launches {dict((k, win.get(k)) for k in want)} (want "
+                f"{want}); K1-K4 kernels outside their layer {outside}, every binary layer "
+                f"{each} {in_layers}; ok={ok}")
+    oks["a_cells"] = all(cells.values())
+    log(f"{tag} (a) summary {v['summary']}; device {v['device_kind']}; ceilings "
+        f"{v['ceilings']}; launches {counts}; ok={oks['a_cells']}")
+
+    # (c) the port's compare: the verdict against itself, and against a
+    # copy with one layer's ms doubled
+    slow = copy.deepcopy(v)
+    key = max(slow["perf_layers"], key=slow["perf_layers"].get)
+    slow["perf_layers"][key] *= 2.0
+    slow_path = os.path.join(root, "slow.json")
+    with open(slow_path, "w") as f:
+        json.dump(slow, f)
+    rcs = [subprocess.run([sys.executable, "-m", "bdbnn_tpu_torch.cli", "compare", verdict_path,
+                           other, "--json"], cwd=REPO, capture_output=True, text=True,
+                          timeout=120).returncode for other in (verdict_path, slow_path)]
+    oks["c"] = rcs == [0, 3]
+    log(f"{tag} (c) compare against itself -> {rcs[0]}, against {key} doubled -> {rcs[1]}; "
+        f"ok={oks['c']}")
+    ok = all(oks.values())
+    log(f"{tag} gates {oks} in {time.perf_counter() - t_phase:.1f}s: ok={ok}")
+    return counts, ok
+
+
+def phase_perf_summarize(train_dir: str) -> bool:
+    """[perf] (b): the port's ``summarize`` (its CLI) of [train-health]
+    (a)'s run dir, which holds one ``fit`` window of the flagship recipe:
+    binarize, binary_conv, bn_act, kurtosis_loss and optimizer read above
+    zero, and no K1, K2, K5, K6 or K7 kernel of the trace is unattributed
+    (K1, K5, K6 in binary_conv, K2 in binarize, K7 in kurtosis_loss and,
+    for the probes' kurtosis of each weight, in probes)."""
+    from bdbnn_tpu_torch.obs.trace import DEVICE_SPANS, _span_of, find_trace_file, scoped_device_ops
+
+    tag = "[perf]"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "bdbnn_tpu_torch.cli", "summarize", train_dir,
+                        "--json"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    att = (json.loads(r.stdout).get("attribution") or {}) if r.returncode == 0 else {}
+    cats = att.get("categories_ms_per_step") or {}
+    want = {"K1": {"binary_conv"}, "K2": {"binarize"}, "K5": {"binary_conv"},
+            "K6": {"binary_conv"}, "K7": {"kurtosis_loss", "probes"}}
+    by_k = {}
+    trace = find_trace_file(train_dir)
+    for op in scoped_device_ops(trace) if trace else []:
+        k = k_of(op["name"])
+        if k in want:
+            cat = _span_of(op["path"], DEVICE_SPANS) or "unattributed"
+            by_k.setdefault(k, {}).setdefault(cat, 0)
+            by_k[k][cat] += 1
+    ok = (r.returncode == 0 and all(cats.get(c, 0) > 0 for c in
+                                    ("binarize", "binary_conv", "bn_act", "kurtosis_loss",
+                                     "optimizer"))
+          and set(by_k) == set(want) and all(set(by_k[k]) <= cs for k, cs in want.items())
+          and "kurtosis_loss" in by_k["K7"])
+    log(f"{tag} (b) cli summarize of [train-health] (a) -> {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s: device ms a step by category over "
+        f"{att.get('n_steps')} steps {cats}, step total {att.get('step_total_ms')} ms, host "
+        f"phases {att.get('host_phases_ms_per_step')}; PERF.md section 5's -b 256 step (a "
+        f"step on one batch, profiled): K5's GEMM 19.704, K6's 16.199, reductions 19.716, "
+        f"gradient adds 13.224, BN/RPReLU 24.724, K1 3.333 ms; K kernels by category {by_k}; "
+        f"ok={ok}")
+    return ok
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6702,6 +6940,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train-tp", action="store_true",
                     help="only build the kernels and run the [train-tp] phase (tensor "
                          "parallelism on the flagship); exits 0 when its gates pass")
+    ap.add_argument("--perf", action="store_true",
+                    help="only build the kernels, write the flagship artifact and run the "
+                         "[perf] phase (and [train-health] (a)'s fit, whose window (b) "
+                         "reads); exits 0 when its gates pass")
     ap.add_argument("--trace-prefix", type=int, default=0, metavar="N",
                     help="only build the kernels and run [train-health] (a)'s fit 2N times, "
                          "without and with the profiler window's absorbing burst in turns; "
@@ -6735,6 +6977,18 @@ def main(argv=None) -> int:
         return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
     if args.train_tp:
         ok_alone = phase_train_tp(smi_line)[1]
+        if not ok_alone:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
+        return 0 if ok_alone else 1
+    if args.perf:
+        with tempfile.TemporaryDirectory() as tmp:
+            art = os.path.join(tmp, "resnet18_react")
+            make_flagship_artifact(art)
+            _, ok_alone = phase_perf(art, smi_line)
+        thresholds = [x for t in HEALTH_FORCED for x in ("--health-threshold", t)]
+        a = health_fit(fresh_log_root(), ["--health-forensics-steps", str(HEALTH_FORENSICS_STEPS),
+                                          *thresholds])
+        ok_alone = phase_perf_summarize(a["run_dir"]) and a["rc"] == 0 and ok_alone
         if not ok_alone:
             print("\n".join(_FAILURES), file=sys.stderr, flush=True)
         return 0 if ok_alone else 1
@@ -6776,6 +7030,7 @@ def main(argv=None) -> int:
         sh_counts, ok_sh = phase_serve_http(art, smi_line, sb_thr)
         sr_counts, ok_sr = phase_serve_rollout(art, smi_line)
         sf_counts, ok_sf = phase_serve_fleet(art, smi_line, args.fleet_verdicts)
+        perf_counts, ok_pf = phase_perf(art, smi_line)
     train_counts, _, ok_t = phase_train()
     time_host_input()
     ok_tp = phase_train_parity()
@@ -6790,7 +7045,8 @@ def main(argv=None) -> int:
     recs.update(brecs)
     ddp_counts, ok_td = phase_train_ddp(smi_line)
     tp_counts, ok_ttp = phase_train_tp(smi_line)
-    th_counts, ok_th = phase_train_health(smi_line)
+    th_counts, ok_th, th_dir = phase_train_health(smi_line)
+    ok_pf = phase_perf_summarize(th_dir) and ok_pf
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -6824,7 +7080,9 @@ def main(argv=None) -> int:
     # sum over its runs), and on the serve-http runs (K1-K3; the sum over
     # its runs and its in-process profiled load), and on the serve-fleet
     # hosts (K1-K3; the sum over the hosts that exited cleanly and wrote
-    # their counters: the SIGKILLed host's are unknown). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # their counters: the SIGKILLed host's are unknown), and on the perf
+    # command's sweep (K1-K4; its warmups and unmeasured forwards
+    # included). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
     # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
@@ -6838,7 +7096,8 @@ def main(argv=None) -> int:
                    "train-bf16": bf16_counts["train-bf16"].get(k, 0),
                    "train-ddp": ddp_counts.get(k, 0),
                    "train-tp": tp_counts.get(k, 0),
-                   "train-health": th_counts.get(k, 0)}
+                   "train-health": th_counts.get(k, 0),
+                   "perf": perf_counts.get(k, 0)}
                for k in sources}
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
@@ -6856,7 +7115,8 @@ def main(argv=None) -> int:
                      "train-bf16", "train-ddp", "train-tp", "train-health")) and all(
         by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16")) and all(
         by_path[k]["serve-http"] > 0 and by_path[k]["serve-rollout"] > 0
-        and by_path[k]["serve-fleet"] > 0 for k in ("K1", "K2", "K3"))
+        and by_path[k]["serve-fleet"] > 0 for k in ("K1", "K2", "K3")) and all(
+        by_path[k]["perf"] > 0 for k in ("K1", "K2", "K3", "K4"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -6908,7 +7168,7 @@ def main(argv=None) -> int:
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td,
-           "train_tp": ok_ttp, "train_health": ok_th, "launched": ok_used}
+           "train_tp": ok_ttp, "train_health": ok_th, "perf": ok_pf, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         print("\n".join(_FAILURES), file=sys.stderr, flush=True)

@@ -21,8 +21,10 @@ alpha within one bf16 rounding, K5 and K6 within the f32 summation bound
 plus a bf16 rounding on each side, all bitwise across two runs and
 counted apart (``launches_bf16``). The HTTP front end over the flagship
 engine on ``cuda:0`` answers 8 requests over loopback, each bitwise the
-engine's logits of the batch it rode in, rounded to 4 places. Every test
-here is marked ``cuda`` and
+engine's logits of the batch it rode in, rounded to 4 places. A
+bucket-8 flagship forward in the engine's trace window has every K1 and K2
+kernel in its own binary conv's layer span, and a span outside a window
+adds no launch. Every test here is marked ``cuda`` and
 skips with a reason where no CUDA device exists (this file imports torch
 and the port only, no JAX). On the GPU machine:
 
@@ -781,3 +783,67 @@ def test_http_front_end_over_the_flagship_engine(cuda, tmp_path):
         for row, img in enumerate(batch):
             (i,) = [i for i in range(8) if np.array_equal(x[i], img)]
             assert answers[i][1]["result"] == encode(want[row])
+
+
+@pytest.mark.cuda
+def test_a_traced_flagship_forward_charges_k1_and_k2_to_their_layers(cuda, tmp_path):
+    """A bucket-8 flagship forward inside the engine's trace window: every
+    K1 and K2 kernel of the trace lies in a binary conv's layer (its scope
+    span), one of each a layer a forward; the stem and the classifier are
+    attributed too."""
+    import chip_smoke
+    from bdbnn_tpu_torch.obs.roofline import model_layer_table
+    from bdbnn_tpu_torch.obs.trace import (
+        attribute_trace_layers,
+        find_trace_file,
+        layer_needles,
+        layer_of,
+        scoped_device_ops,
+    )
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+
+    art = str(tmp_path / "resnet18_react")
+    chip_smoke.make_flagship_artifact(art)
+    engine = InferenceEngine(art, buckets=(8,), device="cuda")
+    t = engine.trace_step(str(tmp_path / "tr"), bucket=8, iters=2)
+    trace = find_trace_file(str(tmp_path / "tr"))
+    rows = model_layer_table("resnet18", "imagenet", 8, image_size=224)
+    binary = {r["name"] for r in rows if r["kind"] == "binary"}
+    needles = layer_needles({r["name"]: r["scope"] for r in rows})
+    per = {}
+    for op in scoped_device_ops(trace):
+        k = chip_smoke.k_of(op["name"])
+        if k in ("K1", "K2"):
+            layer = layer_of(op["path"], needles)
+            assert layer in binary, (op["name"], op["path"])
+            if chip_smoke.PERF_TRACE_NAMES[k] in op["name"]:
+                per[(layer, k)] = per.get((layer, k), 0) + 1
+    assert per == {(name, k): t["iters"] for name in binary for k in ("K1", "K2")}
+    att = attribute_trace_layers(trace, t["iters"], layers={r["name"]: r["scope"] for r in rows})
+    assert set(att["layers"]) == {r["name"] for r in rows}
+
+
+@pytest.mark.cuda
+def test_spans_off_a_window_add_no_launch(cuda, tmp_path):
+    """Outside a window a span is the shared nullcontext and a forward's
+    launch counts are those of 19 binary convs; inside one the same
+    forward launches the same kernels, and no more."""
+    import chip_smoke
+    from bdbnn_tpu_torch.obs import trace as ttrace
+    from bdbnn_tpu_torch.serve.engine import InferenceEngine
+
+    art = str(tmp_path / "resnet18_react")
+    chip_smoke.make_flagship_artifact(art)
+    engine = InferenceEngine(art, buckets=(8,), device="cuda", packed=True)
+    x = np.zeros((8, 224, 224, 3), np.float32)
+    assert not ttrace.spans_recording() and ttrace.span("a") is ttrace.span("b")
+    chip_smoke.reset_counts()
+    engine.predict_logits(x)
+    off = chip_smoke.read_counts()
+    cap = ttrace.TraceCapture(str(tmp_path / "tr"), [(0, 0, 1)], device=engine.device)
+    assert cap.maybe_start(0, 0)
+    chip_smoke.reset_counts()
+    engine.predict_logits(x)
+    on = chip_smoke.read_counts()
+    cap.stop_if_active()
+    assert off == on and off["K1"] == off["K2"] == off["K3"] == 19

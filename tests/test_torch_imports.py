@@ -187,3 +187,38 @@ def test_a_spawned_decode_worker_imports_no_jax_and_no_torch(tmp_path):
     assert "bdbnn_tpu_torch.data.pipeline" in mods and "PIL.Image" in mods
     roots = {m.split(".")[0] for m in mods}
     assert not roots & set(FORBIDDEN + ("torch",)), sorted(roots & set(FORBIDDEN + ("torch",)))
+
+
+def test_observatory_modules_are_scanned():
+    """The scans above cover the observatory slice's modules: the trace
+    parser and spans, the roofline, the three run-dir readers and the
+    ``perf`` config."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("obs/trace.py", "obs/roofline.py", "obs/summarize.py", "obs/watch.py",
+                "obs/compare.py", "obs/events.py", "serve/config.py", "cli.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
+def test_the_readers_load_no_torch_and_no_numpy():
+    """``summarize``, ``watch`` and ``compare`` (and the trace parser and the
+    roofline module they read through) load no module of torch or numpy,
+    nor of jax, flax or the JAX package: reading a run never initialises
+    CUDA. Their CLI commands run in such a process too."""
+    code = (
+        "import sys\n"
+        "import bdbnn_tpu_torch.obs.summarize, bdbnn_tpu_torch.obs.watch\n"
+        "import bdbnn_tpu_torch.obs.compare, bdbnn_tpu_torch.obs.trace\n"
+        "import bdbnn_tpu_torch.obs.roofline\n"
+        "from bdbnn_tpu_torch.cli import main\n"
+        "for cmd in ('summarize', 'watch', 'compare', 'perf'):\n"
+        "    try:\n"
+        "        main([cmd, '--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, cmd\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('torch', 'numpy')!r})\n"
+        "print(bad)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]"
