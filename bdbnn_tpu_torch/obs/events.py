@@ -137,16 +137,46 @@ The fleet router (serve/fleet.py, ``serve-fleet``) adds one more:
   verdict's ``fleet`` block, the cross-host waterfall in its
   ``fleet_attribution`` block
 
+The recipe-search harness (search/harness.py, ``search``) adds two:
+
+- ``search``      — one sweep's lifecycle, by ``phase``: ``start`` /
+  ``resume`` (trial count, families, worker fan-out, the sweep config
+  hash the ledger pins), ``preempted`` (a SIGTERM/SIGINT was forwarded to
+  every in-flight trial worker, each checkpointed and exited 75, the
+  ledger recorded their cursors — the harness exits 75 next;
+  ``completed`` counts the trials already done, which ``--resume`` never
+  re-runs) and ``verdict`` (the final leaderboard: the ranking by
+  best/final top-1, winner, time-to-common-accuracy, the per-trial
+  status/attempts table — what ``compare`` judges as
+  ``search_best_top1``/``search_time_to_common_acc_s`` and ``summarize``
+  renders as the leaderboard section)
+- ``trial``       — one trial's transitions, by ``phase``: ``start``
+  (family spec, lr, attempt), ``resumed`` (a preempted trial relaunched
+  with ``--resume`` against its recorded run dir), ``done`` (best/final
+  top-1, wall seconds, the resolved run dir), ``preempted`` (the
+  forwarded signal landed; a mid-epoch checkpoint exists),
+  ``interrupted`` (the signal caught the worker before its first
+  checkpoint — the attempt is lost, the trial returns to pending, not a
+  failure) and ``failed`` (a nonzero exit that was not a preemption; the
+  worker log has the autopsy)
+
+The static analyzer (analysis/, ``check --events-into RUN_DIR``) adds one
+more:
+
+- ``analysis``    — one ``check`` run's verdict: checkers run, files
+  scanned, open and suppressed finding counts, per-checker counts and
+  the open finding records, so ``summarize`` can show the last analysis
+  verdict beside a run's telemetry
+
 :meth:`EventWriter.emit` refuses a kind not in :data:`KNOWN_KINDS`
 (``ValueError``) and writes no non-finite number: :func:`jsonsafe` puts
 ``null`` in its place (a bare ``NaN`` token is not JSON; the
 ``nonfinite`` event carries the incident). ``max_bytes`` > 0 rotates
 the live file into ``events.<N>.jsonl`` (``events.1.jsonl`` the oldest);
 :func:`read_events` reads the segments and the live file as one
-timeline. :func:`serve_digest` and :func:`search_digest` (the reference's,
-the second a copy of ``bdbnn_tpu/search/harness.py``'s) digest a
-timeline's serving and recipe-search telemetry for ``summarize``,
-``watch`` and ``compare``.
+timeline. :func:`serve_digest` and :func:`search_digest` (the reference's;
+the harness re-exports the second) digest a timeline's serving and
+recipe-search telemetry for ``summarize``, ``watch`` and ``compare``.
 """
 
 from __future__ import annotations
@@ -190,6 +220,9 @@ KNOWN_KINDS = frozenset(
         "shadow",
         "fleet",
         "perf",
+        "search",
+        "trial",
+        "analysis",
     }
 )
 
@@ -425,11 +458,10 @@ def serve_digest(events: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def search_digest(events: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """One shared digest of a timeline's recipe-search telemetry (a copy
-    of the reference harness's pure function; the harness itself is not
-    ported) — what
-    ``watch`` and ``summarize`` both consume (the serve_digest
-    pattern): the sweep start marker, the latest per-trial state, and
+    """One shared digest of a timeline's recipe-search telemetry (the
+    reference harness's pure function; search/harness.py re-exports this
+    one copy) — what ``watch`` and ``summarize`` both consume (the
+    serve_digest pattern): the sweep start marker, the latest per-trial state, and
     the final verdict when one landed."""
     searches = [e for e in events if e.get("kind") == "search"]
     trials = [e for e in events if e.get("kind") == "trial"]

@@ -1928,6 +1928,22 @@ def _apply_degradation(
     return degraded
 
 
+class _ForwardCount:
+    """The engine forwards a runner factory's engines ran, summed over
+    the replicas' worker threads (each adds its batch's forwards)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.n = 0  # guarded-by: _lock
+
+    def add(self, n: int) -> None:
+        with self._lock:
+            self.n += n
+
+    def value(self) -> int:
+        return self.n
+
+
 def make_engine_runner_factory(
     buckets: Sequence[int],
     *,
@@ -1976,17 +1992,12 @@ def make_engine_runner_factory(
 
     pace_s = float(pace_ms) / 1000.0
     caches: List[ResidentModelCache] = []
-    fw_lock = threading.Lock()
-    fw = [0]  # guarded-by: fw_lock
-
-    def counted(n: int) -> None:
-        with fw_lock:
-            fw[0] += n
+    fw = _ForwardCount()
 
     def predict(engine, x):
         n0 = engine.forwards
         out = engine.predict_logits(x)
-        counted(engine.forwards - n0)
+        fw.add(engine.forwards - n0)
         return out
 
     def factory(artifact_dir: str, device):
@@ -2009,7 +2020,7 @@ def make_engine_runner_factory(
                 path, buckets=buckets, device=device,
                 packed=packed, packed_impl=packed_impl,
             )
-            counted(engine.forwards)  # the warmup's
+            fw.add(engine.forwards)  # the warmup's
             if on_engine is not None:
                 on_engine(engine, device)  # warmup-seconds hook
             return engine
@@ -2048,7 +2059,7 @@ def make_engine_runner_factory(
         return _apply_degradation(runner, degrade, artifact_dir, device)
 
     factory.caches = caches
-    factory.forwards = lambda: fw[0]
+    factory.forwards = fw.value
     return factory
 
 

@@ -871,6 +871,23 @@ def fit(cfg: RunConfig, *, on_step: Optional[Callable] = None) -> Dict[str, floa
             r.close()
 
 
+class _DeterministicCudnn:
+    """cuDNN held to its deterministic algorithms while :func:`fit` runs
+    on the card, as a resource: the previous switches come back when fit
+    exits. cuDNN's default weight gradient of the stem conv is not
+    deterministic on the card (two runs of one seeded step differ in the
+    last bits), so without this a run resumed from its checkpoint would
+    not be bitwise the run it continues."""
+
+    def __init__(self) -> None:
+        cudnn = torch.backends.cudnn
+        self.prev = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+
+    def close(self) -> None:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.prev
+
+
 class _ProcessGroup:
     """The process group :func:`fit` made (``--distributed-init``), as a
     resource: destroyed when fit exits."""
@@ -895,6 +912,9 @@ def _fit(cfg: RunConfig, resources: list, on_step) -> Dict[str, float]:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        # and deterministic: a seeded run resumed after a preemption
+        # must reproduce the uninterrupted run bitwise
+        resources.append(_DeterministicCudnn())
 
     # one run dir a job: rank 0's timestamp (in UTC: the ranks' clocks
     # and zones may differ); rank r > 0 writes its own log, scalars and

@@ -207,14 +207,15 @@ Phases (any failure exits non-zero and prints no result line):
              loss terms timed alone;
 13. train-resume — checkpoints, preemption and resume of the flagship
              recipe, 2 epochs × 4 steps at -b 256 with --save-every-steps
-             2, cuDNN deterministic: (a) run A uninterrupted (its K1, K2,
+             2, cuDNN deterministic (fit sets it on the card): (a) run A uninterrupted (its K1, K2,
              K5, K6, K7 launches); (b) run B through ``cli.main``
              SIGTERMed after its checkpoint of epoch 1 step 2: exit 75,
              preempt and checkpoint events, the committed state bitwise
              the saved one; (c) B resumed: restore schedule fields bitwise
              the checkpoint event's, every later loss and the final model,
              optimizer state and step bitwise A's; (d) the CLI in a
-             subprocess SIGKILLed after its first mid-epoch checkpoint,
+             subprocess (``-m bdbnn_tpu_torch.cli``, no setting of its
+             own) SIGKILLed after its first mid-epoch checkpoint,
              resumed, held as (c); (e) A's checkpoint loaded on the CPU,
              bitwise the card's state; (f) a resnet18_float run dir as the
              teacher of a resnet18 --react student, bitwise after fit; (g)
@@ -308,11 +309,22 @@ Phases (any failure exits non-zero and prints no result line):
              above zero, no K1, K2, K5, K6 or K7 kernel unattributed;
              (c) the port's ``compare`` of (a)'s verdict against itself
              exits 0, against a copy with one layer's ms doubled 3;
+16d. search — the ``search`` CLI on the card (:func:`phase_search`): four
+             full-width flagship trials (ste, ede × lr 0.1, 0.01; -b 64, 8
+             steps, an eval of 256) on two workers, each a CLI process
+             whose launches are counted; (a) clean, exit 0; (b) SIGTERMed
+             once a trial is done and another past its first step, exit 75,
+             then ``--resume`` exit 0 with (a)'s ranking and every trial's
+             final state bitwise (a)'s; (c) ``summarize``, ``watch`` and
+             ``compare`` of both; the harness loads no torch; trial walls,
+             their startup share, the overlap of two workers, a -b 64 step;
+16e. check — ``python -m bdbnn_tpu_torch.cli check`` exits 0 and loads no
+             torch, numpy or jax;
 17. output — one ``{"kernels": [...]}`` line (K1-K7 and the bf16 modes K1
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
              serve, serve-bench, serve-http, serve-rollout, serve-fleet, train, train-stoch,
              train-ts, train-resume, train-folder, train-bf16, train-ddp,
-             train-tp, train-health and perf, and for a bf16 mode
+             train-tp, train-health, perf and search, and for a bf16 mode
              train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
              train-ddp, train-tp and serve-bench), then as the last line
              ``{"ok": true, "device": {...}}``.
@@ -328,6 +340,12 @@ chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
 ``python3 chip_smoke.py --train-tp`` the build and phase 16a, and
 ``python3 chip_smoke.py --perf`` the build, [train-health] (a)'s fit and
 phase 16c.
+``python3 chip_smoke.py --search`` runs the build and phases 16d and 16e.
+``python3 chip_smoke.py --determinism [--tree DIR ...]`` runs the flagship
+CLI (2 epochs × 4 steps at -b 256) from each checkout straight through and
+SIGTERMed after its first mid-epoch checkpoint then resumed, counts the
+final ``state.pt`` tensors that differ, and times the -b 256 step with
+cuDNN's deterministic algorithms off and on in turns.
 ``python3 chip_smoke.py --trace-prefix N`` runs [train-health] (a)'s fit
 2N times, in turns without and with the burst that opens a profiler window
 on the card (``obs/trace.py``), and counts the device records each window's
@@ -1026,13 +1044,17 @@ COUNTED_CLI = "import sys, chip_smoke; sys.exit(chip_smoke.counted_cli())"
 def counted_cli() -> int:
     """``python -m bdbnn_tpu_torch.cli`` with this process's arguments;
     then the run's kernel launch counts as JSON into ``$CHIP_SMOKE_COUNTS``
-    and, when SIGUSR1/SIGUSR2 opened and closed profiler windows
+    (into ``<pid>.json`` inside it when it names a directory) and, when SIGUSR1/SIGUSR2 opened and closed profiler windows
     (:class:`BusyWindows`), their kernel and wall ms beside it; with
     ``$CHIP_SMOKE_WINDOWS`` set, each ``TraceCapture`` window's launches
     (:func:`count_windows`) into that file."""
     import runpy
 
-    busy = BusyWindows(os.environ[COUNTS_ENV] + BUSY_SUFFIX)
+    path = os.environ[COUNTS_ENV]
+    if os.path.isdir(path):
+        # one directory for many processes (a search's trials): one file each
+        path = os.path.join(path, f"{os.getpid()}.json")
+    busy = BusyWindows(path + BUSY_SUFFIX)
     windows = count_windows() if os.environ.get(WINDOWS_ENV) else None
     code = 1
     try:
@@ -1041,13 +1063,13 @@ def counted_cli() -> int:
     except SystemExit as e:
         code = e.code if isinstance(e.code, int) else int(e.code is not None)
     finally:
-        with open(os.environ[COUNTS_ENV], "w") as f:
+        with open(path, "w") as f:
             json.dump({**read_counts(), **read_bf16_counts()}, f)
         if windows is not None:
             with open(os.environ[WINDOWS_ENV], "w") as f:
                 json.dump(windows, f)
         if busy.windows:
-            with open(os.environ[COUNTS_ENV] + BUSY_SUFFIX, "w") as f:
+            with open(path + BUSY_SUFFIX, "w") as f:
                 json.dump(busy.windows, f)
     return code
 
@@ -2773,9 +2795,9 @@ def phase_train_cli() -> bool:
 
 
 def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, trace: bool = True,
-                       **cfg_kw) -> dict:
-    """A train step of the flagship (or ``cfg_kw``'s model) at -b 256
-    alone: CUDA-event time per step on a batch already on the card
+                       batch_size: int = TRAIN_BATCH, **cfg_kw) -> dict:
+    """A train step of the flagship (or ``cfg_kw``'s model) at -b 256 (or
+    ``batch_size``) alone: CUDA-event time per step on a batch already on the card
     (``batch``, else seeded normal images) and the peak device memory of
     those steps (``torch.cuda.max_memory_allocated``: model, optimizer
     state, batch and the step's activations); then, with ``trace``,
@@ -2787,21 +2809,21 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, trace:
     from bdbnn_tpu_torch.nn.binarize import resolve_family, set_active_family
     from bdbnn_tpu_torch.train.loop import build_training, epoch_schedule
 
-    cfg = train_config(batch_size=TRAIN_BATCH, device="cuda", **cfg_kw).validate()
+    cfg = train_config(batch_size=batch_size, device="cuda", **cfg_kw).validate()
     family = set_active_family(resolve_family(cfg.binarizer, ede=cfg.ede))
     state, step_cfg = build_training(cfg, torch.device("cuda"), 10, 224)
     step = make_step(cfg, state, step_cfg)
     if batch is None:
         g = torch.Generator(device="cuda").manual_seed(3)
-        batch = (torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g, device="cuda"),
-                 torch.randint(0, 1000, (TRAIN_BATCH,), generator=g, device="cuda"))
+        batch = (torch.randn((batch_size, 224, 224, 3), generator=g, device="cuda"),
+                 torch.randint(0, 1000, (batch_size,), generator=g, device="cuda"))
     tk, gate = epoch_schedule(family, cfg, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: step(state, batch, tk, gate), iters, warmup=2)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[profile] {tag} train step -b {TRAIN_BATCH}, batch on the card: {ms:.2f} ms "
-        f"= {TRAIN_BATCH / ms * 1e3:.1f} images/s (CUDA events, {iters} steps after 2 warm-up); "
+    log(f"[profile] {tag} train step -b {batch_size}, batch on the card: {ms:.2f} ms "
+        f"= {batch_size / ms * 1e3:.1f} images/s (CUDA events, {iters} steps after 2 warm-up); "
         f"peak device memory {peak} bytes = {peak / 2**30:.2f} GiB")
     if not trace:
         del state, step, batch
@@ -2826,7 +2848,7 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, trace:
     if busy == 0:
         log(f"[profile] {tag} train step: the profiler saw no device time (not measured)")
     else:
-        log(f"[profile] {tag} train step -b {TRAIN_BATCH}: device busy {busy:.3f} ms of "
+        log(f"[profile] {tag} train step -b {batch_size}: device busy {busy:.3f} ms of "
             f"{wall_ms:.3f} ms host wall per step (busy share {busy / wall_ms:.3f}); torch.rand "
             f"(the stochastic draws) {rand_ms:.3f} ms")
         shares = {k: sum(v for name, v in per_kernel.items() if kernel_id(name) == k)
@@ -3148,20 +3170,19 @@ def ts_parts(tag: str, cfg_kw: dict, iters: int = 10):
 # [train-resume]: the flagship recipe, 2 epochs of 4 steps at -b 256, a
 # checkpoint every 2 steps; every fit under its own temporary log_path
 RESUME_STEPS = 4
-# 4096 val images: an untrained model's top-1 on random labels is about
-# 0.1%, and model_best is written only when an eval's top-1 beats 0, so
-# (f) and (g) read a model_best only if some image is right
+# 1024 val images (4096 before the script's time limit forced the cut: the
+# synthetic data and the evals of six runs took about a minute): an
+# untrained model's top-1 on random labels is about 0.1%, and model_best
+# is written only when an eval's top-1 beats 0, so (f) and (g) read a
+# model_best if some image is right and the last checkpoint otherwise, and
+# hold either
 RESUME_ARGS = dict(epochs=2, save_every_steps=2, batch_size=TRAIN_BATCH,
-                   synthetic_train_size=RESUME_STEPS * TRAIN_BATCH, synthetic_val_size=4096,
+                   synthetic_train_size=RESUME_STEPS * TRAIN_BATCH, synthetic_val_size=1024,
                    device="cuda")
 # (f): the student and its float teacher's arch
 RESUME_TS = ("resnet18", "resnet18_float")
 SCHED_KEYS = ("epoch", "step_in_epoch", "lr_step", "ede_t", "ede_k", "kurt_gate", "sched",
               "binarizer")
-# the CLI run of (d), with cuDNN held to its deterministic algorithms as
-# the in-process runs are (the stem conv's backward)
-SIGKILL_CHILD = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
-                 "from bdbnn_tpu_torch import cli; sys.exit(cli.main(sys.argv[1:]))")
 
 
 def resume_cli_args(root: str) -> list:
@@ -3274,13 +3295,15 @@ def resumed_like(tag: str, label: str, got_losses: dict, got_final: dict, a: dic
 def phase_train_resume(pk):
     """[train-resume]: checkpoints, preemption and resume of the flagship
     ``fit`` (RESUME_ARGS: 2 epochs × 4 steps at -b 256, a checkpoint every
-    2 steps), cuDNN deterministic throughout. (a) run A uninterrupted;
+    2 steps; fit holds cuDNN deterministic on the card, and this phase
+    holds it for its own runs too). (a) run A uninterrupted;
     (b) run B through ``cli.main``, SIGTERMed from a thread right after
     its checkpoint event of epoch 1 step 2: exit 75, ``preempt`` and
     ``checkpoint`` events, the committed state bitwise what the save was
     given; (c) B resumed: the ``restore`` event's schedule fields bitwise
     the checkpoint event's, each later loss and the final model,
-    optimizer state and step bitwise A's; (d) the CLI in a subprocess,
+    optimizer state and step bitwise A's; (d) the CLI in a subprocess
+    (``python -m bdbnn_tpu_torch.cli``, with its own settings only),
     SIGKILLed right after its first mid-epoch checkpoint event, resumed
     and held as (c); (e) A's final checkpoint loaded with
     ``device="cpu"``, bitwise the card's state; (f) a resnet18_float run
@@ -3408,7 +3431,8 @@ def phase_train_resume(pk):
         root_d = fresh_log_root()
         err_path = os.path.join(root_d, "stderr.txt")
         with open(err_path, "w") as err_f:
-            proc = subprocess.Popen([sys.executable, "-c", SIGKILL_CHILD,
+            # the CLI as users run it: fit itself holds cuDNN deterministic
+            proc = subprocess.Popen([sys.executable, "-m", "bdbnn_tpu_torch.cli",
                                      *resume_cli_args(root_d)],
                                     cwd=REPO, stdout=subprocess.DEVNULL, stderr=err_f)
         hit = None
@@ -6912,6 +6936,410 @@ def phase_perf_summarize(train_dir: str) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# [determinism]: the CLI's fit across a preemption, as users run it
+# ---------------------------------------------------------------------------
+
+DET_TURNS = 2
+DET_STEP_ITERS = 10
+
+
+def det_cli(root: str, tree: str, resume: str = "", sigterm_mid_epoch: bool = False) -> dict:
+    """``python -m bdbnn_tpu_torch.cli`` from the checkout ``tree`` (its own
+    package, its own settings) on RESUME_ARGS under ``root``; with
+    ``sigterm_mid_epoch`` SIGTERMed right after its first mid-epoch
+    checkpoint event. Returns {rc, run_dir, err}."""
+    import signal
+
+    from bdbnn_tpu_torch.obs import events as tevents
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    args = resume_cli_args(root) + (["--resume", resume] if resume else [])
+    err_path = os.path.join(root, "stderr.txt")
+    env = {**os.environ, "PYTHONPATH": tree}
+    with open(err_path, "w") as err_f:
+        proc = subprocess.Popen([sys.executable, "-m", "bdbnn_tpu_torch.cli", *args], cwd=tree,
+                                env=env, stdout=subprocess.DEVNULL, stderr=err_f)
+    try:
+        if sigterm_mid_epoch:
+            deadline = time.time() + 600
+            hit = None
+            while hit is None and proc.poll() is None and time.time() < deadline:
+                time.sleep(0.02)
+                evs = [e for dp, _, fs in os.walk(root) if tevents.EVENTS_NAME in fs
+                       for e in read_events(dp, "checkpoint")]
+                hit = next((e for e in evs if e["step_in_epoch"] > 0), None)
+            if hit is not None:
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(err_path) as f:
+        err = f.read()
+    return {"rc": rc, "run_dir": run_dir_of(root) if rc in (0, 75) else None, "err": err[-3000:]}
+
+
+def determinism_across_preemption(tree: str, label: str) -> dict:
+    """The flagship CLI twice from ``tree`` with one seed: A straight
+    through; B SIGTERMed after its first mid-epoch checkpoint (exit 75),
+    then ``--resume``d. The tensors of A's and B's final ``state.pt`` that
+    differ are counted."""
+    tag = "[determinism]"
+    a = det_cli(fresh_log_root(), tree)
+    b = det_cli(fresh_log_root(), tree, sigterm_mid_epoch=True)
+    c = det_cli(fresh_log_root(), tree, resume=b["run_dir"] or "") if b["rc"] == 75 else b
+    if a["rc"] != 0 or b["rc"] != 75 or c["rc"] != 0:
+        log(f"{tag} {label} FAIL: exit codes A {a['rc']}, B {b['rc']} (75 wanted), resumed "
+            f"{c['rc']}: {a['err'][-800:]} {b['err'][-800:]} {c['err'][-800:]}")
+        return {"ok": False, "differing": None}
+    diff = state_diff(final_payload(a["run_dir"]), final_payload(c["run_dir"]))
+    n = len(final_payload(a["run_dir"])["model"])
+    log(f"{tag} {label}: A exit 0, B SIGTERMed mid-epoch exit 75, B resumed exit 0; final "
+        f"state.pt tensors that differ from A's: {len(diff)} (of {n} model tensors plus the "
+        f"optimizer state; max |diff| of the first: {diff[:6]})")
+    return {"ok": True, "differing": len(diff)}
+
+
+def det_step_cost(smi_line: str, turns: int = DET_TURNS) -> dict:
+    """What cuDNN's deterministic algorithms cost the flagship's -b 256
+    f32 step (``profile_train_step``, batch on the card, CUDA events):
+    ``cudnn.deterministic`` off and on in turns (benchmark off, fit's
+    setting and torch's default)."""
+    import torch
+
+    ms = {"off": [], "on": []}
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        for turn in range(turns):
+            for mode in (("off", "on") if turn % 2 == 0 else ("on", "off")):
+                torch.backends.cudnn.deterministic = mode == "on"
+                torch.backends.cudnn.benchmark = False
+                r = profile_train_step(iters=DET_STEP_ITERS, tag=f"determinism {mode}",
+                                       trace=False)
+                ms[mode].append(round(r["step_ms"], 3))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"[determinism] flagship f32 step -b {TRAIN_BATCH} (batch on the card, CUDA events, "
+        f"{DET_STEP_ITERS} steps a turn): cudnn.deterministic off {ms['off']} ms, on {ms['on']} "
+        f"ms; mean {mean['off']:.3f} -> {mean['on']:.3f} ms "
+        f"({(mean['on'] / mean['off'] - 1) * 100:+.2f}%); {smi_line}")
+    return {"ms": ms, "mean": mean}
+
+
+def phase_determinism(trees: list, smi_line: str) -> bool:
+    """[determinism]: :func:`determinism_across_preemption` for each
+    checkout in ``trees`` (their kernels built first), then
+    :func:`det_step_cost`. Passes when every tree's CLI ran and this
+    tree's resumed state is bitwise."""
+    ok = True
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        if tree != REPO:
+            r = subprocess.run([sys.executable, "-c", "from bdbnn_tpu_torch.nn.kernels import "
+                                "_build; print(_build.build_all())"], cwd=tree,
+                               env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
+                               text=True, timeout=600)
+            log(f"[determinism] built {tree}'s kernels: rc {r.returncode} {r.stdout.strip()}")
+        res = determinism_across_preemption(tree, "this tree" if tree == REPO else tree)
+        ok = ok and res["ok"] and (tree != REPO or res["differing"] == 0)
+    det_step_cost(smi_line)
+    log(f"[determinism] ok={ok}")
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# [search] and [check]: the recipe-search harness and the static analyzer
+# ---------------------------------------------------------------------------
+
+# the full-width flagship, synthetic: 2 families x 2 learning rates, 8
+# steps of -b 64 and an eval of 256 images a trial, two workers at once
+SEARCH_ARGS = ["--dataset", "imagenet", "-a", "resnet18", "--synthetic", "-b", "64",
+               "--synthetic-train-size", "512", "--synthetic-val-size", "256",
+               "--families", "ste", "ede", "--lrs", "0.1", "0.01", "--workers", "2"]
+SEARCH_TRIALS = 4
+SEARCH_STEPS = 8
+SEARCH_EVAL_BATCHES = 4
+SEARCH_BATCH = 64
+HEAVY_ROOTS = ("torch", "numpy", "jax", "jaxlib", "flax", "bdbnn_tpu")
+COUNTED_SEARCH = "import sys, chip_smoke; sys.exit(chip_smoke.counted_search())"
+
+
+def counted_search() -> int:
+    """``python -m bdbnn_tpu_torch.cli`` with this process's arguments (a
+    ``search``) whose trial workers run through :func:`counted_cli`, each
+    writing its launch counts into the directory ``$CHIP_SMOKE_COUNTS``
+    names; at exit, the heavy modules this harness process loaded (none
+    wanted) into ``harness.json`` there."""
+    from bdbnn_tpu_torch import cli
+    from bdbnn_tpu_torch.search import harness
+
+    trial_argv = harness._trial_argv
+
+    def counted(*a, **kw):
+        argv = trial_argv(*a, **kw)
+        assert argv[1:3] == ["-m", "bdbnn_tpu_torch.cli"], argv[:3]
+        return [argv[0], "-c", COUNTED_CLI, *argv[3:]]
+
+    harness._trial_argv = counted
+    try:
+        return cli.main(sys.argv[1:])
+    finally:
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in HEAVY_ROOTS)
+        with open(os.path.join(os.environ[COUNTS_ENV], "harness.json"), "w") as f:
+            json.dump(loaded, f)
+
+
+def search_run(out_dir: str, resume: bool = False, sigterm_when=None) -> dict:
+    """The ``search`` CLI through :func:`counted_search` into ``out_dir``
+    on the card (no ``--device``). ``sigterm_when(out_dir)`` is polled
+    while it runs; the harness is SIGTERMed once it holds. Returns exit
+    code, wall seconds, summed trial launch counts, the harness's heavy
+    modules, stdout and stderr tails."""
+    import signal
+
+    counts_dir = out_dir + ".counts"
+    os.makedirs(counts_dir, exist_ok=True)
+    cmd = [sys.executable, "-c", COUNTED_SEARCH, "search", "--out-dir", out_dir, *SEARCH_ARGS]
+    if resume:
+        cmd.append("--resume")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, COUNTS_ENV: counts_dir})
+    signalled = None
+    try:
+        if sigterm_when is not None:
+            deadline = time.monotonic() + 600
+            while proc.poll() is None and time.monotonic() < deadline:
+                if sigterm_when(out_dir):
+                    signalled = time.perf_counter() - t0
+                    proc.send_signal(signal.SIGTERM)
+                    break
+                time.sleep(0.02)
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    counts, harness_mods = {}, None
+    for name in sorted(os.listdir(counts_dir)):
+        with open(os.path.join(counts_dir, name)) as f:
+            got = json.load(f)
+        if name == "harness.json":
+            harness_mods = got
+        elif name.endswith(".json"):
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+    return {"rc": proc.returncode, "wall_s": wall, "counts": counts, "harness": harness_mods,
+            "signalled_s": signalled, "out": out, "err": err[-3000:]}
+
+
+def search_ledger(out_dir: str) -> dict:
+    from bdbnn_tpu_torch.search.harness import LEDGER_NAME
+
+    path = os.path.join(out_dir, LEDGER_NAME)
+    try:
+        with open(path) as f:
+            return json.load(f).get("trials") or {}
+    except (OSError, ValueError):
+        return {}
+
+
+def trial_walls(out_dir: str) -> dict:
+    """Per trial attempt, from the sweep's ``trial`` events and the
+    attempt's run dir: wall seconds (harness launch to exit), seconds to
+    the run's ``run_start`` (interpreter, torch, the package, the data)
+    and to the end of its first step (``compile`` event: the kernels'
+    first load and launch)."""
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    evs = read_events(out_dir, "trial")
+    out = {}
+    for tid, entry in sorted(search_ledger(out_dir).items()):
+        starts = [e for e in evs if e.get("trial") == tid and e["phase"] in ("start", "resumed")]
+        ends = [e for e in evs if e.get("trial") == tid
+                and e["phase"] in ("done", "preempted", "interrupted", "failed")]
+        run_dirs = entry.get("run_dirs") or []
+        rows = []
+        for i, st in enumerate(starts):
+            end = ends[i] if i < len(ends) else None
+            run = read_events(run_dirs[min(i, len(run_dirs) - 1)]) if run_dirs else []
+            rs = next((e for e in run if e["kind"] == "run_start"), None)
+            comp = next((e for e in run if e["kind"] == "compile"), None)
+            rows.append({
+                "phase": end["phase"] if end else None,
+                "wall_s": round(end["t"] - st["t"], 3) if end else None,
+                "to_run_start_s": round(rs["t"] - st["t"], 3) if rs else None,
+                "to_first_step_s": round(comp["t"] - st["t"], 3) if comp else None,
+            })
+        out[tid] = rows
+    return out
+
+
+def _running_past_first_step(out_dir: str) -> bool:
+    """One trial done and another running past its first step (its run
+    dir holds a ``compile`` event and no ``run_end``)."""
+    import glob
+
+    from bdbnn_tpu_torch.obs.events import read_events
+
+    trials = search_ledger(out_dir)
+    if not any(e.get("status") == "done" for e in trials.values()):
+        return False
+    for tid, e in trials.items():
+        if e.get("status") != "running":
+            continue
+        for ev_path in glob.glob(os.path.join(out_dir, "trials", tid, "*", "*", "events.jsonl")):
+            kinds = {x["kind"] for x in read_events(os.path.dirname(ev_path))}
+            if "compile" in kinds and "run_end" not in kinds:
+                return True
+    return False
+
+
+def phase_search(smi_line: str):
+    """[search]: the ``search`` CLI over full-width flagship trials on the
+    card (SEARCH_ARGS: ImageNet resnet18, 224², synthetic, families ste
+    and ede × lrs 0.1 and 0.01, 8 steps of -b 64 and an eval of 256
+    images a trial, two workers; each trial a ``python -m
+    bdbnn_tpu_torch.cli`` process through :func:`counted_cli`). (a) a clean
+    sweep: exit 0, 4 completed trials, each trial's K5 and K6 launches 19
+    a step and K1, K2 19 a forward; (b) the same sweep SIGTERMed once one
+    trial is done and another is past its first step: exit 75, then
+    ``--resume`` exit 0, the ranking (a)'s, at least one trial resumed, and
+    every trial's final ``state.pt`` bitwise (a)'s; (c) the port's
+    ``summarize``, ``watch --once`` and ``compare`` over the two sweep dirs
+    exit 0 (``compare`` with ``--tol-rel 1.0``: the wall-clock metric
+    ``search_time_to_common_acc_s`` moves with the shared host, the
+    deterministic ``search_best_top1`` is held at the default
+    ``--tol-acc``); the harness loads no torch or numpy; each trial's wall
+    and its share before the first step, the sweep's wall, the overlap of
+    two workers on one card (Σ trial walls / sweep wall) and the device
+    time of one trial's step (``profile_train_step`` at -b 64). Returns
+    ((a)'s summed launch counts, ok)."""
+    import shutil
+
+    from bdbnn_tpu_torch.search.harness import LEADERBOARD_NAME
+
+    tag = "[search]"
+    oks = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_search-")
+    try:
+        # (a) the clean sweep
+        dir_a = os.path.join(root, "a")
+        a = search_run(dir_a)
+        lb_a = json.load(open(os.path.join(dir_a, LEADERBOARD_NAME))) if a["rc"] == 0 else {}
+        ca = a["counts"]
+        steps = SEARCH_TRIALS * SEARCH_STEPS
+        want = {"K5": steps * N_BINARY_CONVS, "K6": steps * N_BINARY_CONVS}
+        fwd = SEARCH_TRIALS * (SEARCH_STEPS + SEARCH_EVAL_BATCHES) * N_BINARY_CONVS
+        oks["a"] = (a["rc"] == 0 and lb_a.get("completed") == SEARCH_TRIALS
+                    and lb_a.get("failed") == 0 and all(ca.get(k) == n for k, n in want.items())
+                    and ca.get("K1") == fwd and ca.get("K2") == fwd and a["harness"] == [])
+        walls_a = trial_walls(dir_a)
+        log(f"{tag} (a) clean sweep: exit {a['rc']} in {a['wall_s']:.1f}s; completed "
+            f"{lb_a.get('completed')}/{lb_a.get('trials_total')} failed {lb_a.get('failed')}; "
+            f"ranking {[(r['trial'], r['best_top1'], r['final_top1']) for r in lb_a.get('ranking', [])]}; "
+            f"trial launches summed {ca} (want K5, K6 {want['K5']}, K1, K2 {fwd}); heavy modules "
+            f"in the harness process {a['harness']} ok={oks['a']}")
+        if a["rc"] != 0:
+            log(f"{tag} (a) FAIL: {a['err'][-2000:]}")
+        for tid, rows in walls_a.items():
+            log(f"{tag} (a) {tid}: {rows}")
+        sum_walls = sum(r["wall_s"] or 0.0 for rows in walls_a.values() for r in rows)
+        log(f"{tag} (a) overlap of --workers 2 on one card: trial walls sum {sum_walls:.1f}s over "
+            f"the sweep's {a['wall_s']:.1f}s = {sum_walls / max(a['wall_s'], 1e-9):.2f}; {smi_line}")
+
+        # (b) SIGTERM mid-sweep, then --resume
+        dir_b = os.path.join(root, "b")
+        b1 = search_run(dir_b, sigterm_when=_running_past_first_step)
+        statuses = {t: e["status"] for t, e in search_ledger(dir_b).items()}
+        log(f"{tag} (b) SIGTERM at {b1['signalled_s']}s: exit {b1['rc']} in {b1['wall_s']:.1f}s; "
+            f"ledger {statuses}; trial launches {b1['counts']}")
+        b2 = search_run(dir_b, resume=True)
+        lb_b = json.load(open(os.path.join(dir_b, LEADERBOARD_NAME))) if b2["rc"] == 0 else {}
+        resumed = sorted(t for t, m in (lb_b.get("trials") or {}).items() if m.get("resumed"))
+        diffs = {}
+        if a["rc"] == 0 and b2["rc"] == 0:
+            la, lbb = search_ledger(dir_a), search_ledger(dir_b)
+            diffs = {t: len(state_diff(final_payload(la[t]["run_dirs"][-1]),
+                                       final_payload(lbb[t]["run_dirs"][-1])))
+                     for t in sorted(la)}
+        oks["b"] = (b1["rc"] == 75 and b2["rc"] == 0 and "preempted" in statuses.values()
+                    and lb_b.get("ranking") == lb_a.get("ranking") and bool(resumed)
+                    and len(diffs) == SEARCH_TRIALS and not any(diffs.values())
+                    and b1["harness"] == [] and b2["harness"] == [])
+        log(f"{tag} (b) --resume: exit {b2['rc']} in {b2['wall_s']:.1f}s; ranking (a)'s "
+            f"{lb_b.get('ranking') == lb_a.get('ranking')}; resumed trials {resumed}; final "
+            f"state.pt tensors differing from (a)'s, per trial {diffs} (total "
+            f"{sum(diffs.values()) if diffs else None}); trial launches {b2['counts']} ok={oks['b']}")
+        if b2["rc"] != 0:
+            log(f"{tag} (b) FAIL: {b1['err'][-1500:]} {b2['err'][-1500:]}")
+        for tid, rows in trial_walls(dir_b).items():
+            log(f"{tag} (b) {tid}: {rows}")
+
+        # (c) the readers over both sweeps
+        rcs = {}
+        for name, args in (("summarize a", ["summarize", dir_a]),
+                           ("summarize b", ["summarize", dir_b]),
+                           ("watch a", ["watch", dir_a, "--once"]),
+                           ("compare a b", ["compare", dir_a, dir_b, "--tol-rel", "1.0"])):
+            r = subprocess.run([sys.executable, "-m", "bdbnn_tpu_torch.cli", *args], cwd=REPO,
+                               capture_output=True, text=True, timeout=300)
+            rcs[name] = r.returncode
+            tail = [ln for ln in r.stdout.splitlines() if "search" in ln.lower()
+                    or "verdict" in ln.lower() or "winner" in ln.lower()][:4]
+            log(f"{tag} (c) {name}: exit {r.returncode}; {tail}")
+        oks["c"] = all(v == 0 for v in rcs.values())
+
+        # the device time of one trial's step
+        profile_train_step(iters=DET_STEP_ITERS, tag="search trial (flagship)", trace=False,
+                           batch_size=SEARCH_BATCH)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = all(oks.values())
+    log(f"{tag} {oks} ok={ok}")
+    return a["counts"], ok
+
+
+def phase_check() -> bool:
+    """[check]: the port's static analyzer over this checkout's
+    ``bdbnn_tpu_torch/``: ``python -m bdbnn_tpu_torch.cli check`` exits 0,
+    and in a process that runs it, no module of torch, numpy or jax is
+    loaded."""
+    code = ("import json, sys\n"
+            "from bdbnn_tpu_torch.cli import main\n"
+            "rc = main(['check'])\n"
+            f"print(json.dumps([m for m in sorted(sys.modules) if m.split('.')[0] in "
+            f"{HEAVY_ROOTS!r}]))\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    lines = r.stdout.strip().splitlines()
+    heavy = json.loads(lines[-1]) if lines else None
+    ok = r.returncode == 0 and heavy == []
+    log(f"[check] python -m bdbnn_tpu_torch.cli check: exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s; {lines[-2] if len(lines) > 1 else r.stderr[-1500:]}; "
+        f"heavy modules loaded {heavy} ok={ok}")
+    return ok
+
+
+# wall seconds of each phase of the whole run, logged at its end
+_PHASE_S: dict = {}
+_T_START = time.perf_counter()
+
+
+def timed(name: str, fn, *a, **kw):
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    _PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    log(f"[timing] {name} {_PHASE_S[name]}s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6944,6 +7372,16 @@ def main(argv=None) -> int:
                     help="only build the kernels, write the flagship artifact and run the "
                          "[perf] phase (and [train-health] (a)'s fit, whose window (b) "
                          "reads); exits 0 when its gates pass")
+    ap.add_argument("--search", action="store_true",
+                    help="only build the kernels and run the [search] and [check] phases; exits "
+                         "0 when their gates pass")
+    ap.add_argument("--determinism", action="store_true",
+                    help="only build the kernels and run [determinism]: the flagship CLI "
+                         "straight through and SIGTERMed then resumed, from each --tree, and the "
+                         "step's cost of cuDNN's deterministic algorithms")
+    ap.add_argument("--tree", action="append", default=[], metavar="DIR",
+                    help="with --determinism: a checkout whose CLI to run (repeatable; default: "
+                         "this one)")
     ap.add_argument("--trace-prefix", type=int, default=0, metavar="N",
                     help="only build the kernels and run [train-health] (a)'s fit 2N times, "
                          "without and with the profiler window's absorbing burst in turns; "
@@ -6975,6 +7413,17 @@ def main(argv=None) -> int:
 
     if args.trace_prefix:
         return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
+    if args.determinism:
+        ok_alone = phase_determinism(args.tree or [REPO], smi_line)
+        if not ok_alone:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
+        return 0 if ok_alone else 1
+    if args.search:
+        ok_alone = phase_search(smi_line)[1]
+        ok_alone = phase_check() and ok_alone
+        if not ok_alone:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
+        return 0 if ok_alone else 1
     if args.train_tp:
         ok_alone = phase_train_tp(smi_line)[1]
         if not ok_alone:
@@ -7014,39 +7463,44 @@ def main(argv=None) -> int:
         print(json.dumps({"weight_kernels": wrecs, "device": kind, "nvidia_smi": smi_line}),
               flush=True)
         return 0 if ok_w and ok_k7 else 1
-    recs, ok_k = phase_kernels(pk)
-    wrecs, ok_w = phase_weight_kernels(pk)
+    recs, ok_k = timed("kernels", phase_kernels, pk)
+    wrecs, ok_w = timed("weight_kernels", phase_weight_kernels, pk)
     recs.update(wrecs)
-    trecs, ok_tk = phase_train_kernels(pk)
+    trecs, ok_tk = timed("train_kernels", phase_train_kernels, pk)
     recs.update(trecs)
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "resnet18_react")
         t0 = time.perf_counter()
         make_flagship_artifact(art)
         log(f"[main] wrote flagship artifact in {time.perf_counter() - t0:.1f}s")
-        counts, ok_m = phase_main(art)
-        ok_c = phase_cli(art)
-        sb_counts, ok_sb, sb_thr = phase_serve_bench(art, smi_line)
-        sh_counts, ok_sh = phase_serve_http(art, smi_line, sb_thr)
-        sr_counts, ok_sr = phase_serve_rollout(art, smi_line)
-        sf_counts, ok_sf = phase_serve_fleet(art, smi_line, args.fleet_verdicts)
-        perf_counts, ok_pf = phase_perf(art, smi_line)
-    train_counts, _, ok_t = phase_train()
-    time_host_input()
-    ok_tp = phase_train_parity()
-    ok_te = phase_train_cede()
-    ok_tc = phase_train_cli()
-    f32_prof = profile_train_step()
-    stoch_counts, ok_ts = phase_train_stoch(pk)
-    ts_counts, ok_tts = phase_train_ts()
-    resume_counts, ok_tr = phase_train_resume(pk)
-    folder_counts, ok_tf = phase_train_folder(smi_line)
-    bf16_counts, brecs, ok_tb = phase_train_bf16(pk, f32_prof)
+        counts, ok_m = timed("main", phase_main, art)
+        ok_c = timed("cli", phase_cli, art)
+        sb_counts, ok_sb, sb_thr = timed("serve-bench", phase_serve_bench, art, smi_line)
+        sh_counts, ok_sh = timed("serve-http", phase_serve_http, art, smi_line, sb_thr)
+        sr_counts, ok_sr = timed("serve-rollout", phase_serve_rollout, art, smi_line)
+        sf_counts, ok_sf = timed("serve-fleet", phase_serve_fleet, art, smi_line,
+                                 args.fleet_verdicts)
+        perf_counts, ok_pf = timed("perf", phase_perf, art, smi_line)
+    train_counts, _, ok_t = timed("train", phase_train)
+    timed("host_input", time_host_input)
+    ok_tp = timed("train_parity", phase_train_parity)
+    ok_te = timed("train_cede", phase_train_cede)
+    ok_tc = timed("train_cli", phase_train_cli)
+    f32_prof = timed("profile", profile_train_step)
+    stoch_counts, ok_ts = timed("train-stoch", phase_train_stoch, pk)
+    ts_counts, ok_tts = timed("train-ts", phase_train_ts)
+    resume_counts, ok_tr = timed("train-resume", phase_train_resume, pk)
+    folder_counts, ok_tf = timed("train-folder", phase_train_folder, smi_line)
+    bf16_counts, brecs, ok_tb = timed("train-bf16", phase_train_bf16, pk, f32_prof)
     recs.update(brecs)
-    ddp_counts, ok_td = phase_train_ddp(smi_line)
-    tp_counts, ok_ttp = phase_train_tp(smi_line)
-    th_counts, ok_th, th_dir = phase_train_health(smi_line)
-    ok_pf = phase_perf_summarize(th_dir) and ok_pf
+    ddp_counts, ok_td = timed("train-ddp", phase_train_ddp, smi_line)
+    tp_counts, ok_ttp = timed("train-tp", phase_train_tp, smi_line)
+    th_counts, ok_th, th_dir = timed("train-health", phase_train_health, smi_line)
+    ok_pf = timed("perf_summarize", phase_perf_summarize, th_dir) and ok_pf
+    search_counts, ok_se = timed("search", phase_search, smi_line)
+    ok_ck = timed("check", phase_check)
+    log(f"[timing] phase seconds {_PHASE_S}; whole script "
+        f"{time.perf_counter() - _T_START:.1f}s")
 
     sources = {"K1": "bdbnn_tpu_torch/csrc/binary_conv.cu",
                "K2": "bdbnn_tpu_torch/csrc/weight_binarize.cu",
@@ -7082,7 +7536,8 @@ def main(argv=None) -> int:
     # hosts (K1-K3; the sum over the hosts that exited cleanly and wrote
     # their counters: the SIGKILLed host's are unknown), and on the perf
     # command's sweep (K1-K4; its warmups and unmeasured forwards
-    # included). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # included), and on the clean recipe search's trial processes (K1,
+    # K2, K5, K6, K7; the sum over its four trials). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
     # BASELINE config 4 run and the bf16 artifact's serving
     by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
@@ -7097,7 +7552,8 @@ def main(argv=None) -> int:
                    "train-ddp": ddp_counts.get(k, 0),
                    "train-tp": tp_counts.get(k, 0),
                    "train-health": th_counts.get(k, 0),
-                   "perf": perf_counts.get(k, 0)}
+                   "perf": perf_counts.get(k, 0),
+                   "search": search_counts.get(k, 0)}
                for k in sources}
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
@@ -7116,7 +7572,8 @@ def main(argv=None) -> int:
         by_path[k]["serve-bench"] > 0 for k in ("K1", "K2", "K3", "K4", "K1 bf16", "K2 bf16")) and all(
         by_path[k]["serve-http"] > 0 and by_path[k]["serve-rollout"] > 0
         and by_path[k]["serve-fleet"] > 0 for k in ("K1", "K2", "K3")) and all(
-        by_path[k]["perf"] > 0 for k in ("K1", "K2", "K3", "K4"))
+        by_path[k]["perf"] > 0 for k in ("K1", "K2", "K3", "K4")) and all(
+        by_path[k]["search"] > 0 for k in ("K1", "K2", "K5", "K6", "K7"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -7168,7 +7625,8 @@ def main(argv=None) -> int:
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td,
-           "train_tp": ok_ttp, "train_health": ok_th, "perf": ok_pf, "launched": ok_used}
+           "train_tp": ok_ttp, "train_health": ok_th, "perf": ok_pf, "search": ok_se,
+           "check": ok_ck, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         print("\n".join(_FAILURES), file=sys.stderr, flush=True)

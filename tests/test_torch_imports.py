@@ -222,3 +222,65 @@ def test_the_readers_load_no_torch_and_no_numpy():
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_search_and_analysis_modules_are_scanned():
+    """The scans above cover the recipe-search and static-analysis
+    slice's modules: the harness, its config, the analyzer and its four
+    checkers, and the torch-free family table."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("search/__init__.py", "search/harness.py", "search/config.py",
+                "analysis/__init__.py", "analysis/core.py", "analysis/lockcheck.py",
+                "analysis/forwardpure.py", "analysis/eventschema.py",
+                "analysis/verdictcheck.py", "nn/families.py", "nn/__init__.py", "cli.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
+def test_search_and_check_load_no_torch_and_no_numpy():
+    """``search --help``, the harness and ``check`` run in a process that
+    loads no module of torch or numpy, nor of jax, flax or the JAX
+    package: the harness owns no device (its trials do) and the analyzer
+    reads files only."""
+    code = (
+        "import sys\n"
+        "from bdbnn_tpu_torch.cli import COMMANDS, main\n"
+        "import bdbnn_tpu_torch.search.harness\n"
+        "try:\n"
+        "    main(['search', '--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        "assert main(['check']) == 0\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('torch', 'numpy')!r})\n"
+        "print(bad)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_nn_names_resolve_on_first_use():
+    """``nn`` imports its names on first use: each name of ``__all__``
+    resolves to the object its module defines (a submodule's own name to
+    the submodule), the family table without torch, and an unknown name
+    raises ``AttributeError``."""
+    import importlib
+
+    code = ("import sys\n"
+            "from bdbnn_tpu_torch.nn import FAMILY_NAMES, parse_binarizer\n"
+            "assert parse_binarizer('proximal:delta1=0.25')[1]['delta1'] == 0.25\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "[]", r.stderr[-3000:]
+    pkg = importlib.import_module("bdbnn_tpu_torch.nn")
+    for name in pkg.__all__:
+        obj = getattr(pkg, name)
+        mod = importlib.import_module(pkg._EXPORTS[name])
+        assert obj is (mod if pkg._EXPORTS[name] == f"bdbnn_tpu_torch.nn.{name}"
+                       else getattr(mod, name))
+    from bdbnn_tpu_torch.nn import binarize
+
+    assert binarize.parse_binarizer is pkg.parse_binarizer
+    with pytest.raises(AttributeError, match="no attribute"):
+        getattr(pkg, "not_a_name")
