@@ -2,7 +2,8 @@
 watermarks, the step probes, the trace spans, profiler windows and trace
 attribution, and the run-dir readers (``summarize``, ``compare``) by name;
 the request tracer, the capacity plane, the roofline, ``watch``, the event
-channel and the run manifest as modules of their own.
+channel, the run manifest, the step and card timers (``timing``) and the
+kernel launch counters (``launches``) as modules of their own.
 
 The names below are imported on first use: a host-only process (the
 fleet router) reads the capacity, trace and event modules without

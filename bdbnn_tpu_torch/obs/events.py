@@ -160,6 +160,14 @@ The recipe-search harness (search/harness.py, ``search``) adds two:
   failure) and ``failed`` (a nonzero exit that was not a preemption; the
   worker log has the autopsy)
 
+The bench (scripts/bench.py) writes one more into its profile dir's
+``events.jsonl``:
+
+- ``bench_result`` — one bench line's fields after each stage of a
+  measurement (the fenced rate, then the profiler window's device ms,
+  then the f32 comparison): metric, value, unit, vs_baseline, images/s
+  by implementation, FLOPs and MFU, the device and its peak
+
 The static analyzer (analysis/, ``check --events-into RUN_DIR``) adds one
 more:
 
@@ -223,6 +231,7 @@ KNOWN_KINDS = frozenset(
         "search",
         "trial",
         "analysis",
+        "bench_result",
     }
 )
 

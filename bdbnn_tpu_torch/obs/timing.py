@@ -3,7 +3,12 @@
 pipeline (``data_wait``), dispatching the step (``dispatch``) and in the
 one metric fetch an interval (``drain``), as ``perf_counter`` deltas
 around calls the loop already makes; no device synchronisation is
-added. A starved run shows ``data_wait`` dominating an interval."""
+added. A starved run shows ``data_wait`` dominating an interval.
+
+The card's timers live here too, for ``chip_smoke.py`` and the bench
+scripts (``scripts/``): :func:`cuda_ms` (CUDA events around many calls)
+and :func:`graph_ms` (the calls captured in one CUDA graph and replayed,
+device time alone). torch loads inside them only."""
 
 from __future__ import annotations
 
@@ -51,4 +56,39 @@ class StepPhaseTimer:
         return out
 
 
-__all__ = ["PHASES", "StepPhaseTimer"]
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Mean device ms per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, so no host time between launches counts."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, 5, 1) / calls
+    del graph
+    return ms
+
+
+__all__ = ["PHASES", "StepPhaseTimer", "cuda_ms", "graph_ms"]

@@ -43,8 +43,13 @@ capture windows.
    module-level event). The reference's ``hlo_op_scopes`` and
    ``hlo_module_name`` (the compiled-HLO join its CPU traces need) have no
    counterpart here: the launch join works on every backend.
-   ``hlo_breakdown`` and ``jit_step_ms`` serve the reference's root
-   scripts and are not ported.
+   The reference's root-script helpers have counterparts:
+   :func:`step_device_ms` (``jit_step_ms``) reads each step from a
+   ``record_function`` range on the host, whose device ops are those
+   launched while it was open, and gives the median device extent of a
+   step (first op start to last op end, what XLA's module event spans)
+   beside each step's busy sum; :func:`kernel_breakdown`
+   (``hlo_breakdown``) groups the device ops by name.
 
 3. **Capture windows** (:class:`TraceCapture`) start and stop the profiler
    at arbitrary ``EPOCH:STEP[:NSTEPS]`` points (``--profile-at``,
@@ -67,6 +72,7 @@ capture windows.
 
 from __future__ import annotations
 
+import bisect
 import glob
 import gzip
 import json
@@ -230,10 +236,13 @@ def _self_times(cpu_ops: List[Dict[str, Any]]) -> List[Tuple[Dict[str, Any], flo
 
 def scoped_device_ops(source: TraceSource) -> List[Dict[str, Any]]:
     """Every device op of a trace with its scope path: a list of
-    ``{"name", "dur_us", "path", "flops"}``, ``path`` the enclosing
-    ``user_annotation`` names joined by ``/`` (outer to inner, the
-    forward's ranges first for a backward op; see the module docstring).
-    A device op whose launch the trace lacks gets an empty path."""
+    ``{"name", "dur_us", "path", "flops", "start_us", "end_us",
+    "launch_us"}``, ``path`` the enclosing ``user_annotation`` names
+    joined by ``/`` (outer to inner, the forward's ranges first for a
+    backward op; see the module docstring), ``start_us``/``end_us`` the
+    op's own span and ``launch_us`` its launch's start on the host (a CPU
+    op's own). A device op whose launch the trace lacks gets an empty path
+    and ``launch_us`` None."""
     events = [e for e in load_trace_events(source) if e.get("ph") == "X"]
     device = [e for e in events if e.get("cat") in DEVICE_CATS]
     cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
@@ -311,6 +320,9 @@ def scoped_device_ops(source: TraceSource) -> List[Dict[str, Any]]:
             "dur_us": dur_us,
             "path": "/".join(names(launch)) if launch is not None else "",
             "flops": (e.get("args") or {}).get("flops"),
+            "start_us": float(e.get("ts", 0)),
+            "end_us": _end(e),
+            "launch_us": float(launch.get("ts", 0)) if launch is not None else None,
         }
         for e, launch, dur_us in ops
     ]
@@ -406,6 +418,76 @@ def attribute_trace(
         "peak_tflops": peak_tflops,
         "mfu": mfu,
     }
+
+
+def kernel_breakdown(
+    source: TraceSource, n_steps: int, top: int = 10
+) -> Tuple[Dict[str, float], Optional[float]]:
+    """Device ms/step by op name (the reference's ``hlo_breakdown``
+    shape): the device ops grouped by name with a trailing ``.N`` / digit
+    suffix stripped, the ``top`` largest groups and the rest pooled under
+    ``"other"``; plus the device-op total per step (None for a trace with
+    no device op)."""
+    steps = max(int(n_steps or 0), 1)
+    groups: Dict[str, float] = {}
+    total = 0.0
+    for op in scoped_device_ops(source):
+        dur_ms = op["dur_us"] / 1e3
+        base = _TRAILING_IDX.sub("", op["name"])
+        groups[base] = groups.get(base, 0.0) + dur_ms
+        total += dur_ms
+    per_step = {k: round(v / steps, 3)
+                for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+    out = dict(list(per_step.items())[:top])
+    rest = sum(list(per_step.values())[top:])
+    if rest:
+        out["other"] = round(rest, 3)
+    return out, (total / steps if total else None)
+
+
+def step_device_ms(source: TraceSource, prefix: str = "train_step") -> Optional[Dict[str, Any]]:
+    """Device time of each step of a trace whose steps ran inside
+    ``record_function`` ranges named ``prefix*`` (the reference's
+    ``jit_step_ms``, whose module events a kineto trace lacks): a device
+    op belongs to the step whose range was open when it was launched, the
+    launch found by correlation id (:func:`scoped_device_ops`; a backward
+    launched from the autograd thread while the step's host thread waits
+    in it counts too). Returns None without such a range, else
+    ``{"ms": the median step extent, "busy_median_ms", "extent_ms": [...],
+    "busy_ms": [...], "n_steps"}``: a step's extent runs from its first
+    op's start to its last op's end, what an XLA module event spans, and
+    its busy sum adds its ops' durations, so extent − busy is the device's
+    idle time inside the step (while the host, the profiler's cost
+    included, falls behind the card). A median is the upper one of an
+    even count, as the reference takes it."""
+    events = load_trace_events(source)
+    ranges = sorted((float(e.get("ts", 0)), _end(e)) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith(prefix))
+    if not ranges:
+        return None
+    starts = [r[0] for r in ranges]
+    first = [None] * len(ranges)
+    last = [None] * len(ranges)
+    busy = [0.0] * len(ranges)
+    for op in scoped_device_ops(events):
+        t = op["launch_us"]
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i < 0 or t > ranges[i][1]:
+            continue
+        first[i] = op["start_us"] if first[i] is None else min(first[i], op["start_us"])
+        last[i] = op["end_us"] if last[i] is None else max(last[i], op["end_us"])
+        busy[i] += op["dur_us"]
+    held = [i for i in range(len(ranges)) if first[i] is not None]
+    if not held:
+        return None
+    extent = [(last[i] - first[i]) / 1e3 for i in held]
+    busy_ms = [busy[i] / 1e3 for i in held]
+    mid = len(held) // 2
+    return {"ms": sorted(extent)[mid], "busy_median_ms": sorted(busy_ms)[mid],
+            "extent_ms": extent, "busy_ms": busy_ms, "n_steps": len(held)}
 
 
 # ---------------------------------------------------------------------------
@@ -626,6 +708,7 @@ __all__ = [
     "attribute_trace",
     "attribute_trace_layers",
     "find_trace_file",
+    "kernel_breakdown",
     "layer_needles",
     "layer_of",
     "load_trace_events",
@@ -634,4 +717,5 @@ __all__ = [
     "scoped_device_ops",
     "span",
     "spans_recording",
+    "step_device_ms",
 ]

@@ -22,7 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
              on the same ±1 operands (K1/K4, f32 with TF32 off, a
              yardstick only; bf16 channels_last logged beside it) and the
              least time the card could take; K2 and K3 also over one
-             forward's 19 weights in one graph;
+             forward's 19 weights in one graph; (c) the kernel bench
+             script's ``main(batch=64)`` (``dot_f32`` and ``dot_bf16`` at
+             the reference's seven shapes, beside K1 alone by graph replay
+             and ``F.conv2d``), no row an error;
 4. main    — builds the full-width ImageNet ``resnet18`` (react) from a
              seeded ``torch.Generator`` with non-trivial BN statistics,
              act_shifts and RPReLU vectors, writes an export artifact,
@@ -223,6 +226,22 @@ Phases (any failure exits non-zero and prints no result line):
              across modes, within CPU_LOGIT_TOL of the CPU engine), its
              recorded accuracy A's; (h) each checkpoint's seconds and
              bytes, the restore seconds, the step time around the saves;
+13a. bench — the bench scripts (phase_bench): (a) ``python -m
+             bdbnn_tpu_torch.scripts.bench --batch 128 --iters 5`` as a
+             subprocess (the flagship's bf16 train step on a batch on the
+             card, 5 fenced windows, a 5-step profiler window, the f32
+             comparison): exit 0, a line with ``value`` > 0 and no
+             ``error``, nvidia-smi's device name, ``timing_suspect`` false,
+             the fenced rate at most 1.05 × the traced device rate, the
+             worker's launches 19 a step of K1, K2, K5, K6 (their bf16 modes
+             in the bf16 stage) and one of K7; (b) the profile script in
+             this process (one fenced window of 5 steps, then the 5-step
+             profiler window): device ms by kernel name and category, the
+             by-name total within 5% of the steps' mean busy sum, its
+             step within 10% of (a)'s, the trace's K1-K7 kernels equal to
+             the launch counters over its window; (c) of the kernel bench runs in
+             [kernels] (``bench_kernels_rows``), (d) of the pipeline bench
+             in [train-folder] (e);
 14. train-folder — ImageNet from an image folder: a seeded tree of
              ImageNet-shaped JPEGs (write_image_folder: 16 classes, 1,537
              train files with one truncated, 512 val, about 100 kB each);
@@ -237,9 +256,10 @@ Phases (any failure exits non-zero and prints no result line):
              truncated file and no worker left; the run
              exported and ``cli predict`` over the val split, its engine
              held to the checkpoint's training eval forward on the same
-             images; decode, batch, transfer, copy, step and device-step
-             times and the device's idle share beside the card's name and
-             power limit;
+             images; decode, transfer, copy, step and device-step times,
+             threads against worker processes through the pipeline bench
+             script (its target [bench] (a)'s device rate) and the device's
+             idle share beside the card's name and power limit;
 15. train-bf16 — bf16 compute and remat (MIGRATION.md recipes 3-5 run
              --dtype bfloat16): (a) K1, K2, K5 and K6 in their bf16 modes at
              the flagship's ten conv shapes at -b 256 against their plain
@@ -324,9 +344,10 @@ Phases (any failure exits non-zero and prints no result line):
              bf16, K2 bf16, K5 bf16, K6 bf16; ``launches_by_path`` gives
              serve, serve-bench, serve-http, serve-rollout, serve-fleet, train, train-stoch,
              train-ts, train-resume, train-folder, train-bf16, train-ddp,
-             train-tp, train-health, perf and search, and for a bf16 mode
-             train-bf16, train-bf16-remat, train-bf16-ts, serve-bf16,
-             train-ddp, train-tp and serve-bench), then as the last line
+             train-tp, train-health, perf, search and bench, and for a
+             bf16 mode train-bf16, train-bf16-remat, train-bf16-ts,
+             serve-bf16, train-ddp, train-tp, serve-bench and bench), then
+             as the last line
              ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --weight-kernels`` runs phases 1-3 for K2, K3 and
@@ -341,6 +362,8 @@ chip_smoke.py --serve-bench`` runs the build and phase 4b alone, and
 ``python3 chip_smoke.py --perf`` the build, [train-health] (a)'s fit and
 phase 16c.
 ``python3 chip_smoke.py --search`` runs the build and phases 16d and 16e.
+``python3 chip_smoke.py --bench`` runs the build, phase 13a and [kernels]
+(c).
 ``python3 chip_smoke.py --determinism [--tree DIR ...]`` runs the flagship
 CLI (2 epochs × 4 steps at -b 256) from each checkout straight through and
 SIGTERMed after its first mid-epoch checkpoint then resumed, counts the
@@ -354,6 +377,8 @@ trace lost.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -363,6 +388,16 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the card's timers (CUDA events; CUDA-graph replay) and the kernel
+# wrappers' launch counters, shared with the bench scripts
+from bdbnn_tpu_torch.obs.launches import (  # noqa: E402
+    BF16_KERNELS,
+    KERNELS,
+    launch_counts,
+)
+from bdbnn_tpu_torch.obs.launches import reset_launches as reset_counts  # noqa: E402
+from bdbnn_tpu_torch.obs.timing import cuda_ms, graph_ms  # noqa: E402
 
 # H100 peaks (NVIDIA data sheets, dense): int8 and bf16 tensor TOP/s and
 # TFLOP/s, f32 (non-tensor) TFLOP/s, HBM TB/s — keyed by the form factor
@@ -428,41 +463,6 @@ def log(msg: str) -> None:
 def peaks_for(name: str):
     key = "PCIe" if "pcie" in name.lower() else "SXM"
     return key, PEAKS[key]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, calls: int = 10) -> float:
-    """Mean device ms per call of ``fn``: ``calls`` calls captured in one
-    CUDA graph and replayed, so no host time between launches counts."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    ms = cuda_ms(graph.replay, 5, 1) / calls
-    del graph
-    return ms
 
 
 def bound(bytes_moved: float, ops: float, ops_peak: float, pk) -> tuple:
@@ -579,7 +579,28 @@ def phase_kernels(pk):
             del x, y1, py, xb, wf, xh, wh, lib_y
             torch.cuda.empty_cache()
     _log_forward_sum(recs, "K4")
+    ok = bench_kernels_rows() and ok
     return recs, ok
+
+
+def bench_kernels_rows() -> bool:
+    """[kernels] (c): the kernel bench script's ``main(batch=64)``
+    (``dot_f32`` and ``dot_bf16`` at the reference's seven shapes, each
+    beside K1 alone by graph replay and ``F.conv2d``): every row timed, none
+    an error."""
+    from bdbnn_tpu_torch.scripts import bench_kernels
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = bench_kernels.main(batch=64)
+    rows = summary["results"]
+    ok = len(rows) == 2 * len(bench_kernels.SHAPES) and not any("error" in r for r in rows)
+    for r in rows:
+        log(f"[kernels] (c) bench_kernels {json.dumps(r)}")
+    log(f"[kernels] (c) bench_kernels batch 64 totals {summary['totals_ms']} ms on "
+        f"{summary['device_kind']} in {time.perf_counter() - t0:.1f}s: ok={ok}")
+    return ok
 
 
 def _log_forward_sum(recs, kname) -> None:
@@ -845,46 +866,10 @@ def write_image_folder(root: str, classes: int = 16, train: int = 1537, val: int
             "seconds": time.perf_counter() - t0}
 
 
-def wrappers():
-    from bdbnn_tpu_torch.nn import packed as P
-    from bdbnn_tpu_torch.nn.kernels import (
-        binary_conv2d,
-        binary_conv2d_dgrad,
-        binary_conv2d_wgrad,
-        kurtosis_grouped,
-        weight_binarize,
-    )
-
-    return {
-        "K1": binary_conv2d,
-        "K2": weight_binarize,
-        "K3": P.packed_dense_weight,
-        "K4": P.popcount_binary_conv,
-        "K5": binary_conv2d_dgrad,
-        "K6": binary_conv2d_wgrad,
-        "K7": kurtosis_grouped,
-    }
-
-
-def reset_counts() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_bf16"):
-            fn.launches_bf16 = 0
-
-
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in wrappers().items()}
-
-
-# the kernels with a bf16 mode; each wrapper counts the mode's launches
-# apart (``launches_bf16``) beside all of its launches (``launches``)
-BF16_KERNELS = ("K1", "K2", "K5", "K6")
-
-
-def read_bf16_counts() -> dict:
-    w = wrappers()
-    return {f"{k} bf16": w[k].launches_bf16 for k in BF16_KERNELS}
+    """K1-K7's launches alone (the gates that hold all seven to a want)."""
+    now = launch_counts()
+    return {k: now[k] for k in KERNELS}
 
 
 def phase_main(art: str):
@@ -1064,7 +1049,7 @@ def counted_cli() -> int:
         code = e.code if isinstance(e.code, int) else int(e.code is not None)
     finally:
         with open(path, "w") as f:
-            json.dump({**read_counts(), **read_bf16_counts()}, f)
+            json.dump(launch_counts(), f)
         if windows is not None:
             with open(os.environ[WINDOWS_ENV], "w") as f:
                 json.dump(windows, f)
@@ -1165,7 +1150,7 @@ def sb_run(root: str, art: str, **kw):
     reset_counts()
     t0 = time.perf_counter()
     res = run_serve_bench(cfg)
-    counts = {**read_counts(), **read_bf16_counts()}
+    counts = launch_counts()
     return res["verdict"], res["run_dir"], counts, time.perf_counter() - t0
 
 
@@ -1238,7 +1223,7 @@ def sb_busy_share(art: str, requests: int = 1024) -> tuple:
         b.drain(60)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    counts = {**read_counts(), **read_bf16_counts()}
+    counts = launch_counts()
     busy = sum(ev.self_device_time_total for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return busy, wall_ms, raw["completed"], counts, engine.forwards - fw0
@@ -1391,7 +1376,7 @@ def phase_serve_bench(art: str, smi_line: str):
         raw = LoadGenerator(submit, lambda i: i, mode="closed", requests=len(images),
                             concurrency=SB_CONCURRENCY).run()
         drained = batcher.drain(60) and pool.drain(60)
-        counts = {**read_counts(), **read_bf16_counts()}
+        counts = launch_counts()
         add(counts)
         single = InferenceEngine(art, buckets=SB_BUCKETS, device="cuda")
         index = {id(img): i for i, img in enumerate(images)}
@@ -1438,7 +1423,7 @@ def phase_serve_bench(art: str, smi_line: str):
         except ValueError as e:
             msg = f"ValueError: {e}"
             oks["d_two"] = n_cards < 2 and "one engine per device is the contract" in str(e)
-        add({**read_counts(), **read_bf16_counts()})
+        add(launch_counts())
         log(f"[serve-bench] (d) --replicas 2 with {n_cards} card(s): {msg}; ok={oks['d_two']}")
 
         # (e) SIGTERM after the warmup: drained, every accepted request answered
@@ -1472,7 +1457,7 @@ def phase_serve_bench(art: str, smi_line: str):
         drained = b.drain(60)
         got = np.stack([ffuts[i].result() for i in range(len(tern))])
         alone = np.concatenate([engine.predict_logits(tern[i:i + 1]) for i in range(len(tern))])
-        counts = {**read_counts(), **read_bf16_counts()}
+        counts = launch_counts()
         add(counts)
         rel = float(np.max(np.abs(got - alone))) / max(float(np.max(np.abs(alone))), 1e-30)
         bitwise = int(np.sum(np.all(got.view(np.uint32) == alone.view(np.uint32), axis=-1)))
@@ -1722,7 +1707,7 @@ def sh_busy_share(art: str, rate: float, requests: int = 256) -> tuple:
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         fe.drain(60)
-    counts = {**read_counts(), **read_bf16_counts()}
+    counts = launch_counts()
     busy = sum(ev.self_device_time_total for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     return busy, wall_ms, raw, counts, engine.forwards - fw0
@@ -2424,7 +2409,7 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, fwd_
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((epoch, ev))
-        now = {**read_counts(), **read_bf16_counts()}
+        now = launch_counts()
         per_step.append({k: now[k] - prev.get(k, 0) for k in now})
         prev.update(now)
         losses.append(m["loss"])
@@ -2433,7 +2418,7 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, fwd_
 
     def validate(*a, **kw):
         acc1 = real_validate(*a, **kw)
-        prev.update({**read_counts(), **read_bf16_counts()})
+        prev.update(launch_counts())
         return acc1
 
     torch.cuda.reset_peak_memory_stats()
@@ -2445,7 +2430,7 @@ def run_fit(tag: str, arch: str, steps: int, n_convs: int = N_BINARY_CONVS, fwd_
     finally:
         loop._validate = real_validate
     wall = time.perf_counter() - t0
-    counts = {**read_counts(), **read_bf16_counts()}
+    counts = launch_counts()
     torch.cuda.synchronize()
     loss_vals = [float(v) for v in losses]
     step_ms = [b.elapsed_time(e) for (ea, b), (eb, e) in zip(events, events[1:]) if ea == eb]
@@ -3620,7 +3605,142 @@ def _thread_subset(root: str, folder, out: str) -> str:
     return out
 
 
-def phase_train_folder(smi_line: str):
+# [bench]: the bench scripts on the card (bdbnn_tpu_torch/scripts/): the
+# bench line at -b 128 with 5-step windows, the profile in this process
+BENCH_BATCH = 128
+BENCH_ITERS = 5
+# the K kernels a bench step launches, by wrapper: 19 binary convs' K1, K2
+# forward and K5, K6 backward, K7 once (the kurtosis loss; the bench's
+# StepConfig, the reference's, has no binarization probes, which [train]'s
+# fit adds as K7's second launch)
+BENCH_PER_STEP = {"K1": 19, "K2": 19, "K3": 0, "K4": 0, "K5": 19, "K6": 19, "K7": 1}
+# each K's device kernel launched exactly once a wrapper call, by name
+BENCH_TRACE_NAMES = {"K1": "binary_conv_fwd_kernel", "K2": "weight_sign_kernel",
+                     "K3": "unpack_sign_kernel", "K4": "popcount_conv_fwd_kernel",
+                     "K5": "binary_conv_dgrad_kernel", "K6": "binary_conv_wgrad_kernel",
+                     "K7": "kurt_mean_kernel"}
+
+
+def bench_launches_ok(stage: dict, bf16: bool) -> bool:
+    """A bench stage's launches: BENCH_PER_STEP × its steps of each K, and
+    of each bf16 mode as many in the bf16 stage, none in the f32 one."""
+    n = stage.get("steps", 0)
+    want = {k: c * n for k, c in BENCH_PER_STEP.items()}
+    want.update({f"{k} bf16": want[k] if bf16 else 0 for k in BF16_KERNELS})
+    return n > 0 and {k: stage.get(k) for k in want} == want
+
+
+def phase_bench(smi_line: str):
+    """[bench]: (a) ``python -m bdbnn_tpu_torch.scripts.bench --batch 128
+    --iters 5 --attempts 1 --probe-timeout 0`` as a subprocess, profile and
+    f32 comparison on: exit 0, a last line with ``value`` > 0 and no
+    ``error`` or ``prior_*`` key, ``device_kind`` nvidia-smi's name,
+    ``timing_suspect`` false, ``device_ms_per_step`` present, the fenced
+    rate at most 1.05 × ``device_images_per_sec``, and the worker's
+    launches BENCH_PER_STEP a step of each K (the bf16 modes in the bf16
+    stage, none in the f32 one); (b) the profile script in this process
+    at -b 128, one fenced window of 5 steps before its 5-step profile
+    window: its by-name total (every device op of the window) within 5% of
+    the steps' mean busy sum (the ops launched inside a step's range, so
+    device work outside the steps or lost from the join shows), its
+    device ms a step within 10% of (a)'s, and each K's kernels in its
+    trace (BENCH_TRACE_NAMES) equal to the launch counters over its
+    window. Returns ((a)'s launches, summed over its stages; ok; (a)'s
+    ``device_images_per_sec``)."""
+    import shutil
+
+    from bdbnn_tpu_torch.scripts import profile_step
+
+    tag = "[bench]"
+    t_phase = time.perf_counter()
+    oks = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_bench-")
+    cmd = [sys.executable, "-m", "bdbnn_tpu_torch.scripts.bench", "--batch", str(BENCH_BATCH),
+           "--iters", str(BENCH_ITERS), "--attempts", "1", "--probe-timeout", "0",
+           "--profile-dir", os.path.join(root, "a")]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    line = lines[-1] if lines else {}
+    launches = next((x["launches"] for x in lines if "launches" in x), {})
+    name = smi_line.split(",")[0].strip()
+    dev_rate = line.get("device_images_per_sec")
+    oks["a rc"] = r.returncode == 0
+    oks["a line"] = (line.get("value", 0) > 0 and "error" not in line
+                     and not any(k.startswith("prior_") for k in line))
+    oks["a device_kind"] = line.get("device_kind") == name
+    oks["a timing_suspect"] = line.get("timing_suspect") is False
+    oks["a device_ms_per_step"] = bool(line.get("device_ms_per_step"))
+    oks["a fenced <= 1.05 device"] = bool(dev_rate) and line["value"] <= 1.05 * dev_rate
+    oks["a launches"] = (bench_launches_ok(launches.get("bf16", {}), True)
+                         and bench_launches_ok(launches.get("f32", {}), False))
+    log(f"{tag} (a) {' '.join(cmd[1:])} -> exit {r.returncode} in {seconds:.1f}s [{smi_line}]")
+    log(f"{tag} (a) the worker's stages: " + "; ".join(
+        x.split("] ", 1)[0][len("[bench +"):].strip() + " " + x.split("] ", 1)[1]
+        for x in r.stderr.splitlines() if x.startswith("[bench +") and "] " in x))
+    log(f"{tag} (a) line {json.dumps(line)}")
+    log(f"{tag} (a) the worker's launches by stage {launches} (want {BENCH_PER_STEP} a step; "
+        f"the bf16 modes' in the bf16 stage)")
+    if not oks["a rc"] or not line:
+        log(f"{tag} (a) FAIL stderr tail: {r.stderr[-3000:]}")
+    elif line.get("value") and dev_rate:
+        log(f"{tag} (a) host-fenced {line['value']} images/s = "
+            f"{BENCH_BATCH / line['value'] * 1e3:.2f} ms a step; device "
+            f"{line['device_ms_per_step']} ms a step (busy; extent "
+            f"{line.get('device_extent_ms_per_step')} under the profiler) = {dev_rate} images/s; mfu {line.get('mfu')}, device_mfu {line.get('device_mfu')}; "
+            f"f32 {line.get('f32_images_per_sec_per_chip')} images/s, bf16 speedup "
+            f"{line.get('bf16_speedup_vs_f32')}; vs_baseline {line.get('vs_baseline')} [{smi_line}]")
+    counts = {k: sum(st.get(k, 0) for st in launches.values()) for k in KERNELS}
+    counts.update({f"{k} bf16": launches.get("bf16", {}).get(f"{k} bf16", 0)
+                   for k in BF16_KERNELS})
+
+    # (b) the profile script in this process
+    t0 = time.perf_counter()
+    out_dir = os.path.join(root, "b")
+    prof = profile_step.main(["--batch", str(BENCH_BATCH), "--iters", str(BENCH_ITERS),
+                              "--windows", "1", "--out-dir", out_dir])
+    b_seconds = time.perf_counter() - t0
+    tc = trace_counts(os.path.join(out_dir, profile_step.TRACE_COPY), BENCH_TRACE_NAMES)
+    win = prof["launches_in_window"]
+    by_name = sum(prof["device_time_breakdown_ms_per_step"].values())
+    busy = prof["device_step_busy_ms"]
+    busy_mean = sum(busy) / len(busy) if busy else None
+    dev_b, dev_a = prof["device_ms_per_step_median"], line.get("device_ms_per_step")
+    oks["b by name ~ steps' busy"] = bool(by_name and busy_mean) and abs(
+        by_name - busy_mean) <= 0.05 * busy_mean
+    oks["b device ms ~ (a)"] = bool(dev_a and dev_b) and abs(dev_b - dev_a) <= 0.10 * dev_a
+    oks["b trace K counts"] = all(tc.get(k) == win.get(k) for k in BENCH_TRACE_NAMES)
+    log(f"{tag} (b) profile_step -b {BENCH_BATCH} in {b_seconds:.1f}s: device "
+        f"{dev_b} ms a step (busy; extent {prof['device_extent_ms_per_step_median']}; (a) "
+        f"{dev_a}), "
+        f"{prof['device_images_per_sec']} images/s, device_mfu {prof['device_mfu']}; host-fenced "
+        f"{prof['host_fenced_median_img_per_sec']} images/s ({prof['host_fenced_ms_per_step']} "
+        f"ms), host_fenced_mfu {prof['host_fenced_mfu']}; by-name total {by_name:.3f} ms vs "
+        f"the steps' busy {busy} ms (mean {busy_mean}); attribute_trace's total "
+        f"{prof['device_track_total_ms_per_step']} ms; windows {prof['profile_windows']}, lost records "
+        f"{prof['lost_device_records']} [{smi_line}]")
+    log(f"{tag} (b) device ms a step by kernel name (top 10 + other): "
+        f"{json.dumps(prof['device_time_breakdown_ms_per_step'])}")
+    log(f"{tag} (b) by category: {prof['device_attribution_ms_per_step']}, mfu "
+        f"{prof['device_attribution_mfu']}")
+    log(f"{tag} (b) K kernels in the trace {dict((k, tc.get(k)) for k in BENCH_TRACE_NAMES)} "
+        f"against the window's launch counters {dict((k, win.get(k)) for k in BENCH_TRACE_NAMES)}"
+        f"; device records lost {tc.get('lost')} of {tc.get('issued')}")
+    shutil.rmtree(root, ignore_errors=True)
+    ok = all(oks.values())
+    log(f"{tag} gates {oks} in {time.perf_counter() - t_phase:.1f}s: ok={ok}")
+    return counts, ok, dev_rate
+
+
+# [train-folder] (e)'s pipeline bench: the reference's batch of 64, four
+# timed batches a thread count and at least two a worker process
+# (bench_pipeline.window: 4, 4, 8, 16 for 1, 2, 4, 8 processes)
+PIPELINE_BATCH = 64
+PIPELINE_BATCHES = 4
+
+
+def phase_train_folder(smi_line: str, device_img_per_sec=None):
     """[train-folder]: ImageNet from an image folder on the flagship.
     (a) write_image_folder's tree, its bytes and seconds; (b) on the card's
     host: ``mp`` train batches bitwise at -j 1 and -j W, ``threads`` and
@@ -3644,7 +3764,9 @@ def phase_train_folder(smi_line: str):
     at its threshold: their count and the top-1 disagreements are logged,
     and predict's top-1 may differ from the eval's by those images;
     (e) times beside the card's name and power limit:
-    decode per image on one thread, a batch of 256 alone per backend, the
+    decode per image on one thread, threads against worker processes
+    (the pipeline bench script's ``run`` on the train split, its target
+    ``device_img_per_sec``, [bench] (a)'s device rate), the
     pin and copy of a uint8 batch, fit's step per backend and epoch, the
     device step on a folder batch on the card, and the device's idle
     share of fit's steps. Returns (the mp run's launch counts, ok)."""
@@ -3669,6 +3791,7 @@ def phase_train_folder(smi_line: str):
     from bdbnn_tpu_torch.data.pipeline import _load_one
     from bdbnn_tpu_torch.models import create_model
     from bdbnn_tpu_torch.obs.events import read_events
+    from bdbnn_tpu_torch.scripts import bench_pipeline
     from bdbnn_tpu_torch.serve.engine import InferenceEngine
     from bdbnn_tpu_torch.serve.export import export_artifact
     from bdbnn_tpu_torch.train.step import prep_images
@@ -3710,34 +3833,18 @@ def phase_train_folder(smi_line: str):
             return pipe
 
         mpw = mk(MPImageFolderPipeline, train, True, num_workers=workers)
-        # one worker, one batch in flight: a batch's time alone
+        # one worker, one batch in flight: its batches are -j W's
         mp1 = mk(MPImageFolderPipeline, train, True, num_workers=1, prefetch_batches=1)
         thr = mk(ImageFolderPipeline, train, True)
         mp_val = mk(MPImageFolderPipeline, val, False, num_workers=workers)
         thr_val = mk(ImageFolderPipeline, val, False)
         errs = {"mp": [], "threads": []}
         mpw.on_data_error, thr.on_data_error = errs["mp"].append, errs["threads"].append
-        t0 = time.perf_counter()
         full_mp = list(mpw.epoch(0))
-        t_mp_cold = time.perf_counter() - t0
-        t0 = time.perf_counter()
         full_thr = list(thr.epoch(0))
-        t_thr = time.perf_counter() - t0
         mpw.on_data_error = thr.on_data_error = None
-        t0 = time.perf_counter()
-        n_warm = len(list(mpw.epoch(1)))
-        t_mp_warm = time.perf_counter() - t0
-        it = thr.epoch(1)
-        t0 = time.perf_counter()
-        next(it)
-        t_thr_one = time.perf_counter() - t0
-        it.close()
-        mp1._get_pool().apply(int, (0,))  # the worker is up
         it = mp1.epoch(0)
-        t0 = time.perf_counter()
-        first_j1 = [next(it)]
-        t_mp_one = time.perf_counter() - t0
-        first_j1.append(next(it))
+        first_j1 = [next(it), next(it)]
         it.close()
         # each worker builds one batch, timed inside it: the round trip's
         # rest is the 38.5 MB's way back through the pool's pipe
@@ -3766,12 +3873,6 @@ def phase_train_folder(smi_line: str):
         log(f"{tag} (b) data errors: mp {errs['mp']}; threads {errs['threads']}")
         shapes = {x.shape for x, _ in full_mp + full_thr}
         oks["batch shapes"] = shapes == {(TRAIN_BATCH, 224, 224, 3)}
-        log(f"{tag} (e) a -b {TRAIN_BATCH} batch alone: mp {t_mp_one * 1e3:.1f} ms (one worker "
-            f"decodes it), threads {t_thr_one * 1e3:.1f} ms (8 threads); an epoch of "
-            f"{len(full_mp)} batches: mp -j {workers} {t_mp_warm * 1e3 / n_warm:.1f} ms a "
-            f"batch with the pool warm ({t_mp_cold:.2f}s for the first epoch, the pool's "
-            f"spawn included), threads {t_thr * 1e3 / len(full_thr):.1f} ms a batch "
-            f"[{smi_line}]")
 
         # the card's normalize against the host's, and the pinned copy
         x0 = full_mp[0][0]
@@ -3806,6 +3907,20 @@ def phase_train_folder(smi_line: str):
         for p in pipes:
             p.close()
         pipes.clear()
+        # threads against worker processes: the pipeline bench script on
+        # this tree, the card's device rate from [bench] (a) as its target
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            pb = bench_pipeline.run(train, PIPELINE_BATCH, PIPELINE_BATCHES,
+                                    device_img_per_sec=device_img_per_sec)
+        log(f"{tag} (e) bench_pipeline on this tree, -b {PIPELINE_BATCH}, after a warm batch "
+            f"{PIPELINE_BATCHES} a thread count and "
+            f"{[bench_pipeline.window(PIPELINE_BATCHES, w) for w in bench_pipeline.PROCESSES]} "
+            f"for {bench_pipeline.PROCESSES} worker processes: threads {pb['threads_img_per_sec']} images/s, worker "
+            f"processes {pb['processes_img_per_sec']} images/s; the card's "
+            f"{pb['device_img_per_sec_target']} images/s needs "
+            f"{pb['workers_to_saturate_device']} workers; {pb['host_cpu_count']} host cores, "
+            f"{time.perf_counter() - t0:.1f}s [{smi_line}]")
 
         # (c) fit on the folder, worker processes then threads
         logs = fresh_log_root()
@@ -4164,7 +4279,7 @@ def serve_bf16(tag: str, run_dir: str):
         x = np.random.default_rng(6).normal(size=(32, 224, 224, 3)).astype(np.float32)
         reset_counts()
         out = {m: e.predict_logits(x) for m, e in engines.items()}
-        counts = {**read_counts(), **read_bf16_counts()}
+        counts = launch_counts()
         fin = all(np.all(np.isfinite(v)) and v.shape == (32, 1000) for v in out.values())
         same = np.array_equal(out["dense"].view(np.uint32), out["unpack"].view(np.uint32))
         sparse = np.zeros_like(x)
@@ -4545,7 +4660,7 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks.append(ev)
-        now = {**read_counts(), **read_bf16_counts()}
+        now = launch_counts()
         per_step.append({k: now[k] - prev.get(k, 0) for k in now})
         prev.update(now)
         losses.append(m["loss"])
@@ -4555,7 +4670,7 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
 
     def validate(*a, **kw):
         acc1 = real_validate(*a, **kw)
-        prev.update({**read_counts(), **read_bf16_counts()})
+        prev.update(launch_counts())
         return acc1
 
     prev_det = torch.backends.cudnn.deterministic
@@ -4571,7 +4686,7 @@ def ddp_fit(log_path: str, arch: str = "resnet18", steps: int = DDP_STEPS,
         loop.create_sharded_state = real_shard
         torch.backends.cudnn.deterministic = prev_det
     wall = time.perf_counter() - t0
-    counts = {**read_counts(), **read_bf16_counts()}
+    counts = launch_counts()
     if cuda:
         torch.cuda.synchronize()
     state = held["state"]
@@ -7372,6 +7487,9 @@ def main(argv=None) -> int:
                     help="only build the kernels, write the flagship artifact and run the "
                          "[perf] phase (and [train-health] (a)'s fit, whose window (b) "
                          "reads); exits 0 when its gates pass")
+    ap.add_argument("--bench", action="store_true",
+                    help="only build the kernels and run [bench] and [kernels] (c) (the bench "
+                         "scripts); exits 0 when their gates pass")
     ap.add_argument("--search", action="store_true",
                     help="only build the kernels and run the [search] and [check] phases; exits "
                          "0 when their gates pass")
@@ -7415,6 +7533,12 @@ def main(argv=None) -> int:
         return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
     if args.determinism:
         ok_alone = phase_determinism(args.tree or [REPO], smi_line)
+        if not ok_alone:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
+        return 0 if ok_alone else 1
+    if args.bench:
+        ok_alone = timed("bench", phase_bench, smi_line)[1]
+        ok_alone = timed("bench_kernels", bench_kernels_rows) and ok_alone
         if not ok_alone:
             print("\n".join(_FAILURES), file=sys.stderr, flush=True)
         return 0 if ok_alone else 1
@@ -7490,7 +7614,8 @@ def main(argv=None) -> int:
     stoch_counts, ok_ts = timed("train-stoch", phase_train_stoch, pk)
     ts_counts, ok_tts = timed("train-ts", phase_train_ts)
     resume_counts, ok_tr = timed("train-resume", phase_train_resume, pk)
-    folder_counts, ok_tf = timed("train-folder", phase_train_folder, smi_line)
+    bench_counts, ok_bn, bench_rate = timed("bench", phase_bench, smi_line)
+    folder_counts, ok_tf = timed("train-folder", phase_train_folder, smi_line, bench_rate)
     bf16_counts, brecs, ok_tb = timed("train-bf16", phase_train_bf16, pk, f32_prof)
     recs.update(brecs)
     ddp_counts, ok_td = timed("train-ddp", phase_train_ddp, smi_line)
@@ -7537,9 +7662,12 @@ def main(argv=None) -> int:
     # their counters: the SIGKILLed host's are unknown), and on the perf
     # command's sweep (K1-K4; its warmups and unmeasured forwards
     # included), and on the clean recipe search's trial processes (K1,
-    # K2, K5, K6, K7; the sum over its four trials). A bf16 mode's record (K1 bf16, ...) counts that mode's
+    # K2, K5, K6, K7; the sum over its four trials), and on the bench
+    # script's worker in [bench] (a) (K1, K2, K5-K7; its bf16 and f32
+    # stages summed). A bf16 mode's record (K1 bf16, ...) counts that mode's
     # launches: on the bf16 flagship's path, its remat run, the bf16
-    # BASELINE config 4 run and the bf16 artifact's serving
+    # BASELINE config 4 run, the bf16 artifact's serving and the bench's
+    # bf16 stage
     by_path = {k: {"serve": counts.get(k, 0), "serve-bench": sb_counts.get(k, 0),
                    "serve-http": sh_counts.get(k, 0),
                    "serve-rollout": sr_counts.get(k, 0),
@@ -7553,7 +7681,8 @@ def main(argv=None) -> int:
                    "train-tp": tp_counts.get(k, 0),
                    "train-health": th_counts.get(k, 0),
                    "perf": perf_counts.get(k, 0),
-                   "search": search_counts.get(k, 0)}
+                   "search": search_counts.get(k, 0),
+                   "bench": bench_counts.get(k, 0)}
                for k in sources}
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
@@ -7562,6 +7691,7 @@ def main(argv=None) -> int:
         by_path[f"{k} bf16"]["train-ddp"] = ddp_counts.get(f"{k} bf16", 0)
         by_path[f"{k} bf16"]["train-tp"] = tp_counts.get(f"{k} bf16", 0)
         by_path[f"{k} bf16"]["serve-bench"] = sb_counts.get(f"{k} bf16", 0)
+        by_path[f"{k} bf16"]["bench"] = bench_counts.get(f"{k} bf16", 0)
     used = {k: by_path[k]["serve" if k in ("K1", "K2", "K3", "K4") else "train"] for k in sources
             if k in recs and not k.endswith("bf16")}
     used.update({f"{k} bf16": by_path[f"{k} bf16"]["train-bf16"] for k in BF16_KERNELS})
@@ -7573,7 +7703,9 @@ def main(argv=None) -> int:
         by_path[k]["serve-http"] > 0 and by_path[k]["serve-rollout"] > 0
         and by_path[k]["serve-fleet"] > 0 for k in ("K1", "K2", "K3")) and all(
         by_path[k]["perf"] > 0 for k in ("K1", "K2", "K3", "K4")) and all(
-        by_path[k]["search"] > 0 for k in ("K1", "K2", "K5", "K6", "K7"))
+        by_path[k]["search"] > 0 for k in ("K1", "K2", "K5", "K6", "K7")) and all(
+        by_path[k]["bench"] > 0 for k in ("K1", "K2", "K5", "K6", "K7", "K1 bf16", "K2 bf16",
+                                          "K5 bf16", "K6 bf16"))
     if not ok_used:
         log(f"chip_smoke: a kernel was not launched on its main path: {by_path}")
     kernels = []
@@ -7626,7 +7758,7 @@ def main(argv=None) -> int:
            "train_cli": ok_tc, "train_stoch": ok_ts, "train_ts": ok_tts, "train_resume": ok_tr,
            "train_folder": ok_tf, "train_bf16": ok_tb, "train_ddp": ok_td,
            "train_tp": ok_ttp, "train_health": ok_th, "perf": ok_pf, "search": ok_se,
-           "check": ok_ck, "launched": ok_used}
+           "check": ok_ck, "bench": ok_bn, "launched": ok_used}
     if not all(oks.values()):
         log(f"chip_smoke: FAILED {oks}")
         print("\n".join(_FAILURES), file=sys.stderr, flush=True)

@@ -323,6 +323,9 @@ def test_a_card_window_absorbs_before_its_capture_starts(device, burst, tmp_path
     cap = ttrace.TraceCapture(str(tmp_path / "tr"), [(0, 0, 1)], device=dev)
     assert cap.maybe_start(0, 0)
     assert order == (["prepare", "cuda", "start"] if burst else ["prepare", "start"])
+    # close the window: an open one keeps the process's spans recording for
+    # every later test in it
+    assert cap.stop_if_active() is not None and not ttrace.spans_recording()
 
 
 def test_a_real_window_writes_a_trace_the_reference_finds(tmp_path):

@@ -284,3 +284,59 @@ def test_nn_names_resolve_on_first_use():
     assert binarize.parse_binarizer is pkg.parse_binarizer
     with pytest.raises(AttributeError, match="no attribute"):
         getattr(pkg, "not_a_name")
+
+
+def test_bench_scripts_and_entry_are_scanned():
+    """The scans above cover the bench scripts' slice: ``entry()``, the
+    four scripts, the launch counters and the timers they share with
+    ``chip_smoke.py``, and the trace helpers they read."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("entry.py", "scripts/__init__.py", "scripts/bench.py", "scripts/profile_step.py",
+                "scripts/bench_kernels.py", "scripts/bench_pipeline.py", "obs/launches.py",
+                "obs/timing.py", "obs/trace.py"):
+        assert os.path.join("bdbnn_tpu_torch", mod) in rel
+
+
+def test_bench_help_loads_no_jax_no_reference_and_no_torch():
+    """``python -m bdbnn_tpu_torch.scripts.bench --help`` exits 0 with the
+    reference's flags, in a process that loads nothing of jax, flax or
+    the JAX package, nor torch: the parent probes and relays, and only
+    its worker subprocess holds the card."""
+    code = (
+        "import sys, runpy\n"
+        "sys.argv = ['bench', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('bdbnn_tpu_torch.scripts.bench', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('torch',)!r})\n"
+        "print(bad)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout.strip().splitlines()
+    assert out[-1] == "[]"
+    for flag in ("--worker", "--batch", "--iters", "--attempts", "--timeout", "--probe-timeout",
+                 "--profile-dir", "--no-compare"):
+        assert flag in r.stdout, flag
+
+
+def test_importing_chip_smoke_loads_no_torch_and_no_numpy():
+    """``import chip_smoke`` loads nothing of torch or numpy (nor jax, flax
+    or the JAX package): the processes the script spawns re-import it (a
+    decode worker of ``MPImageFolderPipeline`` re-imports the main module;
+    the search harness runs as ``import chip_smoke; counted_search()``), and
+    a torch import in each of them costs seconds of the host's cores and
+    breaks the harness's no-torch gate."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "assert callable(chip_smoke.cuda_ms) and callable(chip_smoke.reset_counts)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('torch', 'numpy')!r})\n"
+        "print(bad)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "[]"
