@@ -44,14 +44,8 @@
 // float(acc) * alpha[o] is the same single f32 multiply as the
 // reference's (y * alpha) and the output is bitwise equal to it.
 //
-// bf16 mode (a bf16 model): x, shift, u, alpha and y are bf16. The sign
-// of x - shift is taken on the exact f32 difference of the two bf16
-// values, whose sign (and zero) the reference's bf16-rounded difference
-// shares; the stochastic sign rounds x + 1 to bf16 as the reference's
-// bf16 add does. The reference's bf16 conv rounds the exact dot to bf16
-// and its bf16 multiply rounds again, so the epilogue writes
-// bf16(bf16(dot) * alpha[o]) — the product of two bf16 values is exact
-// in f32, so that is bitwise the reference's.
+// The bf16 mode (a bf16 model) is a kernel of its own:
+// binary_conv_fwd_bf16.cu.
 #include "sign_gemm.cuh"
 
 namespace {
@@ -60,11 +54,9 @@ constexpr int PREP_THREADS = 256;
 using Tile = sg::Stage<64, 16>;  // 64-byte stages (two MMAs) in 16-byte copies
 
 // Work items: (pixel, 4 channels of CP) of sx, then the bytes of wpad.
-// T: float, or __nv_bfloat16 in the bf16 mode (x, shift and u).
-template <typename T>
 __global__ void __launch_bounds__(PREP_THREADS)
-fwd_sign_prep_kernel(const T* __restrict__ x, const T* __restrict__ shift,
-                     const T* __restrict__ u, const int8_t* __restrict__ wsign,
+fwd_sign_prep_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+                     const float* __restrict__ u, const int8_t* __restrict__ wsign,
                      int8_t* __restrict__ sx, int8_t* __restrict__ wpad, long long pixels, int C, int CP,
                      long long wrows, bool vec) {
     const long long xitems = pixels * (CP / 4);
@@ -98,42 +90,20 @@ fwd_sign_prep_kernel(const T* __restrict__ x, const T* __restrict__ shift,
             uint32_t word = 0;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const bool plus = u != nullptr ? stoch_plus<T>(v[e], r[e]) : v[e] >= 0.f;
+                const bool plus = u != nullptr ? stoch_sign_plus(v[e], r[e]) : v[e] >= 0.f;
                 word |= (in[e] ? (plus ? 0x01u : 0xFFu) : 0u) << (8 * e);
             }
             *reinterpret_cast<uint32_t*>(sx + pix * CP + c0) = word;
         } else {
             const long long wi = it - xitems;
-            const long long row = wi / CP;
-            const int c = (int)(wi - row * CP);
-            wpad[wi] = c < C ? wsign[row * C + c] : (int8_t)0;
+            wpad[wi] = padded_weight_sign(wsign, wi, C, CP);
         }
     }
 }
 
-// y[m, o] = bf16(bf16(dot) * alpha[o]) for the channel pair (o, o + 1)
-// of row m: the bf16 mode's epilogue
-__device__ __forceinline__ void store_scaled_bf16(__nv_bfloat16* __restrict__ y,
-                                                  const __nv_bfloat16* __restrict__ alpha,
-                                                  long long m, int o, int O, int d0, int d1) {
-    __nv_bfloat16* row = y + m * O;
-    auto scaled = [&](int d, int oc) {
-        return __float2bfloat16_rn(
-            __fmul_rn(round_to_bf16((float)d), __bfloat162float(alpha[oc])));
-    };
-    if ((O & 1) == 0 && o + 1 < O) {
-        *reinterpret_cast<__nv_bfloat162*>(row + o) = __halves2bfloat162(scaled(d0, o),
-                                                                        scaled(d1, o + 1));
-    } else {
-        if (o < O) row[o] = scaled(d0, o);
-        if (o + 1 < O) row[o + 1] = scaled(d1, o + 1);
-    }
-}
-
-template <typename T>
 __global__ void __launch_bounds__(sg::THREADS, 3)
 binary_conv_fwd_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__ wk,
-                       const T* __restrict__ alpha, T* __restrict__ y, ConvGeom g) {
+                       const float* __restrict__ alpha, float* __restrict__ y, ConvGeom g) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     int acc[4][4][4];
     sign_gemm_mainloop<false, Tile>(reinterpret_cast<const uint8_t*>(sx),
@@ -142,54 +112,46 @@ binary_conv_fwd_kernel(const int8_t* __restrict__ sx, const int8_t* __restrict__
     const int o0 = blockIdx.y * sg::BN;
     sign_gemm_for_each(acc, [&](int r, int c, int d0, int d1) {
         if (m0 + r >= g.M) return;
-        if constexpr (sizeof(T) == 2)
-            store_scaled_bf16(y, alpha, m0 + r, o0 + c, g.O, d0, d1);
-        else
-            store_scaled(y, alpha, m0 + r, o0 + c, g.O, d0, d1);
+        store_scaled(y, alpha, m0 + r, o0 + c, g.O, d0, d1);
     });
 }
 
-template <typename T>
 int fwd(const void* x, const void* shift, const void* u, const void* wsign, const void* alpha,
         void* sx, void* wpad, void* y, int N, int H, int W, int C, int O, int kh, int kw,
         int stride, int pad, int Ho, int Wo, int CP, cudaStream_t st) {
     const long long pixels = (long long)N * H * W;
     const long long wrows = (long long)O * kh * kw;
-    constexpr uintptr_t VEC_BYTES = 4 * sizeof(T);
+    constexpr uintptr_t VEC_BYTES = 4 * sizeof(float);
     const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % VEC_BYTES == 0 &&
                      reinterpret_cast<uintptr_t>(shift) % VEC_BYTES == 0 &&
                      reinterpret_cast<uintptr_t>(u) % VEC_BYTES == 0;
     const long long items = pixels * (CP / 4) + (wpad != nullptr ? wrows * CP : 0);
     const long long pblocks = (items + PREP_THREADS - 1) / PREP_THREADS;
-    fwd_sign_prep_kernel<T><<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS,
+    fwd_sign_prep_kernel<<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS,
                               0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(shift), static_cast<const T*>(u),
+        static_cast<const float*>(x), static_cast<const float*>(shift), static_cast<const float*>(u),
         static_cast<const int8_t*>(wsign), static_cast<int8_t*>(sx), static_cast<int8_t*>(wpad),
         pixels, C, CP, wrows, vec);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(binary_conv_fwd_kernel<T>,
+    err = cudaFuncSetAttribute(binary_conv_fwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     const ConvGeom g{(long long)N * Ho * Wo, H, W, O, kw, kh * kw, stride, pad, Ho, Wo, CP};
     const dim3 grid((unsigned)((g.M + sg::BM - 1) / sg::BM), (unsigned)((O + sg::BN - 1) / sg::BN));
-    binary_conv_fwd_kernel<T><<<grid, sg::THREADS, Tile::SMEM_BYTES, st>>>(
+    binary_conv_fwd_kernel<<<grid, sg::THREADS, Tile::SMEM_BYTES, st>>>(
         static_cast<const int8_t*>(sx),
-        static_cast<const int8_t*>(wpad != nullptr ? wpad : wsign), static_cast<const T*>(alpha),
-        static_cast<T*>(y), g);
+        static_cast<const int8_t*>(wpad != nullptr ? wpad : wsign), static_cast<const float*>(alpha),
+        static_cast<float*>(y), g);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16: the bf16 mode (x, shift, u, alpha and y bf16)
 BDBNN_EXPORT int bdbnn_binary_conv_fwd(const void* x, const void* shift, const void* u,
                                        const void* wsign, const void* alpha, void* sx, void* wpad,
                                        void* y, int N, int H, int W, int C, int O, int kh, int kw,
-                                       int stride, int pad, int Ho, int Wo, int CP, int bf16,
-                                       void* stream) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    auto run = bf16 ? fwd<__nv_bfloat16> : fwd<float>;
-    return run(x, shift, u, wsign, alpha, sx, wpad, y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo,
-               CP, st);
+                                       int stride, int pad, int Ho, int Wo, int CP, void* stream) {
+    return fwd(x, shift, u, wsign, alpha, sx, wpad, y, N, H, W, C, O, kh, kw, stride, pad,
+                      Ho, Wo, CP, static_cast<cudaStream_t>(stream));
 }

@@ -57,13 +57,8 @@
 // output is written once, by one thread, in a fixed order: two runs give
 // the same bits.
 //
-// bf16 mode (a bf16 model): g, x, shift, u and alpha are bf16; W and dW
-// stay the f32 latent weight and its gradient. The reference's cotangent
-// is ga = bf16(g * alpha), one piece, so the GEMM runs one MMA a k step
-// where the f32 mode runs three; its weight cotangent is bf16 and its STE
-// mask reads the bf16-rounded weight, so the reduce pass writes
-// dW = f32(bf16(sum) * 1{|bf16(W)| <= 1}). (|bf16(W)| <= 1 differs from
-// |W| <= 1 for W just above 1, which rounds down to 1.)
+// The bf16 mode (a bf16 model) is a kernel of its own:
+// binary_conv_wgrad_bf16.cu.
 #include "bf16x3.cuh"
 
 namespace {
@@ -83,28 +78,23 @@ static_assert(TPR * BK == THREADS && A_CHUNKS * TPR * 8 == BM && BK % 16 == 0, "
 constexpr int APITCH = BM + 8;
 constexpr int A_STAGE = BK * APITCH;
 
-// The B operand's shape for PIECES pieces of ga (3 in the f32 mode, 1 in
-// the bf16 mode)
-template <int PIECES>
-struct BTile {
-    static constexpr int CHUNKS = PIECES * BN / 8 / TPR;  // 16-byte gs copies a thread
-    static constexpr int PITCH = PIECES * BN + 8;
-    static constexpr int STAGE = BK * PITCH;
-    static constexpr int SMEM_BYTES = NSTAGE * (A_STAGE + STAGE) * 2;
-    static_assert(CHUNKS * TPR * 8 == PIECES * BN, "B loader");
-};
+// The B operand: the three pieces of ga side by side
+constexpr int PIECES = 3;
+constexpr int B_CHUNKS = PIECES * BN / 8 / TPR;  // 16-byte gs copies a thread
+constexpr int BPITCH = PIECES * BN + 8;
+constexpr int B_STAGE = BK * BPITCH;
+constexpr int SMEM_BYTES = NSTAGE * (A_STAGE + B_STAGE) * 2;
+static_assert(B_CHUNKS * TPR * 8 == PIECES * BN, "B loader");
 constexpr int PREP_THREADS = 256;
 constexpr int REDUCE_THREADS = 256;
 constexpr uint32_t BF16_PLUS_ONE = 0x3F80u;
 constexpr uint32_t BF16_MINUS_ONE = 0xBF80u;
 
 // Work items: (row, 8 o values) of gs, then (row, 8 c values) of sx.
-// T: float (three pieces of ga), or __nv_bfloat16 (the bf16 mode's one).
-template <typename T>
 __global__ void __launch_bounds__(PREP_THREADS)
-wgrad_prep_kernel(const T* __restrict__ g, const T* __restrict__ alpha,
-                  const T* __restrict__ x, const T* __restrict__ shift,
-                  const T* __restrict__ u, __nv_bfloat16* __restrict__ gs, __nv_bfloat16* __restrict__ sx,
+wgrad_prep_kernel(const float* __restrict__ g, const float* __restrict__ alpha,
+                  const float* __restrict__ x, const float* __restrict__ shift,
+                  const float* __restrict__ u, __nv_bfloat16* __restrict__ gs, __nv_bfloat16* __restrict__ sx,
                   long long grows, int O, int OP, long long xrows, int C, int CP) {
     const long long gitems = grows * (OP / 8);
     const long long items = gitems + xrows * (CP / 8);
@@ -126,10 +116,10 @@ wgrad_prep_kernel(const T* __restrict__ g, const T* __restrict__ alpha,
                     const int c = c0 + e + q;
                     b[q] = 0u;
                     if (c < C) {
-                        const float xv = load_f(x + row * C + c);
-                        const float v = shift != nullptr ? __fsub_rn(xv, load_f(shift + c)) : xv;
+                        const float xv = x[row * C + c];
+                        const float v = shift != nullptr ? __fsub_rn(xv, shift[c]) : xv;
                         const bool plus =
-                            u != nullptr ? stoch_plus<T>(v, load_f(u + row * C + c)) : v >= 0.f;
+                            u != nullptr ? stoch_sign_plus(v, u[row * C + c]) : v >= 0.f;
                         b[q] = plus ? BF16_PLUS_ONE : BF16_MINUS_ONE;
                     }
                 }
@@ -143,14 +133,11 @@ wgrad_prep_kernel(const T* __restrict__ g, const T* __restrict__ alpha,
 // The GEMM's rows are r = tap * CP + c, so a tile of BM rows spans
 // several taps when C is small, and each 16-byte chunk of a row lies in
 // one tap (CP is a multiple of 8).
-template <int PIECES>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 binary_conv_wgrad_kernel(const __nv_bfloat16* __restrict__ sx, const __nv_bfloat16* __restrict__ gs,
                          float* __restrict__ partial, int N, int H, int W, int C, int O, int KK,
                          int kw, int stride, int pad, int Ho, int Wo, int OP, int CP, int Kd,
                          int rows_per_split) {
-    using B = BTile<PIECES>;
-    constexpr int B_CHUNKS = B::CHUNKS, BPITCH = B::PITCH;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
     __nv_bfloat16* Bs = As + NSTAGE * A_STAGE;
@@ -204,7 +191,7 @@ binary_conv_wgrad_kernel(const __nv_bfloat16* __restrict__ sx, const __nv_bfloat
             cp_async16(adst + (lq * A_CHUNKS + u) * 16,
                        ok ? sx + (((long long)n * H + hi) * W + wi) * CP + ac[u] : sx, ok);
         }
-        const uint32_t bdst = smem_u32(Bs + buf * B::STAGE + lr * BPITCH);
+        const uint32_t bdst = smem_u32(Bs + buf * B_STAGE + lr * BPITCH);
 #pragma unroll
         for (int u = 0; u < B_CHUNKS; ++u) {
             const int q = lq * B_CHUNKS + u;
@@ -242,7 +229,7 @@ binary_conv_wgrad_kernel(const __nv_bfloat16* __restrict__ sx, const __nv_bfloat
         cp_async_commit();
         const int buf = it % NSTAGE;
         const __nv_bfloat16* Ab = As + buf * A_STAGE;
-        const __nv_bfloat16* Bb = Bs + buf * B::STAGE;
+        const __nv_bfloat16* Bb = Bs + buf * B_STAGE;
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
             // sx is stored (position, c): the A fragments (rows c, k =
@@ -314,7 +301,6 @@ binary_conv_wgrad_kernel(const __nv_bfloat16* __restrict__ sx, const __nv_bfloat
         }
 }
 
-template <bool BF16>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 binary_conv_wgrad_reduce_kernel(const float* __restrict__ partial, const float* __restrict__ w,
                                 float* __restrict__ dw, long long KO, int splits) {
@@ -323,48 +309,39 @@ binary_conv_wgrad_reduce_kernel(const float* __restrict__ partial, const float* 
     float acc = 0.f, comp = 0.f;
     for (int z = 0; z < splits; ++z) kahan_add(acc, comp, partial[(long long)z * KO + e]);
     // the reference's g * (|W| <= 1).astype(g.dtype): a masked entry is
-    // s * 0, which keeps the sign of zero; in bf16 the sum and the weight
-    // are rounded to bf16 first
-    const float sum = __fsub_rn(acc, comp);
-    if (BF16)
-        dw[e] = __fmul_rn(round_to_bf16(sum), fabsf(round_to_bf16(w[e])) <= 1.f ? 1.f : 0.f);
-    else
-        dw[e] = __fmul_rn(sum, fabsf(w[e]) <= 1.f ? 1.f : 0.f);
+    // s * 0, which keeps the sign of zero
+    dw[e] = __fmul_rn(__fsub_rn(acc, comp), fabsf(w[e]) <= 1.f ? 1.f : 0.f);
 }
 
-template <typename T>
 int wgrad(const void* g, const void* x, const void* shift, const void* u, const void* w,
           const void* alpha, void* gs, void* sx, void* partial, void* dw, int N, int H, int W,
           int C, int O, int kh, int kw, int stride, int pad, int Ho, int Wo, int OP, int CP,
           int splits, int rows_per_split, cudaStream_t st) {
-    constexpr bool BF16 = sizeof(T) == 2;
-    constexpr int PIECES = BF16 ? 1 : 3;
     const long long grows = (long long)N * Ho * Wo;
     const long long xrows = (long long)N * H * W;
     const long long items = grows * (OP / 8) + xrows * (CP / 8);
     const long long pblocks = (items + PREP_THREADS - 1) / PREP_THREADS;
-    wgrad_prep_kernel<T><<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS, 0,
-                           st>>>(static_cast<const T*>(g), static_cast<const T*>(alpha),
-                                 static_cast<const T*>(x), static_cast<const T*>(shift),
-                                 static_cast<const T*>(u), static_cast<__nv_bfloat16*>(gs),
+    wgrad_prep_kernel<<<(unsigned)(pblocks < 132 * 32 ? pblocks : 132 * 32), PREP_THREADS, 0,
+                           st>>>(static_cast<const float*>(g), static_cast<const float*>(alpha),
+                                 static_cast<const float*>(x), static_cast<const float*>(shift),
+                                 static_cast<const float*>(u), static_cast<__nv_bfloat16*>(gs),
                                  static_cast<__nv_bfloat16*>(sx), grows, O, OP, xrows, C, CP);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    constexpr int SMEM_BYTES = BTile<PIECES>::SMEM_BYTES;
-    err = cudaFuncSetAttribute(binary_conv_wgrad_kernel<PIECES>,
+    err = cudaFuncSetAttribute(binary_conv_wgrad_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     const int Kd = kh * kw * C;
     const dim3 grid((unsigned)((kh * kw * CP + BM - 1) / BM), (unsigned)((O + BN - 1) / BN),
                     (unsigned)splits);
-    binary_conv_wgrad_kernel<PIECES><<<grid, THREADS, SMEM_BYTES, st>>>(
+    binary_conv_wgrad_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
         static_cast<const __nv_bfloat16*>(sx), static_cast<const __nv_bfloat16*>(gs),
         static_cast<float*>(partial), N, H, W, C, O, kh * kw, kw, stride, pad, Ho, Wo, OP, CP, Kd,
         rows_per_split);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const long long KO = (long long)Kd * O;
-    binary_conv_wgrad_reduce_kernel<BF16>
+    binary_conv_wgrad_reduce_kernel
         <<<(unsigned)((KO + REDUCE_THREADS - 1) / REDUCE_THREADS), REDUCE_THREADS, 0, st>>>(
             static_cast<const float*>(partial), static_cast<const float*>(w),
             static_cast<float*>(dw), KO, splits);
@@ -373,15 +350,13 @@ int wgrad(const void* g, const void* x, const void* shift, const void* u, const 
 
 }  // namespace
 
-// bf16: the bf16 mode (g, x, shift, u and alpha bf16; gs (N, Ho, Wo, 1,
-// OP)); W and dW are f32 in both modes
 BDBNN_EXPORT int bdbnn_binary_conv_wgrad(const void* g, const void* x, const void* shift,
                                          const void* u, const void* w, const void* alpha,
                                          void* gs, void* sx, void* partial, void* dw, int N,
                                          int H, int W, int C, int O, int kh, int kw, int stride,
                                          int pad, int Ho, int Wo, int OP, int CP, int splits,
-                                         int rows_per_split, int bf16, void* stream) {
-    auto run = bf16 ? wgrad<__nv_bfloat16> : wgrad<float>;
-    return run(g, x, shift, u, w, alpha, gs, sx, partial, dw, N, H, W, C, O, kh, kw, stride, pad,
-               Ho, Wo, OP, CP, splits, rows_per_split, static_cast<cudaStream_t>(stream));
+                                         int rows_per_split, void* stream) {
+    return wgrad(g, x, shift, u, w, alpha, gs, sx, partial, dw, N, H, W, C, O, kh, kw,
+                        stride, pad, Ho, Wo, OP, CP, splits, rows_per_split,
+                        static_cast<cudaStream_t>(stream));
 }

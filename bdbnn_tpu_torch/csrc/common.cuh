@@ -34,8 +34,8 @@ __device__ __forceinline__ bool stoch_sign_plus_bf16(float x, float u) {
 }
 
 // Element loads of the kernels that take f32 or bf16 activations: one
-// value as f32, and 4 consecutive values from an aligned address (16
-// bytes of f32, 8 of bf16).
+// value as f32; and 4 consecutive f32 values from a 16-byte aligned
+// address.
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void load4_f(const float* p, float (&v)[4]) {
@@ -45,22 +45,12 @@ __device__ __forceinline__ void load4_f(const float* p, float (&v)[4]) {
     v[2] = f.z;
     v[3] = f.w;
 }
-__device__ __forceinline__ void load4_f(const __nv_bfloat16* p, float (&v)[4]) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = b.x;
-    v[3] = b.y;
-}
 
-// The activation sign of the stochastic family: bf16 operands take the
-// reference's bf16 ops
-template <typename T>
-__device__ __forceinline__ bool stoch_plus(float x, float u) {
-    if constexpr (sizeof(T) == 2)
-        return stoch_sign_plus_bf16(x, u);
-    else
-        return stoch_sign_plus(x, u);
+// The weight sign padded to CP channels a tap (zero beyond C): byte i of
+// wpad (rows, CP) from wsign (rows, C)
+__device__ __forceinline__ int8_t padded_weight_sign(const int8_t* __restrict__ wsign,
+                                                     long long i, int C, int CP) {
+    const long long row = i / CP;
+    const int c = (int)(i - row * CP);
+    return c < C ? wsign[row * C + c] : (int8_t)0;
 }

@@ -1,12 +1,14 @@
 """Hand-written Hopper kernels for the binary compute hot spot.
 
-- K1 ``binary_conv2d`` — fused sign + ±1 conv (``csrc/binary_conv.cu``);
+- K1 ``binary_conv2d`` — fused sign + ±1 conv (``csrc/binary_conv.cu``;
+  its bf16 mode ``csrc/binary_conv_fwd_bf16.cu``);
 - K2 ``weight_binarize`` — weight sign + alpha (``csrc/weight_binarize.cu``);
 - K3 / K4 live in :mod:`bdbnn_tpu_torch.nn.packed` (``csrc/packed.cu``);
 - K5 ``binary_conv2d_dgrad`` — input gradient with the sign estimator's
   slope (``csrc/binary_conv_dgrad.cu``);
 - K6 ``binary_conv2d_wgrad`` — weight gradient with the STE mask
-  (``csrc/binary_conv_wgrad.cu``);
+  (``csrc/binary_conv_wgrad.cu``; its bf16 mode
+  ``csrc/binary_conv_wgrad_bf16.cu``);
 - K7 ``kurtosis_grouped`` — the grouped kurtosis regularizer and its
   gradient (``csrc/kurtosis.cu``).
 

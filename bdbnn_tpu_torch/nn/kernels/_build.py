@@ -43,10 +43,20 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv": {
         # x, shift (or NULL), u (or NULL), wsign, alpha, sx scratch, wpad
         # scratch (or NULL), y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo,
-        # CP, bf16, stream
+        # CP, stream
         "bdbnn_binary_conv_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _P),
+                                  _P),
+    },
+    "binary_conv_fwd_bf16": {
+        # x, shift (or NULL), u (or NULL), wsign, alpha, wpad scratch (or
+        # NULL), y, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, CP,
+        # halo_rows, stream
+        "bdbnn_binary_conv_fwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _P),
+        # halo_rows, W, kh, kw -> dynamic shared memory bytes a block
+        "bdbnn_binary_conv_fwd_bf16_smem": (_I, _I, _I, _I),
     },
     "binary_conv_dgrad": {
         # g, x, shift (or NULL), wsign, alpha, taps, gs scratch, wb
@@ -59,10 +69,18 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv_wgrad": {
         # g, x, shift (or NULL), u (or NULL), w, alpha, gs scratch, sx
         # scratch, partial scratch, dw, N, H, W, C, O, kh, kw, stride, pad,
-        # Ho, Wo, OP, CP, splits, rows_per_split, bf16, stream
+        # Ho, Wo, OP, CP, splits, rows_per_split, stream
         "bdbnn_binary_conv_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _P),
+                                    _I, _I, _I, _I, _I, _P),
+    },
+    "binary_conv_wgrad_bf16": {
+        # g, x, shift (or NULL), u (or NULL), w, alpha, partial scratch (or
+        # NULL), dw, N, H, W, C, O, kh, kw, stride, pad, Ho, Wo, CP, splits,
+        # rows_per_split, stream
+        "bdbnn_binary_conv_wgrad_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _I, _P),
     },
     "kurtosis": {
         # table (host bytes, copied into the launches), mode, with_grad,

@@ -5,7 +5,8 @@ forward of ``binary_conv2d_mxu`` is the XLA convolution on ±1 operands
 and its backward the exact float conv VJP; here all three are
 hand-written CUDA kernels:
 
-- K1 :func:`binary_conv2d` (``csrc/binary_conv.cu``) — the fused forward
+- K1 :func:`binary_conv2d` (``csrc/binary_conv.cu``; the bf16 mode
+  ``csrc/binary_conv_fwd_bf16.cu``) — the fused forward
   the layers call: f32 NHWC ``x``, an optional per-channel ``shift``
   (react's ``act_shift``), the int8 ``(O, kh, kw, C)`` weight sign K2
   emits, and f32 ``alpha (O,)``, on the int8 tensor cores: a prep pass
@@ -24,7 +25,8 @@ hand-written CUDA kernels:
   (:func:`split_bf16x3`) and the dx rows taken by stride-parity class
   (:func:`dgrad_parity_classes`), so only the taps on the stride grid
   are multiplied.
-- K6 :func:`binary_conv2d_wgrad` (``csrc/binary_conv_wgrad.cu``) — the
+- K6 :func:`binary_conv2d_wgrad` (``csrc/binary_conv_wgrad.cu``; the bf16
+  mode ``csrc/binary_conv_wgrad_bf16.cu``) — the
   weight gradient ``conv(sign(x - shift)ᵀ, g·alpha)`` times the latent
   weight's STE mask ``1{|W| <= 1}``, in HWIO, on the bf16 tensor cores:
   the same exact split of ``g·alpha``, the activation sign written once
@@ -48,14 +50,21 @@ reference's bf16 ops compute (``bdbnn_tpu/nn/kernels/binary_conv.py``
 ``_forward`` and its ``jax.vjp``), never an f32 kernel on upcast copies:
 
 - K1 writes bf16 ``y = bf16(bf16(dot)·alpha)`` — the reference's bf16
-  conv rounds the exact dot, its bf16 multiply rounds again;
+  conv rounds the exact dot, its bf16 multiply rounds again. Its kernel
+  is its own (``csrc/binary_conv_fwd_bf16.cu``): no prep pass; each block
+  signs the input rows its positions touch into shared memory once
+  (:func:`fwd_halo_span`) and gathers every tap from there into a wgmma
+  s8 product;
 - K5 takes ``ga = bf16(g·alpha)`` as its one bf16 piece (the reference's
   cotangent is that bf16 product), rounds the sum to bf16, and applies
   the estimator's slope at ``bf16(x - shift)`` in the reference's bf16
   ops (EDE's ``t, k`` and prox's ``δ`` rounded to bf16); dx is bf16;
 - K6 takes the same one piece, and returns ``f32(bf16(Σ)·1{|bf16(W)| <=
   1})``: the reference's weight cotangent is bf16, its STE mask reads the
-  bf16-rounded weight, and the cast to the f32 latent passes it on.
+  bf16-rounded weight, and the cast to the f32 latent passes it on. Its
+  kernel is its own (``csrc/binary_conv_wgrad_bf16.cu``): the sign and
+  ``bf16(g·alpha)`` built in its loader, wgmma bf16 chains folded every 32
+  positions, the reduction split as :func:`wgrad_bf16_splits` says.
 
 Padding is symmetric ``k//2`` ("auto", torch-style) or explicit
 symmetric pairs, applied AFTER the sign as in the reference (a padding
@@ -68,6 +77,7 @@ the plain version only for a tensor on the CPU.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -212,6 +222,47 @@ def binary_conv2d_plain(
 # K1's reduction runs over int8 rows of one tap's channels, padded to a
 # multiple of the 32-deep int8 MMA
 FWD_C_STAGE = 32
+# K1's bf16 mode: 128 positions a block, channels in chunks of 64 (the
+# weight sign padded to a multiple of it), and the shared memory a block
+# may take on the H100
+FWD_BF16_TILE = 128
+FWD_BF16_C_CHUNK = 64
+SMEM_PER_BLOCK = 232448
+
+
+def fwd_halo_span(m0: int, count: int, h: int, kh: int, stride: int, pad: int, ho: int,
+                  wo: int) -> Tuple[int, int]:
+    """The input rows K1's bf16 mode reads for the positions ``m0 ..
+    m0 + count - 1``, as global rows ``n·H + h``: from the first
+    position's top tap row to the last one's bottom tap row, clipped to
+    each image (the kernel's own arithmetic). Consecutive positions touch
+    consecutive rows, so every row any of them reads lies in between."""
+    hwo = ho * wo
+    last = m0 + count - 1
+    n_a, n_b = m0 // hwo, last // hwo
+    ho_a, ho_b = (m0 - n_a * hwo) // wo, (last - n_b * hwo) // wo
+    return (n_a * h + max(0, ho_a * stride - pad),
+            n_b * h + min(h - 1, ho_b * stride - pad + kh - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_halo_rows(n: int, h: int, w: int, kh: int, kw: int, stride: int, pad: int) -> int:
+    """The most input rows any of K1's bf16 tiles reads (its shared
+    memory holds that many rows of ``w`` pixels). A tile's span depends
+    on its first position modulo ``Ho·Wo`` alone, and tile starts repeat
+    modulo it every ``Ho·Wo / gcd(128, Ho·Wo)`` tiles, so one period and
+    the (shorter) last tile cover every tile of the batch."""
+    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    m = n * ho * wo
+    tiles = -(-m // FWD_BF16_TILE)
+    period = ho * wo // math.gcd(FWD_BF16_TILE, ho * wo)
+    starts = set(range(min(tiles, period))) | {tiles - 1}
+    most = 0
+    for t in starts:
+        m0 = t * FWD_BF16_TILE
+        lo, hi = fwd_halo_span(m0, min(FWD_BF16_TILE, m - m0), h, kh, stride, pad, ho, wo)
+        most = max(most, hi - lo + 1)
+    return most
 
 
 def act_sign_int8(
@@ -239,10 +290,11 @@ def binary_conv2d(
     in, bf16 out (the bf16 mode). With the draw ``u`` the sign is the
     sampled one (no ``shift`` then).
 
-    K1's scratch is allocated here: the int8 sign (N, H, W, CP) and, only
-    where the weight sign cannot be read as it is (C not a multiple of
-    :data:`FWD_C_STAGE`, or a pointer off 16 bytes), its copy padded to
-    (O, kh, kw, CP)."""
+    K1's scratch is allocated here. The f32 mode: the int8 sign (N, H, W,
+    CP) and, only where the weight sign cannot be read as it is (C not a
+    multiple of :data:`FWD_C_STAGE`, or a pointer off 16 bytes), its copy
+    padded to (O, kh, kw, CP). The bf16 mode: that padded copy alone, to
+    :data:`FWD_BF16_C_CHUNK` (its kernel signs x itself)."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     check_draw(u, x, shift)
     if not x.is_cuda:
@@ -256,22 +308,43 @@ def binary_conv2d(
     stride = _check_strides(strides)
     pad = _symmetric_pad(padding, kh, kw)
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    y = torch.empty((n, ho, wo, o), dtype=x.dtype, device=x.device)
+    shift_p = shift.data_ptr() if shift is not None else None
+    u_p = u.data_ptr() if u is not None else None
+    if x.dtype == torch.bfloat16:
+        cp = _round_up(c, FWD_BF16_C_CHUNK)
+        wpad = None
+        if cp != c or wsign.data_ptr() % 16:
+            wpad = torch.empty((o, kh, kw, cp), dtype=torch.int8, device=x.device)
+        rows = fwd_halo_rows(n, h, w, kh, kw, stride, pad)
+        lib = _build.library("binary_conv_fwd_bf16")
+        smem = lib.bdbnn_binary_conv_fwd_bf16_smem(rows, w, kh, kw)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(
+                f"K1 bf16: a tile's {rows} input rows of {w} pixels need {smem} bytes of shared "
+                f"memory, over the card's {SMEM_PER_BLOCK}"
+            )
+        err = lib.bdbnn_binary_conv_fwd_bf16(
+            x.data_ptr(), shift_p, u_p, wsign.data_ptr(), alpha.data_ptr(),
+            wpad.data_ptr() if wpad is not None else None, y.data_ptr(),
+            n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, rows, _build.stream_ptr(x.device),
+        )
+        _build.check(lib, err, "binary_conv2d")
+        _build.count_launch(binary_conv2d, True)
+        return y
     cp = _round_up(c, FWD_C_STAGE)
     sx = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
     wpad = None
     if cp != c or wsign.data_ptr() % 16:
         wpad = torch.empty((o, kh, kw, cp), dtype=torch.int8, device=x.device)
-    bf16 = x.dtype == torch.bfloat16
-    y = torch.empty((n, ho, wo, o), dtype=x.dtype, device=x.device)
     lib = _build.library("binary_conv")
     err = lib.bdbnn_binary_conv_fwd(
-        x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        u.data_ptr() if u is not None else None, wsign.data_ptr(), alpha.data_ptr(), sx.data_ptr(),
+        x.data_ptr(), shift_p, u_p, wsign.data_ptr(), alpha.data_ptr(), sx.data_ptr(),
         wpad.data_ptr() if wpad is not None else None, y.data_ptr(),
-        n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, int(bf16), _build.stream_ptr(x.device),
+        n, h, w, c, o, kh, kw, stride, pad, ho, wo, cp, _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d")
-    _build.count_launch(binary_conv2d, bf16)
+    _build.count_launch(binary_conv2d, False)
     return y
 
 
@@ -556,6 +629,36 @@ def wgrad_splits(m: int, kd: int, o: int) -> Tuple[int, int]:
     return math.ceil(m / rows), rows
 
 
+# K6's bf16 mode: 128 dW rows x 64 output channels a block, positions in
+# 128-deep stages; one block an SM of the H100 (132); its split partials,
+# an f64 total an output a split, kept under a few MB
+WGRAD_BF16_ROW_TILE = 128
+WGRAD_BF16_O_TILE = 64
+WGRAD_BF16_M_STAGE = 128
+WGRAD_BF16_SMS = 132
+WGRAD_BF16_PARTIAL_BYTES = 16 * 2**20
+WGRAD_BF16_MIN_ROWS = 512
+
+
+def wgrad_bf16_splits(m: int, kd: int, rows: int, o: int) -> Tuple[int, int]:
+    """(splits, rows per split) of K6's bf16 reduction over ``m``
+    positions, for a GEMM of ``kd`` = kh·kw·CP rows (its tiles) writing
+    ``rows`` = kh·kw·C rows of ``o`` dW entries. Of the split counts whose
+    partials (an f64 total an entry a split) fit
+    :data:`WGRAD_BF16_PARTIAL_BYTES` and whose splits are at least
+    :data:`WGRAD_BF16_MIN_ROWS` positions long, the one that spends the
+    fewest waves of :data:`WGRAD_BF16_SMS` blocks per split (the fewest
+    splits on a tie): the card filled with as few partials as it takes.
+    Rows per split are a multiple of the 128-deep stage. A function of the
+    shapes alone, so a run's sum order is fixed."""
+    tiles = math.ceil(kd / WGRAD_BF16_ROW_TILE) * math.ceil(o / WGRAD_BF16_O_TILE)
+    cap = max(1, min(math.ceil(m / WGRAD_BF16_MIN_ROWS),
+                     WGRAD_BF16_PARTIAL_BYTES // (8 * rows * o)))
+    best = min(range(1, cap + 1), key=lambda s: (math.ceil(tiles * s / WGRAD_BF16_SMS) / s, s))
+    per = math.ceil(math.ceil(m / best) / WGRAD_BF16_M_STAGE) * WGRAD_BF16_M_STAGE
+    return math.ceil(m / per), per
+
+
 def binary_conv2d_wgrad(
     g: Tensor,
     x: Tensor,
@@ -573,11 +676,12 @@ def binary_conv2d_wgrad(
     ``shift``, ``u`` and ``alpha`` take the bf16 mode; ``w`` and dW are
     f32 in both.
 
-    K6 allocates its scratch here: ``g·alpha`` split into three bf16
-    pieces (N, Ho, Wo, 3, OP) as K5 lays it out (one piece in the bf16
-    mode), the activation sign as
-    bf16 (N, H, W, CP), and the f32 partial sums of the split reduction
-    (splits, kh·kw·C, O)."""
+    K6 allocates its scratch here. The f32 mode: ``g·alpha`` split into
+    three bf16 pieces (N, Ho, Wo, 3, OP) as K5 lays it out, the activation
+    sign as bf16 (N, H, W, CP), and the f32 partial sums of the split
+    reduction (splits, kh·kw·C, O). The bf16 mode builds its operands in
+    its loader and needs only the f64 partials of a split reduction,
+    (splits, kh·kw·C, O) (:func:`wgrad_bf16_splits`)."""
     kh, kw, c, o = _check_latent(w, x, alpha)
     check_draw(u, x, shift)
     if not x.is_cuda:
@@ -598,22 +702,39 @@ def binary_conv2d_wgrad(
     _check_grad(g, n, ho, wo, o, x)
     if n * ho * wo >= 2**30:  # the GEMM's position ranges stay in int32
         raise ValueError(f"K6 takes under 2^30 output positions, got {n}x{ho}x{wo}")
-    bf16 = x.dtype == torch.bfloat16
-    op, cp = _round_up(o, DGRAD_O_STAGE), _round_up(c, 8)
+    cp = _round_up(c, 8)
+    dw = torch.empty_like(w)
+    shift_p = shift.data_ptr() if shift is not None else None
+    u_p = u.data_ptr() if u is not None else None
+    if x.dtype == torch.bfloat16:
+        splits, rows = wgrad_bf16_splits(n * ho * wo, kh * kw * cp, kh * kw * c, o)
+        partial = None
+        if splits > 1:
+            partial = torch.empty((splits, kh * kw * c, o), dtype=torch.float64,
+                                  device=x.device)
+        lib = _build.library("binary_conv_wgrad_bf16")
+        err = lib.bdbnn_binary_conv_wgrad_bf16(
+            g.data_ptr(), x.data_ptr(), shift_p, u_p, w.data_ptr(), alpha.data_ptr(),
+            partial.data_ptr() if partial is not None else None, dw.data_ptr(),
+            n, h, wd, c, o, kh, kw, stride, pad, ho, wo, cp, splits, rows,
+            _build.stream_ptr(x.device),
+        )
+        _build.check(lib, err, "binary_conv2d_wgrad")
+        _build.count_launch(binary_conv2d_wgrad, True)
+        return dw
+    op = _round_up(o, DGRAD_O_STAGE)
     splits, rows = wgrad_splits(n * ho * wo, kh * kw * cp, o)
     gs = torch.empty((n, ho, wo, ga_pieces(x.dtype), op), dtype=torch.bfloat16, device=x.device)
     sx = torch.empty((n, h, wd, cp), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, kh * kw * c, o), dtype=torch.float32, device=x.device)
-    dw = torch.empty_like(w)
     lib = _build.library("binary_conv_wgrad")
     err = lib.bdbnn_binary_conv_wgrad(
-        g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        u.data_ptr() if u is not None else None, w.data_ptr(), alpha.data_ptr(), gs.data_ptr(), sx.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), n, h, wd, c, o, kh, kw, stride, pad, ho, wo, op, cp, splits, rows,
-        int(bf16), _build.stream_ptr(x.device),
+        g.data_ptr(), x.data_ptr(), shift_p, u_p, w.data_ptr(), alpha.data_ptr(), gs.data_ptr(),
+        sx.data_ptr(), partial.data_ptr(), dw.data_ptr(), n, h, wd, c, o, kh, kw, stride, pad, ho,
+        wo, op, cp, splits, rows, _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_wgrad")
-    _build.count_launch(binary_conv2d_wgrad, bf16)
+    _build.count_launch(binary_conv2d_wgrad, False)
     return dw
 
 
@@ -717,6 +838,9 @@ __all__ = [
     "im2col_nhwc",
     "sign_int8_from_hwio",
     "split_bf16x3",
+    "fwd_halo_rows",
+    "fwd_halo_span",
+    "wgrad_bf16_splits",
     "wgrad_sign_bf16",
     "wgrad_splits",
 ]

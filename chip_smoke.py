@@ -727,21 +727,30 @@ def forward_weight_graphs(recs) -> None:
 
 
 def log_mma_instructions() -> None:
-    """Which tensor-core instructions the built K1 and K4 libraries hold
-    (``cuobjdump -sass`` beside ``nvcc``), for the log."""
+    """Which tensor-core instructions the built K1, K4 and bf16-mode K1
+    and K6 libraries hold (``cuobjdump -sass`` beside ``nvcc``), for the
+    log: mma.sync as IMMA/BMMA/HMMA, wgmma as IGMMA/HGMMA. The four
+    disassemblies run side by side."""
     import collections
     import re
 
     from bdbnn_tpu_torch.nn.kernels import _build
 
+    names = ("binary_conv", "packed", "binary_conv_fwd_bf16", "binary_conv_wgrad_bf16")
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    for name in ("binary_conv", "packed"):
-        if not os.path.exists(tool):
-            log(f"[build] {name}: no cuobjdump beside nvcc, instructions not read")
-            continue
-        sass = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True,
-                              text=True, timeout=120).stdout
-        ops = collections.Counter(re.findall(r"\b([BIH]MMA\.[A-Z0-9.]+)", sass))
+    if not os.path.exists(tool):
+        log(f"[build] {', '.join(names)}: no cuobjdump beside nvcc, instructions not read")
+        return
+    outs = {name: tempfile.TemporaryFile(mode="w+") for name in names}
+    procs = {name: subprocess.Popen([tool, "-sass", _build.library_path(name)],
+                                    stdout=outs[name], stderr=subprocess.DEVNULL)
+             for name in names}
+    for name, proc in procs.items():
+        proc.wait(timeout=120)
+        outs[name].seek(0)
+        sass = outs[name].read()
+        outs[name].close()
+        ops = collections.Counter(re.findall(r"\b([BIH]G?MMA\.[A-Za-z0-9.]+)", sass))
         log(f"[build] {name}: tensor-core instructions in its SASS {dict(ops)}")
 
 
@@ -1529,7 +1538,13 @@ SH_WIRE_ATOL = 5e-5
 # the saturating schedule (b)'s calibration offers from inside the server's
 # process and (a) from outside it
 SH_SAT_RATE = 4000.0
-SH_SAT_REQUESTS = 512
+SH_SAT_REQUESTS = 256
+# (b)'s poisson run at half the calibrated rate, (c)'s flash crowd run to
+# its end and (d)'s quota run: each lasts requests / rate seconds, so
+# their counts set most of the phase's length past its server starts
+SH_B_REQUESTS = 512
+SH_BURST_REQUESTS = 750
+SH_D_REQUESTS = 256
 
 
 def sh_request(host: str, port: int, method: str, path: str, body: bytes = b"",
@@ -1876,7 +1891,7 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
             + (f", capped at 0.5 × serve-bench's {sb_thr}" if sb_thr else "")
             + f" = {rate} req/s ({cal['seconds']:.1f}s) ok={oks['b_cal']}")
         b = sh_cli(root, art, [*base, "--scenario", "poisson", "--rate", str(rate),
-                               "--requests", "1024"])
+                               "--requests", str(SH_B_REQUESTS)])
         add(b["counts"])
         vb = b["verdict"]
         att = (vb or {}).get("attribution") or {}
@@ -1885,7 +1900,7 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
                     and {"read", "admit", "respond"} <= stages and vb["capacity"] is not None
                     and sh_launch_gate("(b)", b, "unpack"))
         if vb is not None:
-            log(f"[serve-http] (b) poisson at {rate} req/s, 1024 requests, concurrency 16, "
+            log(f"[serve-http] (b) poisson at {rate} req/s, {SH_B_REQUESTS} requests, concurrency 16, "
                 f"packed/unpack: {sb_line(vb)}; client {vb['client']}")
             log(f"[serve-http] (b) per priority {json.dumps(sh_per_priority(vb))}")
             log(f"[serve-http] (b) attribution {json.dumps(sb_attribution(att))}")
@@ -1911,13 +1926,14 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
 
         # (c) flash crowd ×8, dense: 10,000 requests with SIGTERM 3 s after
         # ready (the burst window opens a third of the way through the
-        # schedule, 10000 / (3 R) s in); then 1,500 requests run to their
-        # end, whose burst opens 500 / R s in, from 64 connections against
+        # schedule, 10000 / (3 R) s in); then SH_BURST_REQUESTS run to
+        # their end, whose burst opens a third of the way in, from 64 connections against
         # 8-deep class queues (16 connections never fill the default
         # 64-deep queues: the backlog would wait on the client's side)
         for tag, n, term, extra in (
                 ("c", 10000, 3.0, []),
-                ("c_burst", 1500, None, ["--concurrency", "64", "--queue-depth", "8"])):
+                ("c_burst", SH_BURST_REQUESTS, None,
+                 ["--concurrency", "64", "--queue-depth", "8"])):
             cc = sh_cli(root, art, ["--default-quota", SH_QUOTA, "--scenario", "flash_crowd",
                                     "--rate", str(rate), "--flash-factor", "8", "--requests",
                                     str(n), *extra], sigterm_after_ready_s=term)
@@ -1958,7 +1974,8 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
             got += [sh_predict(host, port, tern[i % 8], tenant="tenant-a")[:3] for i in range(5)]
             return got
 
-        d = sh_cli(root, art, ["--scenario", "poisson", "--rate", str(rate), "--requests", "512",
+        d = sh_cli(root, art, ["--scenario", "poisson", "--rate", str(rate), "--requests",
+                               str(SH_D_REQUESTS),
                                "--default-quota", "20:20", "--tenant-quota",
                                "tenant-a=100000:100000"], client=client_d)
         add(d["counts"])
@@ -1974,7 +1991,7 @@ def phase_serve_http(art: str, smi_line: str, sb_thr=None):
                         and pt["tenant-a"]["over_quota"] == 0 and sh_accounted(vd)
                         and sh_launch_gate("(d)", d, "dense"))
             log(f"[serve-http] (d) quotas 20:20 default, tenant-a unlimited, poisson at {rate} "
-                f"req/s, 512 requests, and 30 direct tenant-b + 5 tenant-a requests: direct "
+                f"req/s, {SH_D_REQUESTS} requests, and 30 direct tenant-b + 5 tenant-a requests: direct "
                 f"tenant-b 429s {len(b429)} (over_quota with retry-after), tenant-a codes "
                 f"{sorted(a_codes)}; per tenant "
                 f"{ {t: {k: r[k] for k in ('submitted', 'completed', 'over_quota')} for t, r in pt.items()} }; "
@@ -2874,7 +2891,7 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, trace:
 
 # the device kernels of each K wrapper, by the name the profiler gives them
 K_KERNEL_NAMES = {
-    "K1": ("binary_conv_fwd_kernel", "fwd_sign_prep_kernel"),
+    "K1": ("binary_conv_fwd_kernel", "fwd_sign_prep_kernel", "fwd_wpad_kernel"),
     "K2": ("weight_sign_kernel", "weight_alpha_finish_kernel"),
     "K5": ("binary_conv_dgrad_kernel", "dgrad_split_kernel"),
     "K6": ("binary_conv_wgrad_kernel", "binary_conv_wgrad_reduce_kernel", "wgrad_prep_kernel"),
@@ -6829,7 +6846,7 @@ PERF_ITERS = 20
 # wrapper call), and every kernel each launches (prep passes, finishes)
 PERF_TRACE_NAMES = {"K1": "binary_conv_fwd_kernel", "K2": "weight_sign_kernel",
                     "K3": "unpack_sign_kernel", "K4": "popcount_conv_fwd_kernel"}
-K_FAMILIES = {"K1": ("fwd_sign_prep_kernel", "binary_conv_fwd_kernel"),
+K_FAMILIES = {"K1": ("fwd_sign_prep_kernel", "binary_conv_fwd_kernel", "fwd_wpad_kernel"),
               "K2": ("weight_sign_kernel", "weight_alpha_finish_kernel"),
               "K3": ("unpack_sign_kernel",),
               "K4": ("popcount_prep_kernel", "popcount_conv_fwd_kernel"),
@@ -7668,6 +7685,11 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--bf16-kernels", action="store_true",
+                    help="only build the kernels and run [train-bf16] (a): K1, K2, K5 and K6 in "
+                         "their bf16 modes at the ten flagship shapes against their plain "
+                         "versions and cuDNN's bf16 calls, then print their records as one JSON "
+                         "line")
     ap.add_argument("--weight-kernels", action="store_true",
                     help="only build the kernels and hold and time K2, K3 and K7 (phases 1-3 "
                          "for them), then print their records as one JSON line; for comparing "
@@ -7802,6 +7824,13 @@ def main(argv=None) -> int:
         if not ok_alone:
             print("\n".join(_FAILURES), file=sys.stderr, flush=True)
         return 0 if ok_alone else 1
+    if args.bf16_kernels:
+        brecs, ok_b = timed("bf16_kernels", bf16_kernels, "[train-bf16]", pk)
+        print(json.dumps({"bf16_kernels": brecs, "device": kind, "nvidia_smi": smi_line}),
+              flush=True)
+        if not ok_b:
+            print("\n".join(_FAILURES), file=sys.stderr, flush=True)
+        return 0 if ok_b else 1
     if args.weight_kernels:
         wrecs, ok_w = phase_weight_kernels(pk)
         wrecs["K7"], ok_k7 = phase_k7(pk)
@@ -7910,6 +7939,9 @@ def main(argv=None) -> int:
                for k in sources}
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
+    sources["K1 bf16"] = "bdbnn_tpu_torch/csrc/binary_conv_fwd_bf16.cu"
+    sources["K6 bf16"] = "bdbnn_tpu_torch/csrc/binary_conv_wgrad_bf16.cu"
+    for k in BF16_KERNELS:
         names[f"{k} bf16"] = names[k].replace(" (", " bf16 mode (", 1)
         by_path[f"{k} bf16"] = {path: c.get(f"{k} bf16", 0) for path, c in bf16_counts.items()}
         by_path[f"{k} bf16"]["train-ddp"] = ddp_counts.get(f"{k} bf16", 0)

@@ -19,7 +19,10 @@ where the sampled dW is far from the hard one. The bf16 modes: K1 bitwise
 its plain bf16 version (hard sign and draw), K2's sign bitwise and its
 alpha within one bf16 rounding, K5 and K6 within the f32 summation bound
 plus a bf16 rounding on each side, all bitwise across two runs and
-counted apart (``launches_bf16``). The HTTP front end over the flagship
+counted apart (``launches_bf16``); the redesigned K1 and K6 bf16 kernels
+also at shapes off their tiles and chunks (K6 against the float64 sum
+too), with the hard sign and the draw, and with the draw over one split
+of 49 stages, five runs bitwise alike. The HTTP front end over the flagship
 engine on ``cuda:0`` answers 8 requests over loopback, each bitwise the
 engine's logits of the batch it rode in, rounded to 4 places. A
 bucket-8 flagship forward in the engine's trace window has every K1 and K2
@@ -51,7 +54,7 @@ from bdbnn_tpu_torch.nn.kernels import (
     weight_binarize,
     weight_binarize_plain,
 )
-from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope
+from bdbnn_tpu_torch.nn.kernels.binary_conv import estimator_slope, wgrad_bf16_splits
 from bdbnn_tpu_torch.serve.export import _pack_sign
 from chip_smoke import FLAGSHIP_CONVS
 
@@ -684,6 +687,116 @@ def test_k6_bf16_with_u_within_bound(cuda, case):
     bound = 8 * U * wterms + UB * (dw.abs() + pdw.abs()) + 1e-30
     assert bool(((dw - pdw).abs() <= bound).all())
     assert bool(((hard - pdw).abs() > 100 * bound).any())
+
+
+# The redesigned bf16 kernels (K1 bf16: the halo signed in shared memory,
+# wgmma s8; K6 bf16: the warp-specialized wgmma bf16 with the folded
+# chains and the split of wgrad_bf16_splits) at shapes off their edges: C
+# not a multiple of 8, 32 or 64 (the chunk), O not a multiple of the
+# 64-channel tile, stride 2, 1x1 downsamples, M not a multiple of the
+# 128-position tile, reductions split and not, the hard sign with and
+# without a shift and the draw u
+BF16_EDGE_CASES = [
+    (2, 9, 9, 5, 4, 3, 1, True),
+    (1, 7, 9, 6, 3, 3, 2, False),
+    (2, 5, 5, 7, 3, 1, 1, True),
+    (1, 6, 6, 40, 70, 3, 1, False),
+    (3, 13, 11, 200, 131, 3, 2, True),
+    (3, 16, 16, 64, 64, 3, 1, True),
+    (2, 14, 14, 128, 256, 1, 1, True),
+    (5, 7, 7, 512, 96, 3, 1, False),
+    (4, 28, 28, 96, 72, 3, 2, True),
+]
+BF16_EDGE_IDS = [f"n{c[0]}-{c[1]}x{c[2]}-c{c[3]}-o{c[4]}-k{c[5]}s{c[6]}-"
+                 f"{'shift' if c[7] else 'none'}" for c in BF16_EDGE_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", [False, True], ids=["hard", "u"])
+@pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=BF16_EDGE_IDS)
+def test_k1_bf16_edge_shapes_bitwise(cuda, case, draw):
+    """K1 bf16 bitwise its plain bf16 version and across two runs, one
+    launch a call counted in its bf16 mode."""
+    x, shift, w = _bf16_operands(case, cuda, seed=51)
+    wsign, alpha = weight_binarize(w, dtype=BF16)
+    st = (case[6], case[6])
+    u = _draw(x, 52).to(BF16) if draw else None
+    if draw:
+        shift = None
+    before = binary_conv2d.launches_bf16
+    y = binary_conv2d(x, wsign, alpha, shift=shift, strides=st, u=u)
+    y2 = binary_conv2d(x, wsign, alpha, shift=shift, strides=st, u=u)
+    plain = binary_conv2d_plain(x, wsign, alpha, shift=shift, strides=st, u=u)
+    torch.cuda.synchronize()
+    assert binary_conv2d.launches_bf16 == before + 2
+    assert y.dtype == BF16 and torch.equal(y, plain) and torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", [False, True], ids=["hard", "u"])
+@pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=BF16_EDGE_IDS)
+def test_k6_bf16_edge_shapes_within_bound(cuda, case, draw):
+    """K6 bf16 against the float64 sum of the same bf16 products (within
+    4·2⁻²⁴·Σ|terms| plus one bf16 rounding of it, the STE mask on bf16(W))
+    and against its plain version (8·2⁻²⁴·Σ|terms| plus a bf16 rounding on
+    each side), bitwise across two runs: chip_smoke.py's [train-bf16] (a)
+    gates."""
+    from chip_smoke import wgrad_exact
+
+    x, shift, w, g = _grad_operands(case, cuda, seed=53)
+    x, g = x.to(BF16), g.to(BF16)
+    shift = shift.to(BF16) if shift is not None and not draw else None
+    u = _draw(x, 54).to(BF16) if draw else None
+    k, s = case[5], case[6]
+    st = (s, s)
+    _, alpha = weight_binarize_plain(w, dtype=BF16)
+    before = binary_conv2d_wgrad.launches_bf16
+    dw = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=st, u=u)
+    dw2 = binary_conv2d_wgrad(g, x, w, alpha, shift=shift, strides=st, u=u)
+    pdw = binary_conv2d_wgrad_plain(g, x, w, alpha, shift=shift, strides=st, u=u)
+    exact = wgrad_exact(g, x, w.to(BF16).float(), alpha, shift, s, k // 2, u=u)
+    ga = (g * alpha).float()
+    wterms = binary_conv2d_wgrad_plain(ga.abs(), torch.ones_like(x.float()), torch.zeros_like(w),
+                                       torch.ones_like(alpha, dtype=torch.float32),
+                                       strides=st).double()
+    torch.cuda.synchronize()
+    assert binary_conv2d_wgrad.launches_bf16 == before + 2
+    assert dw.dtype == torch.float32 and torch.equal(dw, dw2)
+    assert bool(((dw.double() - exact).abs() <= 4 * U * wterms + UB * exact.abs() + 1e-30).all())
+    assert bool(((dw - pdw).abs().double()
+                 <= 8 * U * wterms + UB * (dw.abs() + pdw.abs()).double() + 1e-30).all())
+
+
+# K6 bf16 with the draw over one long split (49 stages of 128 positions a
+# block): the draw's one-stage raw ring reuses its slot every stage, off
+# the vector path (C and O not multiples of 8, every chunk a synchronous
+# load) and on it
+K6_BF16_LONG_CASES = [(32, 14, 14, 509, 130, 3, 1, False), (32, 14, 14, 512, 192, 3, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_BF16_LONG_CASES, ids=["c509-o130", "c512-o192"])
+def test_k6_bf16_draw_long_split_bitwise_across_runs(cuda, case):
+    """K6 bf16 with a draw u, one split of 49 stages: five runs bitwise
+    alike and within the float64 sum's bound."""
+    from chip_smoke import wgrad_exact
+
+    n, h, wd, c, o, k, s, _ = case
+    cp = -(-c // 8) * 8
+    assert wgrad_bf16_splits(n * h * wd, k * k * cp, k * k * c, o) == (1, 6272)
+    x, _, w, g = _grad_operands(case, cuda, seed=57)
+    x, g = x.to(BF16), g.to(BF16)
+    u = _draw(x, 58).to(BF16)
+    _, alpha = weight_binarize_plain(w, dtype=BF16)
+    runs = [binary_conv2d_wgrad(g, x, w, alpha, u=u) for _ in range(5)]
+    exact = wgrad_exact(g, x, w.to(BF16).float(), alpha, None, s, k // 2, u=u)
+    ga = (g * alpha).float()
+    wterms = binary_conv2d_wgrad_plain(ga.abs(), torch.ones_like(x.float()), torch.zeros_like(w),
+                                       torch.ones_like(alpha, dtype=torch.float32)).double()
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert bool(((runs[0].double() - exact).abs()
+                 <= 4 * U * wterms + UB * exact.abs() + 1e-30).all())
 
 
 @pytest.mark.cuda
