@@ -56,14 +56,8 @@
 // the copy / ldmatrix / mma helpers and the compensated add are shared
 // with K6 (bf16x3.cuh).
 //
-// bf16 mode (a bf16 model): g, x, shift and alpha are bf16, and so is
-// dx. The reference's cotangent of the conv is ga = bf16(g * alpha), so
-// the split pass writes that one piece and the GEMM runs one MMA a k
-// step where the f32 mode runs three. The sum is rounded to bf16 (the
-// reference's bf16 conv output), and the slope is taken at v = bf16(x -
-// shift) with each of the estimator's ops rounded to bf16 (t, k, delta
-// too), dx = bf16(bf16(sum) * slope), as the reference's bf16 backward
-// rules compute it.
+// The bf16 mode (a bf16 model) is a kernel of its own:
+// binary_conv_dgrad_bf16.cu.
 #include "bf16x3.cuh"
 
 namespace {
@@ -71,6 +65,7 @@ namespace {
 constexpr int BM = 64;                 // dx rows of one parity class a block
 constexpr int BN = 64;                 // input channels a block
 constexpr int BK = 32;                 // o values a pipeline stage (x PIECES)
+constexpr int PIECES = 3;              // bf16 pieces of ga
 constexpr int NSTAGE = 3;              // cp.async ring depth
 constexpr int WARPS_N = BN / 32;       // warps of 32x32 outputs each
 constexpr int THREADS = 32 * (BM / 32) * WARPS_N;
@@ -82,20 +77,14 @@ constexpr int BPITCH = BN + 8;
 constexpr int B_STAGE = BK * BPITCH;
 constexpr int SPLIT_THREADS = 256;
 
-// The A operand's shape for PIECES pieces of ga (3 in the f32 mode, 1 in
-// the bf16 mode)
-template <int PIECES>
-struct ATile {
-    static constexpr int CHUNKS = BM * PIECES * BK / 8 / THREADS;  // 16-byte copies a thread
-    static constexpr int TPR = PIECES * BK / 8 / CHUNKS;            // threads an A row
-    static constexpr int PITCH = PIECES * BK + 8;
-    static constexpr int STAGE = BM * PITCH;
-    static constexpr int SMEM_BYTES = NSTAGE * (STAGE + B_STAGE) * 2;
-    static_assert(CHUNKS * THREADS * 8 == BM * PIECES * BK && TPR * CHUNKS * 8 == PIECES * BK,
-                  "A loader");
-};
-
-enum { EST_NONE = -1, EST_APPROX = 0, EST_STE = 1, EST_EDE = 2, EST_PROX = 3 };
+// The A operand: the three pieces of ga, side by side in a row
+constexpr int A_CHUNKS = BM * PIECES * BK / 8 / THREADS;  // 16-byte copies a thread
+constexpr int A_TPR = PIECES * BK / 8 / A_CHUNKS;         // threads an A row
+constexpr int APITCH = PIECES * BK + 8;
+constexpr int A_STAGE = BM * APITCH;
+constexpr int SMEM_BYTES = NSTAGE * (A_STAGE + B_STAGE) * 2;
+static_assert(A_CHUNKS * THREADS * 8 == BM * PIECES * BK && A_TPR * A_CHUNKS * 8 == PIECES * BK,
+              "A loader");
 
 // The estimator's slope at pre-sign value v, with the reference's order
 // of f32 operations (the _rn intrinsics keep nvcc from contracting them
@@ -118,38 +107,9 @@ __device__ __forceinline__ float est_slope(float v, int est, float p0, float p1)
     }
 }
 
-// dx of the bf16 mode: bf16(sum * slope) at v = bf16(x - shift), each of
-// the estimator's ops rounded to bf16 as the reference's bf16 backward
-// rules round them (r below); sum is the bf16-rounded conv sum.
-__device__ __forceinline__ float est_dx_bf16(float sum, float v, int est, float p0, float p1) {
-    auto r = round_to_bf16;
-    switch (est) {
-        case EST_APPROX:
-            return r(__fmul_rn(sum, fmaxf(r(__fsub_rn(2.f, __fmul_rn(2.f, fabsf(v)))), 0.f)));
-        case EST_STE:
-            return fabsf(v) <= 1.f ? sum : __fmul_rn(sum, 0.f);
-        case EST_EDE: {  // p0 = t, p1 = k
-            const float t = r(p0), k = r(p1);
-            const float sech = r(__fdiv_rn(1.f, r(coshf(r(__fmul_rn(t, v))))));
-            const float s = r(__fmul_rn(r(__fmul_rn(r(__fmul_rn(k, t)), sech)), sech));
-            return r(__fmul_rn(sum, s));
-        }
-        case EST_PROX: {  // p0 = delta
-            const float d = r(p0);
-            const float s = r(__fmul_rn(r(__fdiv_rn(2.f, d)),
-                                        fmaxf(r(__fsub_rn(1.f, r(__fdiv_rn(fabsf(v), d)))), 0.f)));
-            return r(__fmul_rn(sum, s));
-        }
-        default:
-            return sum;
-    }
-}
-
 // Work items: (row, 8 o values) of gs, then (tap, o, 8 c values) of wb.
-// T: float (three pieces of ga), or __nv_bfloat16 (the bf16 mode's one).
-template <typename T>
 __global__ void __launch_bounds__(SPLIT_THREADS)
-dgrad_split_kernel(const T* __restrict__ g, const T* __restrict__ alpha,
+dgrad_split_kernel(const float* __restrict__ g, const float* __restrict__ alpha,
                    const int8_t* __restrict__ wsign, __nv_bfloat16* __restrict__ gs,
                    __nv_bfloat16* __restrict__ wb, long long rows, int O, int OP, int KK,
                    int C, int CP) {
@@ -184,17 +144,12 @@ dgrad_split_kernel(const T* __restrict__ g, const T* __restrict__ alpha,
     }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
 binary_conv_dgrad_kernel(const __nv_bfloat16* __restrict__ gs, const __nv_bfloat16* __restrict__ wb,
-                         const int* __restrict__ taps, const T* __restrict__ x,
-                         const T* __restrict__ shift, T* __restrict__ dx, int N, int H,
+                         const int* __restrict__ taps, const float* __restrict__ x,
+                         const float* __restrict__ shift, float* __restrict__ dx, int N, int H,
                          int W, int C, int Ho, int Wo, int stride, int OP, int CP, int est,
                          float p0, float p1) {
-    constexpr bool BF16 = sizeof(T) == 2;
-    constexpr int PIECES = BF16 ? 1 : 3;
-    using A = ATile<PIECES>;
-    constexpr int A_CHUNKS = A::CHUNKS, A_TPR = A::TPR, APITCH = A::PITCH, A_STAGE = A::STAGE;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
     __nv_bfloat16* Bs = As + NSTAGE * A_STAGE;
@@ -364,59 +319,42 @@ binary_conv_dgrad_kernel(const __nv_bfloat16* __restrict__ gs, const __nv_bfloat
                     const int c = c0 + wn * 32 + nj * 8 + (lane & 3) * 2 + e2;
                     if (c >= C) continue;
                     const long long e = base + c;
-                    const float xv = load_f(x + e);
-                    const float v = shift != nullptr ? __fsub_rn(xv, load_f(shift + c)) : xv;
+                    const float xv = x[e];
+                    const float v = shift != nullptr ? __fsub_rn(xv, shift[c]) : xv;
                     const int k = half * 2 + e2;
                     const float sum = __fsub_rn(acc[mi][nj][k], comp[mi][nj][k]);
-                    if constexpr (BF16)
-                        dx[e] = __float2bfloat16_rn(
-                            est_dx_bf16(round_to_bf16(sum), round_to_bf16(v), est, p0, p1));
-                    else
-                        dx[e] = __fmul_rn(sum, est_slope(v, est, p0, p1));
+                    dx[e] = __fmul_rn(sum, est_slope(v, est, p0, p1));
                 }
         }
 }
 
-template <typename T>
-int dgrad(const void* g, const void* x, const void* shift, const void* wsign, const void* alpha,
-          const void* taps, void* gs, void* wb, void* dx, int N, int H, int W, int C, int O, int kh,
-          int kw, int stride, int Ho, int Wo, int OP, int CP, int est, float p0, float p1,
-          cudaStream_t st) {
+}  // namespace
+
+BDBNN_EXPORT int bdbnn_binary_conv_dgrad(const void* g, const void* x, const void* shift,
+                                         const void* wsign, const void* alpha, const void* taps,
+                                         void* gs, void* wb, void* dx, int N, int H, int W, int C,
+                                         int O, int kh, int kw, int stride, int Ho, int Wo, int OP,
+                                         int CP, int est, float p0, float p1, void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const long long rows = (long long)N * Ho * Wo;
     const long long items = rows * (OP / 8) + (long long)kh * kw * OP * (CP / 8);
     const long long sblocks = (items + SPLIT_THREADS - 1) / SPLIT_THREADS;
-    dgrad_split_kernel<T><<<(unsigned)(sblocks < 132 * 32 ? sblocks : 132 * 32), SPLIT_THREADS, 0,
-                            st>>>(static_cast<const T*>(g), static_cast<const T*>(alpha),
-                                  static_cast<const int8_t*>(wsign),
-                                  static_cast<__nv_bfloat16*>(gs), static_cast<__nv_bfloat16*>(wb),
-                                  rows, O, OP, kh * kw, C, CP);
+    dgrad_split_kernel<<<(unsigned)(sblocks < 132 * 32 ? sblocks : 132 * 32), SPLIT_THREADS, 0,
+                         st>>>(static_cast<const float*>(g), static_cast<const float*>(alpha),
+                               static_cast<const int8_t*>(wsign), static_cast<__nv_bfloat16*>(gs),
+                               static_cast<__nv_bfloat16*>(wb), rows, O, OP, kh * kw, C, CP);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    constexpr int SMEM_BYTES = ATile<sizeof(T) == 2 ? 1 : 3>::SMEM_BYTES;
-    err = cudaFuncSetAttribute(binary_conv_dgrad_kernel<T>,
+    err = cudaFuncSetAttribute(binary_conv_dgrad_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     const long long mmax = (long long)N * ((H + stride - 1) / stride) * ((W + stride - 1) / stride);
     const dim3 grid((unsigned)((mmax + BM - 1) / BM), (unsigned)((C + BN - 1) / BN),
                     (unsigned)(stride * stride));
-    binary_conv_dgrad_kernel<T><<<grid, THREADS, SMEM_BYTES, st>>>(
+    binary_conv_dgrad_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
         static_cast<const __nv_bfloat16*>(gs), static_cast<const __nv_bfloat16*>(wb),
-        static_cast<const int*>(taps), static_cast<const T*>(x), static_cast<const T*>(shift),
-        static_cast<T*>(dx), N, H, W, C, Ho, Wo, stride, OP, CP, est, p0, p1);
+        static_cast<const int*>(taps), static_cast<const float*>(x),
+        static_cast<const float*>(shift), static_cast<float*>(dx), N, H, W, C, Ho, Wo, stride, OP,
+        CP, est, p0, p1);
     return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// bf16: the bf16 mode (g, x, shift, alpha and dx bf16; gs (N, Ho, Wo, 1,
-// OP))
-BDBNN_EXPORT int bdbnn_binary_conv_dgrad(const void* g, const void* x, const void* shift,
-                                         const void* wsign, const void* alpha, const void* taps,
-                                         void* gs, void* wb, void* dx, int N, int H, int W, int C,
-                                         int O, int kh, int kw, int stride, int Ho, int Wo, int OP,
-                                         int CP, int est, float p0, float p1, int bf16,
-                                         void* stream) {
-    auto run = bf16 ? dgrad<__nv_bfloat16> : dgrad<float>;
-    return run(g, x, shift, wsign, alpha, taps, gs, wb, dx, N, H, W, C, O, kh, kw, stride, Ho, Wo,
-               OP, CP, est, p0, p1, static_cast<cudaStream_t>(stream));
 }

@@ -337,14 +337,7 @@ binary_conv_wgrad_kernel_bf16(const __nv_bfloat16* __restrict__ g, const __nv_bf
                     *reinterpret_cast<const uint4*>(rs + RAW_X + (j * PRODUCERS + tp) * 16);
                 uint4 out;
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const uint32_t gp = word(gv, i), ap = word(av, i);
-                    // the product of two bf16 values is exact in f32, then
-                    // rounded once: the reference's bf16 multiply
-                    const __nv_bfloat162 pr = __floats2bfloat162_rn(
-                        __fmul_rn(lo_f(gp), lo_f(ap)), __fmul_rn(hi_f(gp), hi_f(ap)));
-                    set_word(out, i, *reinterpret_cast<const uint32_t*>(&pr));
-                }
+                for (int i = 0; i < 4; ++i) set_word(out, i, ga_bf16x2(word(gv, i), word(av, i)));
                 *reinterpret_cast<uint4*>(as + A_STAGE + (p >> 3) * B_LBO + og * B_SBO +
                                           (p & 7) * 16) = out;
             }
@@ -416,10 +409,6 @@ binary_conv_wgrad_kernel_bf16(const __nv_bfloat16* __restrict__ g, const __nv_bf
 #pragma unroll
         for (int k = 0; k < CHAIN; ++k) fence_frag(af[k]);
     };
-    auto fold = [&]() {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) tot[i] = __dadd_rn(tot[i], (double)acc[i]);
-    };
     for (int s = 0; s < nst; ++s) {
         const int slot = s % NSTAGE;
         mbar_wait(full0 + 8 * slot, (s / NSTAGE) & 1);
@@ -427,7 +416,7 @@ binary_conv_wgrad_kernel_bf16(const __nv_bfloat16* __restrict__ g, const __nv_bf
         for (int k0 = 0; k0 < BK / 16; k0 += CHAIN) {
             chain(slot, k0);
             if (k0 + CHAIN == BK / 16) mbar_arrive(empty0 + 8 * slot);  // the stage is read
-            fold();
+            fold_f64(tot, acc);
         }
     }
 

@@ -10,6 +10,10 @@
 
 #define BDBNN_EXPORT extern "C" __attribute__((visibility("default")))
 
+// The sign estimators whose backward K5 fuses, by the codes of
+// nn/kernels/binary_conv.py ESTIMATORS
+enum { EST_NONE = -1, EST_APPROX = 0, EST_STE = 1, EST_EDE = 2, EST_PROX = 3 };
+
 BDBNN_EXPORT const char* bdbnn_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -33,11 +37,9 @@ __device__ __forceinline__ bool stoch_sign_plus_bf16(float x, float u) {
     return u < p;
 }
 
-// Element loads of the kernels that take f32 or bf16 activations: one
-// value as f32; and 4 consecutive f32 values from a 16-byte aligned
-// address.
+// Element loads of f32 activations: one value; and 4 consecutive values
+// from a 16-byte aligned address.
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void load4_f(const float* p, float (&v)[4]) {
     const float4 f = *reinterpret_cast<const float4*>(p);
     v[0] = f.x;

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16-mode kernels (K1 bf16,
-// binary_conv_fwd_bf16.cu; K6 bf16, binary_conv_wgrad_bf16.cu):
+// binary_conv_fwd_bf16.cu; K5 bf16, binary_conv_dgrad_bf16.cu; K6 bf16,
+// binary_conv_wgrad_bf16.cu):
 //
 // - wgmma shared-memory matrix descriptors. In the no-swizzle
 //   ("interleave") canonical layout the operand is cut into core
@@ -10,14 +11,16 @@
 //   (transpose bit set, bf16 only) it holds 8 M/N values of one K index.
 //   The 64-byte swizzle takes a K-major operand as TMA lands it;
 // - wgmma.mma_async with A from registers (the mma.sync A fragment of
-//   each warp's 16 rows) and B from shared memory: m64n64k16 bf16 with f32
-//   accumulators, m64n64k32 s8 with s32 accumulators; fence, commit,
+//   each warp's 16 rows) and B from shared memory: m64n64k16 and m64n32k16
+//   bf16 with f32 accumulators, m64n64k32 s8 with s32 accumulators; fence, commit,
 //   wait, and the operand fences that keep nvcc from touching the
 //   registers of a product in flight; setmaxnreg between warpgroups;
 // - mbarriers (a producer/consumer ring, TMA completion) and 2D TMA
 //   loads (cp.async.bulk.tensor) completing on them;
 // - chunks of 8 bf16 values in a uint4: its words, the two values of a
-//   word as f32, a load of up to 8 values (zero beyond).
+//   word as f32, a load of up to 8 values (zero beyond);
+// - what the two backward kernels share: their operand bf16(g * alpha),
+//   and the fold of a wgmma chain's f32 sums into f64 totals.
 #pragma once
 
 #include "async_copy.cuh"
@@ -88,6 +91,25 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16(float (&d)[32], const uint3
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BDBNN_REGS32
         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : BDBNN_D32(BDBNN_PLUS_F)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#define BDBNN_D16(T)                                                                        \
+    T(d[0]), T(d[1]), T(d[2]), T(d[3]), T(d[4]), T(d[5]), T(d[6]), T(d[7]), T(d[8]), T(d[9]), \
+        T(d[10]), T(d[11]), T(d[12]), T(d[13]), T(d[14]), T(d[15])
+#define BDBNN_REGS16 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32 f32, this thread's 16) = a (64 x 16 bf16, registers) ·
+// b (16 x 32 bf16, MN-major in shared memory) + (scale_d ? d : 0); the
+// accumulator layout as above, j < 4
+__device__ __forceinline__ void wgmma_bf16_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " BDBNN_REGS16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : BDBNN_D16(BDBNN_PLUS_F)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
@@ -173,6 +195,23 @@ __device__ __forceinline__ void set_word(uint4& v, int i, uint32_t p) {
 }
 __device__ __forceinline__ float lo_f(uint32_t p) { return __uint_as_float(p << 16); }
 __device__ __forceinline__ float hi_f(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// bf16(g * alpha) of the two bf16 values of a word each: the product of
+// two bf16 values is exact in f32, then rounded once, as the reference's
+// bf16 multiply
+__device__ __forceinline__ uint32_t ga_bf16x2(uint32_t gp, uint32_t ap) {
+    const __nv_bfloat162 pr = __floats2bfloat162_rn(__fmul_rn(lo_f(gp), lo_f(ap)),
+                                                    __fmul_rn(hi_f(gp), hi_f(ap)));
+    return *reinterpret_cast<const uint32_t*>(&pr);
+}
+
+// A wgmma chain's f32 sums added into f64 totals (the conversion is exact,
+// the add on the f64 pipe)
+template <int N>
+__device__ __forceinline__ void fold_f64(double (&tot)[N], const float (&acc)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) tot[i] = __dadd_rn(tot[i], (double)acc[i]);
+}
 
 // 8 bf16 values from p (up to n of them; zero beyond) into one uint4: one
 // 16-byte load where vec (p 16-byte aligned) and n >= 8

@@ -61,10 +61,20 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "binary_conv_dgrad": {
         # g, x, shift (or NULL), wsign, alpha, taps, gs scratch, wb
         # scratch, dx, N, H, W, C, O, kh, kw, stride, Ho, Wo, OP, CP,
-        # estimator, p0, p1, bf16, stream
+        # estimator, p0, p1, stream
         "bdbnn_binary_conv_dgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _F, _F, _I, _P),
+                                    _I, _I, _F, _F, _P),
+    },
+    "binary_conv_dgrad_bf16": {
+        # g, x, shift (or NULL), wsign, alpha, taps, wb scratch, dx, N, H,
+        # W, C, O, kh, kw, stride, Ho, Wo, OP, CP, halo_px, maxtaps,
+        # nstage, estimator, p0, p1, stream
+        "bdbnn_binary_conv_dgrad_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _I, _I, _I, _F, _F, _P),
+        # halo_px, maxtaps, nstage -> dynamic shared memory bytes a block
+        "bdbnn_binary_conv_dgrad_bf16_smem": (_I, _I, _I),
     },
     "binary_conv_wgrad": {
         # g, x, shift (or NULL), u (or NULL), w, alpha, gs scratch, sx

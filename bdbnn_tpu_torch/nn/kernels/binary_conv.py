@@ -18,7 +18,8 @@ hand-written CUDA kernels:
   ``u < clip((x + 1)/2, 0, 1) ? +1 : -1`` (the reference's
   ``stoch_sign``) in place of the hard sign; ``u`` never comes with a
   ``shift``, as the reference never combines them.
-- K5 :func:`binary_conv2d_dgrad` (``csrc/binary_conv_dgrad.cu``) — the
+- K5 :func:`binary_conv2d_dgrad` (``csrc/binary_conv_dgrad.cu``; the bf16
+  mode ``csrc/binary_conv_dgrad_bf16.cu``) — the
   input gradient ``conv_transpose(g·alpha, sign W)`` times the active
   sign estimator's slope at ``x - shift`` (:data:`ESTIMATORS`), on the
   bf16 tensor cores: ``g·alpha`` split exactly into three bf16 pieces
@@ -58,7 +59,13 @@ reference's bf16 ops compute (``bdbnn_tpu/nn/kernels/binary_conv.py``
 - K5 takes ``ga = bf16(g·alpha)`` as its one bf16 piece (the reference's
   cotangent is that bf16 product), rounds the sum to bf16, and applies
   the estimator's slope at ``bf16(x - shift)`` in the reference's bf16
-  ops (EDE's ``t, k`` and prox's ``δ`` rounded to bf16); dx is bf16;
+  ops (EDE's ``t, k`` and prox's ``δ`` rounded to bf16); dx is bf16. Its
+  kernel is its own (``csrc/binary_conv_dgrad_bf16.cu``): persistent
+  blocks walk the tiles of :func:`dgrad_bf16_tile`; each copies the halo of
+  g rows a tile's taps reach (:func:`dgrad_halo_span`) into shared memory
+  once a 32-deep stage of o and builds ``bf16(g·alpha)`` there, and every
+  tap reads its rows from it into a wgmma bf16 chain folded into f64
+  totals every 32 products; :func:`dgrad_bf16_schedule` sizes it;
 - K6 takes the same one piece, and returns ``f32(bf16(Σ)·1{|bf16(W)| <=
   1})``: the reference's weight cotangent is bf16, its STE mask reads the
   bf16-rounded weight, and the cast to the f32 latent passes it on. Its
@@ -471,13 +478,115 @@ def dgrad_tap_table(kh: int, kw: int, s: int, p: int) -> List[int]:
 
 
 # K5's reduction is staged 32 o values deep: the split pass pads O to it
-# (K6 reads the split in the same layout)
+# (K6 reads the split in the same layout; K5's bf16 mode pads its bf16
+# weight sign to it)
 DGRAD_O_STAGE = 32
 _tap_tables: Dict[Tuple, Tensor] = {}
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+# K5's bf16 mode: a tile is 128 dx rows of one parity class x 64
+# channels; a stage is 32 o values of every tap of the class: each tap's
+# 32 x 64 bf16 weight-sign slice (4 KB) and the tile's halo of g pixels,
+# 80 bytes each (32 bf16 values and 16 bytes that keep ldmatrix off bank
+# conflicts), plus one zero pixel; up to three stages, 3 KB of head (the
+# alignment, the ring's barriers and the tap table)
+DGRAD_BF16_TILE = 128
+DGRAD_BF16_C_TILE = 64
+DGRAD_BF16_B_TAP = 4096
+DGRAD_BF16_HALO_PIXEL = 80
+DGRAD_BF16_MAX_STAGES = 3
+DGRAD_BF16_HEAD = 3072
+
+
+def dgrad_class_taps(kh: int, kw: int, s: int, p: int) -> List[List[Tuple[int, int, int]]]:
+    """The taps of each parity class ``z = a·s + b`` as ``(i·kw + j, di,
+    dj)``, in the order of :func:`dgrad_tap_table`."""
+    table = dgrad_tap_table(kh, kw, s, p)
+    off, flat = table[: s * s + 1], table[s * s + 1 :]
+    return [[tuple(flat[3 * t : 3 * t + 3]) for t in range(off[z], off[z + 1])]
+            for z in range(s * s)]
+
+
+def dgrad_class_grid(h: int, w: int, s: int, z: int) -> Tuple[int, int]:
+    """(Hc, Wc): the dx rows of class ``z = a·s + b`` are ``(a + s·hh, b +
+    s·ww)`` for hh < Hc, ww < Wc."""
+    a, b = divmod(z, s)
+    return (-(-(h - a) // s) if h > a else 0), (-(-(w - b) // s) if w > b else 0)
+
+
+def dgrad_bf16_tiles(n: int, h: int, w: int, c: int, s: int) -> Tuple[int, int, int]:
+    """(channel tiles, row tiles of the largest class, tiles in all) of
+    K5's bf16 walk."""
+    ctiles = -(-c // DGRAD_BF16_C_TILE)
+    mtiles = -(-(n * -(-h // s) * -(-w // s)) // DGRAD_BF16_TILE)
+    return ctiles, mtiles, ctiles * s * s * mtiles
+
+
+def dgrad_bf16_tile(tile: int, ctiles: int, mtiles: int) -> Tuple[int, int, int]:
+    """(class, row tile, channel tile) of tile ``tile`` in K5's bf16 walk:
+    channel tiles innermost, then row tiles, then classes (the kernel's
+    ``decode``). A row tile past its class's grid is skipped."""
+    z, r = divmod(tile, ctiles * mtiles)
+    mt, ct = divmod(r, ctiles)
+    return z, mt, ct
+
+
+def dgrad_halo_span(m0: int, count: int, hc: int, wc: int, ho: int, dmin: int,
+                    dmax: int) -> Tuple[int, int]:
+    """The g rows (global ``n·Ho + ho``) K5's bf16 mode copies for the dx
+    rows ``m0 .. m0 + count - 1`` of a class with a ``hc × wc`` grid whose
+    taps' row offsets run from ``dmin`` to ``dmax``: from the first row's
+    lowest tap row to the last one's highest, each clipped to its image
+    (the kernel's own arithmetic). Consecutive rows of a class reach
+    nondecreasing g rows, so every row a tap reads lies in between."""
+    hwc = hc * wc
+    last = m0 + count - 1
+    n_a, n_b = m0 // hwc, last // hwc
+    h_a, h_b = (m0 - n_a * hwc) // wc, (last - n_b * hwc) // wc
+    return (n_a * ho + min(ho - 1, max(0, h_a + dmin)),
+            n_b * ho + min(ho - 1, max(0, h_b + dmax)))
+
+
+def dgrad_bf16_smem(halo_px: int, maxtaps: int, nstage: int) -> int:
+    """Dynamic shared memory of a K5 bf16 block (the kernel's own
+    ``bdbnn_binary_conv_dgrad_bf16_smem``)."""
+    stage = _round_up(maxtaps * DGRAD_BF16_B_TAP + (halo_px + 1) * DGRAD_BF16_HALO_PIXEL, 1024)
+    return DGRAD_BF16_HEAD + nstage * stage
+
+
+@functools.lru_cache(maxsize=None)
+def dgrad_bf16_schedule(n: int, h: int, w: int, kh: int, kw: int, s: int,
+                        p: int) -> Tuple[int, int, int, int]:
+    """(halo_px, maxtaps, nstage, smem bytes) of K5's bf16 mode: the most
+    g pixels any tile's halo holds, the most taps of a class, and the most
+    stages (up to :data:`DGRAD_BF16_MAX_STAGES`) that fit the card's
+    shared memory; nstage is 0 when two do not. A tile's halo depends on
+    its first row modulo its class's ``Hc·Wc`` alone, and tile starts
+    repeat modulo it every ``Hc·Wc / gcd(128, Hc·Wc)`` tiles, so one period
+    and the (shorter) last tile of each class cover every tile."""
+    ho, wo = out_size(h, kh, s, p), out_size(w, kw, s, p)
+    most, maxtaps = 0, 0
+    for z, taps in enumerate(dgrad_class_taps(kh, kw, s, p)):
+        hc, wc = dgrad_class_grid(h, w, s, z)
+        if not taps or hc * wc == 0:
+            continue
+        maxtaps = max(maxtaps, len(taps))
+        dis = [t[1] for t in taps]
+        mc = n * hc * wc
+        tiles = -(-mc // DGRAD_BF16_TILE)
+        period = hc * wc // math.gcd(DGRAD_BF16_TILE, hc * wc)
+        for t in set(range(min(tiles, period))) | {tiles - 1}:
+            m0 = t * DGRAD_BF16_TILE
+            lo, hi = dgrad_halo_span(m0, min(DGRAD_BF16_TILE, mc - m0), hc, wc, ho, min(dis),
+                                     max(dis))
+            most = max(most, (hi - lo + 1) * wo)
+    nstage = next((k for k in range(DGRAD_BF16_MAX_STAGES, 1, -1)
+                   if dgrad_bf16_smem(most, maxtaps, k) <= SMEM_PER_BLOCK), 0)
+    return most, maxtaps, nstage, dgrad_bf16_smem(most, maxtaps, max(nstage, 2))
 
 
 def binary_conv2d_dgrad(
@@ -496,10 +605,10 @@ def binary_conv2d_dgrad(
     dtype (bf16 ``x``, ``g``, ``shift``, ``alpha``: the bf16 mode).
 
     K5 allocates its scratch here: ``g·alpha`` split into three bf16
-    pieces (N, Ho, Wo, 3, OP) — one piece in the bf16 mode — and the ±1
-    sign as bf16 (kh·kw, OP, CP),
-    OP and CP being O and C padded to the kernel's stage and 16-byte
-    rows; the parity-class table lives on the card, one per conv
+    pieces (N, Ho, Wo, 3, OP) — none in the bf16 mode, which builds
+    ``bf16(g·alpha)`` in shared memory — and the ±1 sign as bf16 (kh·kw,
+    OP, CP), OP and CP being O and C padded to the kernel's stage and
+    16-byte rows; the parity-class table lives on the card, one per conv
     geometry and device."""
     n, h, w, c, o, kh, kw = check_conv_args(x, wsign, alpha, shift)
     if not x.is_cuda:
@@ -522,32 +631,44 @@ def binary_conv2d_dgrad(
         taps = _tap_tables[key] = torch.tensor(
             dgrad_tap_table(kh, kw, stride, pad), dtype=torch.int32, device=x.device
         )
-    bf16 = x.dtype == torch.bfloat16
     op, cp = _round_up(o, DGRAD_O_STAGE), _round_up(c, 8)
-    gs = torch.empty((n, ho, wo, ga_pieces(x.dtype), op), dtype=torch.bfloat16, device=x.device)
     wb = torch.empty((kh * kw, op, cp), dtype=torch.bfloat16, device=x.device)
     dx = torch.empty_like(x)
+    shift_p = shift.data_ptr() if shift is not None else None
+    if x.dtype == torch.bfloat16:
+        if n * h * w >= 2**31 or n * ho * wo >= 2**31:  # the kernel's row indices are int32
+            raise ValueError(f"K5 bf16 takes under 2^31 rows of x and of g, got {n}x{h}x{w}")
+        halo_px, maxtaps, nstage, smem = dgrad_bf16_schedule(n, h, w, kh, kw, stride, pad)
+        if nstage == 0:
+            raise ValueError(
+                f"K5 bf16: a tile's halo of {halo_px} g pixels and {maxtaps} taps need {smem} "
+                f"bytes of shared memory for two stages, over the card's {SMEM_PER_BLOCK}"
+            )
+        lib = _build.library("binary_conv_dgrad_bf16")
+        err = lib.bdbnn_binary_conv_dgrad_bf16(
+            g.data_ptr(), x.data_ptr(), shift_p, wsign.data_ptr(), alpha.data_ptr(),
+            taps.data_ptr(), wb.data_ptr(), dx.data_ptr(), n, h, w, c, o, kh, kw, stride, ho, wo,
+            op, cp, halo_px, maxtaps, nstage, ESTIMATORS[name], p0, p1,
+            _build.stream_ptr(x.device),
+        )
+        _build.check(lib, err, "binary_conv2d_dgrad")
+        _build.count_launch(binary_conv2d_dgrad, True)
+        return dx
+    gs = torch.empty((n, ho, wo, 3, op), dtype=torch.bfloat16, device=x.device)
     lib = _build.library("binary_conv_dgrad")
     err = lib.bdbnn_binary_conv_dgrad(
-        g.data_ptr(), x.data_ptr(), shift.data_ptr() if shift is not None else None,
-        wsign.data_ptr(), alpha.data_ptr(), taps.data_ptr(), gs.data_ptr(), wb.data_ptr(),
-        dx.data_ptr(), n, h, w, c, o, kh, kw, stride, ho, wo, op, cp, ESTIMATORS[name], p0, p1,
-        int(bf16), _build.stream_ptr(x.device),
+        g.data_ptr(), x.data_ptr(), shift_p, wsign.data_ptr(), alpha.data_ptr(), taps.data_ptr(),
+        gs.data_ptr(), wb.data_ptr(), dx.data_ptr(), n, h, w, c, o, kh, kw, stride, ho, wo, op,
+        cp, ESTIMATORS[name], p0, p1, _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "binary_conv2d_dgrad")
-    _build.count_launch(binary_conv2d_dgrad, bf16)
+    _build.count_launch(binary_conv2d_dgrad, False)
     return dx
 
 
 # launches of the kernel, and of its bf16 mode alone
 binary_conv2d_dgrad.launches = 0
 binary_conv2d_dgrad.launches_bf16 = 0
-
-
-def ga_pieces(dtype: torch.dtype) -> int:
-    """The bf16 pieces of ``g·alpha`` K5 and K6 multiply: three exact
-    pieces of the f32 product, or the bf16 mode's one bf16 product."""
-    return 1 if dtype == torch.bfloat16 else 3
 
 
 def _check_latent(w: Tensor, x: Tensor, alpha: Tensor) -> Tuple[int, int, int, int]:
@@ -724,7 +845,7 @@ def binary_conv2d_wgrad(
         return dw
     op = _round_up(o, DGRAD_O_STAGE)
     splits, rows = wgrad_splits(n * ho * wo, kh * kw * cp, o)
-    gs = torch.empty((n, ho, wo, ga_pieces(x.dtype), op), dtype=torch.bfloat16, device=x.device)
+    gs = torch.empty((n, ho, wo, 3, op), dtype=torch.bfloat16, device=x.device)
     sx = torch.empty((n, h, wd, cp), dtype=torch.bfloat16, device=x.device)
     partial = torch.empty((splits, kh * kw * c, o), dtype=torch.float32, device=x.device)
     lib = _build.library("binary_conv_wgrad")
@@ -831,8 +952,14 @@ __all__ = [
     "binary_conv2d_wgrad",
     "binary_conv2d_wgrad_plain",
     "check_draw",
+    "dgrad_bf16_schedule",
+    "dgrad_bf16_smem",
+    "dgrad_bf16_tile",
+    "dgrad_bf16_tiles",
+    "dgrad_class_grid",
+    "dgrad_class_taps",
+    "dgrad_halo_span",
     "dgrad_parity_classes",
-    "ga_pieces",
     "dgrad_tap_table",
     "estimator_slope",
     "im2col_nhwc",

@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. device  — requires CUDA; prints ``nvidia-smi`` name and power limit;
 2. build   — builds every kernel from ``bdbnn_tpu_torch/csrc`` with nvcc
              (one process per source, all at once), prints seconds and the
-             tensor-core instructions in K1's and K4's SASS;
+             tensor-core instructions in the SASS of K1, K4 and the bf16
+             modes of K1, K5 and K6, each of the latter three holding its
+             warpgroup MMA (IGMMA, HGMMA, HGMMA);
 3. kernels — holds K1 (fused sign + binary conv) and K4 (XNOR-popcount
              conv) against their plain PyTorch versions on the card at the
              flagship's ten distinct binary conv shapes at batch 32, and
@@ -266,7 +268,8 @@ Phases (any failure exits non-zero and prints no result line):
              bf16 versions (K1 and K2's sign bitwise, K2's alpha within one
              bf16 rounding, K5 and K6 within the float64-sum bound plus one
              bf16 rounding), each timed beside cuDNN's bf16 conv2d /
-             conv2d_input / conv2d_weight on the same ±1 operands; (b)
+             conv2d_input / conv2d_weight on the same ±1 operands, and K5
+             bf16 on same-sign terms at layer4 (phase_k5_bf16_same_sign); (b)
              ``fit`` on the flagship recipe with --dtype bfloat16, 3 steps
              and the eval pass, 19 bf16-mode launches each of K1, K2, K5, K6
              and 2 of K7 a step, one batch-8 step on the card against the
@@ -726,32 +729,44 @@ def forward_weight_graphs(recs) -> None:
     torch.cuda.empty_cache()
 
 
-def log_mma_instructions() -> None:
-    """Which tensor-core instructions the built K1, K4 and bf16-mode K1
-    and K6 libraries hold (``cuobjdump -sass`` beside ``nvcc``), for the
-    log: mma.sync as IMMA/BMMA/HMMA, wgmma as IGMMA/HGMMA. The four
-    disassemblies run side by side."""
+# the warpgroup MMA each bf16-mode library must hold in its SASS
+WGMMA_OF = {"binary_conv_fwd_bf16": "IGMMA", "binary_conv_dgrad_bf16": "HGMMA",
+            "binary_conv_wgrad_bf16": "HGMMA"}
+
+
+def log_mma_instructions() -> bool:
+    """Which tensor-core instructions the built K1, K4 and bf16-mode K1,
+    K5 and K6 libraries hold (``cuobjdump -sass`` beside ``nvcc``), for the
+    log: mma.sync as IMMA/BMMA/HMMA, wgmma as IGMMA/HGMMA. The five
+    disassemblies run side by side. False unless each bf16-mode library
+    holds its wgmma (:data:`WGMMA_OF`)."""
     import collections
     import re
 
     from bdbnn_tpu_torch.nn.kernels import _build
 
-    names = ("binary_conv", "packed", "binary_conv_fwd_bf16", "binary_conv_wgrad_bf16")
+    names = ("binary_conv", "packed", *WGMMA_OF)
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        log(f"[build] {', '.join(names)}: no cuobjdump beside nvcc, instructions not read")
-        return
+        log(f"[build] {', '.join(names)}: no cuobjdump beside nvcc, instructions not read: FAIL")
+        return False
     outs = {name: tempfile.TemporaryFile(mode="w+") for name in names}
     procs = {name: subprocess.Popen([tool, "-sass", _build.library_path(name)],
                                     stdout=outs[name], stderr=subprocess.DEVNULL)
              for name in names}
+    ok = True
     for name, proc in procs.items():
         proc.wait(timeout=120)
         outs[name].seek(0)
         sass = outs[name].read()
         outs[name].close()
         ops = collections.Counter(re.findall(r"\b([BIH]G?MMA\.[A-Za-z0-9.]+)", sass))
-        log(f"[build] {name}: tensor-core instructions in its SASS {dict(ops)}")
+        want = WGMMA_OF.get(name)
+        has = want is None or any(op.startswith(want + ".") for op in ops)
+        ok = ok and has
+        log(f"[build] {name}: tensor-core instructions in its SASS {dict(ops)}"
+            + (f"; {want} present: {has}" if want else ""))
+    return ok
 
 
 def make_flagship_artifact(out_dir: str, dtype: str = "float32", seed: int = 0):
@@ -2094,10 +2109,10 @@ def wgrad_exact(gy, x, w, alpha, shift, s, pad, u=None):
     return dws.reshape(kh, kw, c, o) * (w.abs() <= 1.0).double()
 
 
-def _ratio(err, base, scale) -> float:
-    """The largest (err - u|base|) / scale: how many u·Σ|terms| an error
-    takes beyond the final rounding."""
-    return float(((err - U * base.abs()).clamp(min=0) / scale.clamp(min=1e-30)).max())
+def _ratio(err, base, scale, rnd: float = U) -> float:
+    """The largest (err - rnd|base|) / scale: how many u·Σ|terms| an error
+    takes beyond the final rounding (of unit ``rnd``)."""
+    return float(((err - rnd * base.abs()).clamp(min=0) / scale.clamp(min=1e-30)).max())
 
 
 def phase_train_kernels(pk):
@@ -2342,6 +2357,34 @@ def phase_k5_same_sign(gen) -> bool:
     return ok
 
 
+def phase_k5_bf16_same_sign(gen) -> bool:
+    """K5's bf16 mode on same-sign terms at layer4 3x3 s1 512->512 @7, -b
+    256, as :func:`phase_k5_same_sign` holds the f32 mode: |g|, alpha > 0
+    and every sign +1, so each output sums 4,608 positive bf16 products
+    and a drift of the tensor cores' truncation cannot cancel. Held to the
+    float64 sum of the same bf16 products within 4·u·Σ|terms| plus one
+    bf16 rounding, and to the plain bf16 version within 8·u·Σ|terms| plus
+    one bf16 rounding on each side."""
+    import torch
+
+    from bdbnn_tpu_torch.nn.kernels import binary_conv2d_dgrad, binary_conv2d_dgrad_plain
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    b, hw, c, o = TRAIN_BATCH, 7, 512, 512
+    x = torch.randn((b, hw, hw, c), generator=gen, device=dev).to(bf)
+    gy = torch.randn((b, hw, hw, o), generator=gen, device=dev).abs().to(bf)
+    alpha = (0.05 + torch.rand((o,), generator=gen, device=dev)).to(bf)
+    wsign = torch.ones((o, 3, 3, c), dtype=torch.int8, device=dev)
+    dx = binary_conv2d_dgrad(gy, x, wsign, alpha)
+    pdx = binary_conv2d_dgrad_plain(gy, x, wsign, alpha)
+    exact = dgrad_exact(gy, x, wsign, alpha, 1, 1)
+    ok = _hold_same_sign(f"K5 bf16 same-sign probe layer4 3x3 s1 512->512 @7 b{b}", dx, pdx,
+                         exact, rnd=UB)
+    del x, gy, dx, pdx, exact
+    torch.cuda.empty_cache()
+    return ok
+
+
 def phase_k6_same_sign(gen) -> bool:
     """K6 on same-sign terms at the flagship's longest reduction (layer1
     3x3 s1 64->64 @56, -b 256): |g|, x >= 0 so every activation sign is
@@ -2368,25 +2411,32 @@ def phase_k6_same_sign(gen) -> bool:
     return ok
 
 
-def _hold_same_sign(label: str, got, plain, exact) -> bool:
+def _hold_same_sign(label: str, got, plain, exact, rnd: float = U) -> bool:
     """A same-sign probe's check: every term is positive, so Σ|terms| is
-    the float64 sum itself. ``got`` within 4·u·Σ|terms| + u|exact| of it,
-    and within 8·u·Σ|terms| + u|plain| of ``plain`` wherever ``plain`` is
-    within 4·u·Σ|terms| + u|exact| of it; logs the ratios and the count of
-    elements where the plain version is beyond its own bound."""
+    the float64 sum itself. ``got`` within 4·u·Σ|terms| + rnd|exact| of
+    it, and within 8·u·Σ|terms| + rnd|plain| of ``plain`` wherever
+    ``plain`` is within 4·u·Σ|terms| + rnd|exact| of it; logs the ratios
+    and the count of elements where the plain version is beyond its own
+    bound. ``rnd`` is the output's one rounding: u for f32; 2⁻⁸ for bf16,
+    where each side rounds its sum once (rnd|got| more against the plain
+    version)."""
     scale = U * exact
+    got, plain = got.float(), plain.float()
     err, err_ex = (got - plain).abs(), (got.double() - exact).abs()
-    plain_in = (plain.double() - exact).abs() <= 4 * scale + U * exact.abs() + 1e-30
-    ok = (bool((err <= 8 * scale.float() + U * plain.abs() + 1e-30)[plain_in].all())
-          and bool((err_ex <= 4 * scale + U * exact.abs() + 1e-30).all()))
+    plain_in = (plain.double() - exact).abs() <= 4 * scale + rnd * exact.abs() + 1e-30
+    bound_p = 8 * scale.float() + rnd * plain.abs() + (rnd - U) * got.abs() + 1e-30
+    ok = (bool((err <= bound_p)[plain_in].all())
+          and bool((err_ex <= 4 * scale + rnd * exact.abs() + 1e-30).all()))
+    r = "u" if rnd == U else f"{rnd:g}"
     log(f"[train_kernels] {label} (|g|, signs +1): "
         f"within bound {ok}; the plain version is beyond its own float64 bound at "
-        f"{int((~plain_in).sum())} of {plain_in.numel()} elements; (err - u|ref|)/(u·Σ|terms|) "
-        f"max: kernel vs plain {_ratio(err[plain_in], plain[plain_in], scale.float()[plain_in]):.3f} "
-        f"where the plain is within its bound (bound 8), {_ratio(err, plain, scale.float()):.3f} "
-        f"over all, kernel vs exact "
-        f"{_ratio(err_ex, exact, scale):.3f} (bound 4), plain vs exact "
-        f"{_ratio((plain.double() - exact).abs(), exact, scale):.3f}; mean (kernel - exact)/"
+        f"{int((~plain_in).sum())} of {plain_in.numel()} elements; (err - {r}|ref|)/(u·Σ|terms|) "
+        f"max: kernel vs plain "
+        f"{_ratio(err[plain_in], plain[plain_in], scale.float()[plain_in], rnd):.3f} "
+        f"where the plain is within its bound (bound 8), "
+        f"{_ratio(err, plain, scale.float(), rnd):.3f} over all, kernel vs exact "
+        f"{_ratio(err_ex, exact, scale, rnd):.3f} (bound 4), plain vs exact "
+        f"{_ratio((plain.double() - exact).abs(), exact, scale, rnd):.3f}; mean (kernel - exact)/"
         f"(u·Σ|terms|) {float(((got.double() - exact) / scale).mean()):.3f}")
     return ok
 
@@ -2893,7 +2943,7 @@ def profile_train_step(iters: int = 3, tag: str = "flagship", batch=None, trace:
 K_KERNEL_NAMES = {
     "K1": ("binary_conv_fwd_kernel", "fwd_sign_prep_kernel", "fwd_wpad_kernel"),
     "K2": ("weight_sign_kernel", "weight_alpha_finish_kernel"),
-    "K5": ("binary_conv_dgrad_kernel", "dgrad_split_kernel"),
+    "K5": ("binary_conv_dgrad_kernel", "dgrad_split_kernel", "dgrad_wsign_bf16_kernel"),
     "K6": ("binary_conv_wgrad_kernel", "binary_conv_wgrad_reduce_kernel", "wgrad_prep_kernel"),
     "K7": ("kurt_mean_kernel", "kurt_moments_kernel", "kurt_grad_kernel"),
 }
@@ -4086,6 +4136,7 @@ def bf16_kernels(tag: str, pk):
     ``conv2d`` / ``conv2d_input`` / ``conv2d_weight`` on the same ±1
     operands (the library yardstick); bounds from bf16 bytes and, for K5
     and K6, 2·MACs at the bf16 tensor rate (one bf16 piece of g·alpha).
+    Then K5 bf16 on same-sign terms (:func:`phase_k5_bf16_same_sign`).
     Returns per-kernel records (without ``launches``) and ok."""
     import torch
     import torch.nn.functional as F
@@ -4216,6 +4267,7 @@ def bf16_kernels(tag: str, pk):
             ok = ok and r["ok"]
         del x, gy, w, dw, dw2, pdw, ex6, wterms, err6, err6_ex, ga, gan, xb, wf
         torch.cuda.empty_cache()
+    ok = phase_k5_bf16_same_sign(g) and ok
     return recs, ok
 
 
@@ -6850,7 +6902,7 @@ K_FAMILIES = {"K1": ("fwd_sign_prep_kernel", "binary_conv_fwd_kernel", "fwd_wpad
               "K2": ("weight_sign_kernel", "weight_alpha_finish_kernel"),
               "K3": ("unpack_sign_kernel",),
               "K4": ("popcount_prep_kernel", "popcount_conv_fwd_kernel"),
-              "K5": ("dgrad_split_kernel", "binary_conv_dgrad_kernel"),
+              "K5": ("dgrad_split_kernel", "dgrad_wsign_bf16_kernel", "binary_conv_dgrad_kernel"),
               "K6": ("wgrad_prep_kernel", "binary_conv_wgrad_kernel",
                      "binary_conv_wgrad_reduce_kernel"),
               "K7": ("kurt_mean_kernel", "kurt_moments_kernel", "kurt_grad_kernel")}
@@ -7763,7 +7815,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     secs = _build.build_all()
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s into {_build.BUILD_DIR}")
-    log_mma_instructions()
+    ok_sass = log_mma_instructions()
 
     if args.trace_prefix:
         return 0 if trace_prefix(args.trace_prefix, smi_line) else 1
@@ -7826,6 +7878,7 @@ def main(argv=None) -> int:
         return 0 if ok_alone else 1
     if args.bf16_kernels:
         brecs, ok_b = timed("bf16_kernels", bf16_kernels, "[train-bf16]", pk)
+        ok_b = ok_b and ok_sass
         print(json.dumps({"bf16_kernels": brecs, "device": kind, "nvidia_smi": smi_line}),
               flush=True)
         if not ok_b:
@@ -7940,6 +7993,7 @@ def main(argv=None) -> int:
     for k in BF16_KERNELS:
         sources[f"{k} bf16"], replaces[f"{k} bf16"] = sources[k], replaces[k]
     sources["K1 bf16"] = "bdbnn_tpu_torch/csrc/binary_conv_fwd_bf16.cu"
+    sources["K5 bf16"] = "bdbnn_tpu_torch/csrc/binary_conv_dgrad_bf16.cu"
     sources["K6 bf16"] = "bdbnn_tpu_torch/csrc/binary_conv_wgrad_bf16.cu"
     for k in BF16_KERNELS:
         names[f"{k} bf16"] = names[k].replace(" (", " bf16 mode (", 1)
@@ -8008,7 +8062,7 @@ def main(argv=None) -> int:
                                   "shapes": recs[k]["forward_shapes"]}
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}), flush=True)
-    oks = {"kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
+    oks = {"build": ok_sass, "kernels": ok_k, "weight_kernels": ok_w, "main": ok_m, "cli": ok_c,
            "serve_bench": ok_sb, "serve_http": ok_sh, "serve_rollout": ok_sr,
            "serve_fleet": ok_sf,
            "train_kernels": ok_tk, "train": ok_t, "train_parity": ok_tp, "train_cede": ok_te,

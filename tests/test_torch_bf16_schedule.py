@@ -1,5 +1,6 @@
-"""The schedules of the bf16-mode K1 and K6 kernels, checked on the CPU
-(the kernels themselves run only on the card: ``tests/test_torch_cuda.py``):
+"""The schedules of the bf16-mode K1, K5 and K6 kernels, checked on the
+CPU (the kernels themselves run only on the card:
+``tests/test_torch_cuda.py``):
 
 - :func:`wgrad_bf16_splits` (K6 bf16's split of the reduction over
   positions) covers every position exactly once, each of K6's GEMM row
@@ -12,20 +13,37 @@
   memory) holds every input row any of the tile's positions reads at any
   tap, and :func:`fwd_halo_rows` (what the wrapper sizes shared memory
   by) is the most any tile of the batch reads, and fits the card at the
-  flagship's shapes.
+  flagship's shapes;
+- K5 bf16's walk (:func:`dgrad_bf16_tile` over :func:`dgrad_bf16_tiles`)
+  covers every dx row of every stride-parity class and every channel
+  exactly once, every g row a tap of a tile's rows reads lies in the halo
+  :func:`dgrad_halo_span` gives it, :func:`dgrad_bf16_schedule`'s halo is
+  the most any tile copies, and its shared memory and grid fit the card at
+  the flagship's shapes at -b 256 and -b 4,160.
 """
 
 import math
 
+import numpy as np
 import pytest
 
 from bdbnn_tpu_torch.nn.kernels.binary_conv import (
+    DGRAD_BF16_TILE,
     FWD_BF16_TILE,
+    SMEM_PER_BLOCK,
     WGRAD_BF16_M_STAGE,
     WGRAD_BF16_PARTIAL_BYTES,
     WGRAD_BF16_ROW_TILE,
     WGRAD_BF16_SMS,
     _round_up,
+    dgrad_bf16_schedule,
+    dgrad_bf16_smem,
+    dgrad_bf16_tile,
+    dgrad_bf16_tiles,
+    dgrad_class_grid,
+    dgrad_class_taps,
+    dgrad_halo_span,
+    dgrad_parity_classes,
     fwd_halo_rows,
     fwd_halo_span,
     out_size,
@@ -141,3 +159,86 @@ def test_fwd_halo_fits_the_card_at_flagship_shapes(batch):
         assert rows <= 2 * (FWD_BF16_TILE // out_size(h, k, s, k // 2) + 2) * s + 2 * k
         halo = max((rows * h + 1) * 80, 128 * 72 * 2)
         assert 2048 + k * k * 4096 + halo <= 232448
+
+
+def _dgrad_walk(n, h, w, c, k, s):
+    """Each tile of K5 bf16's walk whose rows lie on its class's grid: (class,
+    channel tile, its rows' (n, hh, ww) as arrays, the class grid, its
+    taps)."""
+    ctiles, mtiles, tiles = dgrad_bf16_tiles(n, h, w, c, s)
+    classes = dgrad_class_taps(k, k, s, k // 2)
+    for tile in range(tiles):
+        z, mt, ct = dgrad_bf16_tile(tile, ctiles, mtiles)
+        hc, wc = dgrad_class_grid(h, w, s, z)
+        mc, m0 = n * hc * wc, mt * DGRAD_BF16_TILE
+        if m0 >= mc:
+            continue
+        m = np.arange(m0, min(m0 + DGRAD_BF16_TILE, mc))
+        nn, rem = np.divmod(m, hc * wc)
+        hh, ww = np.divmod(rem, wc)
+        yield z, ct, m0, (nn, hh, ww), (hc, wc), classes[z]
+
+
+# (N, H, C, O, k, stride) of the flagship's ten shapes at a batch off the
+# 128-row tile
+DGRAD_SMALL = ODD + [(3, hw, c, o, k, s) for _, hw, c, o, k, s, _ in FLAGSHIP_CONVS] + [
+    (2, 9, 9, 5, 1, 2), (1, 5, 70, 3, 3, 2)]
+
+
+@pytest.mark.parametrize("case", DGRAD_SMALL)
+def test_dgrad_bf16_walk_covers_every_dx_row_once(case):
+    n, h, c, o, k, s = case
+    ctiles = dgrad_bf16_tiles(n, h, h, c, s)[0]
+    seen = np.zeros((n, h, h, ctiles), dtype=np.int64)
+    for z, ct, _, (nn, hh, ww), _, _ in _dgrad_walk(n, h, h, c, k, s):
+        a, b = divmod(z, s)
+        np.add.at(seen, (nn, a + s * hh, b + s * ww, ct), 1)
+    # every row of every class once a channel tile; the channel tiles
+    # cover every channel once
+    assert (seen == 1).all()
+    assert sorted(ch for ct in range(ctiles) for ch in range(ct * 64, min(ct * 64 + 64, c))) == \
+        list(range(c))
+    # every tap lands in exactly one class
+    assert sorted(t[0] for taps in dgrad_class_taps(k, k, s, k // 2) for t in taps) == \
+        list(range(k * k))
+    assert [len(t) for t in dgrad_class_taps(k, k, s, k // 2)] == [
+        len(r) * len(q) for r in dgrad_parity_classes(k, s, k // 2)
+        for q in dgrad_parity_classes(k, s, k // 2)]
+
+
+@pytest.mark.parametrize("case", DGRAD_SMALL)
+def test_dgrad_bf16_halo_holds_every_g_row_a_tap_reads(case):
+    n, h, c, o, k, s = case
+    pad = k // 2
+    ho = out_size(h, k, s, pad)
+    halo_px = dgrad_bf16_schedule(n, h, h, k, k, s, pad)[0]
+    most = 0
+    for _, _, m0, (nn, hh, ww), (hc, wc), taps in _dgrad_walk(n, h, h, c, k, s):
+        if not taps:
+            continue
+        dis = [t[1] for t in taps]
+        lo, hi = dgrad_halo_span(m0, len(nn), hc, wc, ho, min(dis), max(dis))
+        most = max(most, (hi - lo + 1) * ho)
+        for _, di, dj in taps:
+            ok = (hh + di >= 0) & (hh + di < ho) & (ww + dj >= 0) & (ww + dj < ho)
+            rows = (nn * ho + hh + di)[ok]
+            assert ((rows >= lo) & (rows <= hi)).all()
+    assert halo_px == most
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_dgrad_bf16_fits_the_card_at_flagship_shapes(batch):
+    for n, h, c, o, k, s in _flagship(batch):
+        pad = k // 2
+        halo_px, maxtaps, nstage, smem = dgrad_bf16_schedule(n, h, h, k, k, s, pad)
+        assert nstage >= 2 and smem <= SMEM_PER_BLOCK
+        assert smem == dgrad_bf16_smem(halo_px, maxtaps, nstage)
+        # the halo: the class rows 128 dx rows span (at most ceil(128 / Wc)
+        # + 1, Hc = Ho here) and the taps' reach beyond them, in g rows of
+        # Wo pixels
+        ho, wc = out_size(h, k, s, pad), -(-h // s)
+        assert halo_px <= (-(-DGRAD_BF16_TILE // wc) + k) * ho
+        assert maxtaps == max(len(t) for t in dgrad_class_taps(k, k, s, pad))
+        # the walk's tile index, and its per-class tile count, stay in int32
+        ctiles, mtiles, tiles = dgrad_bf16_tiles(n, h, h, c, s)
+        assert tiles < 2**31 and ctiles * mtiles < 2**31

@@ -19,10 +19,11 @@ where the sampled dW is far from the hard one. The bf16 modes: K1 bitwise
 its plain bf16 version (hard sign and draw), K2's sign bitwise and its
 alpha within one bf16 rounding, K5 and K6 within the f32 summation bound
 plus a bf16 rounding on each side, all bitwise across two runs and
-counted apart (``launches_bf16``); the redesigned K1 and K6 bf16 kernels
-also at shapes off their tiles and chunks (K6 against the float64 sum
-too), with the hard sign and the draw, and with the draw over one split
-of 49 stages, five runs bitwise alike. The HTTP front end over the flagship
+counted apart (``launches_bf16``); the redesigned K1, K5 and K6 bf16
+kernels also at shapes off their tiles and chunks (K5 and K6 against the
+float64 sum too; K5 under every estimator; K1 and K6 with the hard sign
+and the draw), K6 with the draw over one split of 49 stages and K5 over a
+long reduction, five runs bitwise alike, and K5 on same-sign terms. The HTTP front end over the flagship
 engine on ``cuda:0`` answers 8 requests over loopback, each bitwise the
 engine's logits of the batch it rode in, rounded to 4 places. A
 bucket-8 flagship forward in the engine's trace window has every K1 and K2
@@ -765,6 +766,116 @@ def test_k6_bf16_edge_shapes_within_bound(cuda, case, draw):
     assert bool(((dw.double() - exact).abs() <= 4 * U * wterms + UB * exact.abs() + 1e-30).all())
     assert bool(((dw - pdw).abs().double()
                  <= 8 * U * wterms + UB * (dw.abs() + pdw.abs()).double() + 1e-30).all())
+
+
+def _k5_bf16_bounds(g, x, wsign, alpha, shift, s, k, est, dx, pdx):
+    """K5 bf16's gates (chip_smoke.py [train-bf16] (a)): (error, bound)
+    against the float64 sum of the same bf16 products times the slope —
+    4·2⁻²⁴·Σ|terms| plus one bf16 rounding of the sum, and the slope
+    multiply's rounding on each side — and against the plain version —
+    8·2⁻²⁴·Σ|terms| plus a bf16 rounding of the sum and of the slope
+    multiply on each side."""
+    from chip_smoke import dgrad_exact
+
+    st = (s, s)
+    exact = dgrad_exact(g, x, wsign, alpha, s, k // 2)
+    ga = (g * alpha).float()
+    terms = binary_conv2d_dgrad_plain(ga.abs(), x.float(), torch.ones_like(wsign),
+                                      torch.ones_like(alpha, dtype=torch.float32),
+                                      strides=st).double()
+    slope = estimator_slope(x - shift if shift is not None else x, est)
+    slope = (slope if slope is not None else torch.ones_like(x)).double().abs()
+    ex = exact * slope
+    d, p = dx.double(), pdx.double()
+    bound_ex = (4 * U * terms + UB * exact.abs()) * slope + UB * (d.abs() + ex.abs()) + 1e-30
+    bound_p = (8 * U * terms + 2 * UB * exact.abs()) * slope + UB * (d.abs() + p.abs()) + 1e-30
+    return (d - ex).abs(), bound_ex, (d - p).abs(), bound_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("est", ESTIMATORS + [("none", 0.0, 0.0)],
+                         ids=[e[0] for e in ESTIMATORS] + ["none"])
+@pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=BF16_EDGE_IDS)
+def test_k5_bf16_edge_shapes_within_bound(cuda, case, est):
+    """K5 bf16 (csrc/binary_conv_dgrad_bf16.cu) at shapes off its tiles,
+    stages and halo: against the float64 sum within 4·2⁻²⁴·Σ|terms| plus
+    one bf16 rounding, against its plain version within 8·2⁻²⁴·Σ|terms|
+    plus the roundings, bitwise across two runs, one launch a call counted
+    in its bf16 mode."""
+    x, shift, w, g = _grad_operands(case, cuda, seed=61)
+    x, g = x.to(BF16), g.to(BF16)
+    shift = shift.to(BF16) if shift is not None else None
+    k, s = case[5], case[6]
+    st = (s, s)
+    wsign, alpha = weight_binarize_plain(w, dtype=BF16)
+    before = (binary_conv2d_dgrad.launches, binary_conv2d_dgrad.launches_bf16)
+    dx = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    dx2 = binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    torch.cuda.synchronize()
+    assert (binary_conv2d_dgrad.launches, binary_conv2d_dgrad.launches_bf16) == (
+        before[0] + 2, before[1] + 2
+    )
+    pdx = binary_conv2d_dgrad_plain(g, x, wsign, alpha, shift=shift, strides=st, estimator=est)
+    err_ex, bound_ex, err_p, bound_p = _k5_bf16_bounds(g, x, wsign, alpha, shift, s, k, est,
+                                                       dx, pdx)
+    assert dx.dtype == BF16 and torch.equal(dx, dx2)
+    assert bool((err_ex <= bound_ex).all()), float((err_ex / bound_ex).max())
+    assert bool((err_p <= bound_p).all()), float((err_p / bound_p).max())
+
+
+@pytest.mark.cuda
+def test_k5_bf16_same_sign_terms_within_bound(cuda):
+    """|g|, alpha > 0 and every weight sign +1 at layer4's 3×3 s1 512→512
+    @7: each dx entry sums 4,608 positive terms, so a drift of the tensor
+    cores' truncation cannot cancel. Held to the float64 sum (Σ|terms| is
+    the sum itself) within 4·2⁻²⁴·Σ|terms| plus one bf16 rounding."""
+    from chip_smoke import dgrad_exact
+
+    case = (8, 7, 7, 512, 512, 3, 1, False)
+    x, _, w, g = _grad_operands(case, cuda, seed=62)
+    x, g = x.to(BF16), g.abs().to(BF16)
+    alpha = (0.05 + w.abs().mean(dim=(0, 1, 2))).to(BF16)
+    wsign = torch.ones((512, 3, 3, 512), dtype=torch.int8, device=cuda)
+    dx = binary_conv2d_dgrad(g, x, wsign, alpha)
+    exact = dgrad_exact(g, x, wsign, alpha, 1, 1)
+    torch.cuda.synchronize()
+    assert bool(((dx.double() - exact).abs() <= 4 * U * exact + UB * exact + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(32, 7, 7, 512, 512, 3, 1, True), (9, 29, 31, 72, 200, 3, 2, True)],
+                         ids=["layer4-b32", "c72-o200-s2"])
+def test_k5_bf16_long_k_bitwise_across_runs(cuda, case):
+    """K5 bf16 over a long reduction (16 stages of 9 taps at layer4's
+    width; 7 stages of up to 4 taps off the tiles), every block walking
+    several tiles through its ring: five runs bitwise alike, within the
+    float64 sum's bound."""
+    x, shift, w, g = _grad_operands(case, cuda, seed=63)
+    x, g, shift = x.to(BF16), g.to(BF16), shift.to(BF16)
+    k, s = case[5], case[6]
+    wsign, alpha = weight_binarize_plain(w, dtype=BF16)
+    est = ("approx", 0.0, 0.0)
+    runs = [binary_conv2d_dgrad(g, x, wsign, alpha, shift=shift, strides=(s, s), estimator=est)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    pdx = binary_conv2d_dgrad_plain(g, x, wsign, alpha, shift=shift, strides=(s, s),
+                                    estimator=est)
+    err_ex, bound_ex, _, _ = _k5_bf16_bounds(g, x, wsign, alpha, shift, s, k, est, runs[0], pdx)
+    assert bool((err_ex <= bound_ex).all())
+
+
+@pytest.mark.cuda
+def test_k5_bf16_smem_is_the_schedules(cuda):
+    """The kernel's shared memory a block is what dgrad_bf16_schedule
+    sized, at the flagship's ten shapes."""
+    from bdbnn_tpu_torch.nn.kernels import _build
+    from bdbnn_tpu_torch.nn.kernels.binary_conv import dgrad_bf16_schedule
+
+    lib = _build.library("binary_conv_dgrad_bf16")
+    for _, hw, _, _, k, s, _ in FLAGSHIP_CONVS:
+        halo, taps, nstage, smem = dgrad_bf16_schedule(256, hw, hw, k, k, s, k // 2)
+        assert nstage >= 2 and lib.bdbnn_binary_conv_dgrad_bf16_smem(halo, taps, nstage) == smem
 
 
 # K6 bf16 with the draw over one long split (49 stages of 128 positions a
